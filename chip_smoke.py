@@ -1,0 +1,407 @@
+"""Drive the PyTorch/CUDA port's main path on one NVIDIA GPU and check it.
+
+    python3 chip_smoke.py [--out results.json]
+
+Phases (any failure exits non-zero; nothing is caught):
+
+1. card   — CUDA must be available; prints nvidia-smi's name and power
+            limit.
+2. build  — compiles the three CUDA kernels of the chain from
+            lsp_dsp_units_tpu_torch/csrc (nvcc, sm_90a) and prints the
+            seconds.
+3. parity — each kernel against its plain PyTorch version on the card, at
+            the main path's shapes (C=64, N=16384, P=6, N_sc=480):
+            packed FFT >= 95 dB, EQ+FDL y and u >= 95 dB (ring and EQ
+            state likewise), dynamics y >= 110 dB with window, envelope
+            and peak to rtol 1e-5 and hold exact.
+4. main   — FilterConvChain(48000, 64, rank=14, ir_seconds=1.0): build ->
+            init_ring_state -> 24 blocks of step_ring + quantize_i16
+            with the input rotated every block.  The launch counters are
+            zeroed just before and read just after; each must have
+            advanced by at least the number of blocks.  Output finite and
+            of the right shape; the chain on two fresh blocks >= 85 dB
+            from the float64 ideal (benchmarks/chain_golden64.py); one
+            block re-run with TF32 switched on gives identical output.
+5. timing — CUDA events: step_ring device ms per block; each kernel
+            against its plain version at the same shapes.  Host clock:
+            the time to enqueue a block, and the delivered samples/s
+            over 32 blocks ending in a sync.
+
+The last three lines of standard output are the kernel table (JSON),
+the card's name and power limit, and the contract line
+{"ok": true, "device": {...}}.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+sys.path.insert(0, ROOT)
+
+from benchmarks.chain_golden64 import golden_chain_f64  # noqa: E402
+from lsp_dsp_units_tpu_torch import pipeline  # noqa: E402
+from lsp_dsp_units_tpu_torch.models.dynamics.compressor import (  # noqa: E402
+    Compressor)
+from lsp_dsp_units_tpu_torch.ops import _build  # noqa: E402
+from lsp_dsp_units_tpu_torch.ops import dynamics as dyn  # noqa: E402
+from lsp_dsp_units_tpu_torch.ops import fft_packed as fp  # noqa: E402
+from lsp_dsp_units_tpu_torch.ops import fftconv  # noqa: E402
+from lsp_dsp_units_tpu_torch.ops.env import (  # noqa: E402
+    chain_dyn, chain_dyn_plain)
+from lsp_dsp_units_tpu_torch.ops.fdl_fused import (  # noqa: E402
+    eqfdl_fused, eqfdl_fused_plain)
+from lsp_dsp_units_tpu_torch.utils.delivery import (  # noqa: E402
+    quantize_i16, tpdf_i16_table)
+
+C, RANK, SR, IR_S = 64, 14, 48000, 1.0
+B = 1 << (RANK - 1)
+N = 2 * B
+FFT_DB, LIN_DB, DYN_DB, CHAIN_DB = 95.0, 95.0, 110.0, 85.0
+BLOCKS = 24
+SPIN_CYCLES = 200_000_000     # ~0.1 s at the H100's 1.98 GHz SM clock
+
+
+def check(ok: bool, what: str) -> None:
+    if not ok:
+        raise RuntimeError(f"FAILED: {what}")
+
+
+def snr_db(ref: torch.Tensor, out: torch.Tensor) -> float:
+    ref = ref.double()
+    err = out.double() - ref
+    return float(10 * torch.log10(torch.clamp(torch.sum(ref * ref), min=1e-30)
+                                  / torch.clamp(torch.sum(err * err),
+                                                min=1e-30)))
+
+
+def max_abs(ref: torch.Tensor, out: torch.Tensor) -> float:
+    return float(torch.max(torch.abs(out.double() - ref.double())))
+
+
+def time_ms(fn, reps: int, warmup: int = 2) -> float:
+    """Mean device time of one call: CUDA events around ``reps`` calls,
+    after ``warmup`` calls.  A spin kernel holds the stream while the
+    host enqueues the calls, so the card runs them back to back and the
+    events time the card, not the host's launch cost.  Where the host
+    needs longer than the spin to enqueue them (the plain versions'
+    Python loops), its pace shows through."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(SPIN_CYCLES)
+    start.record()
+    for _ in range(reps):
+        fn()
+    stop.record()
+    stop.synchronize()
+    return start.elapsed_time(stop) / reps
+
+
+def card_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60)
+    check(out.returncode == 0, f"nvidia-smi: {out.stderr.strip()}")
+    return out.stdout.strip().splitlines()[0]
+
+
+def randn(gen, *shape, scale=1.0, dev="cuda"):
+    return (torch.randn(*shape, generator=gen) * scale).to(dev)
+
+
+def parity_fft(dev, res):
+    gen = torch.Generator().manual_seed(1)
+    x = randn(gen, C, N, dev=dev)
+    xh = x[:, :B].contiguous()
+    kz = fp.rfft_packed_zeropad(xh)
+    pz = fp.rfft_packed_zeropad_plain(xh)
+    kf = fp.rfft_packed(x)
+    pf = fp.rfft_packed_plain(x)
+    dbs = {"zeropad": min(snr_db(pz[0], kz[0]), snr_db(pz[1], kz[1])),
+           "full": min(snr_db(pf[0], kf[0]), snr_db(pf[1], kf[1]))}
+    for half in (False, "first", "last"):
+        y = fp.irfft_packed(pf[0], pf[1], N, half)
+        dbs[f"inverse_{half}"] = snr_db(
+            fp.irfft_packed_plain(pf[0], pf[1], N, half), y)
+    torch.cuda.synchronize()
+    print(f"parity fft: " + ", ".join(f"{k} {v:.1f} dB"
+                                      for k, v in dbs.items()))
+    for k, v in dbs.items():
+        check(v >= FFT_DB, f"fft {k} {v:.1f} dB < {FFT_DB}")
+    res["fft"] = dict(db=dbs, max_abs_err=max(max_abs(pz[0], kz[0]),
+                                              max_abs(pz[1], kz[1])))
+    res["fft"]["ms"] = time_ms(lambda: fp.rfft_packed_zeropad(xh), 50)
+    res["fft"]["plain_ms"] = time_ms(
+        lambda: fp.rfft_packed_zeropad_plain(xh), 50)
+
+
+def parity_eqfdl(chain, params, dev, res):
+    gen = torch.Generator().manual_seed(2)
+    eqp = params.eq_block
+    k2 = eqp.m_mat.shape[0]
+    p_n = params.h_re.shape[0]
+    ring_k = fftconv.init_ring_fdl(params.h_spectra, (C,), device=dev)
+    ring_p = fftconv.init_ring_fdl(params.h_spectra, (C,), device=dev)
+    sv_k = sv_p = torch.zeros(C, k2, device=dev)
+    worst = dict(y=1e9, u=1e9, sv=1e9, ring=1e9)
+    err = 0.0
+    for k in range(p_n + 2):
+        x = randn(gen, C, B, scale=0.25, dev=dev)
+        xs = fp.rfft_packed_zeropad_plain(x)
+        w = (ring_k.pos + 1) % p_n
+        common = (params.h_re, params.h_im, params.heq_re, params.heq_im,
+                  *xs, x)
+        mats = (eqp.g_t, eqp.m_mat, eqp.w_mat)
+        yk, uk, sv_k = eqfdl_fused(ring_k.spec_re, ring_k.spec_im, *common,
+                                   sv_k, *mats, ring_k.history, w)
+        yp, up, sv_p = eqfdl_fused_plain(ring_p.spec_re, ring_p.spec_im,
+                                         *common, sv_p, *mats,
+                                         ring_p.history, w)
+        ring_k = ring_k._replace(history=uk, pos=w)
+        ring_p = ring_p._replace(history=up, pos=w)
+        worst["y"] = min(worst["y"], snr_db(yp, yk))
+        worst["u"] = min(worst["u"], snr_db(up, uk))
+        worst["sv"] = min(worst["sv"], snr_db(sv_p, sv_k))
+        worst["ring"] = min(worst["ring"],
+                            snr_db(ring_p.spec_re[w], ring_k.spec_re[w]),
+                            snr_db(ring_p.spec_im[w], ring_k.spec_im[w]))
+        err = max(err, max_abs(yp, yk), max_abs(up, uk))
+    torch.cuda.synchronize()
+    print("parity eqfdl (worst of %d blocks): " % (p_n + 2)
+          + ", ".join(f"{k} {v:.1f} dB" for k, v in worst.items()))
+    for k, v in worst.items():
+        check(v >= LIN_DB, f"eqfdl {k} {v:.1f} dB < {LIN_DB}")
+    w = (ring_k.pos + 1) % p_n
+    res["eqfdl"] = dict(db=worst, max_abs_err=err)
+    res["eqfdl"]["ms"] = time_ms(lambda: eqfdl_fused(
+        ring_k.spec_re, ring_k.spec_im, *common, sv_k, *mats,
+        ring_k.history, w), 50)
+    res["eqfdl"]["plain_ms"] = time_ms(lambda: eqfdl_fused_plain(
+        ring_p.spec_re, ring_p.spec_im, *common, sv_p, *mats,
+        ring_p.history, w), 20)
+
+
+def parity_dyn(chain, params, dev, res):
+    gen = torch.Generator().manual_seed(3)
+    n = chain.sidechain.reactivity
+    cp = params.comp
+    args = (n, chain.sidechain.gain, cp.tau_attack, cp.tau_release,
+            cp.release_thresh, cp.hold, cp.knees)
+    wk = wp = torch.zeros(C, n, device=dev)
+    ek = ep = dyn.env_init((C,), dev)
+    worst, err = 1e9, 0.0
+    for k in range(3):
+        x = randn(gen, C, B, scale=0.25 * (k + 1), dev=dev)
+        wk, ek, yk = chain_dyn(wk, ek, x, *args)
+        wp, ep, yp = chain_dyn_plain(wp, ep, x, *args)
+        worst = min(worst, snr_db(yp, yk))
+        err = max(err, max_abs(yp, yk))
+        torch.testing.assert_close(wk, wp, rtol=1e-5, atol=1e-7)
+        torch.testing.assert_close(ek.envelope, ep.envelope, rtol=1e-5,
+                                   atol=0.0)
+        torch.testing.assert_close(ek.peak, ep.peak, rtol=1e-5, atol=0.0)
+        check(torch.equal(ek.hold, ep.hold), "dyn hold counts differ")
+    torch.cuda.synchronize()
+    print(f"parity chain_dyn (worst of 3 blocks): y {worst:.1f} dB; "
+          f"window/envelope/peak within rtol 1e-5, hold exact")
+    check(worst >= DYN_DB, f"chain_dyn {worst:.1f} dB < {DYN_DB}")
+    res["dyn"] = dict(db=worst, max_abs_err=err)
+    res["dyn"]["ms"] = time_ms(lambda: chain_dyn(wk, ek, x, *args), 20)
+    res["dyn"]["plain_ms"] = time_ms(lambda: chain_dyn_plain(
+        wp, ep, x, *args), 2, warmup=1)
+
+
+def clone_state(st):
+    f = st.fdl
+    return st._replace(
+        eq=st.eq.clone(),
+        fdl=f._replace(spec_re=f.spec_re.clone(), spec_im=f.spec_im.clone(),
+                       history=f.history.clone()),
+        sc=st.sc._replace(window=st.sc.window.clone()),
+        env=dyn.EnvState(*(t.clone() for t in st.env)))
+
+
+def counters():
+    return dict(fft=fp.rfft_packed_zeropad.launches,
+                eqfdl=eqfdl_fused.launches, dyn=chain_dyn.launches)
+
+
+def reset_counters():
+    fp.rfft_packed_zeropad.launches = 0
+    eqfdl_fused.launches = 0
+    chain_dyn.launches = 0
+
+
+def main_path(chain, params, dev, blocks, res):
+    rng = np.random.default_rng(4)
+    x0 = torch.from_numpy((rng.standard_normal((C, B)) * 0.25).astype(
+        np.float32)).to(dev)
+    table = tpdf_i16_table(C, B, device=dev)
+    st = chain.init_ring_state(params)
+    torch.cuda.synchronize()
+    reset_counters()
+    outs = []
+    for k in range(blocks):
+        xk = torch.roll(x0, shifts=k, dims=-1)
+        st, y = chain.step_ring(params, st, xk)
+        outs.append(quantize_i16(y, table, k))
+    torch.cuda.synchronize()
+    launched = counters()
+    print(f"main path: {blocks} blocks of step_ring + quantize_i16; "
+          f"launches {launched}")
+    for name, cnt in launched.items():
+        check(cnt >= blocks, f"{name} launched {cnt} < {blocks} times")
+    check(all(o.shape == (C, B) and o.dtype == torch.int16 for o in outs),
+          "int16 output shape")
+    check(bool(torch.isfinite(y).all()), "non-finite chain output")
+    check(all(bool(torch.isfinite(s).all()) for s in
+              (st.eq, st.fdl.spec_re, st.fdl.spec_im, st.env.envelope)),
+          "non-finite chain state")
+    res["launches"] = launched
+
+    # TF32 on: the step has no library matmul, so the output is identical
+    xk = torch.roll(x0, shifts=blocks, dims=-1)
+    _, y_ref = chain.step_ring(params, clone_state(st), xk)
+    prev = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = True
+    torch.backends.cudnn.allow_tf32 = True
+    _, y_tf32 = chain.step_ring(params, clone_state(st), xk)
+    torch.backends.cuda.matmul.allow_tf32, \
+        torch.backends.cudnn.allow_tf32 = prev
+    same = bool(torch.equal(y_ref, y_tf32))
+    print(f"TF32 on: output identical = {same}")
+    check(same, "output changed with TF32 switched on")
+
+    # two fresh blocks against the float64 ideal
+    xs = [(rng.standard_normal((C, B)) * 0.25).astype(np.float32)
+          for _ in range(2)]
+    st = chain.init_ring_state(params)
+    ys = []
+    for x in xs:
+        st, y = chain.step_ring(params, st, torch.from_numpy(x).to(dev))
+        ys.append(y.cpu())
+    gold = golden_chain_f64(chain, params, xs)
+    dbs = [snr_db(torch.from_numpy(g), y) for g, y in zip(gold, ys)]
+    print("chain vs float64 ideal: "
+          + ", ".join(f"block {i} {v:.2f} dB" for i, v in enumerate(dbs)))
+    check(min(dbs) >= CHAIN_DB, f"chain {min(dbs):.2f} dB < {CHAIN_DB}")
+    res["chain_vs_golden_db"] = dbs
+
+    # timing: step_ring alone, then with the int16 delivery
+    st = chain.init_ring_state(params)
+    xr = [torch.roll(x0, shifts=k, dims=-1) for k in range(16)]
+    state = [st]
+    i = [0]
+
+    def one(deliver):
+        st2, y2 = chain.step_ring(params, state[0], xr[i[0] % 16])
+        state[0] = st2
+        if deliver:
+            quantize_i16(y2, table, i[0])
+        i[0] += 1
+
+    ms = time_ms(lambda: one(False), 64, warmup=8)
+    ms_q = time_ms(lambda: one(True), 64, warmup=4)
+    # host clock: the enqueue alone (32 blocks x 7 launches stay within
+    # the launch queue, so the host never waits on the card), then with
+    # the final sync; enqueue >= event time means the host is the bound
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(32):
+        one(True)
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    host_ms = (time.perf_counter() - t0) * 1e3 / 32
+    enqueue_ms = (t1 - t0) * 1e3 / 32
+    res.update(step_ring_ms=ms, step_ring_quantize_ms=ms_q,
+               samples_per_s=C * B / (host_ms * 1e-3), host_ms=host_ms,
+               host_enqueue_ms=enqueue_ms)
+    print(f"step_ring: {ms:.4f} ms/block on the card (CUDA events, 64 "
+          f"blocks), {ms_q:.4f} with quantize_i16; host clock "
+          f"{enqueue_ms:.4f} ms/block to enqueue, {host_ms:.4f} with sync "
+          f"= {res['samples_per_s'] / 1e6:.2f} M samples/s delivered")
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--out", default=None,
+                    help="also write every measured number to this JSON")
+    args = ap.parse_args(argv)
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    dev = torch.device("cuda")
+    card = card_line()
+    print(f"card: {card}")
+    res = {"card": card, "torch": torch.__version__,
+           "cuda": torch.version.cuda}
+
+    t0 = time.perf_counter()
+    for name in ("fft_packed", "fdl_fused", "env"):
+        _build.build(name)
+    res["build_s"] = time.perf_counter() - t0
+    print(f"build: {res['build_s']:.1f} s (fft_packed, fdl_fused, env)")
+
+    chain = pipeline.FilterConvChain(SR, C, rank=RANK, ir_seconds=IR_S,
+                                     device=dev)
+    params = chain.build()
+    check(params.h_re.shape == (6, B), f"IR partitions {params.h_re.shape}")
+
+    parity_fft(dev, res)
+    parity_eqfdl(chain, params, dev, res)
+    parity_dyn(chain, params, dev, res)
+    main_path(chain, params, dev, BLOCKS, res)
+
+    for key, label in (("fft", "rfft_packed_zeropad"), ("eqfdl",
+                                                        "eqfdl_fused"),
+                       ("dyn", "chain_dyn")):
+        r = res[key]
+        print(f"kernel {label}: {r['ms']:.4f} ms vs plain "
+              f"{r['plain_ms']:.4f} ms ({card})")
+    kernels = [
+        dict(name="rfft_packed_zeropad", route="cuda",
+             source="lsp_dsp_units_tpu_torch/csrc/fft_packed.cu",
+             replaces="lsp_dsp_units_tpu/ops/pallas_fft.py:549",
+             launches=res["launches"]["fft"],
+             max_abs_err=res["fft"]["max_abs_err"], ms=res["fft"]["ms"],
+             plain_ms=res["fft"]["plain_ms"]),
+        dict(name="eqfdl_fused", route="cuda",
+             source="lsp_dsp_units_tpu_torch/csrc/fdl_fused.cu",
+             replaces="lsp_dsp_units_tpu/ops/pallas_fdl_fused.py:222",
+             launches=res["launches"]["eqfdl"],
+             max_abs_err=res["eqfdl"]["max_abs_err"],
+             ms=res["eqfdl"]["ms"], plain_ms=res["eqfdl"]["plain_ms"]),
+        dict(name="chain_dyn", route="cuda",
+             source="lsp_dsp_units_tpu_torch/csrc/env.cu",
+             replaces="lsp_dsp_units_tpu/ops/pallas_env.py:523",
+             launches=res["launches"]["dyn"],
+             max_abs_err=res["dyn"]["max_abs_err"], ms=res["dyn"]["ms"],
+             plain_ms=res["dyn"]["plain_ms"]),
+    ]
+    if args.out:
+        with open(args.out, "w") as f:
+            json.dump(dict(res, kernels=kernels), f, indent=1)
+    print(json.dumps({"kernels": kernels}))
+    print(card)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

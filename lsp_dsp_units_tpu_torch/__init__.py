@@ -1,0 +1,17 @@
+"""lsp_dsp_units_tpu_torch: the PyTorch/CUDA port of the JAX package
+beside it in this repository.
+
+The package mirrors the JAX package's layout (``ops/``, ``models/``,
+``utils/``, ``pipeline.py``) so each module's counterpart has the same
+name.  Plain tensor code is PyTorch; each Pallas kernel of the JAX
+package on the ported path is a CUDA kernel written for Hopper under
+``csrc/``, built with ``nvcc`` at first use (ops/_build.py) and launched
+only for CUDA tensors; CPU tensors take each kernel's plain PyTorch
+version.  The package imports neither JAX nor the JAX package.
+
+Ported so far: the streaming chain ``pipeline.FilterConvChain.step_ring``
+(EQ -> ring-FDL convolver -> RMS sidechain -> compressor) and its int16
+delivery (``utils.delivery``).
+"""
+
+__version__ = "0.1.0"

@@ -1,0 +1,79 @@
+"""Carry the JAX package's chain parameters and ring state into the
+port, so both packages can run the same chain from the same point.
+
+Inputs are the JAX package's ``ChainParams`` / ``ChainRingState`` with
+every array leaf converted to numpy (``jax.tree_util.tree_map(
+np.asarray, ...)``); this module imports no JAX.  The JAX ring is the
+natural-order [P, C, B + 1] form (its CPU layout); the port's ring is
+packed [P, C, B] (ops/fft_packed.py).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from lsp_dsp_units_tpu_torch.models.dynamics.compressor import (
+    CompressorParams)
+from lsp_dsp_units_tpu_torch.models.util.sidechain import SidechainState
+from lsp_dsp_units_tpu_torch.ops import biquad_block, fftconv
+from lsp_dsp_units_tpu_torch.ops import dynamics as dyn
+from lsp_dsp_units_tpu_torch.ops import fft_packed as fp
+from lsp_dsp_units_tpu_torch.pipeline import (ChainParams, ChainRingState,
+                                              chain_params)
+
+
+def _t(v, device, dtype=torch.float32) -> torch.Tensor:
+    return torch.tensor(np.asarray(v), dtype=dtype, device=device)
+
+
+def _f32(v) -> float:
+    return float(np.float32(v))
+
+
+def params_from_jax(p, device=None) -> ChainParams:
+    """JAX ``ChainParams`` (numpy leaves) -> port ``ChainParams``."""
+    eqb = p.eq_block
+    g = np.asarray(eqb.g_mat, np.float32)
+    eq_block = biquad_block.FusedCascadeParams(
+        *(_t(v, device) for v in eqb),
+        g_t=_t(np.ascontiguousarray(g.T), device))
+    comp = CompressorParams(
+        knees=tuple(dyn.CompKnee(*(_f32(v) for v in k))
+                    for k in p.comp.knees),
+        tau_attack=_f32(p.comp.tau_attack),
+        tau_release=_f32(p.comp.tau_release),
+        release_thresh=_f32(p.comp.release_thresh),
+        hold=int(np.asarray(p.comp.hold)))
+    return chain_params(
+        eq_coeffs=np.asarray(p.eq_coeffs, np.float32), eq_block=eq_block,
+        h_spectra=fftconv.Spectra(_t(p.h_spectra.re, device),
+                                  _t(p.h_spectra.im, device)),
+        comp=comp)
+
+
+def ring_from_natural(re, im, device=None):
+    """Natural-order ring [P, C, B + 1] -> packed [P, C, B] tensors."""
+    re = _t(re, device)
+    n = 2 * (re.shape[-1] - 1)
+    return fp.pack_spectra(re, _t(im, device), n)
+
+
+def ring_state_from_jax(s, device=None) -> ChainRingState:
+    """JAX ``ChainRingState`` (numpy leaves, natural-order ring) -> port
+    ``ChainRingState``."""
+    b = np.asarray(s.fdl.history).shape[-1]
+    if np.asarray(s.fdl.spec_re).shape[-1] != b + 1:
+        raise ValueError("expected the JAX natural-order ring [P, C, B+1]")
+    spec_re, spec_im = ring_from_natural(s.fdl.spec_re, s.fdl.spec_im,
+                                         device)
+    return ChainRingState(
+        eq=_t(s.eq, device),
+        fdl=fftconv.RingFDLState(spec_re=spec_re, spec_im=spec_im,
+                                 history=_t(s.fdl.history, device),
+                                 pos=int(np.asarray(s.fdl.pos))),
+        sc=SidechainState(window=_t(s.sc.window, device),
+                          rms=_t(s.sc.rms, device)),
+        env=dyn.EnvState(envelope=_t(s.env.envelope, device),
+                         peak=_t(s.env.peak, device),
+                         hold=_t(s.env.hold, device, torch.int32)))

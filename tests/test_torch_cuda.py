@@ -1,0 +1,142 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on the
+card.  Every test here is marked ``cuda`` and skips without a CUDA
+device.  The file imports no JAX, so on a machine without JAX it runs
+alone, skipping the repository's JAX conftest:
+
+    python -m pytest --noconftest -q tests/test_torch_cuda.py
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from lsp_dsp_units_tpu_torch import pipeline as tpipe
+from lsp_dsp_units_tpu_torch.models.dynamics.compressor import Compressor
+from lsp_dsp_units_tpu_torch.models.filters.design import design_filter
+from lsp_dsp_units_tpu_torch.ops import biquad_block as tbb
+from lsp_dsp_units_tpu_torch.ops import dynamics as tdyn
+from lsp_dsp_units_tpu_torch.ops import fft_packed as tfft
+from lsp_dsp_units_tpu_torch.ops import fftconv as tfc
+from lsp_dsp_units_tpu_torch.ops.env import chain_dyn, chain_dyn_plain
+from lsp_dsp_units_tpu_torch.ops.fdl_fused import (eqfdl_fused,
+                                                   eqfdl_fused_plain)
+
+pytestmark = pytest.mark.cuda
+
+
+def _snr(ref, out):
+    ref = np.asarray(ref.cpu() if torch.is_tensor(ref) else ref, np.float64)
+    out = np.asarray(out.cpu() if torch.is_tensor(out) else out, np.float64)
+    err = out - ref
+    return 10 * np.log10(max(np.sum(ref ** 2), 1e-30)
+                         / max(np.sum(err ** 2), 1e-30))
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (kernels build with nvcc for sm_90a)")
+    return torch.device("cuda")
+
+
+def _randn(gen, *shape, scale=1.0, device=None):
+    return (torch.randn(*shape, generator=gen) * scale).to(device)
+
+
+@pytest.mark.parametrize("n", [256, 2048, 16384])
+def test_fft_kernels_match_plain(cuda_device, n):
+    gen = torch.Generator().manual_seed(n)
+    x = _randn(gen, 8, n, device=cuda_device)
+    pre, pim = tfft.rfft_packed(x)
+    rre, rim = tfft.rfft_packed_plain(x)
+    assert _snr(rre, pre) >= 95.0 and _snr(rim, pim) >= 95.0
+    xh = x[:, :n // 2].contiguous()
+    zre, zim = tfft.rfft_packed_zeropad(xh)
+    qre, qim = tfft.rfft_packed_zeropad_plain(xh)
+    assert _snr(qre, zre) >= 95.0 and _snr(qim, zim) >= 95.0
+    for half in (False, "first", "last"):
+        y = tfft.irfft_packed(rre, rim, n, half)
+        ry = tfft.irfft_packed_plain(rre, rim, n, half)
+        assert y.shape == ry.shape
+        assert _snr(ry, y) >= 95.0, half
+    torch.cuda.synchronize()
+
+
+def test_eqfdl_kernel_matches_plain(cuda_device):
+    c, b, sr = 8, 2048, 48000
+    eq = np.concatenate([design_filter(p, sr).biquads
+                         for p in tpipe.default_eq_params(sr)], axis=0)
+    teq = tbb.precompute_fused(eq, b, device=cuda_device)
+    gen = torch.Generator().manual_seed(16)
+    ir = _randn(gen, 3 * b - 17, scale=0.1, device=cuda_device)
+    th = tfc.parse_ir(ir, b)
+    heq = tfft.pack_spectra(teq.h_re, teq.h_im, 2 * b)
+    hp = tfft.pack_spectra(th.re, th.im, 2 * b)
+    p_n = th.re.shape[0]
+    k2 = teq.m_mat.shape[0]
+    ring_k = tfc.init_ring_fdl(th, (c,), device=cuda_device)
+    ring_p = tfc.init_ring_fdl(th, (c,), device=cuda_device)
+    sv_k = sv_p = torch.zeros(c, k2, device=cuda_device)
+    for k in range(p_n + 2):
+        x = _randn(gen, c, b, scale=0.25, device=cuda_device)
+        xs = tfft.rfft_packed_zeropad_plain(x)
+        w = (ring_k.pos + 1) % p_n
+        mats = (teq.g_t, teq.m_mat, teq.w_mat)
+        yk, uk, sv_k = eqfdl_fused(ring_k.spec_re, ring_k.spec_im, hp[0],
+                                   hp[1], heq[0], heq[1], *xs, x, sv_k,
+                                   *mats, ring_k.history, w)
+        yp, up, sv_p = eqfdl_fused_plain(ring_p.spec_re, ring_p.spec_im,
+                                         hp[0], hp[1], heq[0], heq[1], *xs,
+                                         x, sv_p, *mats, ring_p.history, w)
+        ring_k = ring_k._replace(history=uk, pos=w)
+        ring_p = ring_p._replace(history=up, pos=w)
+        assert _snr(up, uk) >= 95.0, (k, "u")
+        assert _snr(yp, yk) >= 95.0, (k, "y")
+        assert _snr(sv_p, sv_k) >= 95.0, (k, "sv")
+        assert _snr(ring_p.spec_re, ring_k.spec_re) >= 95.0, (k, "ring")
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("t", [1024, 1000])
+def test_chain_dyn_kernel_matches_plain(cuda_device, t):
+    """t = 1000 runs the envelope's tail past the last full batch and
+    uneven scan chunks."""
+    c, n = 8, 480
+    cp = Compressor(48000, attack_thresh=0.25, release_thresh=0.125,
+                    attack_ms=2.0, release_ms=10.0, hold_ms=0.2).build()
+    gen = torch.Generator().manual_seed(6)
+    wk = wp = torch.zeros(c, n, device=cuda_device)
+    ek = ep = tdyn.env_init((c,), cuda_device)
+    for k in range(3):
+        x = _randn(gen, c, t, scale=0.5 * (k + 1), device=cuda_device)
+        args = (n, 1.0, cp.tau_attack, cp.tau_release, cp.release_thresh,
+                cp.hold, cp.knees)
+        wk, ek, yk = chain_dyn(wk, ek, x, *args)
+        wp, ep, yp = chain_dyn_plain(wp, ep, x, *args)
+        assert _snr(yp, yk) >= 110.0, k
+        torch.testing.assert_close(wk, wp, rtol=1e-5, atol=1e-7)
+        torch.testing.assert_close(ek.envelope, ep.envelope, rtol=1e-5,
+                                   atol=0.0)
+        torch.testing.assert_close(ek.peak, ep.peak, rtol=1e-5, atol=0.0)
+        assert torch.equal(ek.hold, ep.hold)
+    torch.cuda.synchronize()
+
+
+def test_step_ring_on_card_matches_cpu(cuda_device):
+    c = 8
+    cg = tpipe.FilterConvChain(48000, c, rank=12, ir_seconds=0.2,
+                               device=cuda_device)
+    cc = tpipe.FilterConvChain(48000, c, rank=12, ir_seconds=0.2)
+    pg, pc = cg.build(), cc.build()
+    sg, sc = cg.init_ring_state(pg), cc.init_ring_state(pc)
+    rng = np.random.default_rng(9)
+    before = (tfft.rfft_packed_zeropad.launches, eqfdl_fused.launches,
+              chain_dyn.launches)
+    for k in range(6):
+        x = (rng.standard_normal((c, cg.block)) * 0.25).astype(np.float32)
+        sg, yg = cg.step_ring(pg, sg, torch.from_numpy(x).to(cuda_device))
+        sc, yc = cc.step_ring(pc, sc, torch.from_numpy(x))
+        assert _snr(yc, yg) >= 95.0, k
+    after = (tfft.rfft_packed_zeropad.launches, eqfdl_fused.launches,
+             chain_dyn.launches)
+    assert all(a - b == 6 for a, b in zip(after, before))
