@@ -1,4 +1,5 @@
-"""Drive the PyTorch/CUDA port's main path on one NVIDIA GPU and check it.
+"""Drive the PyTorch/CUDA port's main paths on one NVIDIA GPU and check
+them.
 
     python3 chip_smoke.py [--out results.json]
 
@@ -6,14 +7,19 @@ Phases (any failure exits non-zero; nothing is caught):
 
 1. card   — CUDA must be available; prints nvidia-smi's name and power
             limit.
-2. build  — compiles the three CUDA kernels of the chain from
-            lsp_dsp_units_tpu_torch/csrc (nvcc, sm_90a) and prints the
-            seconds.
+2. build  — compiles the four CUDA sources of lsp_dsp_units_tpu_torch/csrc
+            (nvcc, sm_90a), one nvcc each, all started together, and
+            prints the seconds.
 3. parity — each kernel against its plain PyTorch version on the card, at
-            the main path's shapes (C=64, N=16384, P=6, N_sc=480):
+            the main paths' shapes (C=64, N=16384, P=6, N_sc=480):
             packed FFT >= 95 dB, EQ+FDL y and u >= 95 dB (ring and EQ
             state likewise), dynamics y >= 110 dB with window, envelope
-            and peak to rtol 1e-5 and hold exact.
+            and peak to rtol 1e-5 and hold exact; sliding RMS at T=16384
+            and T=300 (T < N): level >= 110 dB, window exact; peak
+            envelope at T=16384 and 16383, release threshold on and off:
+            envelope and state exact; gate envelope at T=16384: envelope,
+            curve track and state exact.  Each plain envelope is a
+            per-sample Python loop, run (and timed) once.
 4. main   — FilterConvChain(48000, 64, rank=14, ir_seconds=1.0): build ->
             init_ring_state -> 24 blocks of step_ring + quantize_i16
             with the input rotated every block.  The launch counters are
@@ -22,10 +28,25 @@ Phases (any failure exits non-zero; nothing is caught):
             of the right shape; the chain on two fresh blocks >= 85 dB
             from the float64 ideal (benchmarks/chain_golden64.py); one
             block re-run with TF32 switched on gives identical output.
-5. timing — CUDA events: step_ring device ms per block; each kernel
-            against its plain version at the same shapes.  Host clock:
-            the time to enqueue a block, and the delivered samples/s
-            over 32 blocks ending in a sync.
+5. step   — the same chain: init_state -> 8 calls of step on [64, 2 x
+            8192] inputs rotated every call; the counters of
+            rfft_packed, rfft_packed_zeropad, irfft_packed, sliding_rms
+            and peak_envelope, zeroed just before, must each have
+            advanced by at least the number of calls.  Output finite; two
+            fresh calls >= 85 dB from the float64 ideal; one call re-run
+            with TF32 on gives identical output.
+6. bulk   — build_bulk(65536) -> init_bulk_state -> 2 super-blocks of
+            bulk_step; the first >= 85 dB from the float64 ideal over its
+            8 blocks; its SNR against step on the same input is printed.
+7. units  — [64, 8192] detector signals through Sidechain (each mode) ->
+            Compressor (3 modes), Expander (2 modes) and Gate, on the card
+            and on the CPU: envelope and gain >= 110 dB between the two;
+            the gate_envelope counter, zeroed just before, advances.
+8. timing — CUDA events behind a spin kernel: step_ring ms per block,
+            step ms per call and per block, bulk_step ms per super-block;
+            each kernel against its plain version at the same shapes.
+            Host clock: the time to enqueue a block of step_ring, and the
+            delivered samples/s over 32 blocks ending in a sync.
 
 The last three lines of standard output are the kernel table (JSON),
 the card's name and power limit, and the contract line
@@ -35,6 +56,7 @@ the card's name and power limit, and the contract line
 from __future__ import annotations
 
 import argparse
+import concurrent.futures
 import json
 import os
 import subprocess
@@ -50,9 +72,15 @@ sys.path.insert(0, ROOT)
 from benchmarks.chain_golden64 import golden_chain_f64  # noqa: E402
 from lsp_dsp_units_tpu_torch import pipeline  # noqa: E402
 from lsp_dsp_units_tpu_torch.models.dynamics.compressor import (  # noqa: E402
-    Compressor)
+    Compressor, CompressorMode)
+from lsp_dsp_units_tpu_torch.models.dynamics.expander import (  # noqa: E402
+    Expander, ExpanderMode)
+from lsp_dsp_units_tpu_torch.models.dynamics.gate import Gate  # noqa: E402
+from lsp_dsp_units_tpu_torch.models.util.sidechain import (  # noqa: E402
+    Sidechain, SidechainMode)
 from lsp_dsp_units_tpu_torch.ops import _build  # noqa: E402
 from lsp_dsp_units_tpu_torch.ops import dynamics as dyn  # noqa: E402
+from lsp_dsp_units_tpu_torch.ops import env_units as eu  # noqa: E402
 from lsp_dsp_units_tpu_torch.ops import fft_packed as fp  # noqa: E402
 from lsp_dsp_units_tpu_torch.ops import fftconv  # noqa: E402
 from lsp_dsp_units_tpu_torch.ops.env import (  # noqa: E402
@@ -67,6 +95,10 @@ B = 1 << (RANK - 1)
 N = 2 * B
 FFT_DB, LIN_DB, DYN_DB, CHAIN_DB = 95.0, 95.0, 110.0, 85.0
 BLOCKS = 24
+CALLS = 8                     # step calls of STEP_BLOCKS blocks each
+STEP_BLOCKS = 2
+T_SUPER = 65536               # bulk_step super-block (8 blocks)
+T_UNITS = 8192
 SPIN_CYCLES = 200_000_000     # ~0.1 s at the H100's 1.98 GHz SM clock
 
 
@@ -335,6 +367,294 @@ def main_path(chain, params, dev, blocks, res):
           f"= {res['samples_per_s'] / 1e6:.2f} M samples/s delivered")
 
 
+def time_once_ms(fn):
+    """Device time of ONE call, by CUDA events around it, and its result:
+    for the plain envelopes, per-sample Python loops whose host launches
+    pace them, too slow to repeat."""
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    stop.record()
+    stop.synchronize()
+    return start.elapsed_time(stop), out
+
+
+def swell_levels(gen, c, t, dev, peak=0.6):
+    """Detector levels: |noise| under a half-sine swell, so every knee
+    and branch of the envelopes runs."""
+    swell = torch.sin(torch.linspace(0.0, torch.pi, t))
+    return (torch.randn(c, t, generator=gen).abs() * peak * swell).to(dev)
+
+
+def rms_ideal(win, x, n):
+    """Float64 sliding RMS of the same float32 squares."""
+    sq = (x.abs() * x.abs()).double()
+    cs = torch.cumsum(torch.cat([win.double(), sq], dim=-1), dim=-1)
+    cs = torch.nn.functional.pad(cs, (1, 0))
+    t = x.shape[-1]
+    return torch.sqrt(torch.clamp((cs[:, n + 1:n + 1 + t] - cs[:, 1:1 + t])
+                                  / n, min=0.0))
+
+
+def parity_env_units(chain, params, dev, res):
+    """Kernels #5-#7 against their plain versions at the step's shapes."""
+    gen = torch.Generator().manual_seed(5)
+    n = chain.sidechain.reactivity
+    cp = params.comp
+    t = STEP_BLOCKS * B
+    dbs, ideal, err = {}, {}, 0.0
+    for tt in (t, 300):
+        win = randn(gen, C, n, scale=0.25, dev=dev) ** 2
+        x = randn(gen, C, tt, scale=0.25, dev=dev)
+        wk, lk = eu.sliding_rms(win, x, n, 1.0)
+        wp, lp = eu.sliding_rms_plain(win, x, n, 1.0)
+        check(torch.equal(wk, wp), f"sliding_rms window differs at T={tt}")
+        dbs[tt] = snr_db(lp, lk)
+        ideal[tt] = dict(kernel=snr_db(rms_ideal(win, x, n), lk),
+                         plain=snr_db(rms_ideal(win, x, n), lp))
+        err = max(err, max_abs(lp, lk))
+        if tt == t:
+            timed = (win, x)
+    torch.cuda.synchronize()
+    print("parity sliding_rms: " + ", ".join(
+        f"T={k} level {v:.1f} dB (vs float64: kernel {ideal[k]['kernel']:.1f}"
+        f", plain {ideal[k]['plain']:.1f})" for k, v in dbs.items())
+        + "; window exact")
+    for k, v in dbs.items():
+        check(v >= DYN_DB, f"sliding_rms T={k} {v:.1f} dB < {DYN_DB}")
+    res["rms"] = dict(db=dbs, db_vs_float64=ideal, max_abs_err=err)
+    res["rms"]["ms"] = time_ms(lambda: eu.sliding_rms(*timed, n, 1.0), 50)
+    res["rms"]["plain_ms"] = time_ms(
+        lambda: eu.sliding_rms_plain(*timed, n, 1.0), 20)
+
+    x = swell_levels(gen, C, t, dev)
+    st0 = dyn.EnvState(torch.rand(C, generator=gen).to(dev),
+                       torch.rand(C, generator=gen).to(dev),
+                       torch.randint(0, 25, (C,), generator=gen,
+                                     dtype=torch.int32).to(dev))
+    hold = 24                                    # 0.5 ms: the hold runs
+    err = 0.0
+    for tt in (t, t - 1):
+        xx = x[:, :tt].contiguous()
+        for rt in (None, cp.release_thresh):
+            args = (xx, cp.tau_attack, cp.tau_release, hold, rt)
+            sk, ek = eu.peak_envelope(st0, *args)
+            plain_ms, (sp, ep) = time_once_ms(
+                lambda: eu.peak_envelope_plain(st0, *args))
+            check(torch.equal(ek, ep), f"peak_envelope T={tt} rt={rt}")
+            check(all(torch.equal(a, b) for a, b in zip(sk, sp)),
+                  f"peak_envelope state T={tt} rt={rt}")
+            err = max(err, max_abs(ep, ek))
+            if tt == t and rt is not None:
+                res["peak"] = dict(plain_ms=plain_ms)
+    print(f"parity peak_envelope: T={t} and {t - 1}, release threshold on "
+          f"and off: envelope, peak and hold exact")
+    res["peak"].update(max_abs_err=err, ms=time_ms(lambda: eu.peak_envelope(
+        st0, x, cp.tau_attack, cp.tau_release, hold, cp.release_thresh), 20))
+
+    gp = Gate(SR, threshold=0.2, zone=0.5, hyst_threshold=0.15,
+              attack_ms=2.0, release_ms=20.0, hold_ms=0.5).build()
+    xg = swell_levels(gen, C, t, dev)
+    xg[:, t // 2:] *= 0.02                      # near silence: release
+    cur0 = torch.zeros(C, dtype=torch.int32, device=dev)
+    gargs = (xg, gp.tau_attack, gp.tau_release, gp.hold, gp.knees[0].end,
+             gp.knees[1].start)
+    env0 = dyn.env_init((C,), dev)
+    sk, ck, ek, cvk = eu.gate_envelope(env0, cur0, *gargs)
+    plain_ms, (sp, cp_, ep, cvp) = time_once_ms(
+        lambda: eu.gate_envelope_plain(env0, cur0, *gargs))
+    switches = int((cvk[:, 1:] != cvk[:, :-1]).sum())
+    check(torch.equal(ek, ep) and torch.equal(cvk, cvp)
+          and torch.equal(ck, cp_), "gate_envelope differs")
+    check(all(torch.equal(a, b) for a, b in zip(sk, sp)),
+          "gate_envelope state differs")
+    check(switches >= C, f"gate curve track switched only {switches} times")
+    print(f"parity gate_envelope: T={t}: envelope, curve track "
+          f"({switches} switches) and state exact")
+    res["gate"] = dict(max_abs_err=max_abs(ep, ek), plain_ms=plain_ms,
+                       ms=time_ms(lambda: eu.gate_envelope(
+                           env0, cur0, *gargs), 20))
+
+
+STEP_COUNTERS = (fp.rfft_packed, fp.rfft_packed_zeropad, fp.irfft_packed,
+                 eu.sliding_rms, eu.peak_envelope)
+
+
+def step_phase(chain, params, dev, res):
+    """``step``'s path: launches, finiteness, TF32, the float64 ideal."""
+    rng = np.random.default_rng(6)
+    t = STEP_BLOCKS * B
+    x0 = torch.from_numpy((rng.standard_normal((C, t)) * 0.25).astype(
+        np.float32)).to(dev)
+    st = chain.init_state(params)
+    torch.cuda.synchronize()
+    for f in STEP_COUNTERS:
+        f.launches = 0
+    for k in range(CALLS):
+        st, y = chain.step(params, st, torch.roll(x0, shifts=k, dims=-1))
+    torch.cuda.synchronize()
+    launched = {f.__name__: f.launches for f in STEP_COUNTERS}
+    print(f"step: {CALLS} calls of [{C}, {t}]; launches {launched}")
+    for name, cnt in launched.items():
+        check(cnt >= CALLS, f"{name} launched {cnt} < {CALLS} times")
+    check(y.shape == (C, t) and bool(torch.isfinite(y).all()),
+          "step output not finite or of the wrong shape")
+    check(all(bool(torch.isfinite(s).all()) for s in
+              (st.eq, st.fdl.spec_re, st.fdl.spec_im, st.env.envelope)),
+          "non-finite step state")
+    res["step_launches"] = launched
+
+    # TF32 on: no library matmul on the path, so the output is identical
+    xk = torch.roll(x0, shifts=CALLS, dims=-1)
+    _, y_ref = chain.step(params, st, xk)
+    prev = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = True
+    torch.backends.cudnn.allow_tf32 = True
+    _, y_tf32 = chain.step(params, st, xk)
+    torch.backends.cuda.matmul.allow_tf32, \
+        torch.backends.cudnn.allow_tf32 = prev
+    same = bool(torch.equal(y_ref, y_tf32))
+    print(f"step, TF32 on: output identical = {same}")
+    check(same, "step output changed with TF32 switched on")
+
+    xs = [(rng.standard_normal((C, t)) * 0.25).astype(np.float32)
+          for _ in range(2)]
+    st = chain.init_state(params)
+    ys = []
+    for x in xs:
+        st, y = chain.step(params, st, torch.from_numpy(x).to(dev))
+        ys.append(y.cpu())
+    gold = golden_chain_f64(chain, params, [x[:, i * B:(i + 1) * B]
+                                            for x in xs
+                                            for i in range(STEP_BLOCKS)])
+    dbs = [snr_db(torch.from_numpy(np.concatenate(
+        gold[k * STEP_BLOCKS:(k + 1) * STEP_BLOCKS], axis=-1)), y)
+        for k, y in enumerate(ys)]
+    print("step vs float64 ideal: "
+          + ", ".join(f"call {i} {v:.2f} dB" for i, v in enumerate(dbs)))
+    check(min(dbs) >= CHAIN_DB, f"step {min(dbs):.2f} dB < {CHAIN_DB}")
+    res["step_vs_golden_db"] = dbs
+
+
+def bulk_phase(chain, params, dev, res):
+    """``bulk_step``: two super-blocks, the first against the float64
+    ideal and against ``step`` on the same input."""
+    rng = np.random.default_rng(7)
+    h = chain.build_bulk(T_SUPER)
+    st = chain.init_bulk_state(params, T_SUPER)
+    xs = [(rng.standard_normal((C, T_SUPER)) * 0.25).astype(np.float32)
+          for _ in range(2)]
+    ys = []
+    for x in xs:
+        st, y = chain.bulk_step(params, h, st, torch.from_numpy(x).to(dev))
+        ys.append(y.cpu())
+    check(all(bool(torch.isfinite(y).all()) for y in ys),
+          "non-finite bulk_step output")
+    gold = golden_chain_f64(chain, params, [xs[0][:, i * B:(i + 1) * B]
+                                            for i in range(T_SUPER // B)])
+    db = snr_db(torch.from_numpy(np.concatenate(gold, axis=-1)), ys[0])
+    t = STEP_BLOCKS * B
+    sst = chain.init_state(params)
+    outs = []
+    for k in range(T_SUPER // t):
+        sst, y = chain.step(params, sst, torch.from_numpy(
+            np.ascontiguousarray(xs[0][:, k * t:(k + 1) * t])).to(dev))
+        outs.append(y.cpu())
+    db_step = snr_db(torch.cat(outs, dim=-1), ys[0])
+    print(f"bulk_step: 2 super-blocks of [{C}, {T_SUPER}]; the first vs "
+          f"float64 ideal {db:.2f} dB, vs step on the same input "
+          f"{db_step:.2f} dB")
+    check(db >= CHAIN_DB, f"bulk_step {db:.2f} dB < {CHAIN_DB}")
+    res.update(bulk_vs_golden_db=db, bulk_vs_step_db=db_step)
+
+
+def units_phase(dev, res):
+    """Sidechain (each mode) -> Compressor, Expander, Gate on the card
+    and on the CPU; the gate's path drives gate_envelope."""
+    gen = torch.Generator().manual_seed(8)
+    swell = torch.sin(torch.linspace(0.0, torch.pi, T_UNITS))
+    sig = torch.randn(C, T_UNITS, generator=gen) * 0.3 * swell
+    sig_d = sig.to(dev)
+    kw = dict(attack_ms=2.0, release_ms=20.0, hold_ms=0.5)
+    units = ([Compressor(SR, mode=m, attack_thresh=0.1, release_thresh=0.05,
+                         **kw) for m in CompressorMode]
+             + [Expander(SR, mode=m, attack_thresh=0.1, release_thresh=0.05,
+                         **kw) for m in ExpanderMode]
+             + [Gate(SR, threshold=0.1, zone=0.5, hyst_threshold=0.08,
+                     **kw)])
+    torch.cuda.synchronize()
+    eu.gate_envelope.launches = 0
+    worst = dict(level=1e9, envelope=1e9, gain=1e9)
+    for mode in SidechainMode:
+        side = Sidechain(SR, mode, reactivity_ms=10.0)
+        _, lg = side.process(side.init_state((C,), dev), sig_d)
+        _, lc = side.process(side.init_state((C,)), sig)
+        worst["level"] = min(worst["level"], snr_db(lc, lg.cpu()))
+        for unit in units:
+            p = unit.build()
+            _, gg, eg = unit.process(p, unit.init_state((C,), dev), lg)
+            _, gc, ec = unit.process(p, unit.init_state((C,)), lc)
+            worst["envelope"] = min(worst["envelope"], snr_db(ec, eg.cpu()))
+            worst["gain"] = min(worst["gain"], snr_db(gc, gg.cpu()))
+    torch.cuda.synchronize()
+    gate_launches = eu.gate_envelope.launches
+    print(f"units: {len(SidechainMode)} sidechain modes x {len(units)} "
+          f"units on [{C}, {T_UNITS}], card vs CPU (worst): "
+          + ", ".join(f"{k} {v:.1f} dB" for k, v in worst.items())
+          + f"; gate_envelope launches {gate_launches}")
+    for k in ("envelope", "gain"):
+        check(worst[k] >= DYN_DB, f"units {k} {worst[k]:.1f} dB < {DYN_DB}")
+    check(gate_launches >= len(SidechainMode),
+          f"gate_envelope launched {gate_launches} times")
+    res["units_db"] = worst
+    res["gate"]["launches"] = gate_launches
+
+
+def timing_phase(chain, params, dev, res):
+    """Device time of ``step`` per call and of ``bulk_step`` per
+    super-block (CUDA events behind the spin kernel), and the host's
+    time to enqueue a call of ``step``."""
+    gen = torch.Generator().manual_seed(9)
+    t = STEP_BLOCKS * B
+    x0 = randn(gen, C, t, scale=0.25, dev=dev)
+    xr = [torch.roll(x0, shifts=k, dims=-1) for k in range(8)]
+    state = [chain.init_state(params)]
+    i = [0]
+
+    def one():
+        state[0], _ = chain.step(params, state[0], xr[i[0] % 8])
+        i[0] += 1
+
+    # 6 calls: ~130 launches each stay inside the card's queue of
+    # pending launches, so the host never waits on the card while the
+    # spin kernel holds it, and the events time the card alone
+    ms = time_ms(one, 6, warmup=3)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(8):
+        one()
+    enqueue_ms = (time.perf_counter() - t0) * 1e3 / 8
+    torch.cuda.synchronize()
+    h = chain.build_bulk(T_SUPER)
+    xb = randn(gen, C, T_SUPER, scale=0.25, dev=dev)
+    bstate = [chain.init_bulk_state(params, T_SUPER)]
+
+    def one_bulk():
+        bstate[0], _ = chain.bulk_step(params, h, bstate[0], xb)
+
+    ms_b = time_ms(one_bulk, 4, warmup=1)
+    res.update(step_ms=ms, step_ms_per_block=ms / STEP_BLOCKS,
+               step_host_enqueue_ms=enqueue_ms, bulk_ms=ms_b,
+               bulk_ms_per_block=ms_b / (T_SUPER // B))
+    print(f"step: {ms:.4f} ms per call = {ms / STEP_BLOCKS:.4f} ms/block on "
+          f"the card (CUDA events, 6 calls); host {enqueue_ms:.4f} ms to "
+          f"enqueue a call; bulk_step {ms_b:.4f} ms per super-block = "
+          f"{ms_b / (T_SUPER // B):.4f} ms/block")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=None,
@@ -351,10 +671,12 @@ def main(argv=None) -> int:
            "cuda": torch.version.cuda}
 
     t0 = time.perf_counter()
-    for name in ("fft_packed", "fdl_fused", "env"):
-        _build.build(name)
+    sources = ("fft_packed", "fdl_fused", "env", "env_units")
+    with concurrent.futures.ThreadPoolExecutor(len(sources)) as pool:
+        list(pool.map(_build.build, sources))
     res["build_s"] = time.perf_counter() - t0
-    print(f"build: {res['build_s']:.1f} s (fft_packed, fdl_fused, env)")
+    print(f"build: {res['build_s']:.1f} s ({', '.join(sources)}, in "
+          f"parallel)")
 
     chain = pipeline.FilterConvChain(SR, C, rank=RANK, ir_seconds=IR_S,
                                      device=dev)
@@ -364,11 +686,17 @@ def main(argv=None) -> int:
     parity_fft(dev, res)
     parity_eqfdl(chain, params, dev, res)
     parity_dyn(chain, params, dev, res)
+    parity_env_units(chain, params, dev, res)
     main_path(chain, params, dev, BLOCKS, res)
+    step_phase(chain, params, dev, res)
+    bulk_phase(chain, params, dev, res)
+    units_phase(dev, res)
+    timing_phase(chain, params, dev, res)
 
     for key, label in (("fft", "rfft_packed_zeropad"), ("eqfdl",
                                                         "eqfdl_fused"),
-                       ("dyn", "chain_dyn")):
+                       ("dyn", "chain_dyn"), ("rms", "sliding_rms"),
+                       ("peak", "peak_envelope"), ("gate", "gate_envelope")):
         r = res[key]
         print(f"kernel {label}: {r['ms']:.4f} ms vs plain "
               f"{r['plain_ms']:.4f} ms ({card})")
@@ -392,6 +720,18 @@ def main(argv=None) -> int:
              max_abs_err=res["dyn"]["max_abs_err"], ms=res["dyn"]["ms"],
              plain_ms=res["dyn"]["plain_ms"]),
     ]
+    for key, name, line, launches in (
+            ("rms", "sliding_rms", 294, res["step_launches"]["sliding_rms"]),
+            ("peak", "peak_envelope", 334,
+             res["step_launches"]["peak_envelope"]),
+            ("gate", "gate_envelope", 183, res["gate"]["launches"])):
+        r = res[key]
+        kernels.append(dict(
+            name=name, route="cuda",
+            source="lsp_dsp_units_tpu_torch/csrc/env_units.cu",
+            replaces=f"lsp_dsp_units_tpu/ops/pallas_env.py:{line}",
+            launches=launches, max_abs_err=r["max_abs_err"], ms=r["ms"],
+            plain_ms=r["plain_ms"]))
     if args.out:
         with open(args.out, "w") as f:
             json.dump(dict(res, kernels=kernels), f, indent=1)

@@ -9,9 +9,10 @@ package on the ported path is a CUDA kernel written for Hopper under
 only for CUDA tensors; CPU tensors take each kernel's plain PyTorch
 version.  The package imports neither JAX nor the JAX package.
 
-Ported so far: the streaming chain ``pipeline.FilterConvChain.step_ring``
-(EQ -> ring-FDL convolver -> RMS sidechain -> compressor) and its int16
-delivery (``utils.delivery``).
+Ported so far: the chain ``pipeline.FilterConvChain`` (EQ -> convolver
+-> RMS sidechain -> compressor) as ``step_ring`` with its int16 delivery
+(``utils.delivery``), ``step`` and ``bulk_step``; ``entry.entry``; the
+dynamics units Sidechain, Compressor, Expander and Gate.
 """
 
 __version__ = "0.1.0"

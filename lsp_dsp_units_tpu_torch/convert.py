@@ -1,10 +1,12 @@
 """Carry the JAX package's chain parameters and ring state into the
 port, so both packages can run the same chain from the same point.
 
-Inputs are the JAX package's ``ChainParams`` / ``ChainRingState`` with
-every array leaf converted to numpy (``jax.tree_util.tree_map(
-np.asarray, ...)``); this module imports no JAX.  The JAX ring is the
-natural-order [P, C, B + 1] form (its CPU layout); the port's ring is
+Inputs are the JAX package's ``ChainParams`` and chain states
+(``ChainState``, ``ChainBulkState``, ``ChainRingState``) with every
+array leaf converted to numpy (``jax.tree_util.tree_map(np.asarray,
+...)``); this module imports no JAX.  ``ChainState`` and
+``ChainBulkState`` keep the JAX layouts as they are; the JAX ring is the
+natural-order [P, C, B + 1] form (its CPU layout), the port's ring is
 packed [P, C, B] (ops/fft_packed.py).
 """
 
@@ -19,8 +21,8 @@ from lsp_dsp_units_tpu_torch.models.util.sidechain import SidechainState
 from lsp_dsp_units_tpu_torch.ops import biquad_block, fftconv
 from lsp_dsp_units_tpu_torch.ops import dynamics as dyn
 from lsp_dsp_units_tpu_torch.ops import fft_packed as fp
-from lsp_dsp_units_tpu_torch.pipeline import (ChainParams, ChainRingState,
-                                              chain_params)
+from lsp_dsp_units_tpu_torch.pipeline import (
+    ChainBulkState, ChainParams, ChainRingState, ChainState, chain_params)
 
 
 def _t(v, device, dtype=torch.float32) -> torch.Tensor:
@@ -52,6 +54,34 @@ def params_from_jax(p, device=None) -> ChainParams:
         comp=comp)
 
 
+def _sc_env(s, device):
+    return (SidechainState(window=_t(s.sc.window, device),
+                           rms=_t(s.sc.rms, device)),
+            dyn.EnvState(envelope=_t(s.env.envelope, device),
+                         peak=_t(s.env.peak, device),
+                         hold=_t(s.env.hold, device, torch.int32)))
+
+
+def state_from_jax(s, device=None) -> ChainState:
+    """JAX ``ChainState`` (numpy leaves) -> port ``ChainState``."""
+    sc, env = _sc_env(s, device)
+    return ChainState(
+        eq=_t(s.eq, device),
+        fdl=fftconv.FDLState(spec_re=_t(s.fdl.spec_re, device),
+                             spec_im=_t(s.fdl.spec_im, device),
+                             history=_t(s.fdl.history, device)),
+        sc=sc, env=env)
+
+
+def bulk_state_from_jax(s, device=None) -> ChainBulkState:
+    """JAX ``ChainBulkState`` (numpy leaves) -> port ``ChainBulkState``."""
+    sc, env = _sc_env(s, device)
+    return ChainBulkState(
+        eq=_t(s.eq, device),
+        conv=fftconv.OLSBulkState(history=_t(s.conv.history, device)),
+        sc=sc, env=env)
+
+
 def ring_from_natural(re, im, device=None):
     """Natural-order ring [P, C, B + 1] -> packed [P, C, B] tensors."""
     re = _t(re, device)
@@ -67,13 +97,10 @@ def ring_state_from_jax(s, device=None) -> ChainRingState:
         raise ValueError("expected the JAX natural-order ring [P, C, B+1]")
     spec_re, spec_im = ring_from_natural(s.fdl.spec_re, s.fdl.spec_im,
                                          device)
+    sc, env = _sc_env(s, device)
     return ChainRingState(
         eq=_t(s.eq, device),
         fdl=fftconv.RingFDLState(spec_re=spec_re, spec_im=spec_im,
                                  history=_t(s.fdl.history, device),
                                  pos=int(np.asarray(s.fdl.pos))),
-        sc=SidechainState(window=_t(s.sc.window, device),
-                          rms=_t(s.sc.rms, device)),
-        env=dyn.EnvState(envelope=_t(s.env.envelope, device),
-                         peak=_t(s.env.peak, device),
-                         hold=_t(s.env.hold, device, torch.int32)))
+        sc=sc, env=env)

@@ -1,0 +1,331 @@
+// Sidechain level and envelope followers on [C, T] float32 blocks: the
+// three single-purpose kernels of the JAX package's ops/pallas_env.py.
+//
+//   lsp_sliding_rms    replaces sliding_rms_pallas   (_rms_kernel)
+//   lsp_peak_envelope  replaces peak_envelope_pallas (_kernel, _env_step)
+//   lsp_gate_envelope  replaces gate_envelope_pallas (_gate_kernel,
+//                      _gate_step)
+//
+// The envelope update ``e + tau * d`` is one fused multiply-add,
+// __fmaf_rn: a single rounding, as XLA contracts it in the JAX package.
+// The plain PyTorch versions form the same correctly rounded value from
+// float64 tensors (ops/env_units.py::_mul_add), so kernel and plain
+// version agree bit for bit.  csrc/env.cu, the fused tail of step_ring,
+// is a different kernel with its own tolerance.
+
+#include <cuda_runtime.h>
+
+namespace {
+
+// ---------------------------------------------------------------------------
+// sliding RMS
+//
+// What bounds it: latency, not bytes.  A [64, 16384] block moves ~8 MB
+// (x in, level out; 2.5 us of HBM), but one block per channel walks its
+// row in four tiles, each a load, a scan and three barriers (measured
+// 0.032 ms on the H100).  The TPU kernel ran the rolling sum as a
+// serial row loop; here the block runs it as a block-wide scan of
+// per-sample (new - old) squares over tiles of kRmsTile samples, with
+// the running sum carried between tiles.  The sum is kept in
+// double: it is a difference of long prefix sums, whose float32 rounding
+// grows with T, and FP64 costs nothing on a scan this size.  Any T >= 1
+// and N >= 1: the "old" sample of step t is frame[t] of
+// frame = [window || squares], read from the window for t < N and
+// recomputed from x otherwise, so T < N needs no special case.
+// ---------------------------------------------------------------------------
+
+constexpr int kRmsThreads = 256;
+constexpr int kRmsWarps = kRmsThreads / 32;
+constexpr int kRmsItems = 16;                      // samples per thread
+constexpr int kRmsTile = kRmsThreads * kRmsItems;  // samples per tile
+
+__device__ __forceinline__ float square_of(float x, float g) {
+  const float v = __fmul_rn(fabsf(x), g);
+  return __fmul_rn(v, v);
+}
+
+__device__ __forceinline__ float frame_at(const float* wr, const float* xr,
+                                          int j, int n_win, float g) {
+  return j < n_win ? wr[j] : square_of(xr[j - n_win], g);
+}
+
+__global__ void __launch_bounds__(kRmsThreads)
+sliding_rms_kernel(const float* __restrict__ x, const float* __restrict__ win,
+                   float* __restrict__ level, float* __restrict__ win_out,
+                   int t_n, int n_win, float g) {
+  __shared__ double s_warp[kRmsWarps];
+  __shared__ double s_carry;
+  const int c = blockIdx.x;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const float* xr = x + (size_t)c * t_n;
+  const float* wr = win + (size_t)c * n_win;
+  float* lr = level + (size_t)c * t_n;
+  const double n_d = (double)n_win;
+
+  // running sum at t = -1: the sum of the carried window
+  double part = 0.0;
+  for (int i = threadIdx.x; i < n_win; i += kRmsThreads) part += (double)wr[i];
+  for (int off = 16; off > 0; off >>= 1)
+    part += __shfl_xor_sync(0xffffffffu, part, off);
+  if (lane == 0) s_warp[warp] = part;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    double r = 0.0;
+    for (int i = 0; i < kRmsWarps; ++i) r += s_warp[i];
+    s_carry = r;
+  }
+  __syncthreads();
+
+  for (int t0 = 0; t0 < t_n; t0 += kRmsTile) {
+    const int base_t = t0 + threadIdx.x * kRmsItems;
+    double pre[kRmsItems];
+    double run = 0.0;
+#pragma unroll
+    for (int k = 0; k < kRmsItems; ++k) {
+      const int t = base_t + k;
+      if (t < t_n)
+        run += (double)square_of(xr[t], g) -
+               (double)frame_at(wr, xr, t, n_win, g);
+      pre[k] = run;
+    }
+    // block-wide exclusive prefix of the per-thread totals
+    double incl = run;
+    for (int off = 1; off < 32; off <<= 1) {
+      const double v = __shfl_up_sync(0xffffffffu, incl, off);
+      if (lane >= off) incl += v;
+    }
+    if (lane == 31) s_warp[warp] = incl;
+    __syncthreads();
+    double base = s_carry + (incl - run);
+    for (int i = 0; i < warp; ++i) base += s_warp[i];
+#pragma unroll
+    for (int k = 0; k < kRmsItems; ++k) {
+      const int t = base_t + k;
+      if (t < t_n) lr[t] = sqrtf((float)fmax((base + pre[k]) / n_d, 0.0));
+    }
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      double r = s_carry;
+      for (int i = 0; i < kRmsWarps; ++i) r += s_warp[i];
+      s_carry = r;
+    }
+    __syncthreads();
+  }
+
+  // window' = the last N samples of [window || squares]
+  for (int i = threadIdx.x; i < n_win; i += kRmsThreads)
+    win_out[(size_t)c * n_win + i] = frame_at(wr, xr, t_n + i, n_win, g);
+}
+
+// ---------------------------------------------------------------------------
+// peak-hold envelope and gate envelope
+//
+// What bounds them: the latency of the recurrence.  Each step depends on
+// the last (subtract, compare, select tau, FMA, selects), so a channel is
+// one serial chain of T steps, and the card's width does not help: the
+// main path's 64 channels are 64 chains.  The design runs each chain on
+// one thread with its state in registers and keeps everything else off
+// it, as csrc/env.cu does: one block per channel; thread 0 runs the
+// recurrence over a chunk of the channel's signal in shared memory,
+// reading 32 levels at a time into registers with vector loads and
+// writing the envelopes back the same way; meanwhile warps 1-3 write the
+// previous chunk out and read the next one in (coalesced), so the chain
+// never waits on device memory (a load or store on the chain costs its
+// latency every step, see PERF.md).  Two buffers of kChunk samples take
+// any T.  Mapping the serial chain better onto the card (e.g. splitting a
+// channel where the envelope provably resets) is later work.
+// ---------------------------------------------------------------------------
+
+constexpr int kEnvThreads = 128;              // warp 0: the chain
+constexpr int kMovers = kEnvThreads - 32;     // warps 1-3: data
+constexpr int kChunk = 2048;                  // samples per buffer
+constexpr int kBatch = 32;                    // levels held in registers
+
+struct EnvCoef {
+  float ta, tr, rt;
+  int nh;
+  float k0_end, k1_start;  // the gate's curve switch points
+};
+
+// One step of the reference Compressor.cpp:231-256 recurrence (the TPU
+// kernel's _env_step).  kUseRt: below the release threshold the fall
+// uses the attack tau; without it (the gate's form) it uses tau_release.
+template <bool kUseRt>
+__device__ __forceinline__ float env_step(float x, float& e, float& peak,
+                                          int& hold, const EnvCoef& k) {
+  const float d = __fsub_rn(x, e);
+  const bool falling = d < 0.0f;
+  const bool holding = hold > 0;
+  const float tau_dn = kUseRt ? (e > k.rt ? k.tr : k.ta) : k.tr;
+  const float e_fall = __fmaf_rn(tau_dn, d, e);
+  const float e_rise = __fmaf_rn(k.ta, d, e);
+  const bool rise_peaked = !falling && e_rise >= peak;
+  const float new_e = falling ? (holding ? e : e_fall) : e_rise;
+  peak = falling ? (holding ? peak : e_fall) : (rise_peaked ? e_rise : peak);
+  hold = falling ? (holding ? hold - 1 : hold) : (rise_peaked ? k.nh : hold);
+  e = new_e;
+  return e;
+}
+
+// The hysteresis curve switch of the gate (the TPU kernel's _gate_step):
+// to curve 1 when the envelope rises above curve 0's end, back to 0 when
+// it falls below curve 1's start.
+__device__ __forceinline__ int gate_switch(int cur, float e,
+                                           const EnvCoef& k) {
+  if (cur == 0 && e > k.k0_end) return 1;
+  if (cur == 1 && e < k.k1_start) return 0;
+  return cur;
+}
+
+struct EnvRegs {
+  float e, peak;
+  int hold, cur;
+};
+
+// The chain over one chunk in shared memory, in place: levels in,
+// envelopes (and the gate's curve track) out.  Full batches move through
+// registers with 16-byte loads and stores (the buffers are 16-byte
+// aligned and batches start at multiples of kBatch).
+template <bool kUseRt, bool kGate>
+__device__ __forceinline__ void run_chunk(float* buf, int* cbuf, int len,
+                                          EnvRegs& s, const EnvCoef& k) {
+  auto step = [&](float v, int* cv) {
+    v = env_step<kUseRt>(v, s.e, s.peak, s.hold, k);
+    if (kGate) {
+      s.cur = gate_switch(s.cur, v, k);
+      *cv = s.cur;
+    }
+    return v;
+  };
+  const int full = len - len % kBatch;
+  for (int t0 = 0; t0 < full; t0 += kBatch) {
+    float4 lv[kBatch / 4];
+    int4 cv[kGate ? kBatch / 4 : 1];
+    float4* l4 = reinterpret_cast<float4*>(buf + t0);
+#pragma unroll
+    for (int q = 0; q < kBatch / 4; ++q) lv[q] = l4[q];
+#pragma unroll
+    for (int q = 0; q < kBatch / 4; ++q) {
+      int4& c4 = cv[kGate ? q : 0];
+      lv[q].x = step(lv[q].x, &c4.x);
+      lv[q].y = step(lv[q].y, &c4.y);
+      lv[q].z = step(lv[q].z, &c4.z);
+      lv[q].w = step(lv[q].w, &c4.w);
+    }
+#pragma unroll
+    for (int q = 0; q < kBatch / 4; ++q) l4[q] = lv[q];
+    if (kGate) {
+      int4* c4 = reinterpret_cast<int4*>(cbuf + t0);
+#pragma unroll
+      for (int q = 0; q < kBatch / 4; ++q) c4[q] = cv[kGate ? q : 0];
+    }
+  }
+  for (int t = full; t < len; ++t) {
+    int cv = 0;
+    buf[t] = step(buf[t], &cv);
+    if (kGate) cbuf[t] = cv;
+  }
+}
+
+// kGate: the gate's form (no release threshold) with the curve track.
+template <bool kUseRt, bool kGate>
+__global__ void __launch_bounds__(kEnvThreads)
+envelope_kernel(const float* __restrict__ x, const float* __restrict__ e_in,
+                const float* __restrict__ p_in, const int* __restrict__ h_in,
+                const int* __restrict__ cur_in, float* __restrict__ env,
+                int* __restrict__ curves, float* __restrict__ e_out,
+                float* __restrict__ p_out, int* __restrict__ h_out,
+                int* __restrict__ cur_out, int t_n, EnvCoef k) {
+  __shared__ __align__(16) float s_x[2][kChunk];
+  __shared__ __align__(16) int s_cur[kGate ? 2 : 1][kGate ? kChunk : 4];
+  const int c = blockIdx.x;
+  const float* xr = x + (size_t)c * t_n;
+  float* er = env + (size_t)c * t_n;
+  int* cr = kGate ? curves + (size_t)c * t_n : nullptr;
+  const int n_chunks = (t_n + kChunk - 1) / kChunk;
+
+  for (int i = threadIdx.x; i < min(kChunk, t_n); i += kEnvThreads)
+    s_x[0][i] = xr[i];
+  EnvRegs s{0.0f, 0.0f, 0, 0};
+  if (threadIdx.x == 0)
+    s = EnvRegs{e_in[c], p_in[c], h_in[c], kGate ? cur_in[c] : 0};
+  __syncthreads();
+  for (int j = 0; j < n_chunks; ++j) {
+    const int b = j & 1;
+    const int t0 = j * kChunk;
+    if (threadIdx.x == 0) {
+      run_chunk<kUseRt, kGate>(s_x[b], kGate ? s_cur[b] : nullptr,
+                               min(kChunk, t_n - t0), s, k);
+    } else if (threadIdx.x >= 32) {
+      // chunk j - 1 out of the other buffer, chunk j + 1 into it: each
+      // element is written out before the same thread refills it
+      const int prev_len = j > 0 ? kChunk : 0;
+      const int next_len = j + 1 < n_chunks ? min(kChunk, t_n - t0 - kChunk)
+                                            : 0;
+      for (int i = threadIdx.x - 32; i < kChunk; i += kMovers) {
+        if (i < prev_len) {
+          er[t0 - kChunk + i] = s_x[b ^ 1][i];
+          if (kGate) cr[t0 - kChunk + i] = s_cur[b ^ 1][i];
+        }
+        if (i < next_len) s_x[b ^ 1][i] = xr[t0 + kChunk + i];
+      }
+    }
+    __syncthreads();
+  }
+  const int last = n_chunks - 1;
+  const int tl = last * kChunk;
+  for (int i = threadIdx.x; i < t_n - tl; i += kEnvThreads) {
+    er[tl + i] = s_x[last & 1][i];
+    if (kGate) cr[tl + i] = s_cur[last & 1][i];
+  }
+  if (threadIdx.x == 0) {
+    e_out[c] = s.e;
+    p_out[c] = s.peak;
+    h_out[c] = s.hold;
+    if (kGate) cur_out[c] = s.cur;
+  }
+}
+
+}  // namespace
+
+extern "C" {
+
+int lsp_sliding_rms(const float* x, const float* win, float* level,
+                    float* win_out, int c_n, int t_n, int n_win, float g,
+                    void* stream) {
+  if (c_n < 1 || t_n < 1 || n_win < 1) return (int)cudaErrorInvalidValue;
+  sliding_rms_kernel<<<c_n, kRmsThreads, 0, (cudaStream_t)stream>>>(
+      x, win, level, win_out, t_n, n_win, g);
+  return (int)cudaGetLastError();
+}
+
+int lsp_peak_envelope(const float* x, const float* e_in, const float* p_in,
+                      const int* h_in, float* env, float* e_out,
+                      float* p_out, int* h_out, int c_n, int t_n, float ta,
+                      float tr, float rt, int nh, int use_rt, void* stream) {
+  if (c_n < 1 || t_n < 1) return (int)cudaErrorInvalidValue;
+  const EnvCoef k{ta, tr, rt, nh, 0.0f, 0.0f};
+  auto kernel = use_rt ? envelope_kernel<true, false>
+                       : envelope_kernel<false, false>;
+  kernel<<<c_n, kEnvThreads, 0, (cudaStream_t)stream>>>(
+      x, e_in, p_in, h_in, nullptr, env, nullptr, e_out, p_out, h_out,
+      nullptr, t_n, k);
+  return (int)cudaGetLastError();
+}
+
+int lsp_gate_envelope(const float* x, const float* e_in, const float* p_in,
+                      const int* h_in, const int* cur_in, float* env,
+                      int* curves, float* e_out, float* p_out, int* h_out,
+                      int* cur_out, int c_n, int t_n, float ta, float tr,
+                      int nh, float k0_end, float k1_start, void* stream) {
+  if (c_n < 1 || t_n < 1) return (int)cudaErrorInvalidValue;
+  const EnvCoef k{ta, tr, 0.0f, nh, k0_end, k1_start};
+  envelope_kernel<false, true><<<c_n, kEnvThreads, 0,
+                                 (cudaStream_t)stream>>>(
+      x, e_in, p_in, h_in, cur_in, env, curves, e_out, p_out, h_out, cur_out,
+      t_n, k);
+  return (int)cudaGetLastError();
+}
+
+}  // extern "C"

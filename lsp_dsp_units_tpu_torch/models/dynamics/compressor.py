@@ -1,9 +1,11 @@
 """Compressor: the port of models/dynamics/compressor.py (reference
 Compressor.cpp).  :meth:`Compressor.build` designs the two knees and the
 envelope coefficients on the host in float64 and rounds them once to
-float32 host numbers; :meth:`Compressor.process` is the plain PyTorch
-envelope + gain.  The chain's CUDA path runs the same math inside the
-kernel of ops/env.py.
+float32 host numbers.  :meth:`Compressor.process` runs the envelope
+through ``ops.dynamics.peak_envelope`` (the CUDA kernel of
+ops/env_units.py for CUDA tensors) and the two-knee gain as element-wise
+PyTorch.  ``step_ring`` runs the same math inside the fused kernel of
+ops/env.py.
 """
 
 from __future__ import annotations
@@ -150,3 +152,12 @@ class Compressor:
             state, x, params.tau_attack, params.tau_release, params.hold,
             params.release_thresh)
         return state, dyn.compressor_x2_gain(params.knees, env), env
+
+    def curve(self, params: CompressorParams, x: torch.Tensor
+              ) -> torch.Tensor:
+        """Static transfer curve (reference Compressor::curve)."""
+        return dyn.compressor_x2_curve(params.knees, x)
+
+    def amplification(self, params: CompressorParams, x: torch.Tensor
+                      ) -> torch.Tensor:
+        return dyn.compressor_x2_gain(params.knees, x)

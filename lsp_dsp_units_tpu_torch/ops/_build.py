@@ -125,21 +125,25 @@ def is_cpu(*ts: torch.Tensor) -> bool:
                      f"got {sorted(kinds)}")
 
 
-def check_cuda_f32(**ts: torch.Tensor) -> None:
-    """The kernels read rows as float2/float4: contiguous float32 on one
-    device, 16-byte aligned."""
-    dev = None
+def check_cuda(dtype: torch.dtype, device: torch.device,
+               **ts: torch.Tensor) -> None:
+    """Contiguous tensors of ``dtype`` on ``device``."""
     for name, t in ts.items():
-        if t.dtype != torch.float32 or not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous float32, got "
+        if t.dtype != dtype or not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous {dtype}, got "
                              f"{t.dtype} contiguous={t.is_contiguous()}")
+        if t.device != device:
+            raise ValueError(f"{name} is on {t.device}, expected {device}")
+
+
+def check_cuda_f32(**ts: torch.Tensor) -> None:
+    """For kernels that read rows as float2/float4: contiguous float32 on
+    one device, 16-byte aligned."""
+    check_cuda(torch.float32, next(iter(ts.values())).device, **ts)
+    for name, t in ts.items():
         if t.data_ptr() % 16:
             raise ValueError(f"{name} must be 16-byte aligned (a view with "
                              f"an offset? pass a copy)")
-        if dev is None:
-            dev = t.device
-        elif t.device != dev:
-            raise ValueError(f"{name} is on {t.device}, expected {dev}")
 
 
 def ptr(t) -> ctypes.c_void_p:

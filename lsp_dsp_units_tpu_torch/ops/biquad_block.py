@@ -7,10 +7,12 @@ module for the derivation):
     s_out = M @ s + W @ x                       (exact carry)
 
 with ``h_total``, G, W and M computed on the host in float64, balanced,
-and rounded once to float32.  On the chain's main path the convolution
-and the G/M/W products run inside the CUDA kernels of ops/fft_packed.py
-and ops/fdl_fused.py; :func:`cascade_block_fused` is the plain PyTorch
-form of the same EQ.
+and rounded once to float32.  :func:`cascade_block_fused` (the EQ of
+``step``/``bulk_step``) runs the convolutions through the packed FFT
+kernels for CUDA tensors (ops/fft_packed.py) and torch.fft for CPU
+tensors; the G/M/W products are broadcast multiply-and-sums, so no
+library matmul touches them.  ``step_ring`` runs the same EQ inside the
+kernel of ops/fdl_fused.py.
 """
 
 from __future__ import annotations
@@ -20,6 +22,7 @@ from typing import NamedTuple, Tuple
 import numpy as np
 import torch
 
+from lsp_dsp_units_tpu_torch.ops import fft_packed as fp
 from lsp_dsp_units_tpu_torch.ops.cplx import irfft_sc, rfft_sc, sc_mul
 
 
@@ -220,22 +223,88 @@ def precompute_fused(coeffs: np.ndarray, block: int, balance: bool = True,
         g_t=f32(np.ascontiguousarray(np.asarray(g_mat, np.float32).T)))
 
 
+def _matvec(mat: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """``mat`` [R, K] applied to ``v`` [..., K] -> [..., R], as a
+    broadcast multiply and a sum over K: no library matmul, so global
+    TF32 or matmul-precision settings cannot change it (the JAX package
+    pins these contractions at Precision.HIGH)."""
+    return torch.sum(mat * v[..., None, :], dim=-1)
+
+
+def state_to_fused(params: FusedCascadeParams,
+                   state: torch.Tensor) -> torch.Tensor:
+    """DF2T per-stage state [..., K, 2] -> fused (balanced) basis."""
+    k2 = params.m_mat.shape[0]
+    sv = state.reshape(state.shape[:-2] + (k2,))
+    return _matvec(params.t_mat, sv).reshape(state.shape)
+
+
+def state_from_fused(params: FusedCascadeParams,
+                     state: torch.Tensor) -> torch.Tensor:
+    """Fused (balanced) basis state [..., K, 2] -> DF2T per-stage."""
+    k2 = params.m_mat.shape[0]
+    sv = state.reshape(state.shape[:-2] + (k2,))
+    return _matvec(params.t_inv, sv).reshape(state.shape)
+
+
+def fused_block_size(params: FusedCascadeParams) -> int:
+    return params.h_re.shape[-1] - 1
+
+
+def cascade_seq_fused(params: FusedCascadeParams, state: torch.Tensor,
+                      x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-sample cascade in the balanced basis: x [..., T] (any T),
+    state [..., K, 2] -> (y, state').  For remainder chunks shorter than
+    the block: the carried state never leaves the one balanced basis.
+    A Python loop over T."""
+    k2 = params.m_mat.shape[0]
+    sv = state.reshape(state.shape[:-2] + (k2,))
+    ys = []
+    for i in range(x.shape[-1]):
+        xn = x[..., i]
+        ys.append(torch.sum(params.c1_vec * sv, dim=-1) + params.d1 * xn)
+        sv = _matvec(params.a1_mat, sv) + params.b1_vec * xn[..., None]
+    y = torch.stack(ys, dim=-1) if ys else x.clone()
+    return y.to(x.dtype), sv.reshape(state.shape)
+
+
+def _zero_state_conv(params: FusedCascadeParams,
+                     blocks: torch.Tensor) -> torch.Tensor:
+    """First B samples of ``conv(block, h_total)`` for blocks [..., B].
+    CUDA tensors at a size the packed FFT kernel takes run every row
+    through the zero-pad forward, the packed product and the first-half
+    inverse (the JAX package's bulk route); others natural rfft/irfft."""
+    b = fused_block_size(params)
+    if blocks.device.type == "cuda" and fp.supported(2 * b):
+        rows = blocks.reshape(-1, b).contiguous()
+        sr, si = fp.rfft_packed_zeropad(rows)
+        hre, him = fp.pack_spectra(params.h_re, params.h_im, 2 * b)
+        y = fp.irfft_packed(*fp.mul_packed(sr, si, hre, him), 2 * b,
+                            half="first")
+        return y.reshape(blocks.shape)
+    spec = sc_mul(rfft_sc(blocks, 2 * b), (params.h_re, params.h_im))
+    return irfft_sc(spec, 2 * b, half="first")
+
+
 def cascade_block_fused(params: FusedCascadeParams, state: torch.Tensor,
                         x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Fused cascade execution, plain PyTorch: x [..., T] (T a multiple
-    of B), state [..., K, 2] -> (y, state')."""
-    b = params.h_re.shape[-1] - 1
+    """Fused cascade execution: x [..., T] (T = M B), state [..., K, 2]
+    -> (y, state').  All M blocks' zero-state convolutions run at once;
+    the exact state carry ``y += G s``, ``s = M s + W x`` then walks the
+    blocks in order."""
+    b = fused_block_size(params)
     k2 = params.m_mat.shape[0]
     t = x.shape[-1]
     if t % b:
         raise ValueError(f"input length {t} is not a multiple of {b}")
+    m = t // b
     sv = state.reshape(state.shape[:-2] + (k2,))
+    blocks = torch.movedim(x.reshape(x.shape[:-1] + (m, b)), -2, 0)
+    y_zs = _zero_state_conv(params, blocks)              # [M, ..., B]
+    wx = _matvec(params.w_mat, blocks)                   # [M, ..., 2K]
     ys = []
-    for i in range(t // b):
-        blk = x[..., i * b:(i + 1) * b]
-        spec = sc_mul(rfft_sc(blk, 2 * b), (params.h_re, params.h_im))
-        y_zs = irfft_sc(spec, 2 * b)[..., :b]
-        ys.append(y_zs + sv @ params.g_mat.T)
-        sv = sv @ params.m_mat.T + blk @ params.w_mat.T
-    y = torch.cat(ys, dim=-1).to(x.dtype)
-    return y, sv.reshape(state.shape)
+    for i in range(m):
+        ys.append(y_zs[i] + _matvec(params.g_mat, sv))
+        sv = _matvec(params.m_mat, sv) + wx[i]
+    y = torch.movedim(torch.stack(ys), 0, -2).reshape(x.shape)
+    return y.to(x.dtype), sv.reshape(state.shape)

@@ -3,9 +3,9 @@
 Sidechain sliding RMS over a carried window of squared detector samples
 -> compressor peak-hold envelope (with release threshold) -> two-knee
 gain -> ``y = x * gain``, on [C, T] blocks.  :func:`chain_dyn` runs
-:func:`chain_dyn_plain` (the staged ops: sliding_sum -> peak_envelope
--> compressor_x2_gain) for CPU tensors and the CUDA kernel
-(``csrc/env.cu``) for CUDA tensors, counting launches in
+:func:`chain_dyn_plain` (the staged plain ops: sliding_sum ->
+peak_envelope_plain -> compressor_x2_gain) for CPU tensors and the CUDA
+kernel (``csrc/env.cu``) for CUDA tensors, counting launches in
 ``chain_dyn.launches``.
 
 Tolerance between the two: the kernel forms the rolling sum as the
@@ -25,7 +25,7 @@ import torch
 
 from lsp_dsp_units_tpu_torch.ops import _build
 from lsp_dsp_units_tpu_torch.ops.dynamics import (
-    CompKnee, EnvState, compressor_x2_gain, peak_envelope)
+    CompKnee, EnvState, compressor_x2_gain, peak_envelope_plain)
 from lsp_dsp_units_tpu_torch.ops.sliding import sliding_sum
 
 
@@ -52,8 +52,9 @@ def chain_dyn_plain(window, env_state: EnvState, x, n_win: int, sc_gain,
     frame = torch.cat([window, v * v], dim=-1)
     rsum = sliding_sum(frame, n_win, x.shape[-1])
     level = torch.sqrt(torch.clamp(rsum / n_win, min=0.0))
-    env_st, env = peak_envelope(env_state, level, tau_attack, tau_release,
-                                hold_samples, release_thresh)
+    env_st, env = peak_envelope_plain(env_state, level, tau_attack,
+                                      tau_release, hold_samples,
+                                      release_thresh)
     y = x * compressor_x2_gain(knees, env)
     return frame[..., -n_win:].contiguous(), env_st, y
 

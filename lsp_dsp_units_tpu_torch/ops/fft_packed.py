@@ -27,7 +27,6 @@ import numpy as np
 import torch
 
 from lsp_dsp_units_tpu_torch.ops import _build
-from lsp_dsp_units_tpu_torch.ops.cplx import irfft_sc, rfft_sc
 
 Half = Union[bool, str]
 
@@ -42,13 +41,18 @@ MIN_M = 64            # smallest transform with the pair mapping's octaves
 MAX_M = 16384         # 128 KB of shared memory per row
 
 
+def supported(n: int) -> bool:
+    """True for the frame sizes the kernels take: N a power of two with
+    2 * MIN_M <= N <= 2 * MAX_M."""
+    return n > 0 and not n & (n - 1) and MIN_M <= n // 2 <= MAX_M
+
+
 def log2_m(n: int) -> int:
     """log2(N/2) for a supported frame size N (power of two)."""
-    m = n // 2
-    if n & (n - 1) or not MIN_M <= m <= MAX_M:
+    if not supported(n):
         raise ValueError(f"packed FFT needs N a power of two with "
                          f"{2 * MIN_M} <= N <= {2 * MAX_M}, got {n}")
-    return m.bit_length() - 1
+    return (n // 2).bit_length() - 1
 
 
 @functools.lru_cache(maxsize=8)
@@ -60,6 +64,14 @@ def bitrev(m: int) -> np.ndarray:
     for b in range(bits):
         r |= ((j >> b) & 1) << (bits - 1 - b)
     return r
+
+
+@functools.lru_cache(maxsize=16)
+def _bitrev_index(m: int, device: torch.device) -> torch.Tensor:
+    """:func:`bitrev` as an index tensor on ``device``, made once: the
+    packing sits on the step's path, where a host-to-device copy per call
+    would wait for the card."""
+    return torch.as_tensor(bitrev(m), device=device)
 
 
 @functools.lru_cache(maxsize=8)
@@ -93,7 +105,7 @@ def pack_spectra(re: torch.Tensor, im: torch.Tensor, n: int
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Natural-order rfft spectrum [..., N/2 + 1] -> packed [..., N/2]."""
     m = n // 2
-    idx = torch.as_tensor(bitrev(m), device=re.device)
+    idx = _bitrev_index(m, re.device)
     pre = re[..., :m].index_select(-1, idx)
     pim = im[..., :m].index_select(-1, idx)
     pim[..., 0] = re[..., m]
@@ -104,7 +116,7 @@ def unpack_spectra(pre: torch.Tensor, pim: torch.Tensor, n: int
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Inverse of :func:`pack_spectra`."""
     m = n // 2
-    idx = torch.as_tensor(bitrev(m), device=pre.device)
+    idx = _bitrev_index(m, pre.device)
     re_nat = pre.index_select(-1, idx)
     im_nat = pim.index_select(-1, idx)
     im_nat[..., 0] = 0.0
@@ -124,21 +136,26 @@ def mul_packed(ar, ai, br, bi):
 
 
 # ---------------------------------------------------------------------------
-# plain versions
+# plain versions (torch.fft on any device)
 # ---------------------------------------------------------------------------
+
+
+def _rfft_torch(x: torch.Tensor, n: int):
+    s = torch.fft.rfft(x, n=n)
+    return s.real.contiguous(), s.imag.contiguous()
 
 
 def rfft_packed_plain(x: torch.Tensor):
     n = x.shape[-1]
-    return pack_spectra(*rfft_sc(x), n)
+    return pack_spectra(*_rfft_torch(x, n), n)
 
 
 def rfft_packed_zeropad_plain(x: torch.Tensor):
     n = 2 * x.shape[-1]
-    return pack_spectra(*rfft_sc(x, n), n)
+    return pack_spectra(*_rfft_torch(x, n), n)
 
 
-def _half_mode(half: Half) -> int:
+def half_mode(half: Half) -> int:
     if half is True:
         half = "last"
     return {False: 0, None: 0, "first": 1, "last": 2}[half]
@@ -146,8 +163,9 @@ def _half_mode(half: Half) -> int:
 
 def irfft_packed_plain(re: torch.Tensor, im: torch.Tensor, n: int,
                        half: Half = False) -> torch.Tensor:
-    y = irfft_sc(unpack_spectra(re, im, n), n)
-    mode = _half_mode(half)
+    nre, nim = unpack_spectra(re, im, n)
+    y = torch.fft.irfft(torch.complex(nre, nim), n=n)
+    mode = half_mode(half)
     if mode == 1:
         return y[..., :n // 2].contiguous()
     if mode == 2:
@@ -206,7 +224,7 @@ def irfft_packed(re: torch.Tensor, im: torch.Tensor, n: int,
     if _build.is_cpu(re, im):
         return irfft_packed_plain(re, im, n, half)
     _build.check_cuda_f32(re=re, im=im)
-    mode = _half_mode(half)
+    mode = half_mode(half)
     lm = log2_m(n)
     if re.shape[-1] != n // 2 or im.shape != re.shape:
         raise ValueError(f"packed spectra must be [..., {n // 2}], got "

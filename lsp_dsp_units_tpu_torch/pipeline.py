@@ -1,19 +1,28 @@
-"""The streaming chain: the port of pipeline.py's ``FilterConvChain``
-ring step.
+"""The streaming chain: the port of pipeline.py's ``FilterConvChain``.
 
-``FilterConvChain.step_ring`` runs one [C, B] block through an 8-band
-EQ, a partitioned convolver over a ring frequency-delay line and an RMS
-sidechain compressor.  It is one code path on every device: three
-wrappers, each of which runs its CUDA kernel for CUDA tensors and its
-plain PyTorch version for CPU tensors:
+An 8-band EQ, a 1 s partitioned convolver and an RMS sidechain
+compressor over [C, T] blocks, in three forms.  Each is one code path on
+every device: the wrappers below run their CUDA kernels for CUDA tensors
+and their plain PyTorch versions for CPU tensors.
 
-  1. ops.fft_packed.rfft_packed_zeropad   EQ input spectrum
-  2. ops.fdl_fused.eqfdl_fused            EQ + convolver + EQ state
-  3. ops.env.chain_dyn                    sidechain + compressor
+* ``step_ring`` — one [C, B] block, the convolver over a packed ring:
+    1. ops.fft_packed.rfft_packed_zeropad   EQ input spectrum
+    2. ops.fdl_fused.eqfdl_fused            EQ + convolver + EQ state
+    3. ops.env.chain_dyn                    sidechain + compressor
+* ``step`` — [C, M B] per call (the JAX package's entry point):
+    1. ops.biquad_block.cascade_block_fused  EQ: rfft_packed_zeropad,
+                                              irfft_packed (first half)
+    2. ops.fftconv.fdl_process               convolver: rfft_packed,
+                                              irfft_packed (last half)
+    3. Sidechain RMS                         ops.env_units.sliding_rms
+    4. Compressor                            ops.env_units.peak_envelope
+* ``bulk_step`` — one super-block: ``step``'s EQ and dynamics around a
+  single big-FFT overlap-save convolver (ops.fftconv.ols_bulk_process;
+  at frame sizes above the packed FFT's 32768, torch.fft).
 
-On the card nothing else runs on the step's path: no library FFT and
-no library matmul, so global TF32 or matmul-precision settings cannot
-change the output.
+No library matmul runs on any of them (the small state contractions are
+broadcast multiply-and-sums), so global TF32 or matmul-precision
+settings cannot change the output.
 """
 
 from __future__ import annotations
@@ -77,6 +86,20 @@ def chain_params(eq_coeffs: np.ndarray,
                        heq_re=heq_re, heq_im=heq_im, h_re=h_re, h_im=h_im)
 
 
+class ChainState(NamedTuple):
+    eq: torch.Tensor                        # [C, K, 2] balanced EQ state
+    fdl: fftconv.FDLState                   # natural order [C, P, B + 1]
+    sc: SidechainState
+    env: dyn.EnvState
+
+
+class ChainBulkState(NamedTuple):
+    eq: torch.Tensor
+    conv: fftconv.OLSBulkState              # [C, T_super] time history
+    sc: SidechainState
+    env: dyn.EnvState
+
+
 class ChainRingState(NamedTuple):
     eq: torch.Tensor                        # [C, K, 2] balanced EQ state
     fdl: fftconv.RingFDLState               # packed ring [P, C, B]
@@ -123,6 +146,61 @@ class FilterConvChain:
             h_spectra=fftconv.parse_ir(
                 torch.from_numpy(self.ir).to(self.device), self.block),
             comp=self.compressor.build())
+
+    def init_state(self, params: ChainParams,
+                   channels: Optional[int] = None) -> ChainState:
+        c = self.channels if channels is None else channels
+        return ChainState(
+            eq=biquad_block.init_state(params.eq_coeffs.shape[0], (c,),
+                                       self.device),
+            fdl=fftconv.init_fdl(params.h_spectra, (c,), self.device),
+            sc=self.sidechain.init_state((c,), self.device),
+            env=dyn.env_init((c,), self.device))
+
+    def step(self, params: ChainParams, state: ChainState,
+             x: torch.Tensor) -> Tuple[ChainState, torch.Tensor]:
+        """x: [C, T], T a multiple of self.block."""
+        y, eq_st = biquad_block.cascade_block_fused(params.eq_block,
+                                                    state.eq, x)
+        fdl_st, y = fftconv.fdl_process(params.h_spectra, state.fdl, y)
+        sc_st, level = self.sidechain.process(state.sc, y)
+        env_st, gain, _ = self.compressor.process(params.comp, state.env,
+                                                  level)
+        return ChainState(eq=eq_st, fdl=fdl_st, sc=sc_st,
+                          env=env_st), y * gain
+
+    def build_bulk(self, t_super: int) -> fftconv.Spectra:
+        """Whole-IR spectrum for :meth:`bulk_step` at super-block size
+        ``t_super`` (a multiple of self.block, >= len(ir) - 1)."""
+        if t_super % self.block:
+            raise ValueError(f"t_super {t_super} is not a multiple of "
+                             f"{self.block}")
+        return fftconv.ols_bulk_spectra(
+            torch.from_numpy(self.ir).to(self.device), t_super)
+
+    def init_bulk_state(self, params: ChainParams, t_super: int,
+                        channels: Optional[int] = None) -> ChainBulkState:
+        c = self.channels if channels is None else channels
+        return ChainBulkState(
+            eq=biquad_block.init_state(params.eq_coeffs.shape[0], (c,),
+                                       self.device),
+            conv=fftconv.init_ols_bulk(t_super, (c,), self.device),
+            sc=self.sidechain.init_state((c,), self.device),
+            env=dyn.env_init((c,), self.device))
+
+    def bulk_step(self, params: ChainParams, h_bulk: fftconv.Spectra,
+                  state: ChainBulkState, x: torch.Tensor
+                  ) -> Tuple[ChainBulkState, torch.Tensor]:
+        """One super-block x [C, T_super] through the chain: the math of
+        :meth:`step` with the convolver as one big-FFT overlap-save."""
+        y, eq_st = biquad_block.cascade_block_fused(params.eq_block,
+                                                    state.eq, x)
+        conv_st, y = fftconv.ols_bulk_process(h_bulk, state.conv, y)
+        sc_st, level = self.sidechain.process(state.sc, y)
+        env_st, gain, _ = self.compressor.process(params.comp, state.env,
+                                                  level)
+        return ChainBulkState(eq=eq_st, conv=conv_st, sc=sc_st,
+                              env=env_st), y * gain
 
     def init_ring_state(self, params: ChainParams,
                         channels: Optional[int] = None) -> ChainRingState:

@@ -96,6 +96,9 @@ def test_port_imports_no_jax():
     code = ("import sys\n"
             "import lsp_dsp_units_tpu_torch.pipeline\n"
             "import lsp_dsp_units_tpu_torch.convert\n"
+            "import lsp_dsp_units_tpu_torch.entry\n"
+            "import lsp_dsp_units_tpu_torch.models.dynamics.gate\n"
+            "import lsp_dsp_units_tpu_torch.models.dynamics.expander\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'lsp_dsp_units_tpu')]\n"
             "print(bad)\n"
@@ -127,11 +130,11 @@ def test_build_without_nvcc_raises(tmp_path, monkeypatch):
 
 def test_kernel_sources_cover_wrappers():
     """Every C entry point a wrapper declares exists in csrc/."""
-    from lsp_dsp_units_tpu_torch.ops import env, fdl_fused
+    from lsp_dsp_units_tpu_torch.ops import env, env_units, fdl_fused
     src = ""
     for name in os.listdir(_build.CSRC_DIR):
         with open(os.path.join(_build.CSRC_DIR, name)) as f:
             src += f.read()
-    for sigs in (tfft._SIGS, fdl_fused._SIGS, env._SIGS):
+    for sigs in (tfft._SIGS, fdl_fused._SIGS, env._SIGS, env_units._SIGS):
         for fn in sigs:
             assert f"int {fn}(" in src, fn

@@ -11,10 +11,18 @@ import pytest
 import torch
 
 from lsp_dsp_units_tpu_torch import pipeline as tpipe
-from lsp_dsp_units_tpu_torch.models.dynamics.compressor import Compressor
+from lsp_dsp_units_tpu_torch.models.dynamics.compressor import (
+    Compressor, CompressorMode)
+from lsp_dsp_units_tpu_torch.models.dynamics.expander import (
+    Expander, ExpanderMode)
+from lsp_dsp_units_tpu_torch.models.dynamics.gate import Gate
 from lsp_dsp_units_tpu_torch.models.filters.design import design_filter
+from lsp_dsp_units_tpu_torch.models.util.sidechain import (
+    Sidechain, SidechainMode)
 from lsp_dsp_units_tpu_torch.ops import biquad_block as tbb
+from lsp_dsp_units_tpu_torch.ops import cplx
 from lsp_dsp_units_tpu_torch.ops import dynamics as tdyn
+from lsp_dsp_units_tpu_torch.ops import env_units as eu
 from lsp_dsp_units_tpu_torch.ops import fft_packed as tfft
 from lsp_dsp_units_tpu_torch.ops import fftconv as tfc
 from lsp_dsp_units_tpu_torch.ops.env import chain_dyn, chain_dyn_plain
@@ -140,3 +148,139 @@ def test_step_ring_on_card_matches_cpu(cuda_device):
     after = (tfft.rfft_packed_zeropad.launches, eqfdl_fused.launches,
              chain_dyn.launches)
     assert all(a - b == 6 for a, b in zip(after, before))
+
+
+# ---------------------------------------------------------------------------
+# slice 2: step / bulk_step and the dynamics units (ops/env_units.py)
+# ---------------------------------------------------------------------------
+
+
+def _levels(gen, c, t, device):
+    """|noise| under a half-sine swell, so every knee and branch runs."""
+    swell = torch.sin(torch.linspace(0.0, torch.pi, t))
+    return (torch.randn(c, t, generator=gen).abs() * 0.6 * swell).to(device)
+
+
+@pytest.mark.parametrize("t", [16384, 300, 1])
+def test_sliding_rms_kernel_matches_plain(cuda_device, t):
+    """T < N runs the carried-window branch; level >= 110 dB against the
+    plain float32 cumsum form, window exact."""
+    c, n = 64, 480
+    gen = torch.Generator().manual_seed(t)
+    win = (_randn(gen, c, n, scale=0.3) ** 2).to(cuda_device)
+    x = _randn(gen, c, t, scale=0.25, device=cuda_device)
+    before = eu.sliding_rms.launches
+    wk, lk = eu.sliding_rms(win, x, n, 1.5)
+    wp, lp = eu.sliding_rms_plain(win, x, n, 1.5)
+    torch.cuda.synchronize()
+    assert eu.sliding_rms.launches == before + 1
+    assert torch.equal(wk, wp)
+    assert _snr(lp, lk) >= 110.0
+
+
+@pytest.mark.parametrize("t", [2048, 2047])
+@pytest.mark.parametrize("rt", [None, 0.2])
+def test_peak_envelope_kernel_matches_plain(cuda_device, t, rt):
+    c = 8
+    gen = torch.Generator().manual_seed(t)
+    x = _levels(gen, c, t, cuda_device)
+    st = tdyn.EnvState(torch.rand(c, generator=gen).to(cuda_device),
+                       torch.rand(c, generator=gen).to(cuda_device),
+                       torch.randint(0, 9, (c,), generator=gen,
+                                     dtype=torch.int32).to(cuda_device))
+    sk, ek = tdyn.peak_envelope(st, x, 0.05, 0.01, 24, rt)
+    sp, ep = tdyn.peak_envelope_plain(st, x, 0.05, 0.01, 24, rt)
+    torch.cuda.synchronize()
+    assert torch.equal(ek, ep)
+    for a, b in zip(sk, sp):
+        assert torch.equal(a, b)
+
+
+def test_gate_envelope_kernel_matches_plain(cuda_device):
+    c, t = 8, 2048
+    gen = torch.Generator().manual_seed(7)
+    x = _levels(gen, c, t, cuda_device)
+    x[:, t // 2:] *= 0.02
+    st = tdyn.env_init((c,), cuda_device)
+    cur = torch.zeros(c, dtype=torch.int32, device=cuda_device)
+    args = (x, 0.05, 0.02, 8, 0.2, 0.075)
+    sk, ck, ek, cvk = eu.gate_envelope(st, cur, *args)
+    sp, cp_, ep, cvp = eu.gate_envelope_plain(st, cur, *args)
+    torch.cuda.synchronize()
+    assert torch.equal(ek, ep) and torch.equal(cvk, cvp)
+    assert torch.equal(ck, cp_)
+    assert int((cvk[:, 1:] != cvk[:, :-1]).sum()) >= 2 * c
+    for a, b in zip(sk, sp):
+        assert torch.equal(a, b)
+
+
+def test_cplx_packed_route_matches_torch_fft(cuda_device):
+    gen = torch.Generator().manual_seed(3)
+    x = _randn(gen, 2, 3, 4096, device=cuda_device)
+    before = tfft.rfft_packed.launches
+    re, im = cplx.rfft_sc(x)
+    assert tfft.rfft_packed.launches == before + 1
+    ref = torch.fft.rfft(x)
+    assert _snr(ref.real, re) >= 95.0 and _snr(ref.imag, im) >= 95.0
+    y = cplx.irfft_sc((re, im), 4096, half="last")
+    assert y.shape == (2, 3, 2048)
+    assert _snr(x[..., 2048:], y) >= 95.0
+    zre, _ = cplx.rfft_sc(x[..., :2048], 4096)
+    assert _snr(torch.fft.rfft(x[..., :2048], n=4096).real, zre) >= 95.0
+
+
+def test_units_on_card_match_cpu(cuda_device):
+    c, t, sr = 8, 4096, 48000
+    gen = torch.Generator().manual_seed(11)
+    sig = _randn(gen, c, t, scale=0.3) * torch.sin(
+        torch.linspace(0.0, torch.pi, t))
+    units = [Compressor(sr, mode=m, attack_thresh=0.1, release_thresh=0.05,
+                        attack_ms=2.0, release_ms=20.0)
+             for m in CompressorMode]
+    units += [Expander(sr, mode=m, attack_thresh=0.1, attack_ms=2.0,
+                       release_ms=20.0) for m in ExpanderMode]
+    units.append(Gate(sr, threshold=0.1, zone=0.5, hyst_threshold=0.08,
+                      attack_ms=2.0, release_ms=20.0))
+    for mode in SidechainMode:
+        side = Sidechain(sr, mode, reactivity_ms=5.0)
+        sg, lg = side.process(side.init_state((c,), cuda_device),
+                              sig.to(cuda_device))
+        sc, lc = side.process(side.init_state((c,)), sig)
+        assert _snr(lc, lg) >= 110.0, mode
+        for unit in units:
+            p = unit.build()
+            _, gg, eg = unit.process(p, unit.init_state((c,), cuda_device),
+                                     lg)
+            _, gc, ec = unit.process(p, unit.init_state((c,)), lc)
+            assert _snr(ec, eg) >= 110.0, (mode, type(unit).__name__)
+            assert _snr(gc, gg) >= 110.0, (mode, type(unit).__name__)
+    torch.cuda.synchronize()
+
+
+def test_step_and_bulk_on_card_match_cpu(cuda_device):
+    c = 8
+    cg = tpipe.FilterConvChain(48000, c, rank=12, ir_seconds=0.2,
+                               device=cuda_device)
+    cc = tpipe.FilterConvChain(48000, c, rank=12, ir_seconds=0.2)
+    pg, pc = cg.build(), cc.build()
+    sg, sc = cg.init_state(pg), cc.init_state(pc)
+    rng = np.random.default_rng(10)
+    counters = (tfft.rfft_packed, tfft.rfft_packed_zeropad,
+                tfft.irfft_packed, eu.sliding_rms, eu.peak_envelope)
+    before = [f.launches for f in counters]
+    for k in range(3):
+        x = (rng.standard_normal((c, 2 * cg.block)) * 0.25).astype(
+            np.float32)
+        sg, yg = cg.step(pg, sg, torch.from_numpy(x).to(cuda_device))
+        sc, yc = cc.step(pc, sc, torch.from_numpy(x))
+        assert _snr(yc, yg) >= 95.0, k
+    assert all(f.launches - b >= 3 for f, b in zip(counters, before))
+    t_super = 4 * cg.block * 4
+    hg, hc = cg.build_bulk(t_super), cc.build_bulk(t_super)
+    bg, bc = cg.init_bulk_state(pg, t_super), cc.init_bulk_state(pc, t_super)
+    for k in range(2):
+        x = (rng.standard_normal((c, t_super)) * 0.25).astype(np.float32)
+        bg, yg = cg.bulk_step(pg, hg, bg, torch.from_numpy(x).to(cuda_device))
+        bc, yc = cc.bulk_step(pc, hc, bc, torch.from_numpy(x))
+        assert _snr(yc, yg) >= 95.0, k
+    torch.cuda.synchronize()
