@@ -7,7 +7,7 @@ Phases (any failure exits non-zero; nothing is caught):
 
 1. card   — CUDA must be available; prints nvidia-smi's name and power
             limit.
-2. build  — compiles the four CUDA sources of lsp_dsp_units_tpu_torch/csrc
+2. build  — compiles the six CUDA sources of lsp_dsp_units_tpu_torch/csrc
             (nvcc, sm_90a), one nvcc each, all started together, and
             prints the seconds.
 3. parity — each kernel against its plain PyTorch version on the card, at
@@ -42,14 +42,39 @@ Phases (any failure exits non-zero; nothing is caught):
             Compressor (3 modes), Expander (2 modes) and Gate, on the card
             and on the CPU: envelope and gain >= 110 dB between the two;
             the gate_envelope counter, zeroed just before, advances.
-8. timing — CUDA events behind a spin kernel: step_ring ms per block,
+8. ring   — the standalone ring convolver over the chain's 1 s IR at full
+            width (C=64, B=8192, P=6): fdl_fused against its plain
+            version (y and the written slot, unpacked, >= 95 dB); 24
+            blocks of fdl_ring_step on a packed ring, input rotated, the
+            fdl_fused counter zeroed just before and read just after (>=
+            24), 4 channels >= 85 dB from a float64 fftconvolve; ring_mac
+            against its plain version on natural (F = 8193) and packed
+            rows (acc >= 110 dB, ring identical); the three-kernel step
+            rfft_packed -> ring_mac -> irfft_packed against fdl_fused (y
+            >= 95 dB; its three counters, zeroed just before, advance);
+            Convolver(ir, rank=12) on [64, 8 x 2048] >= 85 dB from the
+            float64 golden.
+9. sampler — the device mixdown at 4096 voices, block 1024 (one 1 s noise
+            sample; even voices DIRECT-loop 1000-40000; delays (v*7) %
+            4800; volume 0.1): 64 blocks of mix_block_dma, the
+            batched_slice counter zeroed just before (>= 128), identical
+            to mix_block with identical playheads; the first 8 blocks >=
+            85 dB from the host SamplePlayer playing the same voices;
+            batched_slice against its plain version, exact, starts at 0,
+            1023, 1024, the clamp limit and beyond; one block with TF32
+            on identical; the card's voice-samples/s.
+10. timing — CUDA events behind a spin kernel: step_ring ms per block,
             step ms per call and per block, bulk_step ms per super-block;
-            each kernel against its plain version at the same shapes.
-            Host clock: the time to enqueue a block of step_ring, and the
-            delivered samples/s over 32 blocks ending in a sync.
+            each kernel against its plain version at the same shapes, its
+            bound (bytes over 3.35 TB/s or operations over 67 TFLOP/s
+            FP32, whichever is larger) and, where one PyTorch call
+            computes the same function, that call's time.  Host clock:
+            the time to enqueue a block of step_ring, and the delivered
+            samples/s over 32 blocks ending in a sync.
 
-The last three lines of standard output are the kernel table (JSON),
-the card's name and power limit, and the contract line
+The last three lines of standard output are the kernel table (JSON,
+all nine kernels), the card's name and power limit, and the contract
+line
 {"ok": true, "device": {...}}.
 """
 
@@ -76,6 +101,10 @@ from lsp_dsp_units_tpu_torch.models.dynamics.compressor import (  # noqa: E402
 from lsp_dsp_units_tpu_torch.models.dynamics.expander import (  # noqa: E402
     Expander, ExpanderMode)
 from lsp_dsp_units_tpu_torch.models.dynamics.gate import Gate  # noqa: E402
+from lsp_dsp_units_tpu_torch.models.sampling import (  # noqa: E402
+    LoopMode, PlaySettings, Sample, SamplePlayer, device_mix as dm)
+from lsp_dsp_units_tpu_torch.models.util.convolver import (  # noqa: E402
+    Convolver)
 from lsp_dsp_units_tpu_torch.models.util.sidechain import (  # noqa: E402
     Sidechain, SidechainMode)
 from lsp_dsp_units_tpu_torch.ops import _build  # noqa: E402
@@ -83,10 +112,13 @@ from lsp_dsp_units_tpu_torch.ops import dynamics as dyn  # noqa: E402
 from lsp_dsp_units_tpu_torch.ops import env_units as eu  # noqa: E402
 from lsp_dsp_units_tpu_torch.ops import fft_packed as fp  # noqa: E402
 from lsp_dsp_units_tpu_torch.ops import fftconv  # noqa: E402
+from lsp_dsp_units_tpu_torch.ops import slicedma  # noqa: E402
 from lsp_dsp_units_tpu_torch.ops.env import (  # noqa: E402
     chain_dyn, chain_dyn_plain)
 from lsp_dsp_units_tpu_torch.ops.fdl_fused import (  # noqa: E402
-    eqfdl_fused, eqfdl_fused_plain)
+    eqfdl_fused, eqfdl_fused_plain, fdl_fused, fdl_fused_plain)
+from lsp_dsp_units_tpu_torch.ops.ring_mac import (  # noqa: E402
+    ring_mac, ring_mac_plain)
 from lsp_dsp_units_tpu_torch.utils.delivery import (  # noqa: E402
     quantize_i16, tpdf_i16_table)
 
@@ -100,6 +132,56 @@ STEP_BLOCKS = 2
 T_SUPER = 65536               # bulk_step super-block (8 blocks)
 T_UNITS = 8192
 SPIN_CYCLES = 200_000_000     # ~0.1 s at the H100's 1.98 GHz SM clock
+MAC_DB = 110.0
+RING_BLOCKS = 24              # fdl_ring_step blocks on the ring path
+GOLD_CH = 4                   # channels held against the float64 golden
+CONV_RANK, CONV_BLOCKS = 12, 8
+VOICES, VBLOCK, VBLOCKS = 4096, 1024, 64   # the sampler's configuration
+HOST_BLOCKS = 8               # sampler blocks held against the host player
+
+# the card's limits for the bound of each kernel (NVIDIA H100 SXM data
+# sheet, at 700 W): HBM rate, FP32 rate outside the tensor cores, and the
+# boost clock for the serial envelopes' dependent-chain bound
+HBM_BYTES_PER_S = 3.35e12
+FP32_FLOPS_PER_S = 67e12
+SM_HZ = 1.98e9
+F32 = 4
+
+
+def fft_flops(n: int) -> float:
+    """Operations of one real N-point FFT: the usual 2.5 N log2 N."""
+    return 2.5 * n * np.log2(n)
+
+
+def bound(nbytes: float, flops: float) -> dict:
+    """The least time the card could take for a kernel's work: the larger
+    of the bytes it must move (each input read once, each output written
+    once) over the HBM rate and its operations over the FP32 rate, in ms,
+    and which of the two it is."""
+    t_b, t_o = nbytes / HBM_BYTES_PER_S, flops / FP32_FLOPS_PER_S
+    return dict(bound_ms=max(t_b, t_o) * 1e3,
+                bound_by="bytes" if t_b >= t_o else "operations")
+
+
+def chain_ms(t: int) -> float:
+    """Dependent-chain bound of a serial envelope over t samples: at least
+    one FMA (4 cycles) per sample, at the boost clock."""
+    return t * 4 / SM_HZ * 1e3
+
+
+# the nine TPU kernels of the JAX package and their ports: result key,
+# name, CUDA source, the JAX function that reaches pl.pallas_call
+KERNELS = (
+    ("fft", "rfft_packed_zeropad", "fft_packed.cu", "pallas_fft.py:549"),
+    ("eqfdl", "eqfdl_fused", "fdl_fused.cu", "pallas_fdl_fused.py:222"),
+    ("dyn", "chain_dyn", "env.cu", "pallas_env.py:523"),
+    ("fdl", "fdl_fused", "fdl_fused.cu", "pallas_fdl_fused.py:80"),
+    ("rms", "sliding_rms", "env_units.cu", "pallas_env.py:294"),
+    ("peak", "peak_envelope", "env_units.cu", "pallas_env.py:334"),
+    ("gate", "gate_envelope", "env_units.cu", "pallas_env.py:183"),
+    ("slice", "batched_slice", "slicedma.cu", "slicedma.py:77"),
+    ("mac", "ring_mac", "ring_mac.cu", "pallas_fdl.py:85"),
+)
 
 
 def check(ok: bool, what: str) -> None:
@@ -177,6 +259,8 @@ def parity_fft(dev, res):
     res["fft"]["ms"] = time_ms(lambda: fp.rfft_packed_zeropad(xh), 50)
     res["fft"]["plain_ms"] = time_ms(
         lambda: fp.rfft_packed_zeropad_plain(xh), 50)
+    res["fft"]["library_ms"] = time_ms(lambda: torch.fft.rfft(xh, n=N), 50)
+    res["fft"].update(bound(F32 * 3 * C * B, C * fft_flops(N)))
 
 
 def parity_eqfdl(chain, params, dev, res):
@@ -184,8 +268,10 @@ def parity_eqfdl(chain, params, dev, res):
     eqp = params.eq_block
     k2 = eqp.m_mat.shape[0]
     p_n = params.h_re.shape[0]
-    ring_k = fftconv.init_ring_fdl(params.h_spectra, (C,), device=dev)
-    ring_p = fftconv.init_ring_fdl(params.h_spectra, (C,), device=dev)
+    ring_k = fftconv.init_ring_fdl(params.h_spectra, (C,), packed=True,
+                                   device=dev)
+    ring_p = fftconv.init_ring_fdl(params.h_spectra, (C,), packed=True,
+                                   device=dev)
     sv_k = sv_p = torch.zeros(C, k2, device=dev)
     worst = dict(y=1e9, u=1e9, sv=1e9, ring=1e9)
     err = 0.0
@@ -223,6 +309,14 @@ def parity_eqfdl(chain, params, dev, res):
     res["eqfdl"]["plain_ms"] = time_ms(lambda: eqfdl_fused_plain(
         ring_p.spec_re, ring_p.spec_im, *common, sv_p, *mats,
         ring_p.history, w), 20)
+    plane = C * B * F32
+    res["eqfdl"].update(library_ms=None, **bound(
+        # ring: P-1 slots read, one written; IR, EQ spectrum, xs, x, hist,
+        # the EQ matrices and state; y and u
+        2 * plane * p_n + F32 * (2 * p_n * B + 2 * B + 2 * k2 * B
+                                 + k2 * k2 + 2 * C * k2) + 6 * plane,
+        C * (3 * fft_flops(N) + 8 * p_n * B + 6 * B + 4 * k2 * B
+             + 2 * k2 * k2)))
 
 
 def parity_dyn(chain, params, dev, res):
@@ -253,6 +347,8 @@ def parity_dyn(chain, params, dev, res):
     res["dyn"]["ms"] = time_ms(lambda: chain_dyn(wk, ek, x, *args), 20)
     res["dyn"]["plain_ms"] = time_ms(lambda: chain_dyn_plain(
         wp, ep, x, *args), 2, warmup=1)
+    res["dyn"].update(library_ms=None, chain_ms=chain_ms(B), **bound(
+        F32 * (2 * C * B + 2 * C * n + 6 * C), 30 * C * B))
 
 
 def clone_state(st):
@@ -428,6 +524,8 @@ def parity_env_units(chain, params, dev, res):
     res["rms"]["ms"] = time_ms(lambda: eu.sliding_rms(*timed, n, 1.0), 50)
     res["rms"]["plain_ms"] = time_ms(
         lambda: eu.sliding_rms_plain(*timed, n, 1.0), 20)
+    res["rms"].update(library_ms=None, **bound(
+        F32 * (2 * C * t + 2 * C * n), 4 * C * t))
 
     x = swell_levels(gen, C, t, dev)
     st0 = dyn.EnvState(torch.rand(C, generator=gen).to(dev),
@@ -453,6 +551,8 @@ def parity_env_units(chain, params, dev, res):
           f"and off: envelope, peak and hold exact")
     res["peak"].update(max_abs_err=err, ms=time_ms(lambda: eu.peak_envelope(
         st0, x, cp.tau_attack, cp.tau_release, hold, cp.release_thresh), 20))
+    res["peak"].update(library_ms=None, chain_ms=chain_ms(t), **bound(
+        F32 * (2 * C * t + 6 * C), 6 * C * t))
 
     gp = Gate(SR, threshold=0.2, zone=0.5, hyst_threshold=0.15,
               attack_ms=2.0, release_ms=20.0, hold_ms=0.5).build()
@@ -475,7 +575,9 @@ def parity_env_units(chain, params, dev, res):
           f"({switches} switches) and state exact")
     res["gate"] = dict(max_abs_err=max_abs(ep, ek), plain_ms=plain_ms,
                        ms=time_ms(lambda: eu.gate_envelope(
-                           env0, cur0, *gargs), 20))
+                           env0, cur0, *gargs), 20),
+                       library_ms=None, chain_ms=chain_ms(t),
+                       **bound(F32 * (3 * C * t + 8 * C), 8 * C * t))
 
 
 STEP_COUNTERS = (fp.rfft_packed, fp.rfft_packed_zeropad, fp.irfft_packed,
@@ -591,12 +693,12 @@ def units_phase(dev, res):
     for mode in SidechainMode:
         side = Sidechain(SR, mode, reactivity_ms=10.0)
         _, lg = side.process(side.init_state((C,), dev), sig_d)
-        _, lc = side.process(side.init_state((C,)), sig)
+        _, lc = side.process(side.init_state((C,), "cpu"), sig)
         worst["level"] = min(worst["level"], snr_db(lc, lg.cpu()))
         for unit in units:
             p = unit.build()
             _, gg, eg = unit.process(p, unit.init_state((C,), dev), lg)
-            _, gc, ec = unit.process(p, unit.init_state((C,)), lc)
+            _, gc, ec = unit.process(p, unit.init_state((C,), "cpu"), lc)
             worst["envelope"] = min(worst["envelope"], snr_db(ec, eg.cpu()))
             worst["gain"] = min(worst["gain"], snr_db(gc, gg.cpu()))
     torch.cuda.synchronize()
@@ -611,6 +713,274 @@ def units_phase(dev, res):
           f"gate_envelope launched {gate_launches} times")
     res["units_db"] = worst
     res["gate"]["launches"] = gate_launches
+
+
+def ring_phase(chain, params, dev, res):
+    """The standalone ring convolver over the chain's 1 s IR at full
+    width (C=64, B=8192, P=6): kernels #4 (fdl_fused) and #9 (ring_mac)
+    against their plain versions; 24 blocks of fdl_ring_step on a packed
+    ring against the float64 ideal; the three-kernel step (rfft_packed ->
+    ring_mac -> irfft_packed) against the fused one; the Convolver
+    unit."""
+    from scipy.signal import fftconvolve
+
+    gen = torch.Generator().manual_seed(10)
+    h = params.h_spectra
+    hp = (params.h_re, params.h_im)
+    p_n = hp[0].shape[0]
+    ir = np.asarray(chain.ir, np.float64)[None, :]
+
+    # fdl_fused against its plain version; the written slot unpacked
+    ring_k = fftconv.init_ring_fdl(h, (C,), packed=True, device=dev)
+    ring_p = fftconv.init_ring_fdl(h, (C,), packed=True, device=dev)
+    worst, err = dict(y=1e9, slot=1e9), 0.0
+    for k in range(p_n + 2):
+        x = randn(gen, C, B, scale=0.25, dev=dev)
+        w = (ring_k.pos + 1) % p_n
+        yk = fdl_fused(*ring_k[:2], *hp, ring_k.history, x, w)
+        yp = fdl_fused_plain(*ring_p[:2], *hp, ring_p.history, x, w)
+        ring_k = ring_k._replace(history=x, pos=w)
+        ring_p = ring_p._replace(history=x, pos=w)
+        sk = fp.unpack_spectra(ring_k.spec_re[w], ring_k.spec_im[w], N)
+        sp = fp.unpack_spectra(ring_p.spec_re[w], ring_p.spec_im[w], N)
+        worst["y"] = min(worst["y"], snr_db(yp, yk))
+        worst["slot"] = min(worst["slot"], snr_db(sp[0], sk[0]),
+                            snr_db(sp[1], sk[1]))
+        err = max(err, max_abs(yp, yk))
+    torch.cuda.synchronize()
+    print(f"parity fdl_fused (worst of {p_n + 2} blocks): "
+          + ", ".join(f"{k} {v:.1f} dB" for k, v in worst.items()))
+    for k, v in worst.items():
+        check(v >= LIN_DB, f"fdl_fused {k} {v:.1f} dB < {LIN_DB}")
+    w = (ring_k.pos + 1) % p_n
+    plane = C * B * F32
+    r = res["fdl"] = dict(db=worst, max_abs_err=err, library_ms=None)
+    r["ms"] = time_ms(lambda: fdl_fused(*ring_k[:2], *hp, ring_k.history,
+                                        x, w), 50)
+    r["plain_ms"] = time_ms(lambda: fdl_fused_plain(
+        *ring_p[:2], *hp, ring_p.history, x, w), 20)
+    # ring: P-1 slots read, one written; IR; hist and x; y
+    r.update(bound(2 * plane * p_n + F32 * 2 * p_n * B + 3 * plane,
+                   C * (2 * fft_flops(N) + 8 * p_n * B)))
+
+    # the ring path: fdl_ring_step on a packed ring, input rotated
+    rng = np.random.default_rng(11)
+    x0 = (rng.standard_normal((C, B)) * 0.25).astype(np.float32)
+    x0d = torch.from_numpy(x0).to(dev)
+    st = fftconv.init_ring_fdl(h, (C,), packed=True, device=dev)
+    torch.cuda.synchronize()
+    fdl_fused.launches = 0
+    ys = []
+    for k in range(RING_BLOCKS):
+        st, y = fftconv.fdl_ring_step(h, st, torch.roll(x0d, shifts=k,
+                                                        dims=-1))
+        ys.append(y[:GOLD_CH])
+    torch.cuda.synchronize()
+    r["launches"] = fdl_fused.launches
+    check(r["launches"] >= RING_BLOCKS,
+          f"fdl_fused launched {r['launches']} < {RING_BLOCKS} times")
+    check(y.shape == (C, B) and bool(torch.isfinite(y).all())
+          and bool(torch.isfinite(st.spec_re).all()),
+          "ring output or state not finite or of the wrong shape")
+    xin = np.concatenate([np.roll(x0[:GOLD_CH], k, axis=-1)
+                          for k in range(RING_BLOCKS)], axis=-1)
+    gold = fftconvolve(xin.astype(np.float64), ir,
+                       axes=-1)[:, :RING_BLOCKS * B]
+    db = snr_db(torch.from_numpy(gold), torch.cat(ys, dim=-1).cpu())
+    print(f"ring path: {RING_BLOCKS} blocks of fdl_ring_step (packed ring, "
+          f"[{C}, {B}], P={p_n}); fdl_fused launches {r['launches']}; "
+          f"{GOLD_CH} channels vs float64 fftconvolve {db:.2f} dB")
+    check(db >= CHAIN_DB, f"ring path {db:.2f} dB < {CHAIN_DB}")
+    res["ring_vs_golden_db"] = db
+
+    # ring_mac against its plain version, natural and packed rows
+    res["mac"] = dict(library_ms=None)
+    for name, f_n, hh, packed in (("natural", B + 1, (h.re, h.im), False),
+                                  ("packed", B, hp, True)):
+        rk = [randn(gen, p_n, C, f_n, dev=dev) for _ in range(2)]
+        rp = [t.clone() for t in rk]
+        sv = [randn(gen, C, f_n, dev=dev) for _ in range(2)]
+        ak = ring_mac(*rk, *hh, *sv, 2, packed_dc=packed)
+        ap = ring_mac_plain(*rp, *hh, *sv, 2, packed_dc=packed)
+        torch.cuda.synchronize()
+        db = min(snr_db(ap[0], ak[0]), snr_db(ap[1], ak[1]))
+        same = all(torch.equal(a, b) for a, b in zip(rk, rp))
+        print(f"parity ring_mac {name} (F={f_n}): acc {db:.1f} dB, max abs "
+              f"err {max(max_abs(ap[0], ak[0]), max_abs(ap[1], ak[1]))}; "
+              f"ring identical = {same}")
+        check(db >= MAC_DB, f"ring_mac {name} {db:.1f} dB < {MAC_DB}")
+        check(same, f"ring_mac {name}: ring differs")
+        res["mac"][name] = dict(
+            db=db, max_abs_err=max(max_abs(ap[0], ak[0]),
+                                   max_abs(ap[1], ak[1])),
+            ms=time_ms(lambda: ring_mac(*rk, *hh, *sv, 2, packed), 50),
+            plain_ms=time_ms(lambda: ring_mac_plain(*rp, *hh, *sv, 2,
+                                                    packed), 20),
+            # ring: P-1 slots read, one written; IR; S; acc
+            **bound(F32 * (2 * C * f_n * (p_n + 2) + 2 * p_n * f_n),
+                    8 * p_n * C * f_n))
+    res["mac"].update({k: res["mac"]["packed"][k] for k in
+                       ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                        "bound_by")})
+
+    # the three-kernel step against the fused one
+    ring_a = fftconv.init_ring_fdl(h, (C,), packed=True, device=dev)
+    ring_b = fftconv.init_ring_fdl(h, (C,), packed=True, device=dev)
+    staged = (fp.rfft_packed, ring_mac, fp.irfft_packed)
+    torch.cuda.synchronize()
+    for fn in staged:
+        fn.launches = 0
+    worst3 = 1e9
+    for k in range(p_n + 2):
+        x = randn(gen, C, B, scale=0.25, dev=dev)
+        w = (ring_a.pos + 1) % p_n
+        ya = fdl_fused(*ring_a[:2], *hp, ring_a.history, x, w)
+        s_re, s_im = fp.rfft_packed(torch.cat([ring_b.history, x], dim=-1))
+        acc = ring_mac(*ring_b[:2], *hp, s_re, s_im, w, packed_dc=True)
+        yb = fp.irfft_packed(*acc, N, "last")
+        ring_a = ring_a._replace(history=x, pos=w)
+        ring_b = ring_b._replace(history=x, pos=w)
+        worst3 = min(worst3, snr_db(ya, yb))
+    torch.cuda.synchronize()
+    launched = {fn.__name__: fn.launches for fn in staged}
+    res["mac"]["launches"] = launched["ring_mac"]
+    print(f"three-kernel step ({p_n + 2} blocks) vs fdl_fused: y "
+          f"{worst3:.1f} dB; launches {launched}")
+    check(worst3 >= LIN_DB, f"three-kernel step {worst3:.1f} dB < {LIN_DB}")
+    for name, cnt in launched.items():
+        check(cnt >= p_n + 2, f"{name} launched {cnt} < {p_n + 2} times")
+    res["three_kernel_db"] = worst3
+
+    # the Convolver unit: one call of 8 blocks at rank 12
+    conv = Convolver(chain.ir, rank=CONV_RANK, device=dev)
+    xc = (rng.standard_normal((C, CONV_BLOCKS * conv.block)) * 0.25).astype(
+        np.float32)
+    _, yc = conv.process(conv.init_state((C,)), torch.from_numpy(xc).to(dev))
+    gold = fftconvolve(xc.astype(np.float64), ir, axes=-1)[:, :xc.shape[-1]]
+    db = snr_db(torch.from_numpy(gold), yc.cpu())
+    print(f"Convolver(rank={CONV_RANK}, {conv.partitions} partitions) on "
+          f"[{C}, {xc.shape[-1]}]: {db:.2f} dB from float64 fftconvolve")
+    check(db >= CHAIN_DB, f"Convolver {db:.2f} dB < {CHAIN_DB}")
+    res["convolver_vs_golden_db"] = db
+
+
+def sampler_phase(dev, res):
+    """The device sampler mixdown at benchmarks/polyphony.py's device
+    configuration: 4096 voices, block 1024, one 1 s noise sample; even
+    voices DIRECT-loop 1000-40000, delays (v * 7) % 4800, volume 0.1."""
+    rng = np.random.default_rng(0)
+    data = (rng.normal(size=SR) * 0.25).astype(np.float32)
+    specs = [dict(sample_id=0, channel=0, volume=0.1, delay=(v * 7) % 4800,
+                  loop=(v % 2 == 0), loop_start=1000, loop_end=40000)
+             for v in range(VOICES)]
+    bank, bank_len = dm.build_bank([data], device=dev)
+    bank_p, _, pad = dm.build_bank_padded([data], VBLOCK, device=dev)
+    voices, st0 = dm.build_voices(specs, 1, [SR], device=dev)
+
+    torch.cuda.synchronize()
+    slicedma.batched_slice.launches = 0
+    st, outs = st0, []
+    for _ in range(VBLOCKS):
+        st, y = dm.mix_block_dma(bank_p, bank_len, pad, voices, st, VBLOCK)
+        outs.append(y)
+    torch.cuda.synchronize()
+    launched = slicedma.batched_slice.launches
+    check(launched >= 2 * VBLOCKS,
+          f"batched_slice launched {launched} < {2 * VBLOCKS} times")
+    st_g, same = st0, True
+    for y in outs:
+        st_g, yg = dm.mix_block(bank, bank_len, voices, st_g, VBLOCK)
+        same = same and torch.equal(y, yg)
+    same_pos = torch.equal(st.pos, st_g.pos)
+    out = torch.cat(outs, dim=-1)
+    print(f"sampler: {VBLOCKS} blocks of mix_block_dma, {VOICES} voices x "
+          f"{VBLOCK}; batched_slice launches {launched}; identical to "
+          f"mix_block = {same}, playheads identical = {same_pos}")
+    check(same and same_pos, "mix_block_dma differs from mix_block")
+    check(out.shape == (1, VBLOCKS * VBLOCK)
+          and bool(torch.isfinite(out).all())
+          and float(out.abs().max()) > 0, "sampler output")
+
+    # the host SamplePlayer defines the semantics; it sums the voices in
+    # float32 one by one, the card in float64 rounded once
+    smp = Sample(1, SR, SR)
+    smp.data = data[None].copy()
+    player = SamplePlayer(max_samples=1, max_playbacks=VOICES)
+    player.bind(0, smp)
+    for sp in specs:
+        player.play(PlaySettings(
+            sample_id=0, channel=0, volume=sp["volume"], delay=sp["delay"],
+            loop_mode=LoopMode.DIRECT if sp["loop"] else LoopMode.NONE,
+            loop_start=sp["loop_start"], loop_end=sp["loop_end"]))
+    host = np.concatenate([player.process(VBLOCK)
+                           for _ in range(HOST_BLOCKS)])
+    db = snr_db(torch.from_numpy(host), out[0, :HOST_BLOCKS * VBLOCK].cpu())
+    print(f"sampler vs the host SamplePlayer, {HOST_BLOCKS} blocks: "
+          f"{db:.2f} dB")
+    check(db >= CHAIN_DB, f"sampler vs host player {db:.2f} dB < {CHAIN_DB}")
+    res["sampler_vs_host_db"] = db
+
+    # TF32 on: the routing product is float64, so the output is identical
+    _, y_ref = dm.mix_block_dma(bank_p, bank_len, pad, voices, st, VBLOCK)
+    prev = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = True
+    torch.backends.cudnn.allow_tf32 = True
+    _, y_tf32 = dm.mix_block_dma(bank_p, bank_len, pad, voices, st, VBLOCK)
+    torch.backends.cuda.matmul.allow_tf32, \
+        torch.backends.cudnn.allow_tf32 = prev
+    same = bool(torch.equal(y_ref, y_tf32))
+    print(f"sampler, TF32 on: output identical = {same}")
+    check(same, "sampler output changed with TF32 switched on")
+
+    # batched_slice against its plain version: edges, the clamp limit and
+    # beyond, random starts
+    gen = torch.Generator().manual_seed(12)
+    lim = bank_p.shape[0] - VBLOCK - slicedma.SLACK
+    edge = [0, 1, 1023, 1024, lim - 1, lim, lim + 5, -7]
+    starts = torch.cat([
+        torch.tensor(edge, dtype=torch.int32),
+        torch.randint(0, lim, (VOICES - len(edge),), generator=gen,
+                      dtype=torch.int32)]).to(dev)
+    got = slicedma.batched_slice(bank_p, starts, VBLOCK)
+    want = slicedma.batched_slice_plain(bank_p, starts, VBLOCK)
+    torch.cuda.synchronize()
+    check(torch.equal(got, want), "batched_slice differs from its plain "
+                                  "version")
+    print(f"parity batched_slice: {VOICES} windows of {VBLOCK} (starts 0, "
+          f"1023, 1024, the clamp limit {lim} and beyond) exact")
+    s64 = starts.long().clamp(0, lim)
+    idx = torch.arange(VBLOCK, device=dev)
+    res["slice"] = dict(
+        launches=launched, max_abs_err=max_abs(want, got),
+        ms=time_ms(lambda: slicedma.batched_slice(bank_p, starts, VBLOCK),
+                   100),
+        plain_ms=time_ms(lambda: slicedma.batched_slice_plain(
+            bank_p, starts, VBLOCK), 50),
+        library_ms=time_ms(lambda: bank_p[s64[:, None] + idx], 50),
+        # the windows written, the bank and the starts read once
+        **bound(F32 * (VOICES * VBLOCK + bank_p.shape[0]) + 4 * VOICES, 0))
+
+    state = [st]
+
+    def one(dma):
+        if dma:
+            state[0], _ = dm.mix_block_dma(bank_p, bank_len, pad, voices,
+                                           state[0], VBLOCK)
+        else:
+            state[0], _ = dm.mix_block(bank, bank_len, voices, state[0],
+                                       VBLOCK)
+
+    ms = time_ms(lambda: one(True), VBLOCKS)
+    ms16 = time_ms(lambda: one(True), 16)
+    ms_g = time_ms(lambda: one(False), VBLOCKS)
+    res.update(sampler_ms_per_block=ms, sampler_ms_per_block_16=ms16,
+               sampler_gather_ms_per_block=ms_g,
+               voice_samples_per_s=VOICES * VBLOCK / (ms * 1e-3))
+    print(f"sampler: mix_block_dma {ms:.4f} ms/block on the card (CUDA "
+          f"events, {VBLOCKS} blocks; {ms16:.4f} over 16) = "
+          f"{res['voice_samples_per_s'] / 1e9:.3f} G voice-samples/s; "
+          f"mix_block (gather) {ms_g:.4f} ms/block")
 
 
 def timing_phase(chain, params, dev, res):
@@ -671,7 +1041,8 @@ def main(argv=None) -> int:
            "cuda": torch.version.cuda}
 
     t0 = time.perf_counter()
-    sources = ("fft_packed", "fdl_fused", "env", "env_units")
+    sources = ("fft_packed", "fdl_fused", "env", "env_units", "ring_mac",
+               "slicedma")
     with concurrent.futures.ThreadPoolExecutor(len(sources)) as pool:
         list(pool.map(_build.build, sources))
     res["build_s"] = time.perf_counter() - t0
@@ -691,47 +1062,29 @@ def main(argv=None) -> int:
     step_phase(chain, params, dev, res)
     bulk_phase(chain, params, dev, res)
     units_phase(dev, res)
+    ring_phase(chain, params, dev, res)
+    sampler_phase(dev, res)
     timing_phase(chain, params, dev, res)
 
-    for key, label in (("fft", "rfft_packed_zeropad"), ("eqfdl",
-                                                        "eqfdl_fused"),
-                       ("dyn", "chain_dyn"), ("rms", "sliding_rms"),
-                       ("peak", "peak_envelope"), ("gate", "gate_envelope")):
+    res["fft"]["launches"] = res["launches"]["fft"]
+    res["eqfdl"]["launches"] = res["launches"]["eqfdl"]
+    res["dyn"]["launches"] = res["launches"]["dyn"]
+    res["rms"]["launches"] = res["step_launches"]["sliding_rms"]
+    res["peak"]["launches"] = res["step_launches"]["peak_envelope"]
+    kernels = []
+    for key, name, src, replaces in KERNELS:
         r = res[key]
-        print(f"kernel {label}: {r['ms']:.4f} ms vs plain "
-              f"{r['plain_ms']:.4f} ms ({card})")
-    kernels = [
-        dict(name="rfft_packed_zeropad", route="cuda",
-             source="lsp_dsp_units_tpu_torch/csrc/fft_packed.cu",
-             replaces="lsp_dsp_units_tpu/ops/pallas_fft.py:549",
-             launches=res["launches"]["fft"],
-             max_abs_err=res["fft"]["max_abs_err"], ms=res["fft"]["ms"],
-             plain_ms=res["fft"]["plain_ms"]),
-        dict(name="eqfdl_fused", route="cuda",
-             source="lsp_dsp_units_tpu_torch/csrc/fdl_fused.cu",
-             replaces="lsp_dsp_units_tpu/ops/pallas_fdl_fused.py:222",
-             launches=res["launches"]["eqfdl"],
-             max_abs_err=res["eqfdl"]["max_abs_err"],
-             ms=res["eqfdl"]["ms"], plain_ms=res["eqfdl"]["plain_ms"]),
-        dict(name="chain_dyn", route="cuda",
-             source="lsp_dsp_units_tpu_torch/csrc/env.cu",
-             replaces="lsp_dsp_units_tpu/ops/pallas_env.py:523",
-             launches=res["launches"]["dyn"],
-             max_abs_err=res["dyn"]["max_abs_err"], ms=res["dyn"]["ms"],
-             plain_ms=res["dyn"]["plain_ms"]),
-    ]
-    for key, name, line, launches in (
-            ("rms", "sliding_rms", 294, res["step_launches"]["sliding_rms"]),
-            ("peak", "peak_envelope", 334,
-             res["step_launches"]["peak_envelope"]),
-            ("gate", "gate_envelope", 183, res["gate"]["launches"])):
-        r = res[key]
+        print(f"kernel {name}: {r['ms']:.4f} ms vs plain "
+              f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
+              f"({r['bound_by']}), library "
+              + ("none" if r["library_ms"] is None
+                 else f"{r['library_ms']:.4f} ms") + f" ({card})")
         kernels.append(dict(
             name=name, route="cuda",
-            source="lsp_dsp_units_tpu_torch/csrc/env_units.cu",
-            replaces=f"lsp_dsp_units_tpu/ops/pallas_env.py:{line}",
-            launches=launches, max_abs_err=r["max_abs_err"], ms=r["ms"],
-            plain_ms=r["plain_ms"]))
+            source=f"lsp_dsp_units_tpu_torch/csrc/{src}",
+            replaces=f"lsp_dsp_units_tpu/ops/{replaces}",
+            **{k: r[k] for k in ("launches", "max_abs_err", "ms", "plain_ms",
+                                 "bound_ms", "bound_by", "library_ms")}))
     if args.out:
         with open(args.out, "w") as f:
             json.dump(dict(res, kernels=kernels), f, indent=1)

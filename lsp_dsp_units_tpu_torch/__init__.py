@@ -9,10 +9,17 @@ package on the ported path is a CUDA kernel written for Hopper under
 only for CUDA tensors; CPU tensors take each kernel's plain PyTorch
 version.  The package imports neither JAX nor the JAX package.
 
+Every TPU kernel of the JAX package has its CUDA counterpart here.
 Ported so far: the chain ``pipeline.FilterConvChain`` (EQ -> convolver
 -> RMS sidechain -> compressor) as ``step_ring`` with its int16 delivery
 (``utils.delivery``), ``step`` and ``bulk_step``; ``entry.entry``; the
-dynamics units Sidechain, Compressor, Expander and Gate.
+dynamics units Sidechain, Compressor, Expander and Gate; the standalone
+convolver (``models.util.convolver``, ``ops.fftconv.fdl_ring_step`` on a
+natural or packed ring, ``utils.blocks``); the sampler
+(``models.sampling``: Sample, SamplePlayer, InSampleStream and the
+device mixdown ``device_mix``), ``ops.resample`` and ``utils.wavio``.
+Entry points allocate on the card (``device="cuda"``) unless the caller
+passes another device.
 """
 
 __version__ = "0.1.0"

@@ -1,13 +1,16 @@
-"""Carry the JAX package's chain parameters and ring state into the
-port, so both packages can run the same chain from the same point.
+"""Carry the JAX package's parameters and states into the port, so both
+packages can run the same path from the same point.
 
-Inputs are the JAX package's ``ChainParams`` and chain states
-(``ChainState``, ``ChainBulkState``, ``ChainRingState``) with every
-array leaf converted to numpy (``jax.tree_util.tree_map(np.asarray,
-...)``); this module imports no JAX.  ``ChainState`` and
-``ChainBulkState`` keep the JAX layouts as they are; the JAX ring is the
-natural-order [P, C, B + 1] form (its CPU layout), the port's ring is
-packed [P, C, B] (ops/fft_packed.py).
+Inputs are the JAX package's ``ChainParams``, chain states
+(``ChainState``, ``ChainBulkState``, ``ChainRingState``), ring convolver
+states (``RingFDLState``) and sampler tables (``DeviceVoices``,
+``DeviceMixState``) with every array leaf converted to numpy
+(``jax.tree_util.tree_map(np.asarray, ...)``); this module imports no
+JAX.  ``ChainState`` and ``ChainBulkState`` keep the JAX layouts as they
+are.  A JAX ring comes in natural order [P, ..., B + 1] (its CPU layout;
+a scrambled-packed JAX ring is unpacked first with the JAX package's
+``pallas_fft.unpack_spectra``); the port's ring is natural or packed
+[P, C, B] (ops/fft_packed.py).
 """
 
 from __future__ import annotations
@@ -17,6 +20,7 @@ import torch
 
 from lsp_dsp_units_tpu_torch.models.dynamics.compressor import (
     CompressorParams)
+from lsp_dsp_units_tpu_torch.models.sampling import device_mix
 from lsp_dsp_units_tpu_torch.models.util.sidechain import SidechainState
 from lsp_dsp_units_tpu_torch.ops import biquad_block, fftconv
 from lsp_dsp_units_tpu_torch.ops import dynamics as dyn
@@ -89,18 +93,36 @@ def ring_from_natural(re, im, device=None):
     return fp.pack_spectra(re, _t(im, device), n)
 
 
+def ring_fdl_from_jax(s, packed: bool = False,
+                      device=None) -> fftconv.RingFDLState:
+    """JAX ``RingFDLState`` (numpy leaves, natural-order ring [P, ...,
+    B + 1]) -> port ``RingFDLState``, natural or (``packed``) packed."""
+    b = np.asarray(s.history).shape[-1]
+    if np.asarray(s.spec_re).shape[-1] != b + 1:
+        raise ValueError("expected the JAX natural-order ring [P, ..., B+1]; "
+                         "unpack a scrambled-packed one with the JAX "
+                         "package's pallas_fft.unpack_spectra first")
+    if packed:
+        spec_re, spec_im = ring_from_natural(s.spec_re, s.spec_im, device)
+    else:
+        spec_re, spec_im = _t(s.spec_re, device), _t(s.spec_im, device)
+    return fftconv.RingFDLState(spec_re=spec_re, spec_im=spec_im,
+                                history=_t(s.history, device),
+                                pos=int(np.asarray(s.pos)))
+
+
 def ring_state_from_jax(s, device=None) -> ChainRingState:
     """JAX ``ChainRingState`` (numpy leaves, natural-order ring) -> port
     ``ChainRingState``."""
-    b = np.asarray(s.fdl.history).shape[-1]
-    if np.asarray(s.fdl.spec_re).shape[-1] != b + 1:
-        raise ValueError("expected the JAX natural-order ring [P, C, B+1]")
-    spec_re, spec_im = ring_from_natural(s.fdl.spec_re, s.fdl.spec_im,
-                                         device)
     sc, env = _sc_env(s, device)
-    return ChainRingState(
-        eq=_t(s.eq, device),
-        fdl=fftconv.RingFDLState(spec_re=spec_re, spec_im=spec_im,
-                                 history=_t(s.fdl.history, device),
-                                 pos=int(np.asarray(s.fdl.pos))),
-        sc=sc, env=env)
+    return ChainRingState(eq=_t(s.eq, device),
+                          fdl=ring_fdl_from_jax(s.fdl, True, device),
+                          sc=sc, env=env)
+
+
+def voices_from_jax(voices, state, device=None):
+    """JAX ``DeviceVoices`` and ``DeviceMixState`` (numpy leaves) -> the
+    port's (device_mix.DeviceVoices, device_mix.DeviceMixState)."""
+    return device_mix.voices_from_host(
+        voices.sample_id, voices.length, voices.gain, voices.loop_on,
+        voices.loop_start, voices.loop_end, voices.route, state.pos, device)

@@ -140,7 +140,7 @@ class Compressor:
 
     # -- execution ----------------------------------------------------------
     def init_state(self, batch_shape: Tuple[int, ...] = (),
-                   device=None) -> dyn.EnvState:
+                   device="cuda") -> dyn.EnvState:
         return dyn.env_init(batch_shape, device)
 
     def process(self, params: CompressorParams, state: dyn.EnvState,

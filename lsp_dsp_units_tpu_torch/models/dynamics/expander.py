@@ -106,7 +106,7 @@ class Expander:
             hold=int(round(self.sample_rate * self.hold_ms / 1000.0)))
 
     def init_state(self, batch_shape: Tuple[int, ...] = (),
-                   device=None) -> dyn.EnvState:
+                   device="cuda") -> dyn.EnvState:
         return dyn.env_init(batch_shape, device)
 
     def process(self, params: ExpanderParams, state: dyn.EnvState,

@@ -78,7 +78,7 @@ class Gate:
             hold=int(round(self.sample_rate * self.hold_ms / 1000.0)))
 
     def init_state(self, batch_shape: Tuple[int, ...] = (),
-                   device=None) -> GateState:
+                   device="cuda") -> GateState:
         return GateState(env=dyn.env_init(batch_shape, device),
                          curve=torch.zeros(tuple(batch_shape),
                                            dtype=torch.int32, device=device))

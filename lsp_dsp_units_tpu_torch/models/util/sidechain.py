@@ -77,7 +77,7 @@ class Sidechain:
         self.gain = float(gain)
 
     def init_state(self, batch_shape: Tuple[int, ...] = (),
-                   device=None) -> SidechainState:
+                   device="cuda") -> SidechainState:
         n = self.reactivity if self.mode in (SidechainMode.RMS,
                                              SidechainMode.UNIFORM) else 1
         return SidechainState(

@@ -136,6 +136,23 @@ def check_cuda(dtype: torch.dtype, device: torch.device,
             raise ValueError(f"{name} is on {t.device}, expected {device}")
 
 
+def check_shapes(args, shapes: Dict[str, tuple]) -> Dict[str, torch.Tensor]:
+    """``args`` in the order of ``shapes`` (name -> expected shape);
+    raises on the first mismatch, returns the tensors by name."""
+    named = dict(zip(shapes, args))
+    for name, shape in shapes.items():
+        if tuple(named[name].shape) != tuple(shape):
+            raise ValueError(f"{name}: expected shape {tuple(shape)}, got "
+                             f"{tuple(named[name].shape)}")
+    return named
+
+
+def check_slot(w: int, p_n: int) -> None:
+    """A ring slot index in [0, P)."""
+    if not 0 <= w < p_n:
+        raise ValueError(f"slot {w} outside the ring of {p_n}")
+
+
 def check_cuda_f32(**ts: torch.Tensor) -> None:
     """For kernels that read rows as float2/float4: contiguous float32 on
     one device, 16-byte aligned."""

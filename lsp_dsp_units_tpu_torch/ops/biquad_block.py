@@ -46,7 +46,7 @@ def _run_stage(x: np.ndarray, stage) -> np.ndarray:
 
 
 def init_state(num_stages: int, batch_shape: Tuple[int, ...] = (),
-               device=None) -> torch.Tensor:
+               device="cuda") -> torch.Tensor:
     """Zero cascade state ``batch_shape + (num_stages, 2)``."""
     return torch.zeros(batch_shape + (num_stages, 2), dtype=torch.float32,
                        device=device)
@@ -199,7 +199,7 @@ def _sample_ss_f64(coeffs: np.ndarray):
 
 
 def precompute_fused(coeffs: np.ndarray, block: int, balance: bool = True,
-                     device=None) -> FusedCascadeParams:
+                     device="cuda") -> FusedCascadeParams:
     b = int(block)
     h_total, g_mat, w_mat, m_mat = _fused_mats_f64(coeffs, b)
     a1m, b1v, c1v, d1 = _sample_ss_f64(coeffs)

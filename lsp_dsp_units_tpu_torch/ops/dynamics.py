@@ -34,7 +34,8 @@ class EnvState(NamedTuple):
     hold: torch.Tensor       # [...] int32 remaining hold samples
 
 
-def env_init(batch_shape: Tuple[int, ...] = (), device=None) -> EnvState:
+def env_init(batch_shape: Tuple[int, ...] = (),
+             device="cuda") -> EnvState:
     z = torch.zeros(tuple(batch_shape), dtype=torch.float32, device=device)
     return EnvState(envelope=z, peak=z.clone(),
                     hold=torch.zeros(tuple(batch_shape), dtype=torch.int32,

@@ -15,23 +15,26 @@ Uniform partitioned overlap-save convolution with a frequency-delay line
 * :class:`OLSBulkState` (:func:`ols_bulk_process`, the convolver of
   ``bulk_step``): one big-FFT overlap-save per super-block.
 
-The ring keeps the P newest frame spectra partition-major, [P, ..., F]:
-each block writes only slot ``w = (pos + 1) % P`` and partition p
-multiplies slot p by the IR spectrum ``H[(w - p) % P]``.  Natural order
-(F = B + 1) is the layout of :func:`fdl_ring_step`, the plain staged
-convolver; the chain keeps its ring packed (F = B, ops/fft_packed.py),
-the layout of the CUDA kernel in ops/fdl_fused.py.  ``pos`` is a host
-integer: PyTorch runs eagerly, so the slot index never needs to live on
-the device.
+The ring (:class:`RingFDLState`, :func:`fdl_ring_step`) keeps the P
+newest frame spectra partition-major, [P, ..., F]: each block writes only
+slot ``w = (pos + 1) % P`` and partition p multiplies slot p by the IR
+spectrum ``H[(w - p) % P]``.  A natural-order ring (F = B + 1, the
+default, as in the JAX package) runs the plain staged form; a packed ring
+(F = B, ``init_ring_fdl(packed=True)``, ops/fft_packed.py) runs the whole
+block as one kernel, ops/fdl_fused.py's :func:`fdl_fused`, and is
+updated in place.  ``pos`` is a host integer: PyTorch runs eagerly, so
+the slot index never needs to live on the device.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple, Tuple
+from typing import Dict, NamedTuple, Tuple
 
 import torch
 
+from lsp_dsp_units_tpu_torch.ops import fft_packed as fp
 from lsp_dsp_units_tpu_torch.ops.cplx import irfft_sc, rfft_sc, sc_mul, sc_sum
+from lsp_dsp_units_tpu_torch.ops.fdl_fused import fdl_fused
 
 
 class Spectra(NamedTuple):
@@ -60,7 +63,7 @@ class FDLState(NamedTuple):
 
 
 def init_fdl(h_spectra: Spectra, batch_shape: Tuple[int, ...] = (),
-             device=None) -> FDLState:
+             device="cuda") -> FDLState:
     p, f = h_spectra.re.shape[-2], h_spectra.re.shape[-1]
     z = torch.zeros(tuple(batch_shape) + (p, f), dtype=torch.float32,
                     device=device)
@@ -154,11 +157,17 @@ class RingFDLState(NamedTuple):
 
 
 def init_ring_fdl(h_spectra: Spectra, batch_shape: Tuple[int, ...] = (),
-                  packed: bool = True, device=None) -> RingFDLState:
+                  packed: bool = False, device="cuda") -> RingFDLState:
     """Zero ring for IR spectra [P, B + 1]; ``packed`` stores F = B
-    packed bins (ops/fft_packed.py) instead of B + 1 natural ones."""
+    packed bins (ops/fft_packed.py) instead of B + 1 natural ones, at
+    the frame sizes the packed FFT takes."""
     p, f = h_spectra.re.shape[-2], h_spectra.re.shape[-1]
     block = f - 1
+    if packed and not fp.supported(2 * block):
+        raise ValueError(
+            f"a packed ring needs a frame size the packed FFT takes "
+            f"(2 * block = {2 * block}: a power of two in "
+            f"[{2 * fp.MIN_M}, {2 * fp.MAX_M}]); use packed=False")
     fdim = block if packed else f
     z = torch.zeros((p,) + tuple(batch_shape) + (fdim,), dtype=torch.float32,
                     device=device)
@@ -169,18 +178,47 @@ def init_ring_fdl(h_spectra: Spectra, batch_shape: Tuple[int, ...] = (),
                         pos=p - 1)
 
 
+_PACKED_IR: Dict[int, tuple] = {}
+_PACKED_IR_MAX = 8
+
+
+def packed_ir(h_spectra: Spectra) -> Tuple[torch.Tensor, torch.Tensor]:
+    """IR spectra [P, B + 1] packed to [P, B], once per spectra tensor
+    (again only when it changes in place): the ring step reuses them every
+    block, as pipeline.chain_params does for the chain."""
+    re, im = h_spectra
+    key = (re._version, im._version)
+    hit = _PACKED_IR.get(id(re))
+    if hit is None or hit[0] is not re or hit[1] is not im or hit[2] != key:
+        if len(_PACKED_IR) >= _PACKED_IR_MAX:
+            _PACKED_IR.pop(next(iter(_PACKED_IR)))
+        hit = (re, im, key,
+               fp.pack_spectra(re, im, 2 * (re.shape[-1] - 1)))
+        _PACKED_IR[id(re)] = hit
+    return hit[3]
+
+
 def fdl_ring_step(h_spectra: Spectra, state: RingFDLState,
                   x_block: torch.Tensor
                   ) -> Tuple[RingFDLState, torch.Tensor]:
-    """One block over a natural-order ring, plain PyTorch: the new frame
-    spectrum goes to slot w and the output is the last half of
-    ``irfft(sum_p ring[p] * H[(w - p) % P])``."""
+    """One block x [..., B]: the new frame spectrum goes to slot w and
+    the output is the last half of ``irfft(sum_p ring[p] * H[(w - p) %
+    P])``.  A natural-order ring runs the plain staged form and returns a
+    new ring; a packed ring [P, C, B] (with IR spectra [P, B + 1]) runs
+    :func:`fdl_fused` and is updated in place."""
     p = h_spectra.re.shape[-2]
-    if state.spec_re.shape[-1] != h_spectra.re.shape[-1]:
-        raise ValueError("fdl_ring_step needs a natural-order ring "
-                         "(init_ring_fdl(packed=False))")
-    frame = torch.cat([state.history, x_block], dim=-1)
+    b = x_block.shape[-1]
     w = (state.pos + 1) % p
+    if state.spec_re.shape[-1] == b:                    # packed ring
+        if state.spec_re.ndim != 3 or h_spectra.re.ndim != 2:
+            raise ValueError("a packed ring is [P, C, B] and its IR "
+                             "spectra [P, B + 1]")
+        h_re, h_im = packed_ir(h_spectra)
+        x = x_block.to(torch.float32).contiguous()
+        y = fdl_fused(state.spec_re, state.spec_im, h_re, h_im,
+                      state.history, x, w)
+        return state._replace(history=x, pos=w), y.to(x_block.dtype)
+    frame = torch.cat([state.history, x_block], dim=-1)
     sr, si = rfft_sc(frame)
     buf_re = state.spec_re.clone()
     buf_im = state.spec_im.clone()
@@ -214,7 +252,7 @@ def ols_bulk_spectra(ir: torch.Tensor, t_super: int) -> Spectra:
 
 
 def init_ols_bulk(t_super: int, batch_shape: Tuple[int, ...] = (),
-                  device=None) -> OLSBulkState:
+                  device="cuda") -> OLSBulkState:
     return OLSBulkState(history=torch.zeros(
         tuple(batch_shape) + (t_super,), dtype=torch.float32, device=device))
 

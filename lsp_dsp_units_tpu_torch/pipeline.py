@@ -112,7 +112,7 @@ class FilterConvChain:
 
     def __init__(self, sample_rate: int = 48000, channels: int = 64,
                  ir: Optional[np.ndarray] = None, rank: int = 14,
-                 ir_seconds: float = 1.0, device="cpu"):
+                 ir_seconds: float = 1.0, device="cuda"):
         self.sample_rate = int(sample_rate)
         self.channels = int(channels)
         self.rank = int(rank)

@@ -11,7 +11,7 @@ TABLE_EXTRA = 65536          # per-call offset wraps at this many slots
 
 
 def tpdf_i16_table(channels: int, t: int, seed: int = 7,
-                   device=None) -> torch.Tensor:
+                   device="cuda") -> torch.Tensor:
     """[channels, t + TABLE_EXTRA] float32 TPDF noise at +-0.5 LSB."""
     rng = np.random.default_rng(seed)
     delta_half = 0.5 / 32768.0

@@ -42,7 +42,8 @@ def _np_tree(t):
 def test_step_ring_matches_jax(rank):
     c, warm, n_blocks = 4, 2, 12
     jchain = jpipe.FilterConvChain(48000, c, rank=rank, ir_seconds=0.05)
-    tchain = tpipe.FilterConvChain(48000, c, rank=rank, ir_seconds=0.05)
+    tchain = tpipe.FilterConvChain(48000, c, rank=rank, ir_seconds=0.05,
+                                   device="cpu")
     np.testing.assert_array_equal(jchain.ir, tchain.ir)
     jp = jchain.build()
     tp = convert.params_from_jax(_np_tree(jp))
@@ -80,7 +81,7 @@ def test_step_ring_matches_jax(rank):
 def test_delivery_exact():
     c, t = 3, 256
     jt = np.asarray(jdel.tpdf_i16_table(c, t))
-    tt = tdel.tpdf_i16_table(c, t)
+    tt = tdel.tpdf_i16_table(c, t, device="cpu")
     np.testing.assert_array_equal(tt.numpy(), jt)
     rng = np.random.default_rng(8)
     for k in (0, 5, 70000):
@@ -99,6 +100,11 @@ def test_port_imports_no_jax():
             "import lsp_dsp_units_tpu_torch.entry\n"
             "import lsp_dsp_units_tpu_torch.models.dynamics.gate\n"
             "import lsp_dsp_units_tpu_torch.models.dynamics.expander\n"
+            "import lsp_dsp_units_tpu_torch.models.sampling\n"
+            "import lsp_dsp_units_tpu_torch.models.sampling.device_mix\n"
+            "import lsp_dsp_units_tpu_torch.models.util\n"
+            "import lsp_dsp_units_tpu_torch.ops.resample\n"
+            "import lsp_dsp_units_tpu_torch.utils.blocks\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'lsp_dsp_units_tpu')]\n"
             "print(bad)\n"
@@ -107,14 +113,15 @@ def test_port_imports_no_jax():
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     pkg = os.path.join(ROOT, "lsp_dsp_units_tpu_torch")
+    paths = [os.path.join(ROOT, "chip_smoke.py")]
     for dirpath, _, files in os.walk(pkg):
-        for name in files:
-            if name.endswith(".py"):
-                with open(os.path.join(dirpath, name)) as f:
-                    src = f.read()
-                assert "import jax" not in src and "from jax" not in src
-                assert "import lsp_dsp_units_tpu\n" not in src
-                assert "from lsp_dsp_units_tpu." not in src, name
+        paths += [os.path.join(dirpath, n) for n in files if n.endswith(".py")]
+    for name in paths:
+        with open(name) as f:
+            src = f.read()
+        assert "import jax" not in src and "from jax" not in src, name
+        assert "import lsp_dsp_units_tpu\n" not in src, name
+        assert "from lsp_dsp_units_tpu." not in src, name
 
 
 def test_build_without_nvcc_raises(tmp_path, monkeypatch):
@@ -130,11 +137,13 @@ def test_build_without_nvcc_raises(tmp_path, monkeypatch):
 
 def test_kernel_sources_cover_wrappers():
     """Every C entry point a wrapper declares exists in csrc/."""
-    from lsp_dsp_units_tpu_torch.ops import env, env_units, fdl_fused
+    from lsp_dsp_units_tpu_torch.ops import (env, env_units, fdl_fused,
+                                             ring_mac, slicedma)
     src = ""
     for name in os.listdir(_build.CSRC_DIR):
         with open(os.path.join(_build.CSRC_DIR, name)) as f:
             src += f.read()
-    for sigs in (tfft._SIGS, fdl_fused._SIGS, env._SIGS, env_units._SIGS):
+    for sigs in (tfft._SIGS, fdl_fused._SIGS, env._SIGS, env_units._SIGS,
+                 ring_mac._SIGS, slicedma._SIGS):
         for fn in sigs:
             assert f"int {fn}(" in src, fn

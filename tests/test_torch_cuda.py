@@ -26,8 +26,12 @@ from lsp_dsp_units_tpu_torch.ops import env_units as eu
 from lsp_dsp_units_tpu_torch.ops import fft_packed as tfft
 from lsp_dsp_units_tpu_torch.ops import fftconv as tfc
 from lsp_dsp_units_tpu_torch.ops.env import chain_dyn, chain_dyn_plain
+from lsp_dsp_units_tpu_torch.models.sampling import device_mix as tdm
+from lsp_dsp_units_tpu_torch.ops import slicedma
 from lsp_dsp_units_tpu_torch.ops.fdl_fused import (eqfdl_fused,
-                                                   eqfdl_fused_plain)
+                                                   eqfdl_fused_plain,
+                                                   fdl_fused, fdl_fused_plain)
+from lsp_dsp_units_tpu_torch.ops.ring_mac import ring_mac, ring_mac_plain
 
 pytestmark = pytest.mark.cuda
 
@@ -82,8 +86,10 @@ def test_eqfdl_kernel_matches_plain(cuda_device):
     hp = tfft.pack_spectra(th.re, th.im, 2 * b)
     p_n = th.re.shape[0]
     k2 = teq.m_mat.shape[0]
-    ring_k = tfc.init_ring_fdl(th, (c,), device=cuda_device)
-    ring_p = tfc.init_ring_fdl(th, (c,), device=cuda_device)
+    ring_k = tfc.init_ring_fdl(th, (c,), packed=True,
+                                device=cuda_device)
+    ring_p = tfc.init_ring_fdl(th, (c,), packed=True,
+                                device=cuda_device)
     sv_k = sv_p = torch.zeros(c, k2, device=cuda_device)
     for k in range(p_n + 2):
         x = _randn(gen, c, b, scale=0.25, device=cuda_device)
@@ -134,7 +140,8 @@ def test_step_ring_on_card_matches_cpu(cuda_device):
     c = 8
     cg = tpipe.FilterConvChain(48000, c, rank=12, ir_seconds=0.2,
                                device=cuda_device)
-    cc = tpipe.FilterConvChain(48000, c, rank=12, ir_seconds=0.2)
+    cc = tpipe.FilterConvChain(48000, c, rank=12, ir_seconds=0.2,
+                               device="cpu")
     pg, pc = cg.build(), cc.build()
     sg, sc = cg.init_ring_state(pg), cc.init_ring_state(pc)
     rng = np.random.default_rng(9)
@@ -245,13 +252,13 @@ def test_units_on_card_match_cpu(cuda_device):
         side = Sidechain(sr, mode, reactivity_ms=5.0)
         sg, lg = side.process(side.init_state((c,), cuda_device),
                               sig.to(cuda_device))
-        sc, lc = side.process(side.init_state((c,)), sig)
+        sc, lc = side.process(side.init_state((c,), "cpu"), sig)
         assert _snr(lc, lg) >= 110.0, mode
         for unit in units:
             p = unit.build()
             _, gg, eg = unit.process(p, unit.init_state((c,), cuda_device),
                                      lg)
-            _, gc, ec = unit.process(p, unit.init_state((c,)), lc)
+            _, gc, ec = unit.process(p, unit.init_state((c,), "cpu"), lc)
             assert _snr(ec, eg) >= 110.0, (mode, type(unit).__name__)
             assert _snr(gc, gg) >= 110.0, (mode, type(unit).__name__)
     torch.cuda.synchronize()
@@ -261,7 +268,8 @@ def test_step_and_bulk_on_card_match_cpu(cuda_device):
     c = 8
     cg = tpipe.FilterConvChain(48000, c, rank=12, ir_seconds=0.2,
                                device=cuda_device)
-    cc = tpipe.FilterConvChain(48000, c, rank=12, ir_seconds=0.2)
+    cc = tpipe.FilterConvChain(48000, c, rank=12, ir_seconds=0.2,
+                               device="cpu")
     pg, pc = cg.build(), cc.build()
     sg, sc = cg.init_state(pg), cc.init_state(pc)
     rng = np.random.default_rng(10)
@@ -284,3 +292,116 @@ def test_step_and_bulk_on_card_match_cpu(cuda_device):
         bc, yc = cc.bulk_step(pc, hc, bc, torch.from_numpy(x))
         assert _snr(yc, yg) >= 95.0, k
     torch.cuda.synchronize()
+
+
+# ---------------------------------------------------------------------------
+# slice 3: the ring convolver (ops/fdl_fused.fdl_fused, ops/ring_mac) and
+# the sampler (ops/slicedma, models/sampling/device_mix)
+# ---------------------------------------------------------------------------
+
+
+def test_fdl_fused_kernel_matches_plain(cuda_device):
+    c, b = 8, 2048
+    gen = torch.Generator().manual_seed(21)
+    th = tfc.parse_ir(_randn(gen, 3 * b - 17, scale=0.1, device=cuda_device),
+                      b)
+    hp = tfft.pack_spectra(th.re, th.im, 2 * b)
+    p_n = th.re.shape[0]
+    ring_k = tfc.init_ring_fdl(th, (c,), packed=True, device=cuda_device)
+    ring_p = tfc.init_ring_fdl(th, (c,), packed=True, device=cuda_device)
+    before = fdl_fused.launches
+    for k in range(p_n + 2):
+        x = _randn(gen, c, b, scale=0.25, device=cuda_device)
+        w = (ring_k.pos + 1) % p_n
+        yk = fdl_fused(ring_k.spec_re, ring_k.spec_im, hp[0], hp[1],
+                       ring_k.history, x, w)
+        yp = fdl_fused_plain(ring_p.spec_re, ring_p.spec_im, hp[0], hp[1],
+                             ring_p.history, x, w)
+        ring_k = ring_k._replace(history=x, pos=w)
+        ring_p = ring_p._replace(history=x, pos=w)
+        assert _snr(yp, yk) >= 95.0, k
+        assert _snr(ring_p.spec_re[w], ring_k.spec_re[w]) >= 95.0, k
+        assert _snr(ring_p.spec_im[w], ring_k.spec_im[w]) >= 95.0, k
+    torch.cuda.synchronize()
+    assert fdl_fused.launches == before + p_n + 2
+
+
+def test_packed_ring_step_on_card_matches_cpu(cuda_device):
+    c, b = 4, 1024
+    rng = np.random.default_rng(22)
+    ir = (rng.standard_normal(2 * b + 300) * 0.2).astype(np.float32)
+    hg = tfc.parse_ir(torch.from_numpy(ir).to(cuda_device), b)
+    hc = tfc.parse_ir(torch.from_numpy(ir), b)
+    sg = tfc.init_ring_fdl(hg, (c,), packed=True, device=cuda_device)
+    sc = tfc.init_ring_fdl(hc, (c,), packed=True, device="cpu")
+    before = fdl_fused.launches
+    for k in range(5):
+        x = (rng.standard_normal((c, b)) * 0.25).astype(np.float32)
+        sg, yg = tfc.fdl_ring_step(hg, sg, torch.from_numpy(x).to(cuda_device))
+        sc, yc = tfc.fdl_ring_step(hc, sc, torch.from_numpy(x))
+        assert _snr(yc, yg) >= 95.0, k
+    assert fdl_fused.launches == before + 5
+
+
+@pytest.mark.parametrize("packed", [False, True])
+def test_ring_mac_kernel_matches_plain(cuda_device, packed):
+    """Both round every product and sum once: exact."""
+    p_n, c, b, w = 5, 8, 1024, 3
+    f_n = b if packed else b + 1
+    gen = torch.Generator().manual_seed(23)
+    ring_k = [_randn(gen, p_n, c, f_n, device=cuda_device) for _ in range(2)]
+    ring_p = [r.clone() for r in ring_k]
+    h = [_randn(gen, p_n, f_n, device=cuda_device) for _ in range(2)]
+    sp = [_randn(gen, c, f_n, device=cuda_device) for _ in range(2)]
+    before = ring_mac.launches
+    ak = ring_mac(*ring_k, *h, *sp, w, packed_dc=packed)
+    ap = ring_mac_plain(*ring_p, *h, *sp, w, packed_dc=packed)
+    torch.cuda.synchronize()
+    assert ring_mac.launches == before + 1
+    for k_, p_ in zip(ak + tuple(ring_k), ap + tuple(ring_p)):
+        assert torch.equal(k_, p_)
+
+
+def test_batched_slice_kernel_matches_plain(cuda_device):
+    n, size = 1 << 16, 1024
+    lim = n - size - 1024
+    gen = torch.Generator().manual_seed(24)
+    bank = _randn(gen, n, device=cuda_device)
+    edge = [0, 1, 127, 128, 1023, 1024, lim - 1, lim, lim + 9, -3]
+    rnd = torch.randint(0, lim, (290,), generator=gen).tolist()
+    starts = torch.tensor(edge + rnd, dtype=torch.int32, device=cuda_device)
+    before = slicedma.batched_slice.launches
+    got = slicedma.batched_slice(bank, starts, size)
+    want = slicedma.batched_slice_plain(bank, starts, size)
+    torch.cuda.synchronize()
+    assert slicedma.batched_slice.launches == before + 1
+    assert got.shape == (300, size) and torch.equal(got, want)
+
+
+def test_mix_block_dma_on_card_matches_gather(cuda_device):
+    rng = np.random.default_rng(7)
+    samples = [(rng.normal(size=m) * 0.25).astype(np.float32)
+               for m in (40000, 30000)]
+    block = 512
+    specs = [dict(sample_id=v % 2, channel=v % 3, volume=0.05 + 0.01 * v,
+                  delay=(v * 211) % 3000, loop=(v % 3 == 0), loop_start=500,
+                  loop_end=20000) for v in range(40)]
+    bank, bank_len = tdm.build_bank(samples)
+    bank_p, _, pad = tdm.build_bank_padded(samples, block)
+    voices, st_a = tdm.build_voices(specs, 3, [40000, 30000])
+    cvoices, st_c = tdm.build_voices(specs, 3, [40000, 30000], device="cpu")
+    cbank, _ = tdm.build_bank(samples, device="cpu")
+    st_b = st_a
+    before = slicedma.batched_slice.launches
+    for b in range(40):
+        st_a, ya = tdm.mix_block(bank, bank_len, voices, st_a, block)
+        st_b, yb = tdm.mix_block_dma(bank_p, bank_len, pad, voices, st_b,
+                                     block)
+        st_c, yc = tdm.mix_block(cbank, bank_len, cvoices, st_c, block)
+        assert torch.equal(ya, yb), b
+        torch.testing.assert_close(yb.cpu(), yc, rtol=0.0, atol=1e-6)
+    torch.cuda.synchronize()
+    assert torch.equal(st_a.pos, st_b.pos)
+    assert torch.equal(st_b.pos.cpu(), st_c.pos)
+    assert slicedma.batched_slice.launches == before + 80
+

@@ -50,7 +50,7 @@ def test_precompute_fused_exact(block):
     eq = np.concatenate([jdesign.design_filter(p, 48000).biquads
                          for p in jpipe.default_eq_params(48000)], axis=0)
     jp = jbb.precompute_fused(eq, block)
-    tp = tbb.precompute_fused(eq, block)
+    tp = tbb.precompute_fused(eq, block, device="cpu")
     for f in jbb.FusedCascadeParams._fields:
         np.testing.assert_array_equal(getattr(tp, f).numpy(),
                                       np.asarray(getattr(jp, f)), err_msg=f)

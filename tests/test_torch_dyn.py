@@ -48,7 +48,7 @@ def test_chain_dyn_plain_matches_jax_pallas():
     jwin = jsc.init_state((c,)).window
     jenv = jdyn.env_init((c,))
     twin = torch.zeros(c, n)
-    tenv = tdyn.env_init((c,))
+    tenv = tdyn.env_init((c,), "cpu")
     rng = np.random.default_rng(3)
     for k in range(4):
         x = (rng.standard_normal((c, t)) * 0.5).astype(np.float32)
@@ -78,8 +78,8 @@ def test_sidechain_and_compressor_match_jax():
     jc, tc = JCompressor(SR, **kw), TCompressor(SR, **kw)
     jcp, tcp = jc.build(), tc.build()
     assert tcp.hold == 24
-    js, ts = jsc.init_state((c,)), tsc.init_state((c,))
-    je, te = jc.init_state((c,)), tc.init_state((c,))
+    js, ts = jsc.init_state((c,)), tsc.init_state((c,), "cpu")
+    je, te = jc.init_state((c,)), tc.init_state((c,), "cpu")
     rng = np.random.default_rng(4)
     for k in range(3):
         x = (rng.standard_normal((c, t)) * 0.5).astype(np.float32)
@@ -112,7 +112,8 @@ def test_peak_envelope_gate_form_matches_jax():
         np.float32)
     js, je = jdyn.peak_envelope(jdyn.env_init((2,)), jnp.asarray(x), 0.3,
                                 0.01, 7, None)
-    ts, tenv = tdyn.peak_envelope(tdyn.env_init((2,)), torch.from_numpy(x),
+    ts, tenv = tdyn.peak_envelope(tdyn.env_init((2,), "cpu"),
+                                  torch.from_numpy(x),
                                   0.3, 0.01, 7, None)
     np.testing.assert_allclose(tenv.numpy(), np.asarray(je), rtol=1e-6)
     np.testing.assert_array_equal(ts.hold.numpy(), np.asarray(js.hold))

@@ -47,7 +47,7 @@ def test_eqfdl_plain_matches_jax_pallas():
     nfft = 2 * b
     eq = _eq()
     jeq = jbb.precompute_fused(eq, b)
-    teq = tbb.precompute_fused(eq, b)
+    teq = tbb.precompute_fused(eq, b, device="cpu")
     ir = _ir(b)
     jh = jfc.parse_ir(jnp.asarray(ir), b)
     th = tfc.parse_ir(torch.from_numpy(ir), b)
@@ -60,7 +60,7 @@ def test_eqfdl_plain_matches_jax_pallas():
 
     jst = jfc.init_ring_fdl(jh, (c,), packed=True)
     jsv = jnp.zeros((c, k2), jnp.float32)
-    tst = tfc.init_ring_fdl(th, (c,), packed=True)
+    tst = tfc.init_ring_fdl(th, (c,), packed=True, device="cpu")
     tsv = torch.zeros(c, k2)
     rng = np.random.default_rng(10)
     for k in range(p_n + 3):
@@ -103,16 +103,16 @@ def test_eqfdl_plain_matches_port_staged():
     test_eqfdl_fused_matches_staged holds its kernel."""
     c, b = 4, 512
     eq = _eq(8)
-    teq = tbb.precompute_fused(eq, b)
+    teq = tbb.precompute_fused(eq, b, device="cpu")
     th = tfc.parse_ir(torch.from_numpy(_ir(b, 11)), b)
     p_n = th.re.shape[-2]
     heq = tfft.pack_spectra(teq.h_re, teq.h_im, 2 * b)
     hp = tfft.pack_spectra(th.re, th.im, 2 * b)
     k2 = teq.m_mat.shape[0]
-    ring = tfc.init_ring_fdl(th, (c,), packed=True)
-    nat = tfc.init_ring_fdl(th, (c,), packed=False)
+    ring = tfc.init_ring_fdl(th, (c,), packed=True, device="cpu")
+    nat = tfc.init_ring_fdl(th, (c,), packed=False, device="cpu")
     sv = torch.zeros(c, k2)
-    eq_st = tbb.init_state(k2 // 2, (c,))
+    eq_st = tbb.init_state(k2 // 2, (c,), "cpu")
     rng = np.random.default_rng(12)
     for k in range(p_n + 2):
         x = torch.from_numpy((rng.standard_normal((c, b)) * 0.25)
@@ -135,10 +135,10 @@ def test_cascade_block_fused_matches_jax():
     c, b = 3, 256
     eq = _eq(8)
     jp = jbb.precompute_fused(eq, b)
-    tp = tbb.precompute_fused(eq, b)
+    tp = tbb.precompute_fused(eq, b, device="cpu")
     rng = np.random.default_rng(13)
     jst = jbb.init_state(eq.shape[0], (c,))
-    tst = tbb.init_state(eq.shape[0], (c,))
+    tst = tbb.init_state(eq.shape[0], (c,), "cpu")
     for k in range(3):
         x = (rng.standard_normal((c, 2 * b)) * 0.25).astype(np.float32)
         jy, jst = jbb.cascade_block_fused(jp, jst, jnp.asarray(x))
@@ -154,7 +154,7 @@ def test_fdl_ring_step_natural_matches_jax():
     th = tfc.parse_ir(torch.from_numpy(ir), b)
     assert _snr(jh.re, th.re) >= 120.0 and _snr(jh.im, th.im) >= 120.0
     jst = jfc.init_ring_fdl(jh, (c,))
-    tst = tfc.init_ring_fdl(th, (c,), packed=False)
+    tst = tfc.init_ring_fdl(th, (c,), packed=False, device="cpu")
     rng = np.random.default_rng(15)
     for k in range(jh.re.shape[0] + 2):
         x = (rng.standard_normal((c, b)) * 0.25).astype(np.float32)

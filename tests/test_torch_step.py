@@ -61,10 +61,11 @@ def _ir(taps, seed):
 def test_cascade_block_fused_multiblock_matches_jax(m):
     c, b = 3, 128
     eq = _eq()
-    jp, tp = jbb.precompute_fused(eq, b), tbb.precompute_fused(eq, b)
+    jp, tp = jbb.precompute_fused(eq, b), tbb.precompute_fused(
+        eq, b, device="cpu")
     rng = np.random.default_rng(40 + m)
     jst = jbb.init_state(eq.shape[0], (c,))
-    tst = tbb.init_state(eq.shape[0], (c,))
+    tst = tbb.init_state(eq.shape[0], (c,), "cpu")
     for k in range(3):
         x = (rng.standard_normal((c, m * b)) * 0.25).astype(np.float32)
         jy, jst = jbb.cascade_block_fused(jp, jst, jnp.asarray(x))
@@ -76,7 +77,8 @@ def test_cascade_block_fused_multiblock_matches_jax(m):
 def test_cascade_seq_fused_and_basis_maps_match_jax():
     c, b = 2, 64
     eq = _eq()
-    jp, tp = jbb.precompute_fused(eq, b), tbb.precompute_fused(eq, b)
+    jp, tp = jbb.precompute_fused(eq, b), tbb.precompute_fused(
+        eq, b, device="cpu")
     rng = np.random.default_rng(44)
     s0 = (rng.standard_normal((c, eq.shape[0], 2)) * 0.1).astype(np.float32)
     for fn in ("state_to_fused", "state_from_fused"):
@@ -103,7 +105,7 @@ def test_fdl_process_matches_jax(m):
     jh = jfc.parse_ir(jnp.asarray(ir), b)
     th = tfc.parse_ir(_t(ir), b)
     assert th.re.shape == (6, b + 1)
-    jst, tst = jfc.init_fdl(jh, (c,)), tfc.init_fdl(th, (c,))
+    jst, tst = jfc.init_fdl(jh, (c,)), tfc.init_fdl(th, (c,), "cpu")
     rng = np.random.default_rng(50 + m)
     for k in range(3):
         x = (rng.standard_normal((c, m * b)) * 0.25).astype(np.float32)
@@ -117,7 +119,7 @@ def test_fdl_process_matches_jax(m):
     # the convolution is exact: against numpy's linear convolution
     gold = np.stack([np.convolve(r.astype(np.float64), ir)[:m * b]
                      for r in x])
-    _, y = tfc.fdl_process(th, tfc.init_fdl(th, (c,)), _t(x))
+    _, y = tfc.fdl_process(th, tfc.init_fdl(th, (c,), "cpu"), _t(x))
     assert _snr(gold, y) >= BAR_DB
 
 
@@ -125,7 +127,7 @@ def test_fdl_step_matches_jax():
     c, b = 2, 128
     ir = _ir(3 * b, 51)
     jh, th = jfc.parse_ir(jnp.asarray(ir), b), tfc.parse_ir(_t(ir), b)
-    jst, tst = jfc.init_fdl(jh, (c,)), tfc.init_fdl(th, (c,))
+    jst, tst = jfc.init_fdl(jh, (c,)), tfc.init_fdl(th, (c,), "cpu")
     rng = np.random.default_rng(52)
     for k in range(4):
         x = (rng.standard_normal((c, b)) * 0.25).astype(np.float32)
@@ -141,7 +143,7 @@ def test_ols_bulk_process_matches_jax():
     jh = jfc.ols_bulk_spectra(jnp.asarray(ir), t)
     th = tfc.ols_bulk_spectra(_t(ir), t)
     assert _snr(jh.re, th.re) >= BAR_DB
-    jst, tst = jfc.init_ols_bulk(t, (c,)), tfc.init_ols_bulk(t, (c,))
+    jst, tst = jfc.init_ols_bulk(t, (c,)), tfc.init_ols_bulk(t, (c,), "cpu")
     rng = np.random.default_rng(54)
     for k in range(3):
         x = (rng.standard_normal((c, t)) * 0.25).astype(np.float32)
@@ -172,7 +174,8 @@ def test_cplx_halves_on_cpu():
 
 def _chains(rank, c):
     jchain = jpipe.FilterConvChain(48000, c, rank=rank, ir_seconds=0.05)
-    tchain = tpipe.FilterConvChain(48000, c, rank=rank, ir_seconds=0.05)
+    tchain = tpipe.FilterConvChain(48000, c, rank=rank, ir_seconds=0.05,
+                                   device="cpu")
     jp = jchain.build()
     return jchain, tchain, jp, convert.params_from_jax(_np_tree(jp))
 
@@ -230,7 +233,8 @@ def test_bulk_step_matches_jax():
 
 
 def test_step_rejects_partial_blocks():
-    tchain = tpipe.FilterConvChain(48000, 2, rank=9, ir_seconds=0.01)
+    tchain = tpipe.FilterConvChain(48000, 2, rank=9, ir_seconds=0.01,
+                                   device="cpu")
     tp = tchain.build()
     with pytest.raises(ValueError, match="multiple"):
         tchain.step(tp, tchain.init_state(tp), torch.zeros(2, 300))

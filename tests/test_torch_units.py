@@ -154,7 +154,7 @@ def test_wrappers_refuse_other_devices():
     w = torch.empty(2, 4, device="meta")
     with pytest.raises(ValueError, match="CPU or all on CUDA"):
         eu.sliding_rms(w, m, 4, 1.0)
-    st = tdyn.env_init((2,))
+    st = tdyn.env_init((2,), "cpu")
     with pytest.raises(ValueError, match="CPU or all on CUDA"):
         eu.peak_envelope(st, m, 0.1, 0.01, 0)
 
@@ -180,7 +180,7 @@ def test_sidechain_modes_match_jax(mode):
                        gain=1.5)
     ts = tsc.Sidechain(SR, tsc.SidechainMode[mode], reactivity_ms=1.0,
                        gain=1.5)
-    jst, tst = js.init_state((c,)), ts.init_state((c,))
+    jst, tst = js.init_state((c,)), ts.init_state((c,), "cpu")
     for f in ("window", "rms"):
         assert tuple(getattr(tst, f).shape) == getattr(jst, f).shape, f
     rng = np.random.default_rng(8)
@@ -229,7 +229,7 @@ def test_compressor_matches_jax(mode):
     rng = np.random.default_rng(30)
     x = _detector(rng, (c, t), 0.9)
     je, jg, jenv = jc.process(jp, jc.init_state((c,)), jnp.asarray(x))
-    te, tg, tenv = tc.process(tp, tc.init_state((c,)), _t(x))
+    te, tg, tenv = tc.process(tp, tc.init_state((c,), "cpu"), _t(x))
     np.testing.assert_array_equal(tenv.numpy(), np.asarray(jenv))
     _assert_env_equal(je, te)
     np.testing.assert_allclose(tg.numpy(), np.asarray(jg), rtol=1e-6)
@@ -255,7 +255,7 @@ def test_expander_build_exact_and_process_matches_jax(mode):
     rng = np.random.default_rng(31)
     x = _detector(rng, (c, t), 0.9)
     js, jg, jenv = je.process(jp, je.init_state((c,)), jnp.asarray(x))
-    ts, tg, tenv = te.process(tp, te.init_state((c,)), _t(x))
+    ts, tg, tenv = te.process(tp, te.init_state((c,), "cpu"), _t(x))
     np.testing.assert_array_equal(tenv.numpy(), np.asarray(jenv))
     _assert_env_equal(js, ts)
     np.testing.assert_allclose(tg.numpy(), np.asarray(jg), rtol=1e-6)
@@ -278,7 +278,7 @@ def test_gate_build_exact_and_process_matches_jax():
     for f in ("tau_attack", "tau_release", "hold"):
         assert np.asarray(getattr(jp, f)).item() == getattr(tp, f), f
     rng = np.random.default_rng(32)
-    jst, tst = jg.init_state((c,)), tg.init_state((c,))
+    jst, tst = jg.init_state((c,)), tg.init_state((c,), "cpu")
     for k in range(2):
         x = _detector(rng, (c, t), 0.6 - 0.4 * k)
         jst, jgain, jenv = jg.process(jp, jst, jnp.asarray(x))
