@@ -12,7 +12,9 @@ Phases (any failure exits non-zero; nothing is caught):
             prints the seconds.
 3. parity — each kernel against its plain PyTorch version on the card, at
             the main paths' shapes (C=64, N=16384, P=6, N_sc=480):
-            packed FFT >= 95 dB, EQ+FDL y and u >= 95 dB (ring and EQ
+            packed FFT >= 95 dB (and its launch shape: the forward's
+            blocks resident at once, from the occupancy calculator,
+            must cover all 2 x 64), EQ+FDL y and u >= 95 dB (ring and EQ
             state likewise), dynamics y >= 110 dB with window, envelope
             and peak to rtol 1e-5 and hold exact; sliding RMS at T=16384
             and T=300 (T < N): level >= 110 dB, window exact; peak
@@ -68,7 +70,10 @@ Phases (any failure exits non-zero; nothing is caught):
             each kernel against its plain version at the same shapes, its
             bound (bytes over 3.35 TB/s or operations over 67 TFLOP/s
             FP32, whichever is larger) and, where one PyTorch call
-            computes the same function, that call's time.  Host clock:
+            computes the same function, that call's time; row #1 also
+            times the inverse (irfft_packed, last half) beside
+            torch.fft.irfft, row #3 gives its cycles per sample at the
+            boost clock.  Host clock:
             the time to enqueue a block of step_ring, and the delivered
             samples/s over 32 blocks ending in a sync.
 
@@ -184,6 +189,14 @@ KERNELS = (
 )
 
 
+# fields beyond the contract's in a kernel's record of the kernels line
+EXTRA_KEYS = {
+    "fft": ("inverse_ms", "inverse_plain_ms", "inverse_library_ms",
+            "inverse_bound_ms", "blocks_resident"),
+    "dyn": ("chain_ms", "cycles_per_sample"),
+}
+
+
 def check(ok: bool, what: str) -> None:
     if not ok:
         raise RuntimeError(f"FAILED: {what}")
@@ -261,6 +274,27 @@ def parity_fft(dev, res):
         lambda: fp.rfft_packed_zeropad_plain(xh), 50)
     res["fft"]["library_ms"] = time_ms(lambda: torch.fft.rfft(xh, n=N), 50)
     res["fft"].update(bound(F32 * 3 * C * B, C * fft_flops(N)))
+    # the inverse as the convolver uses it: packed [64, 8192] x 2 -> the
+    # last half [64, 8192]; torch.fft.irfft of the natural spectrum
+    # (whole frame) beside it
+    spec = torch.fft.rfft(x)
+    inv = bound(F32 * 3 * C * B, C * fft_flops(N))
+    res["fft"].update(
+        inverse_ms=time_ms(lambda: fp.irfft_packed(*pf, N, "last"), 50),
+        inverse_plain_ms=time_ms(
+            lambda: fp.irfft_packed_plain(*pf, N, "last"), 50),
+        inverse_library_ms=time_ms(lambda: torch.fft.irfft(spec, n=N), 50),
+        inverse_bound_ms=inv["bound_ms"])
+    shape = fp.launch_shape(N)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    blocks = C * shape["blocks_per_row"]
+    resident = min(blocks, shape["blocks_per_sm"] * sms)
+    res["fft"].update(launch_shape=shape, blocks_resident=resident)
+    print(f"fft launch: {blocks} blocks of {shape['threads']} threads, "
+          f"{shape['smem_bytes']} B shared memory each, "
+          f"{shape['blocks_per_sm']} per SM x {sms} SMs: {resident} resident")
+    check(resident >= blocks, f"only {resident} of {blocks} FFT blocks "
+                              f"resident")
 
 
 def parity_eqfdl(chain, params, dev, res):
@@ -349,6 +383,10 @@ def parity_dyn(chain, params, dev, res):
         wp, ep, x, *args), 2, warmup=1)
     res["dyn"].update(library_ms=None, chain_ms=chain_ms(B), **bound(
         F32 * (2 * C * B + 2 * C * n + 6 * C), 30 * C * B))
+    res["dyn"]["cycles_per_sample"] = res["dyn"]["ms"] * 1e-3 * SM_HZ / B
+    print(f"chain_dyn: {res['dyn']['ms']:.4f} ms = "
+          f"{res['dyn']['cycles_per_sample']:.2f} cycles per sample at "
+          f"{SM_HZ / 1e9:.2f} GHz")
 
 
 def clone_state(st):
@@ -1084,7 +1122,8 @@ def main(argv=None) -> int:
             source=f"lsp_dsp_units_tpu_torch/csrc/{src}",
             replaces=f"lsp_dsp_units_tpu/ops/{replaces}",
             **{k: r[k] for k in ("launches", "max_abs_err", "ms", "plain_ms",
-                                 "bound_ms", "bound_by", "library_ms")}))
+                                 "bound_ms", "bound_by", "library_ms")
+               + EXTRA_KEYS.get(key, ())}))
     if args.out:
         with open(args.out, "w") as f:
             json.dump(dict(res, kernels=kernels), f, indent=1)

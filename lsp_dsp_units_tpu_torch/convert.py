@@ -37,7 +37,7 @@ def _f32(v) -> float:
     return float(np.float32(v))
 
 
-def params_from_jax(p, device=None) -> ChainParams:
+def params_from_jax(p, device="cuda") -> ChainParams:
     """JAX ``ChainParams`` (numpy leaves) -> port ``ChainParams``."""
     eqb = p.eq_block
     g = np.asarray(eqb.g_mat, np.float32)
@@ -66,7 +66,7 @@ def _sc_env(s, device):
                          hold=_t(s.env.hold, device, torch.int32)))
 
 
-def state_from_jax(s, device=None) -> ChainState:
+def state_from_jax(s, device="cuda") -> ChainState:
     """JAX ``ChainState`` (numpy leaves) -> port ``ChainState``."""
     sc, env = _sc_env(s, device)
     return ChainState(
@@ -77,7 +77,7 @@ def state_from_jax(s, device=None) -> ChainState:
         sc=sc, env=env)
 
 
-def bulk_state_from_jax(s, device=None) -> ChainBulkState:
+def bulk_state_from_jax(s, device="cuda") -> ChainBulkState:
     """JAX ``ChainBulkState`` (numpy leaves) -> port ``ChainBulkState``."""
     sc, env = _sc_env(s, device)
     return ChainBulkState(
@@ -86,7 +86,7 @@ def bulk_state_from_jax(s, device=None) -> ChainBulkState:
         sc=sc, env=env)
 
 
-def ring_from_natural(re, im, device=None):
+def ring_from_natural(re, im, device="cuda"):
     """Natural-order ring [P, C, B + 1] -> packed [P, C, B] tensors."""
     re = _t(re, device)
     n = 2 * (re.shape[-1] - 1)
@@ -94,7 +94,7 @@ def ring_from_natural(re, im, device=None):
 
 
 def ring_fdl_from_jax(s, packed: bool = False,
-                      device=None) -> fftconv.RingFDLState:
+                      device="cuda") -> fftconv.RingFDLState:
     """JAX ``RingFDLState`` (numpy leaves, natural-order ring [P, ...,
     B + 1]) -> port ``RingFDLState``, natural or (``packed``) packed."""
     b = np.asarray(s.history).shape[-1]
@@ -111,7 +111,7 @@ def ring_fdl_from_jax(s, packed: bool = False,
                                 pos=int(np.asarray(s.pos)))
 
 
-def ring_state_from_jax(s, device=None) -> ChainRingState:
+def ring_state_from_jax(s, device="cuda") -> ChainRingState:
     """JAX ``ChainRingState`` (numpy leaves, natural-order ring) -> port
     ``ChainRingState``."""
     sc, env = _sc_env(s, device)
@@ -120,7 +120,7 @@ def ring_state_from_jax(s, device=None) -> ChainRingState:
                           sc=sc, env=env)
 
 
-def voices_from_jax(voices, state, device=None):
+def voices_from_jax(voices, state, device="cuda"):
     """JAX ``DeviceVoices`` and ``DeviceMixState`` (numpy leaves) -> the
     port's (device_mix.DeviceVoices, device_mix.DeviceMixState)."""
     return device_mix.voices_from_host(

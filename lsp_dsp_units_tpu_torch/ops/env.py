@@ -8,12 +8,13 @@ peak_envelope_plain -> compressor_x2_gain) for CPU tensors and the CUDA
 kernel (``csrc/env.cu``) for CUDA tensors, counting launches in
 ``chain_dyn.launches``.
 
-Tolerance between the two: the kernel forms the rolling sum as the
-window's sum plus a block scan of per-sample (new - old) squares, the
-plain version as a difference of two-level prefix sums, and the kernel
-contracts ``e + tau * d`` into one FMA.  Both are float32 rounding
-differences: the output agrees to >= 110 dB and the carried window,
-envelope and peak to ~1e-5 relative; hold counts are exact.
+Tolerance between the two: the kernel forms the rolling sum in float64,
+as the window's sum plus a scan of per-sample (new - old) squares carried
+from chunk to chunk, the plain version as a difference of two-level
+float32 prefix sums.  That is a rounding difference in the level; the
+envelope step itself is the plain version's, bit for bit (both round
+``e + tau * d`` once).  The output agrees to >= 110 dB and the carried
+window, envelope and peak to ~1e-5 relative; hold counts are exact.
 """
 
 from __future__ import annotations

@@ -13,7 +13,8 @@ and the IR and EQ spectra are packed once at build time by
 
 Each transform has a plain PyTorch version (``*_plain``, over
 ``torch.fft``) and a wrapper that runs the plain version for CPU tensors
-and launches the CUDA kernel (``csrc/fft_packed.cu``) for CUDA tensors.
+and launches the CUDA kernel (``csrc/fft_packed.cu``: two blocks per
+row, several radix-2 stages per shared-memory pass) for CUDA tensors.
 Each wrapper counts its kernel launches in ``<wrapper>.launches``.
 """
 
@@ -35,6 +36,7 @@ _SIGS = {
     + [ctypes.c_void_p],
     "lsp_irfft_packed": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3
     + [ctypes.c_void_p],
+    "lsp_fft_packed_shape": [ctypes.c_int, ctypes.POINTER(ctypes.c_int)],
 }
 
 MIN_M = 64            # smallest transform with the pair mapping's octaves
@@ -180,6 +182,17 @@ def irfft_packed_plain(re: torch.Tensor, im: torch.Tensor, n: int,
 
 def _lib():
     return _build.load("fft_packed", _SIGS)
+
+
+def launch_shape(n: int) -> dict:
+    """How the kernels launch at frame size N (needs the card): blocks
+    per row, threads and dynamic shared memory (bytes) per block, and
+    forward blocks resident per SM by the occupancy calculator."""
+    out = (ctypes.c_int * 4)()
+    _build.check(_lib().lsp_fft_packed_shape(log2_m(n), out),
+                 "fft_packed launch shape")
+    return dict(blocks_per_row=out[0], threads=out[1], smem_bytes=out[2],
+                blocks_per_sm=out[3])
 
 
 def _rfft_launch(x: torch.Tensor, n: int, half_input: int):

@@ -46,7 +46,7 @@ def test_step_ring_matches_jax(rank):
                                    device="cpu")
     np.testing.assert_array_equal(jchain.ir, tchain.ir)
     jp = jchain.build()
-    tp = convert.params_from_jax(_np_tree(jp))
+    tp = convert.params_from_jax(_np_tree(jp), device="cpu")
     # the port's own build agrees with the carried-over params
     own = tchain.build()
     for f in own.eq_block._fields:
@@ -61,7 +61,7 @@ def test_step_ring_matches_jax(rank):
     jst = jchain.init_ring_state(jp)
     for x in xs[:warm]:
         jst, _ = jchain.step_ring(jp, jst, jnp.asarray(x))
-    tst = convert.ring_state_from_jax(_np_tree(jst))
+    tst = convert.ring_state_from_jax(_np_tree(jst), device="cpu")
 
     gold = golden_chain_f64(tchain, tp, xs)
     for k, x in enumerate(xs[warm:]):
@@ -72,7 +72,8 @@ def test_step_ring_matches_jax(rank):
         assert _snr(g, ty) >= _snr(g, jy) - 1.0, k
     assert tst.fdl.pos == int(jst.fdl.pos)
     ring = convert.ring_from_natural(np.asarray(jst.fdl.spec_re),
-                                     np.asarray(jst.fdl.spec_im))
+                                     np.asarray(jst.fdl.spec_im),
+                                     device="cpu")
     assert _snr(ring[0], tst.fdl.spec_re) >= 100.0
     np.testing.assert_allclose(tst.env.envelope.numpy(),
                                np.asarray(jst.env.envelope), rtol=1e-4)

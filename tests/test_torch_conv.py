@@ -320,7 +320,7 @@ def test_ring_state_from_jax_mid_stream(jax_packed, port_packed):
                                spec_im=jnp.stack([v[1] for v in nat]))
     tst = convert.ring_fdl_from_jax(
         jfc.RingFDLState(*(np.asarray(v) for v in carried)),
-        packed=port_packed)
+        packed=port_packed, device="cpu")
     assert tst.pos == int(jst.pos)
     assert tst.spec_re.shape[-1] == (block if port_packed else block + 1)
     bar = 95.0 if jax_packed or port_packed else 110.0
@@ -336,4 +336,4 @@ def test_ring_state_from_jax_rejects_packed_ring():
                           np.zeros((2, 1, 8), np.float32),
                           np.zeros((1, 8), np.float32), np.int32(1))
     with pytest.raises(ValueError, match="unpack"):
-        convert.ring_fdl_from_jax(st)
+        convert.ring_fdl_from_jax(st, device="cpu")

@@ -55,23 +55,32 @@ def _randn(gen, *shape, scale=1.0, device=None):
     return (torch.randn(*shape, generator=gen) * scale).to(device)
 
 
-@pytest.mark.parametrize("n", [256, 2048, 16384])
-def test_fft_kernels_match_plain(cuda_device, n):
-    gen = torch.Generator().manual_seed(n)
-    x = _randn(gen, 8, n, device=cuda_device)
-    pre, pim = tfft.rfft_packed(x)
-    rre, rim = tfft.rfft_packed_plain(x)
-    assert _snr(rre, pre) >= 95.0 and _snr(rim, pim) >= 95.0
+@pytest.mark.parametrize("rows", [1, 8, 64, 133])
+@pytest.mark.parametrize("n", [128, 256, 2048, 16384, 32768])
+def test_fft_kernels_match_plain(cuda_device, n, rows):
+    """Two blocks per row (a cluster for the inverse): odd row counts and
+    more blocks than SMs pair every row's blocks correctly, in every
+    mode, at >= 125 dB."""
+    gen = torch.Generator().manual_seed(n + rows)
+    x = _randn(gen, rows, n, device=cuda_device)
     xh = x[:, :n // 2].contiguous()
-    zre, zim = tfft.rfft_packed_zeropad(xh)
-    qre, qim = tfft.rfft_packed_zeropad_plain(xh)
-    assert _snr(qre, zre) >= 95.0 and _snr(qim, zim) >= 95.0
+    before = (tfft.rfft_packed.launches, tfft.rfft_packed_zeropad.launches,
+              tfft.irfft_packed.launches)
+    for got, want in ((tfft.rfft_packed(x), tfft.rfft_packed_plain(x)),
+                      (tfft.rfft_packed_zeropad(xh),
+                       tfft.rfft_packed_zeropad_plain(xh))):
+        assert _snr(want[0], got[0]) >= 125.0
+        assert _snr(want[1], got[1]) >= 125.0
+    rre, rim = tfft.rfft_packed_plain(x)
     for half in (False, "first", "last"):
         y = tfft.irfft_packed(rre, rim, n, half)
         ry = tfft.irfft_packed_plain(rre, rim, n, half)
         assert y.shape == ry.shape
-        assert _snr(ry, y) >= 95.0, half
+        assert _snr(ry, y) >= 125.0, half
     torch.cuda.synchronize()
+    after = (tfft.rfft_packed.launches, tfft.rfft_packed_zeropad.launches,
+             tfft.irfft_packed.launches)
+    assert [a - b for a, b in zip(after, before)] == [1, 1, 3]
 
 
 def test_eqfdl_kernel_matches_plain(cuda_device):
@@ -111,10 +120,11 @@ def test_eqfdl_kernel_matches_plain(cuda_device):
     torch.cuda.synchronize()
 
 
-@pytest.mark.parametrize("t", [1024, 1000])
+@pytest.mark.parametrize("t", [480, 1000, 1024, 8192])
 def test_chain_dyn_kernel_matches_plain(cuda_device, t):
-    """t = 1000 runs the envelope's tail past the last full batch and
-    uneven scan chunks."""
+    """t = 480 (= the window) and 1000 end in a short pipeline chunk and
+    run the envelope's tail past the last full batch; 8192 is the main
+    path's block of 32 chunks."""
     c, n = 8, 480
     cp = Compressor(48000, attack_thresh=0.25, release_thresh=0.125,
                     attack_ms=2.0, release_ms=10.0, hold_ms=0.2).build()
@@ -128,6 +138,33 @@ def test_chain_dyn_kernel_matches_plain(cuda_device, t):
         wk, ek, yk = chain_dyn(wk, ek, x, *args)
         wp, ep, yp = chain_dyn_plain(wp, ep, x, *args)
         assert _snr(yp, yk) >= 110.0, k
+        torch.testing.assert_close(wk, wp, rtol=1e-5, atol=1e-7)
+        torch.testing.assert_close(ek.envelope, ep.envelope, rtol=1e-5,
+                                   atol=0.0)
+        torch.testing.assert_close(ek.peak, ep.peak, rtol=1e-5, atol=0.0)
+        assert torch.equal(ek.hold, ep.hold)
+    torch.cuda.synchronize()
+
+
+def test_chain_dyn_kernel_hold_and_threshold_heavy(cuda_device):
+    """Bursts around the release threshold with a long hold: the level
+    crosses the threshold both ways and the hold runs out many times per
+    block."""
+    c, n, t = 8, 480, 4096
+    cp = Compressor(48000, attack_thresh=0.2, release_thresh=0.1,
+                    attack_ms=1.0, release_ms=5.0, hold_ms=4.0).build()
+    gen = torch.Generator().manual_seed(8)
+    k = torch.arange(t)
+    wk = wp = torch.zeros(c, n, device=cuda_device)
+    ek = ep = tdyn.env_init((c,), cuda_device)
+    for blk in range(3):
+        amp = torch.where((k + 97 * blk) % 700 < 350, 0.4, 0.05)
+        x = (torch.randn(c, t, generator=gen) * amp).to(cuda_device)
+        args = (n, 1.0, cp.tau_attack, cp.tau_release, cp.release_thresh,
+                cp.hold, cp.knees)
+        wk, ek, yk = chain_dyn(wk, ek, x, *args)
+        wp, ep, yp = chain_dyn_plain(wp, ep, x, *args)
+        assert _snr(yp, yk) >= 110.0, blk
         torch.testing.assert_close(wk, wp, rtol=1e-5, atol=1e-7)
         torch.testing.assert_close(ek.envelope, ep.envelope, rtol=1e-5,
                                    atol=0.0)

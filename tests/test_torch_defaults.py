@@ -1,6 +1,6 @@
 """The port's entry points run on the card unless the caller asks for the
-CPU: every public constructor and ``init_*`` that allocates defaults to
-``device="cuda"`` (read from the signature, so nothing is allocated and
+CPU: every public constructor, ``init_*`` and ``convert`` helper that
+allocates defaults to ``device="cuda"`` (read from the signature, so nothing is allocated and
 no card is needed).  And the same call gives the same ring layout in
 both packages: ``init_ring_fdl`` defaults to the natural order, as the
 JAX package's does."""
@@ -14,7 +14,7 @@ import torch
 
 from lsp_dsp_units_tpu.ops import fftconv as jfc
 
-from lsp_dsp_units_tpu_torch import pipeline
+from lsp_dsp_units_tpu_torch import convert, pipeline
 from lsp_dsp_units_tpu_torch.models.dynamics.compressor import Compressor
 from lsp_dsp_units_tpu_torch.models.dynamics.expander import Expander
 from lsp_dsp_units_tpu_torch.models.dynamics.gate import Gate
@@ -33,7 +33,10 @@ ALLOCATING = [
     device_mix.build_voices, device_mix.voices_from_host,
     biquad_block.init_state, biquad_block.precompute_fused,
     dynamics.env_init, delivery.tpdf_i16_table, blocks.BlockStream.__init__,
-    resample.upsample_history,
+    resample.upsample_history, convert.params_from_jax,
+    convert.state_from_jax, convert.bulk_state_from_jax,
+    convert.ring_from_natural, convert.ring_fdl_from_jax,
+    convert.ring_state_from_jax, convert.voices_from_jax,
 ]
 
 

@@ -1,0 +1,374 @@
+"""The schedules of the redesigned CUDA kernels, modelled on the CPU.
+
+The packed FFT (``csrc/fft_packed.cu``) runs the radix-2 transform of
+``csrc/fft_packed.cuh`` as two blocks per row (after the first DIF stage
+the halves are independent; the inverse's last DIT stage pairs them
+across a cluster) with up to four stages per shared-memory pass.  A
+numpy model of that schedule in float64 must be bitwise equal to a numpy
+model of the in-place radix-2 ``dif``/``dit_inv`` with the untangle,
+which the fused kernels still run: the same butterflies on the same
+operands.  Both must also agree with the plain versions.  This holds the
+index maths (groups, twiddle indices, pair ranges per half, the cross
+stage) that only the card could otherwise show.
+
+The dynamics tail (``csrc/env.cu``) replaces its envelope step, where the
+envelope cannot hold, by one with no compare on the envelope's path:
+max(e_rise, min(e_rel, +-inf)).  Written out in torch with the plain
+version's correctly rounded FMA (``_mul_add``) and run as the chain
+thread runs it beside the reference step, it must equal
+``peak_envelope_plain`` bit for bit.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from lsp_dsp_units_tpu_torch.ops import env_units as eu
+from lsp_dsp_units_tpu_torch.ops import fft_packed as fp
+from lsp_dsp_units_tpu_torch.ops.dynamics import EnvState
+
+SIZES = [1 << k for k in range(7, 16)]          # 128 ... 32768
+RADIX_BITS = 4                                   # stages per register pass
+
+
+def _snr(ref, out):
+    ref, out = np.asarray(ref, np.float64), np.asarray(out, np.float64)
+    err = out - ref
+    return 10 * np.log10(np.sum(ref ** 2) / max(np.sum(err ** 2), 1e-300))
+
+
+def _twiddles(n):
+    """The kernels' float32 tables as complex128."""
+    wst, wnb = fp.tables(n, torch.device("cpu"))
+    wst, wnb = wst.double().numpy(), wnb.double().numpy()
+    return wst[:, 0] + 1j * wst[:, 1], wnb[:, 0] + 1j * wnb[:, 1]
+
+
+def _pair_of(t):
+    """fft_packed.cuh::pair_of on an array of pair numbers."""
+    v = t + 1
+    hb = 1 << (np.floor(np.log2(v)).astype(np.int64))
+    j = v + hb
+    return j, 6 * hb - 1 - j
+
+
+def _untangle(a, b, wk):
+    bc = np.conj(b)
+    e = (a + bc) * 0.5
+    d = a - bc
+    o = 0.5 * d.imag - 0.5j * d.real
+    wo = wk * o
+    return e + wo, np.conj(e - wo)
+
+
+def _retangle(xk, xmk, wk):
+    xc = np.conj(xmk)
+    e = (xk + xc) * 0.5
+    o = ((xk - xc) * 0.5) * np.conj(wk)
+    io = -o.imag + 1j * o.real
+    return e + io, np.conj(e - io)
+
+
+def _untangle0(z0):
+    return (z0.real + z0.imag) + 1j * (z0.real - z0.imag)
+
+
+def _retangle0(x0):
+    return 0.5 * (x0.real + x0.imag) + 0.5j * (x0.real - x0.imag)
+
+
+def _dif_butterfly(a, c, w):
+    return a + c, (a - c) * w
+
+
+def _dit_butterfly(a, c, w):
+    c = c * np.conj(w)
+    return a + c, a - c
+
+
+# --- the one-block in-place radix-2 schedule (dif / dit_inv) ---------------
+
+
+def _ref_forward(z, wst):
+    buf = z.copy()
+    m = buf.size
+    h = m // 2
+    while h >= 1:
+        b = np.arange(m // 2)
+        j = b & (h - 1)
+        i = 2 * b - j
+        buf[i], buf[i + h] = _dif_butterfly(buf[i], buf[i + h], wst[h + j])
+        h //= 2
+    return buf
+
+
+def _ref_inverse_core(buf, wst):
+    buf = buf.copy()
+    m = buf.size
+    h = 1
+    while h < m:
+        b = np.arange(m // 2)
+        j = b & (h - 1)
+        i = 2 * b - j
+        buf[i], buf[i + h] = _dit_butterfly(buf[i], buf[i + h], wst[h + j])
+        h *= 2
+    return buf
+
+
+def _untangle_all(buf, wnb):
+    m = buf.size
+    out = np.empty(m, np.complex128)
+    j, jp = _pair_of(np.arange(m // 2 - 1))
+    out[j], out[jp] = _untangle(buf[j], buf[jp], wnb[j])
+    out[0] = _untangle0(buf[0])
+    out[1] = np.conj(buf[1])
+    return out
+
+
+def _retangle_all(spec, wnb):
+    m = spec.size
+    buf = np.empty(m, np.complex128)
+    j, jp = _pair_of(np.arange(m // 2 - 1))
+    buf[j], buf[jp] = _retangle(spec[j], spec[jp], wnb[j])
+    buf[0] = _retangle0(spec[0])
+    buf[1] = np.conj(spec[1])
+    return buf
+
+
+# --- the two-block schedule of fft_packed.cu --------------------------------
+
+
+def _radix_pass(buf, wst, lo, kk, inverse):
+    """radix_pass: groups of 2^kk points differing in bits [lo, lo + kk),
+    kk stages on each group in registers."""
+    p = 1 << kk
+    g = np.arange(buf.size // p)
+    mask = (1 << lo) - 1
+    base = (g & mask) | ((g >> lo) << (lo + kk))
+    idx = base[:, None] + (np.arange(p) << lo)[None, :]
+    v = buf[idx]
+    jl = base & mask
+    for s in (range(kk) if inverse else range(kk - 1, -1, -1)):
+        half = 1 << s
+        h = 1 << (lo + s)
+        for r0 in range(0, p, 2 * half):
+            for q in range(half):
+                w = wst[h + jl + (q << lo)]
+                fly = _dit_butterfly if inverse else _dif_butterfly
+                v[:, r0 + q], v[:, r0 + q + half] = fly(
+                    v[:, r0 + q], v[:, r0 + q + half], w)
+    out = buf.copy()
+    out[idx] = v
+    return out
+
+
+def _half_pairs(b, l):
+    t0 = (l >> 1) - 1 if b else 0
+    count = (l >> 1) if b else (l >> 1) - 1
+    return _pair_of(t0 + np.arange(count))
+
+
+def _split_forward(z, wst, wnb, half_input):
+    """rfft_packed_kernel for one row: z complex [M] (its upper half zero
+    when half_input, which the kernel then never reads)."""
+    m = z.size
+    l = m // 2
+    log_l = l.bit_length() - 1
+    out = np.full(m, np.nan + 0j)
+    for b in (0, 1):
+        i = np.arange(l)
+        a = z[i]
+        if half_input:
+            buf = a * wst[l + i] if b else a.copy()
+        else:
+            buf = _dif_butterfly(a, z[i + l], wst[l + i])[b]
+        rem = log_l
+        while rem > 0:
+            kk = min(RADIX_BITS, rem)
+            rem -= kk
+            buf = _radix_pass(buf, wst, rem, kk, inverse=False)
+        off = b * l
+        j, jp = _half_pairs(b, l)
+        assert np.all((j >= off) & (j < off + l) & (jp >= off)
+                      & (jp < off + l))
+        out[j], out[jp] = _untangle(buf[j - off], buf[jp - off], wnb[j])
+        if b == 0:
+            out[0] = _untangle0(buf[0])
+            out[1] = np.conj(buf[1])
+    assert not np.isnan(out).any()
+    return out
+
+
+def _split_inverse(spec, wst, wnb, half):
+    """irfft_packed_kernel for one row: packed complex [M] -> complex
+    natural [M] (or its first / last half), scaled by 1/M."""
+    m = spec.size
+    l = m // 2
+    log_l = l.bit_length() - 1
+    bufs = []
+    for b in (0, 1):
+        off = b * l
+        buf = np.full(l, np.nan + 0j)
+        j, jp = _half_pairs(b, l)
+        buf[j - off], buf[jp - off] = _retangle(spec[j], spec[jp], wnb[j])
+        if b == 0:
+            buf[0] = _retangle0(spec[0])
+            buf[1] = np.conj(spec[1])
+        assert not np.isnan(buf).any()
+        lo = 0
+        while lo < log_l:
+            kk = min(RADIX_BITS, log_l - lo)
+            buf = _radix_pass(buf, wst, lo, kk, inverse=True)
+            lo += kk
+        bufs.append(buf)
+    out = np.full(m, np.nan + 0j)
+    for b in (0, 1):
+        i = np.arange(b * (l >> 1), (b + 1) * (l >> 1))
+        out[i], out[i + l] = _dit_butterfly(bufs[0][i], bufs[1][i],
+                                            wst[l + i])
+    out = out * (1.0 / m)
+    return {0: out, 1: out[:l], 2: out[l:]}[half]
+
+
+def _ref_inverse(spec, wst, wnb, half):
+    m = spec.size
+    out = _ref_inverse_core(_retangle_all(spec, wnb), wst) * (1.0 / m)
+    return {0: out, 1: out[:m // 2], 2: out[m // 2:]}[half]
+
+
+def _as_real(zc):
+    y = np.empty(2 * zc.size)
+    y[0::2], y[1::2] = zc.real, zc.imag
+    return y
+
+
+@pytest.mark.parametrize("n", SIZES)
+def test_fft_split_forward_matches_radix2_and_plain(n):
+    m = n // 2
+    wst, wnb = _twiddles(n)
+    rng = np.random.default_rng(n)
+    x = rng.standard_normal(n)
+    xh = x[:m].copy()
+    for half_input, xin in ((False, x), (True, np.concatenate(
+            [xh, np.zeros(m)]))):
+        z = xin[0::2] + 1j * xin[1::2]
+        new = _split_forward(z, wst, wnb, half_input)
+        ref = _untangle_all(_ref_forward(z, wst), wnb)
+        assert np.array_equal(new, ref), half_input
+        plain = (fp.rfft_packed_zeropad_plain(torch.from_numpy(xh))
+                 if half_input else fp.rfft_packed_plain(torch.from_numpy(x)))
+        assert _snr(plain[0].numpy(), new.real) >= 130.0, half_input
+        assert _snr(plain[1].numpy(), new.imag) >= 130.0, half_input
+
+
+@pytest.mark.parametrize("half", [0, 1, 2])
+@pytest.mark.parametrize("n", SIZES)
+def test_fft_split_inverse_matches_radix2_and_plain(n, half):
+    wst, wnb = _twiddles(n)
+    rng = np.random.default_rng(n + half)
+    re, im = fp.rfft_packed_plain(torch.from_numpy(rng.standard_normal(n)))
+    spec = re.numpy() + 1j * im.numpy()
+    new = _split_inverse(spec, wst, wnb, half)
+    assert np.array_equal(new, _ref_inverse(spec, wst, wnb, half))
+    mode = {0: False, 1: "first", 2: "last"}[half]
+    plain = fp.irfft_packed_plain(re, im, n, mode).numpy()
+    assert plain.shape == (2 * new.size,)
+    assert _snr(plain, _as_real(new)) >= 130.0
+
+
+# --- the envelope steps of env.cu ------------------------------------------
+
+
+def _step_free(x, e, ta, tr, rt):
+    """env.cu::free_step (peak == e, hold 0, hold time 0, tr <= ta): the
+    release threshold as b = +-inf, then max(e_rise, min(e_rel, b))."""
+    d = x - e
+    e_rise = eu._mul_add(ta, d, e)
+    e_rel = eu._mul_add(tr, d, e)
+    inf = torch.full_like(e, float("inf"))
+    b = inf if rt is None else torch.where(torch.signbit(rt - e), inf, -inf)
+    return torch.maximum(e_rise, torch.minimum(e_rel, b))
+
+
+CHUNK, BATCH = 256, 32                           # env.cu's kChunk, kBatch
+RT = 0.3
+
+
+def _levels(t):
+    """Six channels of detector levels (float32): a noisy swell across
+    the threshold, exactly RT for half the block and then below it (the
+    envelope falls from exactly RT), a square wave across it,
+    impulses into silence, steps that repeat, and a slow ramp; channel 3
+    is overwritten with the envelope itself at every 5th step."""
+    rng = np.random.default_rng(5)
+    k = np.arange(t)
+    swell = np.sin(np.pi * k / t)
+    x = np.stack([
+        np.abs(rng.standard_normal(t)) * 0.6 * swell,
+        np.where(k < t // 2, RT, 0.1),
+        np.where((k // 150) % 2 == 0, 0.55, 0.05),
+        np.where(k % 300 < 3, 0.9, 0.0) + 0.01,
+        np.repeat(rng.uniform(0.0, 0.7, t // 40 + 1), 40)[:t],
+        0.6 * k / t,
+    ]).astype(np.float32)
+    return torch.from_numpy(x)
+
+
+@pytest.mark.parametrize("tr", [0.004, 0.2])
+@pytest.mark.parametrize("rt", [RT, None])
+@pytest.mark.parametrize("nh", [0, 3, 40])
+def test_reordered_envelope_step_is_bitwise_the_plain_one(nh, rt, tr):
+    """The chain thread of env.cu as it runs: per chunk of 256, batches
+    of 32 that start where the envelope cannot hold (peak == e, hold 0,
+    a hold time of 0, tr <= ta) take free_step (and end with peak := e),
+    the others and each chunk's tail the reference step.  Channels 2 and
+    4 start with peak != e and a hold; channel 5 rises under a peak it
+    never reaches, so its peak stays apart from e for the whole block."""
+    t = 3000                                     # 11 chunks + 184: tails
+    x = _levels(t)
+    ta = torch.tensor(0.05, dtype=torch.float32)
+    tr_t = torch.tensor(tr, dtype=torch.float32)
+    nh_t = torch.tensor(nh, dtype=torch.int32)
+    rt_t = None if rt is None else torch.tensor(rt, dtype=torch.float32)
+    e = torch.tensor([0.0, RT, 0.2, 0.5, 0.0, 0.0], dtype=torch.float32)
+    peak = e + torch.tensor([0.0, 0.0, 0.1, 0.0, 0.3, 0.9])
+    hold = torch.tensor([0, 0, 2, nh, 1, 0], dtype=torch.int32)
+    st0 = EnvState(e, peak, hold)
+    free_ok = nh == 0 and tr <= 0.05
+    seen = dict(equal=0, at_rt=0, fall_at_rt=0, up=0, down=0, expiry=0,
+                free=0, general=0)
+    env = torch.empty_like(x)
+    free = torch.zeros_like(e, dtype=torch.bool)
+    for k in range(t):
+        in_batch = k % CHUNK < (min(CHUNK, t - k // CHUNK * CHUNK)
+                                // BATCH * BATCH)
+        if k % BATCH == 0:
+            free = (e == peak) & (hold == 0) & free_ok & in_batch
+        if k % 5 == 0:
+            x[3, k] = e[3]                      # x == e
+        xk = x[:, k]
+        seen["equal"] += int((xk == e).sum())
+        seen["at_rt"] += int((e == RT).sum())
+        seen["fall_at_rt"] += int(((e == RT) & (xk < e) & (hold == 0)).sum())
+        e_g, peak_g, hold_g = eu._env_step_plain(xk, e, peak, hold, ta, tr_t,
+                                                 nh_t, rt_t)
+        e2 = torch.where(free, _step_free(xk, e, ta, tr_t, rt_t), e_g)
+        hold2 = torch.where(free, hold, hold_g)
+        peak = torch.where(free, peak, peak_g)
+        seen["free"] += int(free.sum())
+        seen["general"] += int((~free).sum())
+        seen["up"] += int(((e <= RT) & (e2 > RT)).sum())
+        seen["down"] += int(((e > RT) & (e2 <= RT)).sum())
+        seen["expiry"] += int(((hold == 1) & (hold2 == 0)).sum())
+        e, hold = e2, hold2
+        env[:, k] = e
+        if k % BATCH == BATCH - 1:
+            peak = torch.where(free, e, peak)
+    st, ref = eu.peak_envelope_plain(st0, x, 0.05, tr, nh, rt)
+    assert torch.equal(env, ref)
+    assert torch.equal(e, st.envelope) and torch.equal(peak, st.peak)
+    assert torch.equal(hold, st.hold)
+    for what in ("equal", "at_rt", "fall_at_rt", "up", "down", "general"):
+        assert seen[what] > 0, what
+    assert seen["free"] > 0 or not free_ok
+    assert seen["expiry"] > 0

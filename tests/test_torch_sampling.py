@@ -195,7 +195,7 @@ def test_voices_from_jax_mid_stream():
         jst, _ = jdm.mix_block(jbank, jlen, jvoices, jst, block)
     voices, st = convert.voices_from_jax(
         jdm.DeviceVoices(*(np.asarray(v) for v in jvoices)),
-        jdm.DeviceMixState(np.asarray(jst.pos)))
+        jdm.DeviceMixState(np.asarray(jst.pos)), device="cpu")
     assert voices.min_loop_span == 19500
     bank_p, _, pad = tdm.build_bank_padded(samples, block, device="cpu")
     for b in range(10):

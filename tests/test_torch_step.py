@@ -177,7 +177,8 @@ def _chains(rank, c):
     tchain = tpipe.FilterConvChain(48000, c, rank=rank, ir_seconds=0.05,
                                    device="cpu")
     jp = jchain.build()
-    return jchain, tchain, jp, convert.params_from_jax(_np_tree(jp))
+    return jchain, tchain, jp, convert.params_from_jax(_np_tree(jp),
+                                                      device="cpu")
 
 
 @pytest.mark.parametrize("rank", [9, 11])
@@ -192,7 +193,7 @@ def test_step_matches_jax(rank):
         np.float32) for k in range(4)]
     jst = jchain.init_state(jp)
     jst, _ = jchain.step(jp, jst, jnp.asarray(xs[0]))
-    tst = convert.state_from_jax(_np_tree(jst))
+    tst = convert.state_from_jax(_np_tree(jst), device="cpu")
     own = tchain.init_state(tp)
     for a, b_ in zip(jax.tree_util.tree_leaves(_np_tree(jchain.init_state(
             jp))), (own.eq, *own.fdl, *own.sc, *own.env)):
@@ -220,7 +221,7 @@ def test_bulk_step_matches_jax():
     th = tchain.build_bulk(t_super)
     assert _snr(jh.re, th.re) >= BAR_DB
     jst = jchain.init_bulk_state(jp, t_super)
-    tst = convert.bulk_state_from_jax(_np_tree(jst))
+    tst = convert.bulk_state_from_jax(_np_tree(jst), device="cpu")
     rng = np.random.default_rng(70)
     for k in range(2):
         x = (rng.standard_normal((c, t_super)) * 0.25).astype(np.float32)
