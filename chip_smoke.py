@@ -15,13 +15,19 @@ Phases (any failure exits non-zero; nothing is caught):
             packed FFT >= 95 dB (and its launch shape: the forward's
             blocks resident at once, from the occupancy calculator,
             must cover all 2 x 64), EQ+FDL y and u >= 95 dB (ring and EQ
-            state likewise), dynamics y >= 110 dB with window, envelope
-            and peak to rtol 1e-5 and hold exact; sliding RMS at T=16384
-            and T=300 (T < N): level >= 110 dB, window exact; peak
-            envelope at T=16384 and 16383, release threshold on and off:
-            envelope and state exact; gate envelope at T=16384: envelope,
-            curve track and state exact.  Each plain envelope is a
-            per-sample Python loop, run (and timed) once.
+            state likewise; y and the ring slot identical to fdl_fused's
+            on the frame [hist || u]; its launch shape: all 64 clusters
+            of 2 blocks resident), dynamics y >= 110 dB with window,
+            envelope and peak to rtol 1e-5 and hold exact; sliding RMS at
+            T=16384 and T=300 (T < N): level >= 110 dB, window exact;
+            peak envelope in step's configuration (the chain's
+            compressor, hold 0, from env_init) and with a hold of 24
+            samples, each at T=16384 and 16383, release threshold on and
+            off: envelope and state exact, the SASS stall cycles per
+            step of its two batch bodies (cuobjdump) and the SM clock
+            (the spin kernel's cycles over its time); gate envelope at
+            T=16384: envelope, curve track and state exact.  Each plain
+            envelope is a per-sample Python loop, run (and timed) once.
 4. main   — FilterConvChain(48000, 64, rank=14, ir_seconds=1.0): build ->
             init_ring_state -> 24 blocks of step_ring + quantize_i16
             with the input rotated every block.  The launch counters are
@@ -73,7 +79,8 @@ Phases (any failure exits non-zero; nothing is caught):
             computes the same function, that call's time; row #1 also
             times the inverse (irfft_packed, last half) beside
             torch.fft.irfft, row #3 gives its cycles per sample at the
-            boost clock.  Host clock:
+            boost clock, row #6 its cycles per step in step's
+            configuration and with the hold of 24.  Host clock:
             the time to enqueue a block of step_ring, and the delivered
             samples/s over 32 blocks ending in a sync.
 
@@ -89,6 +96,7 @@ import argparse
 import concurrent.futures
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -121,7 +129,8 @@ from lsp_dsp_units_tpu_torch.ops import slicedma  # noqa: E402
 from lsp_dsp_units_tpu_torch.ops.env import (  # noqa: E402
     chain_dyn, chain_dyn_plain)
 from lsp_dsp_units_tpu_torch.ops.fdl_fused import (  # noqa: E402
-    eqfdl_fused, eqfdl_fused_plain, fdl_fused, fdl_fused_plain)
+    eqfdl_fused, eqfdl_fused_plain, eqfdl_launch_shape, fdl_fused,
+    fdl_fused_plain)
 from lsp_dsp_units_tpu_torch.ops.ring_mac import (  # noqa: E402
     ring_mac, ring_mac_plain)
 from lsp_dsp_units_tpu_torch.utils.delivery import (  # noqa: E402
@@ -193,7 +202,11 @@ KERNELS = (
 EXTRA_KEYS = {
     "fft": ("inverse_ms", "inverse_plain_ms", "inverse_library_ms",
             "inverse_bound_ms", "blocks_resident"),
+    "eqfdl": ("blocks_resident",),
     "dyn": ("chain_ms", "cycles_per_sample"),
+    "peak": ("chain_ms", "cycles_per_step", "hold24_ms",
+             "hold24_cycles_per_step", "sass_free_cycles_per_step",
+             "sass_ref_cycles_per_step", "sm_clock_hz"),
 }
 
 
@@ -309,6 +322,7 @@ def parity_eqfdl(chain, params, dev, res):
     sv_k = sv_p = torch.zeros(C, k2, device=dev)
     worst = dict(y=1e9, u=1e9, sv=1e9, ring=1e9)
     err = 0.0
+    same = True
     for k in range(p_n + 2):
         x = randn(gen, C, B, scale=0.25, dev=dev)
         xs = fp.rfft_packed_zeropad_plain(x)
@@ -316,8 +330,16 @@ def parity_eqfdl(chain, params, dev, res):
         common = (params.h_re, params.h_im, params.heq_re, params.heq_im,
                   *xs, x)
         mats = (eqp.g_t, eqp.m_mat, eqp.w_mat)
+        ring_f = (ring_k.spec_re.clone(), ring_k.spec_im.clone())
         yk, uk, sv_k = eqfdl_fused(ring_k.spec_re, ring_k.spec_im, *common,
                                    sv_k, *mats, ring_k.history, w)
+        # the cluster schedule's frame, MAC and inverse are fdl_fused's
+        # one-block ones: same y and ring slot, bit for bit
+        yf = fdl_fused(*ring_f, params.h_re, params.h_im, ring_k.history,
+                       uk, w)
+        same = (same and torch.equal(yf, yk)
+                and torch.equal(ring_f[0], ring_k.spec_re)
+                and torch.equal(ring_f[1], ring_k.spec_im))
         yp, up, sv_p = eqfdl_fused_plain(ring_p.spec_re, ring_p.spec_im,
                                          *common, sv_p, *mats,
                                          ring_p.history, w)
@@ -332,11 +354,28 @@ def parity_eqfdl(chain, params, dev, res):
         err = max(err, max_abs(yp, yk), max_abs(up, uk))
     torch.cuda.synchronize()
     print("parity eqfdl (worst of %d blocks): " % (p_n + 2)
-          + ", ".join(f"{k} {v:.1f} dB" for k, v in worst.items()))
+          + ", ".join(f"{k} {v:.1f} dB" for k, v in worst.items())
+          + f"; y and ring slot identical to fdl_fused on [hist || u] = "
+          f"{same}")
     for k, v in worst.items():
         check(v >= LIN_DB, f"eqfdl {k} {v:.1f} dB < {LIN_DB}")
+    check(same, "eqfdl y or ring slot differs from fdl_fused's")
+    shape = eqfdl_launch_shape(N, C)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    blocks = C * shape["blocks_per_channel"]
+    resident = min(blocks, shape["blocks_per_sm"] * sms,
+                   shape["clusters_resident"] * shape["blocks_per_channel"])
+    print(f"eqfdl launch: {blocks} blocks in clusters of "
+          f"{shape['blocks_per_channel']}, {shape['threads']} threads and "
+          f"{shape['smem_bytes']} B shared memory each, "
+          f"{shape['blocks_per_sm']} per SM x {sms} SMs, "
+          f"{shape['clusters_resident']} clusters at once: {resident} "
+          f"resident")
+    check(resident >= blocks, f"only {resident} of {blocks} eqfdl blocks "
+                              f"resident")
     w = (ring_k.pos + 1) % p_n
-    res["eqfdl"] = dict(db=worst, max_abs_err=err)
+    res["eqfdl"] = dict(db=worst, max_abs_err=err, launch_shape=shape,
+                        blocks_resident=resident)
     res["eqfdl"]["ms"] = time_ms(lambda: eqfdl_fused(
         ring_k.spec_re, ring_k.spec_im, *common, sv_k, *mats,
         ring_k.history, w), 50)
@@ -532,6 +571,73 @@ def rms_ideal(win, x, n):
                                   / n, min=0.0))
 
 
+def sass_batches(lib: str, kernel: str) -> list:
+    """The batch bodies of an envelope kernel in its SASS (cuobjdump
+    beside nvcc): the basic blocks that hold a batch's 2 x 32 FFMAs, each
+    as (FMNMX count, static stall cycles per step).  An instruction's
+    stall count is bits 41-44 of its second 64-bit word; the count leaves
+    out waits on variable-latency results."""
+    cuobjdump = os.path.join(os.path.dirname(_build.find_nvcc()), "cuobjdump")
+    out = subprocess.run([cuobjdump, "-sass", _build.build(lib)],
+                         capture_output=True, text=True, timeout=120)
+    check(out.returncode == 0, f"cuobjdump: {out.stderr.strip()}")
+    body = [f for f in out.stdout.split("Function : ")
+            if kernel in f.split("\n", 1)[0]]
+    check(len(body) == 1, f"{kernel}: {len(body)} functions in the SASS")
+    ins = re.compile(r"/\*[0-9a-f]{4,}\*/\s+(.*?);\s*/\* 0x[0-9a-f]{16} \*/")
+    hi = re.compile(r"^\s*/\* (0x[0-9a-f]{16}) \*/\s*$")
+    blocks, cur, op = [], [], None
+    for line in body[0].splitlines():
+        m = ins.search(line)
+        if m:
+            op = m.group(1).strip()
+            continue
+        m = hi.match(line)
+        if m and op is not None:
+            cur.append((op, (int(m.group(1), 16) >> 41) & 0xF))
+            if re.search(r"\b(BRA|EXIT|RET)\b", op):
+                blocks.append(cur)
+                cur = []
+            op = None
+        elif line.strip().startswith(".L"):
+            blocks.append(cur)
+            cur = []
+    blocks.append(cur)
+
+    def count(blk, name):
+        return sum(1 for o, _ in blk if re.search(rf"\b{name}\b", o))
+
+    return [(count(blk, "FMNMX"), sum(s for _, s in blk) / 32)
+            for blk in blocks if count(blk, "FFMA") == 64]
+
+
+def sass_peak_stalls() -> dict:
+    """Static stall cycles per step of peak_envelope's batches with a
+    release threshold: the predicate-free batch of the kernel that
+    allows it, the reference batch of the one that does not."""
+    free = [s for n, s in sass_batches("env_units",
+                                       "envelope_kernelILb1ELb0ELb1E")
+            if n >= 32]
+    ref = sass_batches("env_units", "envelope_kernelILb1ELb0ELb0E")
+    check(len(free) == 1 and len(ref) == 1 and ref[0][0] == 0,
+          f"SASS: {len(free)} free and {len(ref)} reference batch bodies")
+    return dict(sass_free_cycles_per_step=free[0],
+                sass_ref_cycles_per_step=ref[0][1])
+
+
+def sm_clock_hz() -> float:
+    """The SM clock now: the spin kernel's SPIN_CYCLES clock64 cycles
+    over its CUDA-event time."""
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    torch.cuda._sleep(SPIN_CYCLES)
+    stop.record()
+    stop.synchronize()
+    return SPIN_CYCLES / (start.elapsed_time(stop) * 1e-3)
+
+
 def parity_env_units(chain, params, dev, res):
     """Kernels #5-#7 against their plain versions at the step's shapes."""
     gen = torch.Generator().manual_seed(5)
@@ -565,32 +671,55 @@ def parity_env_units(chain, params, dev, res):
     res["rms"].update(library_ms=None, **bound(
         F32 * (2 * C * t + 2 * C * n), 4 * C * t))
 
+    # peak_envelope as step runs it (the chain's compressor: its taus and
+    # threshold, its hold of 0 samples, from env_init), and a hold of 24
+    # samples from a random state; each at T and T - 1, threshold on and
+    # off, against the plain version bit for bit
+    check(cp.hold == 0, f"the chain's compressor holds {cp.hold} samples")
     x = swell_levels(gen, C, t, dev)
-    st0 = dyn.EnvState(torch.rand(C, generator=gen).to(dev),
-                       torch.rand(C, generator=gen).to(dev),
-                       torch.randint(0, 25, (C,), generator=gen,
-                                     dtype=torch.int32).to(dev))
-    hold = 24                                    # 0.5 ms: the hold runs
-    err = 0.0
-    for tt in (t, t - 1):
-        xx = x[:, :tt].contiguous()
-        for rt in (None, cp.release_thresh):
-            args = (xx, cp.tau_attack, cp.tau_release, hold, rt)
-            sk, ek = eu.peak_envelope(st0, *args)
-            plain_ms, (sp, ep) = time_once_ms(
-                lambda: eu.peak_envelope_plain(st0, *args))
-            check(torch.equal(ek, ep), f"peak_envelope T={tt} rt={rt}")
-            check(all(torch.equal(a, b) for a, b in zip(sk, sp)),
-                  f"peak_envelope state T={tt} rt={rt}")
-            err = max(err, max_abs(ep, ek))
-            if tt == t and rt is not None:
-                res["peak"] = dict(plain_ms=plain_ms)
-    print(f"parity peak_envelope: T={t} and {t - 1}, release threshold on "
-          f"and off: envelope, peak and hold exact")
-    res["peak"].update(max_abs_err=err, ms=time_ms(lambda: eu.peak_envelope(
-        st0, x, cp.tau_attack, cp.tau_release, hold, cp.release_thresh), 20))
-    res["peak"].update(library_ms=None, chain_ms=chain_ms(t), **bound(
+    cases = dict(
+        step=(dyn.env_init((C,), dev), cp.hold),
+        hold24=(dyn.EnvState(torch.rand(C, generator=gen).to(dev),
+                             torch.rand(C, generator=gen).to(dev),
+                             torch.randint(0, 25, (C,), generator=gen,
+                                           dtype=torch.int32).to(dev)), 24))
+    res["peak"] = r = dict(library_ms=None, chain_ms=chain_ms(t), **bound(
         F32 * (2 * C * t + 6 * C), 6 * C * t))
+    err = 0.0
+    for name, (st0, hold) in cases.items():
+        for tt in (t, t - 1):
+            xx = x[:, :tt].contiguous()
+            for rt in (None, cp.release_thresh):
+                args = (xx, cp.tau_attack, cp.tau_release, hold, rt)
+                sk, ek = eu.peak_envelope(st0, *args)
+                plain_ms, (sp, ep) = time_once_ms(
+                    lambda: eu.peak_envelope_plain(st0, *args))
+                what = f"peak_envelope {name} T={tt} rt={rt}"
+                check(torch.equal(ek, ep), what)
+                check(all(torch.equal(a, b) for a, b in zip(sk, sp)),
+                      f"{what}: state")
+                err = max(err, max_abs(ep, ek))
+                if name == "step" and tt == t and rt is not None:
+                    r["plain_ms"] = plain_ms
+        key = "" if name == "step" else f"{name}_"
+        r[f"{key}ms"] = time_ms(lambda: eu.peak_envelope(
+            st0, x, cp.tau_attack, cp.tau_release, hold, cp.release_thresh),
+            20)
+        r[f"{key}cycles_per_step"] = r[f"{key}ms"] * 1e-3 * SM_HZ / t
+    r["max_abs_err"] = err
+    r["sm_clock_hz"] = sm_clock_hz()
+    r.update(sass_peak_stalls())
+    print(f"parity peak_envelope: step's configuration (hold 0, env_init) "
+          f"and hold 24, T={t} and {t - 1}, release threshold on and off: "
+          f"envelope, peak and hold exact")
+    print(f"peak_envelope [{C}, {t}]: step's configuration {r['ms']:.4f} ms "
+          f"= {r['cycles_per_step']:.2f} cycles per step; hold 24 "
+          f"{r['hold24_ms']:.4f} ms = {r['hold24_cycles_per_step']:.2f}; at "
+          f"{SM_HZ / 1e9:.2f} GHz (the SM clock, measured by the spin "
+          f"kernel: {r['sm_clock_hz'] / 1e9:.3f} GHz).  SASS stall cycles "
+          f"per step of a batch: "
+          f"free step {r['sass_free_cycles_per_step']:.2f}, reference step "
+          f"{r['sass_ref_cycles_per_step']:.2f}")
 
     gp = Gate(SR, threshold=0.2, zone=0.5, hyst_threshold=0.15,
               attack_ms=2.0, release_ms=20.0, hold_ms=0.5).build()

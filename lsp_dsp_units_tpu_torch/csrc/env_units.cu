@@ -15,6 +15,8 @@
 
 #include <cuda_runtime.h>
 
+#include <cstdint>
+
 namespace {
 
 // ---------------------------------------------------------------------------
@@ -122,19 +124,32 @@ sliding_rms_kernel(const float* __restrict__ x, const float* __restrict__ win,
 // peak-hold envelope and gate envelope
 //
 // What bounds them: the latency of the recurrence.  Each step depends on
-// the last (subtract, compare, select tau, FMA, selects), so a channel is
-// one serial chain of T steps, and the card's width does not help: the
-// main path's 64 channels are 64 chains.  The design runs each chain on
-// one thread with its state in registers and keeps everything else off
-// it, as csrc/env.cu does: one block per channel; thread 0 runs the
-// recurrence over a chunk of the channel's signal in shared memory,
-// reading 32 levels at a time into registers with vector loads and
-// writing the envelopes back the same way; meanwhile warps 1-3 write the
-// previous chunk out and read the next one in (coalesced), so the chain
-// never waits on device memory (a load or store on the chain costs its
-// latency every step, see PERF.md).  Two buffers of kChunk samples take
-// any T.  Mapping the serial chain better onto the card (e.g. splitting a
-// channel where the envelope provably resets) is later work.
+// the last, so a channel is one serial chain of T steps, and the card's
+// width does not help: the main path's 64 channels are 64 chains.  The
+// design runs each chain on one thread with its state in registers and
+// keeps everything else off it, as csrc/env.cu does: one block per
+// channel; thread 0 runs the recurrence over a chunk of the channel's
+// signal in shared memory, reading 32 levels at a time into registers with
+// vector loads and writing the envelopes back the same way; meanwhile
+// warps 1-3 write the previous chunk out and read the next one in
+// (coalesced), so the chain never waits on device memory (a load or store
+// on the chain costs its latency every step, see PERF.md).  Two buffers of
+// kChunk samples take any T.
+//
+// The step itself: on this card a compare that feeds a select costs ~13
+// cycles, against ~4 for FADD, FFMA or FMNMX, so the reference step
+// (subtract, compare, select tau, FMA, selects) is ~28 cycles.  Where the
+// peak envelope cannot hold (hold 0, a hold time of 0 samples, peak == e,
+// release no faster than attack and attack tau >= 0: the chain's
+// compressor from env_init, and any unit with hold_ms 0) a batch runs
+// env.cu's free step instead, sub -> fma -> min -> max with no predicate
+// on the envelope's path, and ends with peak := e; every other batch, each
+// chunk's tail and the gate (which holds and switches curves) run the
+// reference step.  There is no branch inside a batch.  Coefficients that
+// allow the free step select a kernel of its own (kFree), so that the
+// others run the reference step's code alone, scheduled as before.
+// Mapping the serial chain better onto the card (e.g. splitting a channel
+// where the envelope provably resets) is later work.
 // ---------------------------------------------------------------------------
 
 constexpr int kEnvThreads = 128;              // warp 0: the chain
@@ -168,6 +183,38 @@ __device__ __forceinline__ float env_step(float x, float& e, float& peak,
   return e;
 }
 
+// The same step where it cannot hold: peak == e, hold == 0, nh == 0,
+// tr <= ta and ta >= 0.  A step that does not fall then rises to e_rise >=
+// e = peak, so peak follows the envelope and the hold stays 0, and the
+// step is e' = falling && (!kUseRt || e > rt) ? e_rel : e_rise.  With tr
+// <= ta that is max(e_rise, min(e_rel, b)), b = +inf where the release
+// tau applies and -inf otherwise: where d < 0, e_rel >= e_rise, and where
+// d >= 0, e_rise >= e_rel, each FMA rounding monotonically in its tau.
+// b is +inf from the sign of rt - e (set: e > rt; the host passes rt + 0
+// so that rt = -0 compares as +0), or always +inf without a threshold.
+// Bit for bit the reference step for finite levels (csrc/env.cu's
+// free_step).
+template <bool kUseRt>
+__device__ __forceinline__ float free_step(float x, float& e,
+                                           const EnvCoef& k,
+                                           uint32_t inf_bits) {
+  if (kUseRt) {
+    const float u = __fsub_rn(k.rt, e);          // < 0 (sign set): e > rt
+    // b = (~u & 0x80000000) | 0x7f800000 in one lop3
+    uint32_t bb;
+    asm("lop3.b32 %0, %1, 0x80000000, %2, 0xae;"
+        : "=r"(bb) : "r"(__float_as_uint(u)), "r"(inf_bits));
+    const float d = __fsub_rn(x, e);
+    const float e_rel = __fmaf_rn(k.tr, d, e);
+    const float e_rise = __fmaf_rn(k.ta, d, e);
+    e = fmaxf(e_rise, fminf(e_rel, __uint_as_float(bb)));
+  } else {
+    const float d = __fsub_rn(x, e);
+    e = fmaxf(__fmaf_rn(k.ta, d, e), __fmaf_rn(k.tr, d, e));
+  }
+  return e;
+}
+
 // The hysteresis curve switch of the gate (the TPU kernel's _gate_step):
 // to curve 1 when the envelope rises above curve 0's end, back to 0 when
 // it falls below curve 1's start.
@@ -186,10 +233,17 @@ struct EnvRegs {
 // The chain over one chunk in shared memory, in place: levels in,
 // envelopes (and the gate's curve track) out.  Full batches move through
 // registers with 16-byte loads and stores (the buffers are 16-byte
-// aligned and batches start at multiples of kBatch).
-template <bool kUseRt, bool kGate>
+// aligned and batches start at multiples of kBatch).  With kFree (the
+// coefficients allow it), once a full batch starts where the envelope
+// cannot hold, it cannot hold for the rest of the chunk either (a free
+// step keeps peak == e and the hold at 0), so the chunk's remaining full
+// batches run free_step in a loop of their own, each batch's levels
+// loaded while the one before runs, and end with peak := e.  Every other
+// batch, and the tail, runs env_step.
+template <bool kUseRt, bool kGate, bool kFree>
 __device__ __forceinline__ void run_chunk(float* buf, int* cbuf, int len,
-                                          EnvRegs& s, const EnvCoef& k) {
+                                          EnvRegs& s, const EnvCoef& k,
+                                          uint32_t inf_bits) {
   auto step = [&](float v, int* cv) {
     v = env_step<kUseRt>(v, s.e, s.peak, s.hold, k);
     if (kGate) {
@@ -199,7 +253,9 @@ __device__ __forceinline__ void run_chunk(float* buf, int* cbuf, int len,
     return v;
   };
   const int full = len - len % kBatch;
-  for (int t0 = 0; t0 < full; t0 += kBatch) {
+  int t0 = 0;
+  for (; t0 < full; t0 += kBatch) {
+    if (kFree && s.e == s.peak && s.hold == 0) break;
     float4 lv[kBatch / 4];
     int4 cv[kGate ? kBatch / 4 : 1];
     float4* l4 = reinterpret_cast<float4*>(buf + t0);
@@ -221,6 +277,34 @@ __device__ __forceinline__ void run_chunk(float* buf, int* cbuf, int len,
       for (int q = 0; q < kBatch / 4; ++q) c4[q] = cv[kGate ? q : 0];
     }
   }
+  if (kFree && t0 < full) {
+    float4 lv[kBatch / 4];
+    const float4* first = reinterpret_cast<const float4*>(buf + t0);
+#pragma unroll
+    for (int q = 0; q < kBatch / 4; ++q) lv[q] = first[q];
+    for (; t0 < full; t0 += kBatch) {
+      // the next batch's levels (the last one again at the end)
+      const float4* n4 = reinterpret_cast<const float4*>(
+          buf + min(t0 + kBatch, full - kBatch));
+      float4 nv[kBatch / 4];
+#pragma unroll
+      for (int q = 0; q < kBatch / 4; ++q) nv[q] = n4[q];
+#pragma unroll
+      for (int q = 0; q < kBatch / 4; ++q) {
+        lv[q].x = free_step<kUseRt>(lv[q].x, s.e, k, inf_bits);
+        lv[q].y = free_step<kUseRt>(lv[q].y, s.e, k, inf_bits);
+        lv[q].z = free_step<kUseRt>(lv[q].z, s.e, k, inf_bits);
+        lv[q].w = free_step<kUseRt>(lv[q].w, s.e, k, inf_bits);
+      }
+      float4* l4 = reinterpret_cast<float4*>(buf + t0);
+#pragma unroll
+      for (int q = 0; q < kBatch / 4; ++q) {
+        l4[q] = lv[q];
+        lv[q] = nv[q];
+      }
+    }
+    s.peak = s.e;
+  }
   for (int t = full; t < len; ++t) {
     int cv = 0;
     buf[t] = step(buf[t], &cv);
@@ -229,7 +313,8 @@ __device__ __forceinline__ void run_chunk(float* buf, int* cbuf, int len,
 }
 
 // kGate: the gate's form (no release threshold) with the curve track.
-template <bool kUseRt, bool kGate>
+// kFree: the coefficients allow free_step (not with kGate).
+template <bool kUseRt, bool kGate, bool kFree>
 __global__ void __launch_bounds__(kEnvThreads)
 envelope_kernel(const float* __restrict__ x, const float* __restrict__ e_in,
                 const float* __restrict__ p_in, const int* __restrict__ h_in,
@@ -250,13 +335,16 @@ envelope_kernel(const float* __restrict__ x, const float* __restrict__ e_in,
   EnvRegs s{0.0f, 0.0f, 0, 0};
   if (threadIdx.x == 0)
     s = EnvRegs{e_in[c], p_in[c], h_in[c], kGate ? cur_in[c] : 0};
+  static_assert(!(kGate && kFree), "the gate holds: no free step");
+  uint32_t inf_bits = 0;               // 0x7f800000, kept in a register
+  if (kFree) asm volatile("mov.b32 %0, 0x7f800000;" : "=r"(inf_bits));
   __syncthreads();
   for (int j = 0; j < n_chunks; ++j) {
     const int b = j & 1;
     const int t0 = j * kChunk;
     if (threadIdx.x == 0) {
-      run_chunk<kUseRt, kGate>(s_x[b], kGate ? s_cur[b] : nullptr,
-                               min(kChunk, t_n - t0), s, k);
+      run_chunk<kUseRt, kGate, kFree>(s_x[b], kGate ? s_cur[b] : nullptr,
+                                      min(kChunk, t_n - t0), s, k, inf_bits);
     } else if (threadIdx.x >= 32) {
       // chunk j - 1 out of the other buffer, chunk j + 1 into it: each
       // element is written out before the same thread refills it
@@ -305,9 +393,14 @@ int lsp_peak_envelope(const float* x, const float* e_in, const float* p_in,
                       float* p_out, int* h_out, int c_n, int t_n, float ta,
                       float tr, float rt, int nh, int use_rt, void* stream) {
   if (c_n < 1 || t_n < 1) return (int)cudaErrorInvalidValue;
-  const EnvCoef k{ta, tr, rt, nh, 0.0f, 0.0f};
-  auto kernel = use_rt ? envelope_kernel<true, false>
-                       : envelope_kernel<false, false>;
+  // rt + 0: -0 becomes +0, which compares the same and keeps free_step's
+  // sign test exact
+  const EnvCoef k{ta, tr, rt + 0.0f, nh, 0.0f, 0.0f};
+  const bool free = nh == 0 && tr <= ta && ta >= 0.0f;
+  auto kernel = use_rt ? (free ? envelope_kernel<true, false, true>
+                               : envelope_kernel<true, false, false>)
+                       : (free ? envelope_kernel<false, false, true>
+                               : envelope_kernel<false, false, false>);
   kernel<<<c_n, kEnvThreads, 0, (cudaStream_t)stream>>>(
       x, e_in, p_in, h_in, nullptr, env, nullptr, e_out, p_out, h_out,
       nullptr, t_n, k);
@@ -321,8 +414,8 @@ int lsp_gate_envelope(const float* x, const float* e_in, const float* p_in,
                       int nh, float k0_end, float k1_start, void* stream) {
   if (c_n < 1 || t_n < 1) return (int)cudaErrorInvalidValue;
   const EnvCoef k{ta, tr, 0.0f, nh, k0_end, k1_start};
-  envelope_kernel<false, true><<<c_n, kEnvThreads, 0,
-                                 (cudaStream_t)stream>>>(
+  envelope_kernel<false, true, false><<<c_n, kEnvThreads, 0,
+                                        (cudaStream_t)stream>>>(
       x, e_in, p_in, h_in, cur_in, env, curves, e_out, p_out, h_out, cur_out,
       t_n, k);
   return (int)cudaGetLastError();

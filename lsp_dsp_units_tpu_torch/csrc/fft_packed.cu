@@ -49,103 +49,7 @@ using namespace lspfft;
 
 namespace {
 
-constexpr int kRadixBits = 4;                  // stages per register pass
-constexpr int kPts = 1 << kRadixBits;          // points a thread holds
 constexpr int kMaxThreads = 8192 / kPts;       // M/2 = 8192 at N = 32768
-
-// shared-memory slot of local point i: one float2 of padding per 16
-__device__ __forceinline__ int pad(int i) { return i + (i >> 4); }
-
-__host__ __device__ constexpr int padded(int l) { return l + (l >> 4); }
-
-// One radix-2 stage (span 2^(lo + S)) on the 2^KK points u[r] = point
-// base + (r << lo) of one group; jl = base mod 2^lo.  The butterflies are
-// dif's / dit_inv's, with the twiddle wst[h + (i & (h - 1))].
-template <int KK, int S, bool kInv>
-__device__ __forceinline__ void stage(float2* u,
-                                      const float2* __restrict__ wst, int jl,
-                                      int lo) {
-  constexpr int kHalf = 1 << S;
-  const int h = 1 << (lo + S);
-  float2 tw[kHalf];
-#pragma unroll
-  for (int q = 0; q < kHalf; ++q) tw[q] = __ldg(&wst[h + jl + (q << lo)]);
-#pragma unroll
-  for (int r0 = 0; r0 < (1 << KK); r0 += 2 * kHalf) {
-#pragma unroll
-    for (int q = 0; q < kHalf; ++q) {
-      const float2 a = u[r0 + q];
-      if (kInv) {
-        const float2 c = cmulc(u[r0 + q + kHalf], tw[q]);
-        u[r0 + q] = cadd(a, c);
-        u[r0 + q + kHalf] = csub(a, c);
-      } else {
-        const float2 c = u[r0 + q + kHalf];
-        u[r0 + q] = cadd(a, c);
-        u[r0 + q + kHalf] = cmul(csub(a, c), tw[q]);
-      }
-    }
-  }
-}
-
-// The KK stages of a pass in transform order: spans falling (DIF) or
-// rising (DIT).
-template <int KK, int S, bool kInv>
-__device__ __forceinline__ void stages(float2* u,
-                                       const float2* __restrict__ wst,
-                                       int jl, int lo) {
-  stage<KK, S, kInv>(u, wst, jl, lo);
-  if constexpr (kInv && S + 1 < KK) stages<KK, S + 1, kInv>(u, wst, jl, lo);
-  if constexpr (!kInv && S > 0) stages<KK, S - 1, kInv>(u, wst, jl, lo);
-}
-
-// One pass over the block's local points: stages with spans 2^lo ..
-// 2^(lo + KK - 1).  A group is the 2^KK points that differ only in bits
-// [lo, lo + KK) of the local index; each thread takes kPts / 2^KK groups,
-// loads all its points (ld), runs the stages in registers and stores them
-// (st) to the same slots, so a pass needs no barrier inside.
-template <int KK, bool kInv, class Load, class Store>
-__device__ __forceinline__ void radix_pass(const float2* __restrict__ wst,
-                                           int lo, Load ld, Store st) {
-  constexpr int kP = 1 << KK;
-  constexpr int kG = kPts / kP;
-  const int mask = (1 << lo) - 1;
-  int base[kG];
-  float2 v[kPts];
-#pragma unroll
-  for (int q = 0; q < kG; ++q) {
-    const int g = threadIdx.x + q * blockDim.x;
-    base[q] = (g & mask) | ((g >> lo) << (lo + KK));
-#pragma unroll
-    for (int r = 0; r < kP; ++r) v[q * kP + r] = ld(base[q] + (r << lo));
-  }
-#pragma unroll
-  for (int q = 0; q < kG; ++q)
-    stages<KK, kInv ? 0 : KK - 1, kInv>(v + q * kP, wst, base[q] & mask, lo);
-#pragma unroll
-  for (int q = 0; q < kG; ++q)
-#pragma unroll
-    for (int r = 0; r < kP; ++r) st(base[q] + (r << lo), v[q * kP + r]);
-}
-
-template <bool kInv, class Load, class Store>
-__device__ __forceinline__ void pass(int kk, const float2* __restrict__ wst,
-                                     int lo, Load ld, Store st) {
-  switch (kk) {
-    case 1: radix_pass<1, kInv>(wst, lo, ld, st); break;
-    case 2: radix_pass<2, kInv>(wst, lo, ld, st); break;
-    case 3: radix_pass<3, kInv>(wst, lo, ld, st); break;
-    default: radix_pass<4, kInv>(wst, lo, ld, st); break;
-  }
-}
-
-// The packed positions of half b: pairs t0 .. t0 + count - 1 of pair_of
-// (half 0 also owns the self-paired positions 0 and 1).
-__device__ __forceinline__ void half_pairs(int b, int l, int& t0,
-                                           int& count) {
-  t0 = b ? (l >> 1) - 1 : 0;
-  count = b ? (l >> 1) : (l >> 1) - 1;
-}
 
 // blockIdx.x = 2 * row + b: block b owns packed positions [b L, (b+1) L),
 // L = M/2.
@@ -174,8 +78,8 @@ rfft_packed_kernel(const float* __restrict__ x, float* __restrict__ out_re,
   for (bool first = true; rem > 0; first = false) {
     const int kk = min(kRadixBits, rem);
     rem -= kk;
-    if (first) pass<false>(kk, wst, rem, ld_first, st);
-    else pass<false>(kk, wst, rem, ld, st);
+    if (first) pass<false>(kk, wst, rem, blockDim.x, ld_first, st);
+    else pass<false>(kk, wst, rem, blockDim.x, ld, st);
     __syncthreads();
   }
 
@@ -242,7 +146,7 @@ irfft_packed_kernel(const float* __restrict__ in_re,
   for (int lo = 0; lo < log_l;) {
     __syncthreads();
     const int kk = min(kRadixBits, log_l - lo);
-    pass<true>(kk, wst, lo, ld, st);
+    pass<true>(kk, wst, lo, blockDim.x, ld, st);
     lo += kk;
   }
   cluster.sync();
@@ -262,8 +166,6 @@ irfft_packed_kernel(const float* __restrict__ in_re,
   // the partner reads this block's shared memory until it passes here
   cluster.sync();
 }
-
-bool bad_size(int log_m) { return log_m < 6 || log_m > 14; }
 
 // threads and dynamic shared memory of one block of either kernel
 void block_shape(int log_m, int& threads, int& smem) {

@@ -18,7 +18,9 @@ block (ops/fft_packed.rfft_packed_zeropad) and the EQ's balanced state
 ``[hist || x]``.  All spectra are packed (ops/fft_packed.py).  Each
 wrapper runs its plain version (``*_plain``) for CPU tensors and its CUDA
 kernel (``csrc/fdl_fused.cu``) for CUDA tensors, counting launches in
-``<wrapper>.launches``.  Unlike the JAX functions, the IR spectra come
+``<wrapper>.launches``.  :func:`eqfdl_fused`'s kernel runs two blocks
+per channel as a cluster (:func:`eqfdl_launch_shape`), :func:`fdl_fused`'s
+one.  Unlike the JAX functions, the IR spectra come
 unrotated with the slot index ``w`` (the kernels index ``H[(w - p) % P]``
 themselves), and the G/M/W products are part of :func:`eqfdl_fused`, so
 that on the card no library matmul (and no global TF32 setting) touches
@@ -39,7 +41,13 @@ from lsp_dsp_units_tpu_torch.ops.ring_mac import ring_mac_plain
 _SIGS = {"lsp_eqfdl_fused": [ctypes.c_void_p] * 19 + [ctypes.c_int] * 5
          + [ctypes.c_void_p],
          "lsp_fdl_fused": [ctypes.c_void_p] * 9 + [ctypes.c_int] * 4
-         + [ctypes.c_void_p]}
+         + [ctypes.c_void_p],
+         "lsp_eqfdl_shape": [ctypes.c_int, ctypes.c_int,
+                             ctypes.POINTER(ctypes.c_int)]}
+
+
+def _lib():
+    return _build.load("fdl_fused", _SIGS)
 
 
 def _check(args, shapes, w: int) -> None:
@@ -89,8 +97,7 @@ def eqfdl_fused(ring_re, ring_im, h_re, h_im, heq_re, heq_im, xs_re, xs_im,
     u = torch.empty_like(x)
     sv2 = torch.empty_like(sv)
     wst, wnb = fp.tables(n, x.device)
-    lib = _build.load("fdl_fused", _SIGS)
-    _build.check(lib.lsp_eqfdl_fused(
+    _build.check(_lib().lsp_eqfdl_fused(
         *(_build.ptr(t) for t in args), _build.ptr(y), _build.ptr(u),
         _build.ptr(sv2), _build.ptr(wst), _build.ptr(wnb), lm, p_n, int(w),
         c_n, k2, _build.stream_of(x)), "eqfdl_fused kernel")
@@ -99,6 +106,19 @@ def eqfdl_fused(ring_re, ring_im, h_re, h_im, heq_re, heq_im, xs_re, xs_im,
 
 
 eqfdl_fused.launches = 0
+
+
+def eqfdl_launch_shape(n: int, channels: int) -> dict:
+    """How :func:`eqfdl_fused`'s kernel launches at frame size N for
+    ``channels`` channels (needs the card): blocks per channel (the
+    cluster size), threads and dynamic shared memory (bytes) per block,
+    blocks resident per SM by the occupancy calculator, and clusters of
+    the launch resident at once."""
+    out = (ctypes.c_int * 5)()
+    _build.check(_lib().lsp_eqfdl_shape(fp.log2_m(n), int(channels), out),
+                 "eqfdl_fused launch shape")
+    return dict(blocks_per_channel=out[0], threads=out[1], smem_bytes=out[2],
+                blocks_per_sm=out[3], clusters_resident=out[4])
 
 
 def fdl_fused_plain(ring_re, ring_im, h_re, h_im, hist, x, w: int
@@ -129,8 +149,7 @@ def fdl_fused(ring_re, ring_im, h_re, h_im, hist, x, w: int) -> torch.Tensor:
     lm = fp.log2_m(n)
     y = torch.empty_like(x)
     wst, wnb = fp.tables(n, x.device)
-    lib = _build.load("fdl_fused", _SIGS)
-    _build.check(lib.lsp_fdl_fused(
+    _build.check(_lib().lsp_fdl_fused(
         *(_build.ptr(t) for t in args), _build.ptr(y), _build.ptr(wst),
         _build.ptr(wnb), lm, p_n, int(w), c_n, _build.stream_of(x)),
         "fdl_fused kernel")

@@ -83,31 +83,41 @@ def test_fft_kernels_match_plain(cuda_device, n, rows):
     assert [a - b for a, b in zip(after, before)] == [1, 1, 3]
 
 
-def test_eqfdl_kernel_matches_plain(cuda_device):
-    c, b, sr = 8, 2048, 48000
+@pytest.mark.parametrize("c, b, parts", [(8, 2048, 3), (64, 8192, 6)])
+def test_eqfdl_kernel_matches_plain(cuda_device, c, b, parts):
+    """Over P + 2 blocks: y, u, EQ state and ring >= 95 dB from the plain
+    version; [64, 8192] with P = 6 is step_ring's shape.  The frame,
+    MAC and inverse of the cluster schedule are the one-block
+    schedule's, so fdl_fused (#4) on a copy of the ring with the frame
+    [hist || u] gives eqfdl's y and ring slot bit for bit."""
+    sr = 48000
     eq = np.concatenate([design_filter(p, sr).biquads
                          for p in tpipe.default_eq_params(sr)], axis=0)
     teq = tbb.precompute_fused(eq, b, device=cuda_device)
     gen = torch.Generator().manual_seed(16)
-    ir = _randn(gen, 3 * b - 17, scale=0.1, device=cuda_device)
+    ir = _randn(gen, parts * b - 17, scale=0.1, device=cuda_device)
     th = tfc.parse_ir(ir, b)
     heq = tfft.pack_spectra(teq.h_re, teq.h_im, 2 * b)
     hp = tfft.pack_spectra(th.re, th.im, 2 * b)
     p_n = th.re.shape[0]
+    assert p_n == parts
     k2 = teq.m_mat.shape[0]
     ring_k = tfc.init_ring_fdl(th, (c,), packed=True,
                                 device=cuda_device)
     ring_p = tfc.init_ring_fdl(th, (c,), packed=True,
                                 device=cuda_device)
     sv_k = sv_p = torch.zeros(c, k2, device=cuda_device)
+    before = (eqfdl_fused.launches, fdl_fused.launches)
     for k in range(p_n + 2):
         x = _randn(gen, c, b, scale=0.25, device=cuda_device)
         xs = tfft.rfft_packed_zeropad_plain(x)
         w = (ring_k.pos + 1) % p_n
         mats = (teq.g_t, teq.m_mat, teq.w_mat)
+        ring_f = (ring_k.spec_re.clone(), ring_k.spec_im.clone())
         yk, uk, sv_k = eqfdl_fused(ring_k.spec_re, ring_k.spec_im, hp[0],
                                    hp[1], heq[0], heq[1], *xs, x, sv_k,
                                    *mats, ring_k.history, w)
+        yf = fdl_fused(*ring_f, hp[0], hp[1], ring_k.history, uk, w)
         yp, up, sv_p = eqfdl_fused_plain(ring_p.spec_re, ring_p.spec_im,
                                          hp[0], hp[1], heq[0], heq[1], *xs,
                                          x, sv_p, *mats, ring_p.history, w)
@@ -117,7 +127,12 @@ def test_eqfdl_kernel_matches_plain(cuda_device):
         assert _snr(yp, yk) >= 95.0, (k, "y")
         assert _snr(sv_p, sv_k) >= 95.0, (k, "sv")
         assert _snr(ring_p.spec_re, ring_k.spec_re) >= 95.0, (k, "ring")
+        assert torch.equal(yf, yk), k
+        assert torch.equal(ring_f[0], ring_k.spec_re), k
+        assert torch.equal(ring_f[1], ring_k.spec_im), k
     torch.cuda.synchronize()
+    assert (eqfdl_fused.launches - before[0],
+            fdl_fused.launches - before[1]) == (p_n + 2, p_n + 2)
 
 
 @pytest.mark.parametrize("t", [480, 1000, 1024, 8192])
@@ -222,19 +237,34 @@ def test_sliding_rms_kernel_matches_plain(cuda_device, t):
     assert _snr(lp, lk) >= 110.0
 
 
+@pytest.mark.parametrize("case", ["hold24", "hold0", "hold0_tr_gt_ta"])
 @pytest.mark.parametrize("t", [2048, 2047])
 @pytest.mark.parametrize("rt", [None, 0.2])
-def test_peak_envelope_kernel_matches_plain(cuda_device, t, rt):
+def test_peak_envelope_kernel_matches_plain(cuda_device, t, rt, case):
+    """Bitwise: a hold of 24 samples from a random state (the reference
+    step throughout); a hold of 0 from env_init (the predicate-free step
+    in every batch that starts where the envelope cannot hold); the same
+    with release faster than attack (tr > ta: the reference step)."""
     c = 8
     gen = torch.Generator().manual_seed(t)
     x = _levels(gen, c, t, cuda_device)
-    st = tdyn.EnvState(torch.rand(c, generator=gen).to(cuda_device),
-                       torch.rand(c, generator=gen).to(cuda_device),
-                       torch.randint(0, 9, (c,), generator=gen,
-                                     dtype=torch.int32).to(cuda_device))
-    sk, ek = tdyn.peak_envelope(st, x, 0.05, 0.01, 24, rt)
-    sp, ep = tdyn.peak_envelope_plain(st, x, 0.05, 0.01, 24, rt)
+    ta, tr = 0.05, 0.01
+    if case == "hold24":
+        hold = 24
+        st = tdyn.EnvState(torch.rand(c, generator=gen).to(cuda_device),
+                           torch.rand(c, generator=gen).to(cuda_device),
+                           torch.randint(0, 9, (c,), generator=gen,
+                                         dtype=torch.int32).to(cuda_device))
+    else:
+        hold = 0
+        st = tdyn.env_init((c,), cuda_device)
+        if case == "hold0_tr_gt_ta":
+            tr = 0.2
+    before = eu.peak_envelope.launches
+    sk, ek = tdyn.peak_envelope(st, x, ta, tr, hold, rt)
+    sp, ep = tdyn.peak_envelope_plain(st, x, ta, tr, hold, rt)
     torch.cuda.synchronize()
+    assert eu.peak_envelope.launches == before + 1
     assert torch.equal(ek, ep)
     for a, b in zip(sk, sp):
         assert torch.equal(a, b)

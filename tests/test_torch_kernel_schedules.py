@@ -11,12 +11,21 @@ operands.  Both must also agree with the plain versions.  This holds the
 index maths (groups, twiddle indices, pair ranges per half, the cross
 stage) that only the card could otherwise show.
 
-The dynamics tail (``csrc/env.cu``) replaces its envelope step, where the
-envelope cannot hold, by one with no compare on the envelope's path:
+The EQ + convolver kernel (``csrc/fdl_fused.cu``, ``eqfdl_kernel``)
+runs the same split as a two-block cluster per channel: the EQ inverse's
+last stage, fused with the u correction and the frame's first DIF stage,
+and the FDL inverse's last stage cross the halves; the MAC pass runs on
+each half's own octaves.  A float64 model of that schedule must equal a
+model of the one-block schedule (``dif``/``dit_inv`` with the untangle)
+bitwise, and ``eqfdl_fused_plain`` within the card's tolerance.
+
+The dynamics tail (``csrc/env.cu``) and the peak envelope
+(``csrc/env_units.cu``) replace their envelope step, where the envelope
+cannot hold, by one with no compare on the envelope's path:
 max(e_rise, min(e_rel, +-inf)).  Written out in torch with the plain
-version's correctly rounded FMA (``_mul_add``) and run as the chain
-thread runs it beside the reference step, it must equal
-``peak_envelope_plain`` bit for bit.
+version's correctly rounded FMA (``_mul_add``) and run as each kernel's
+chain thread runs it (its chunk and batch sizes) beside the reference
+step, it must equal ``peak_envelope_plain`` bit for bit.
 """
 
 import numpy as np
@@ -26,6 +35,7 @@ import torch
 from lsp_dsp_units_tpu_torch.ops import env_units as eu
 from lsp_dsp_units_tpu_torch.ops import fft_packed as fp
 from lsp_dsp_units_tpu_torch.ops.dynamics import EnvState
+from lsp_dsp_units_tpu_torch.ops.fdl_fused import eqfdl_fused_plain
 
 SIZES = [1 << k for k in range(7, 16)]          # 128 ... 32768
 RADIX_BITS = 4                                   # stages per register pass
@@ -276,6 +286,199 @@ def test_fft_split_inverse_matches_radix2_and_plain(n, half):
     assert _snr(plain, _as_real(new)) >= 130.0
 
 
+# --- the two-block cluster schedule of eqfdl_kernel (fdl_fused.cu) ---------
+
+
+def _pmul(a, b, idx):
+    """Packed product at packed positions idx: complex except position
+    0, slot-wise there."""
+    out = a * b
+    z = idx == 0
+    out[z] = a[z].real * b[z].real + 1j * (a[z].imag * b[z].imag)
+    return out
+
+
+def _mac_at(idx, s, ring, h, w):
+    """acc at packed positions idx = sum_p ring'[p] H[(w - p) % P], p in
+    order, slot w read as S (the kernel's MAC over its own positions)."""
+    p_n = len(ring)
+    acc = np.zeros(len(idx), np.complex128)
+    for p in range(p_n):
+        v = s[idx] if p == w else ring[p][idx]
+        acc = acc + _pmul(v, h[(w - p) % p_n][idx], idx)
+    return acc
+
+
+def _g_corr(g_t, sv, idx):
+    """g_mat @ sv at complex outputs idx, k in order (FMA chain per n)."""
+    gz = g_t[:, 0::2] + 1j * g_t[:, 1::2]
+    corr = np.zeros(len(idx), np.complex128)
+    for k in range(g_t.shape[0]):
+        corr = corr + gz[k, idx] * sv[k]
+    return corr
+
+
+def _eq_state_rows(m_mat, w_mat, sv, x, rows):
+    return {k: float(m_mat[k] @ sv + w_mat[k] @ x) for k in rows}
+
+
+def _eqfdl_one_block(xs, heq, x, sv, g_t, m_mat, w_mat, hist, ring, h, w,
+                     wst, wnb):
+    """eqfdl_kernel's one-block schedule (fdl_kernel's): dit_inv, the
+    fused u + frame stage over all M/2 points, dif from span M/4, the MAC
+    over every pair, dit_inv, the last half."""
+    m = xs.size
+    l = m // 2
+    inv_m = 1.0 / m
+    buf = _ref_inverse_core(_retangle_all(_pmul(xs, heq, np.arange(m)),
+                                          wnb), wst)
+    n = np.arange(l)
+    u = buf[:l] * inv_m + _g_corr(g_t, sv, n)
+    hz = hist[0::2] + 1j * hist[1::2]
+    frame = np.concatenate([hz + u, (hz - u) * wst[l + n]])
+    h_ = l // 2
+    while h_ >= 1:                                 # dif(buf, wst, log_m, M/4)
+        b = np.arange(l)
+        j = b & (h_ - 1)
+        i = 2 * b - j
+        frame[i], frame[i + h_] = _dif_butterfly(frame[i], frame[i + h_],
+                                                 wst[h_ + j])
+        h_ //= 2
+    s = _untangle_all(frame, wnb)
+    acc = _mac_at(np.arange(m), s, ring, h, w)
+    out = _ref_inverse_core(_retangle_all(acc, wnb), wst)
+    sv2 = _eq_state_rows(m_mat, w_mat, sv, x, range(len(sv)))
+    return out[l:] * inv_m, u, s, sv2
+
+
+def _eqfdl_cluster(xs, heq, x, sv, g_t, m_mat, w_mat, hist, ring, h, w,
+                   wst, wnb):
+    """eqfdl_kernel's cluster schedule: block b holds packed positions
+    [b L, (b+1) L) and does its pairs, its register passes, its quarter
+    of each cross-half stage and its rows of the EQ state."""
+    m = xs.size
+    l = m // 2
+    log_l = l.bit_length() - 1
+    inv_m = 1.0 / m
+    prod = _pmul(xs, heq, np.arange(m))
+    bufs = []
+    for b in (0, 1):                               # (a), the EQ inverse
+        off = b * l
+        buf = np.full(l, np.nan + 0j)
+        j, jp = _half_pairs(b, l)
+        buf[j - off], buf[jp - off] = _retangle(prod[j], prod[jp], wnb[j])
+        if b == 0:
+            buf[0] = _retangle0(prod[0])
+            buf[1] = np.conj(prod[1])
+        assert not np.isnan(buf).any()
+        lo = 0
+        while lo < log_l:
+            kk = min(RADIX_BITS, log_l - lo)
+            buf = _radix_pass(buf, wst, lo, kk, inverse=True)
+            lo += kk
+        bufs.append(buf)
+    hz = hist[0::2] + 1j * hist[1::2]
+    u = np.full(l, np.nan + 0j)
+    new = [np.full(l, np.nan + 0j) for _ in (0, 1)]
+    for b in (0, 1):                               # u + the frame's stage
+        i = np.arange(b * (l >> 1), (b + 1) * (l >> 1))
+        lower, _ = _dit_butterfly(bufs[0][i], bufs[1][i], wst[l + i])
+        u[i] = lower * inv_m + _g_corr(g_t, sv, i)
+        new[0][i], new[1][i] = _dif_butterfly(hz[i], u[i], wst[l + i])
+    s = np.full(m, np.nan + 0j)
+    acc = np.full(m, np.nan + 0j)
+    for b in (0, 1):                               # frame forward, MAC
+        buf = new[b]
+        assert not np.isnan(buf).any()
+        rem = log_l
+        while rem > 0:
+            kk = min(RADIX_BITS, rem)
+            rem -= kk
+            buf = _radix_pass(buf, wst, rem, kk, inverse=False)
+        off = b * l
+        j, jp = _half_pairs(b, l)
+        s[j], s[jp] = _untangle(buf[j - off], buf[jp - off], wnb[j])
+        own = np.concatenate([j, jp])
+        if b == 0:
+            s[0] = _untangle0(buf[0])
+            s[1] = np.conj(buf[1])
+            own = np.concatenate([[0, 1], own])
+        assert np.all((own >= off) & (own < off + l))
+        acc[own] = _mac_at(own, s, ring, h, w)
+        new[b] = buf
+    for b in (0, 1):                               # the FDL inverse
+        off = b * l
+        buf = np.full(l, np.nan + 0j)
+        j, jp = _half_pairs(b, l)
+        buf[j - off], buf[jp - off] = _retangle(acc[j], acc[jp], wnb[j])
+        if b == 0:
+            buf[0] = _retangle0(acc[0])
+            buf[1] = np.conj(acc[1])
+        lo = 0
+        while lo < log_l:
+            kk = min(RADIX_BITS, log_l - lo)
+            buf = _radix_pass(buf, wst, lo, kk, inverse=True)
+            lo += kk
+        bufs[b] = buf
+    y = np.full(l, np.nan + 0j)
+    for b in (0, 1):
+        i = np.arange(b * (l >> 1), (b + 1) * (l >> 1))
+        _, y[i] = _dit_butterfly(bufs[0][i], bufs[1][i], wst[l + i])
+    k2 = len(sv)
+    sv2 = {}
+    for b in (0, 1):                               # rows k = b, b + 2, ...
+        sv2.update(_eq_state_rows(m_mat, w_mat, sv, x, range(b, k2, 2)))
+    assert not (np.isnan(y).any() or np.isnan(u).any() or np.isnan(s).any())
+    return y * inv_m, u, s, sv2
+
+
+@pytest.mark.parametrize("m", [1 << k for k in range(8, 14)])   # 256 ... 8192
+def test_eqfdl_cluster_schedule_matches_one_block_and_plain(m):
+    """Two channels, a ring of P = 4 with slot w = 2 written, 2K = 6 EQ
+    state rows: y, u, the written slot and the EQ state of the cluster
+    schedule are bitwise the one-block schedule's, and within the card
+    test's 95 dB of eqfdl_fused_plain."""
+    n = 2 * m
+    p_n, c, k2, w = 4, 2, 6, 2
+    wst, wnb = _twiddles(n)
+    rng = np.random.default_rng(m)
+    f32 = np.float32
+    x = (rng.standard_normal((c, m)) * 0.25).astype(f32)
+    hist = (rng.standard_normal((c, m)) * 0.25).astype(f32)
+    ring = rng.standard_normal((2, p_n, c, m)).astype(f32)
+    h = (rng.standard_normal((2, p_n, m)) * 0.1).astype(f32)
+    heq = rng.uniform(0.5, 1.5, (2, m)).astype(f32)
+    sv = (rng.standard_normal((c, k2)) * 0.1).astype(f32)
+    g_t = (rng.standard_normal((k2, m)) * 0.01).astype(f32)
+    m_mat = (rng.standard_normal((k2, k2)) * 0.3).astype(f32)
+    w_mat = (rng.standard_normal((k2, m)) * 0.01).astype(f32)
+    xs = [t.numpy() for t in fp.rfft_packed_zeropad_plain(torch.from_numpy(x))]
+    args = [torch.from_numpy(np.ascontiguousarray(a)) for a in (
+        ring[0], ring[1], h[0], h[1], heq[0], heq[1], xs[0], xs[1], x, sv,
+        g_t, m_mat, w_mat, hist)]
+    ring_after = [a.clone() for a in args[:2]]
+    py, pu, psv = eqfdl_fused_plain(*ring_after, *args[2:], w)
+    hz = h[0].astype(np.float64) + 1j * h[1]
+    heqz = heq[0].astype(np.float64) + 1j * heq[1]
+    for ch in range(c):
+        rz = ring[0, :, ch].astype(np.float64) + 1j * ring[1, :, ch]
+        xsz = xs[0][ch].astype(np.float64) + 1j * xs[1][ch]
+        common = (xsz, heqz, x[ch].astype(np.float64), sv[ch].astype(
+            np.float64), g_t.astype(np.float64), m_mat.astype(np.float64),
+            w_mat.astype(np.float64), hist[ch].astype(np.float64), rz, hz, w,
+            wst, wnb)
+        one = _eqfdl_one_block(*common)
+        new = _eqfdl_cluster(*common)
+        for name, a, b in zip(("y", "u", "slot"), one[:3], new[:3]):
+            assert np.array_equal(a, b), (ch, name)
+        assert one[3] == new[3], ch
+        assert _snr(py[ch].numpy(), _as_real(new[0])) >= 95.0, ch
+        assert _snr(pu[ch].numpy(), _as_real(new[1])) >= 95.0, ch
+        assert _snr(ring_after[0][w, ch].numpy(), new[2].real) >= 95.0, ch
+        assert _snr(ring_after[1][w, ch].numpy(), new[2].imag) >= 95.0, ch
+        assert _snr(psv[ch].numpy(), [new[3][k] for k in range(k2)]) >= 95.0
+
+
 # --- the envelope steps of env.cu ------------------------------------------
 
 
@@ -290,8 +493,9 @@ def _step_free(x, e, ta, tr, rt):
     return torch.maximum(e_rise, torch.minimum(e_rel, b))
 
 
-CHUNK, BATCH = 256, 32                           # env.cu's kChunk, kBatch
-RT = 0.3
+# (kChunk, kBatch) of the chain threads: env.cu's, env_units.cu's
+GEOMETRY = {"env": (256, 32), "env_units": (2048, 32)}
+RT, TA = 0.3, 0.05
 
 
 def _levels(t):
@@ -314,19 +518,23 @@ def _levels(t):
     return torch.from_numpy(x)
 
 
+@pytest.mark.parametrize("geometry", GEOMETRY)
 @pytest.mark.parametrize("tr", [0.004, 0.2])
 @pytest.mark.parametrize("rt", [RT, None])
 @pytest.mark.parametrize("nh", [0, 3, 40])
-def test_reordered_envelope_step_is_bitwise_the_plain_one(nh, rt, tr):
-    """The chain thread of env.cu as it runs: per chunk of 256, batches
-    of 32 that start where the envelope cannot hold (peak == e, hold 0,
-    a hold time of 0, tr <= ta) take free_step (and end with peak := e),
-    the others and each chunk's tail the reference step.  Channels 2 and
-    4 start with peak != e and a hold; channel 5 rises under a peak it
-    never reaches, so its peak stays apart from e for the whole block."""
-    t = 3000                                     # 11 chunks + 184: tails
+def test_reordered_envelope_step_is_bitwise_the_plain_one(nh, rt, tr,
+                                                          geometry):
+    """The chain thread of env.cu or env_units.cu (peak_envelope) as it
+    runs: per chunk, batches of 32 that start where the envelope cannot
+    hold (peak == e, hold 0, a hold time of 0, tr <= ta, ta >= 0) take
+    free_step (and end with peak := e), the others and each chunk's tail
+    the reference step.  Channels 2 and 4 start with peak != e and a
+    hold; channel 5 rises under a peak it never reaches, so its peak
+    stays apart from e for the whole block."""
+    chunk, batch = GEOMETRY[geometry]
+    t = 3000                 # tails: 11 x 256 + 184, 2048 + 29 x 32 + 24
     x = _levels(t)
-    ta = torch.tensor(0.05, dtype=torch.float32)
+    ta = torch.tensor(TA, dtype=torch.float32)
     tr_t = torch.tensor(tr, dtype=torch.float32)
     nh_t = torch.tensor(nh, dtype=torch.int32)
     rt_t = None if rt is None else torch.tensor(rt, dtype=torch.float32)
@@ -334,15 +542,15 @@ def test_reordered_envelope_step_is_bitwise_the_plain_one(nh, rt, tr):
     peak = e + torch.tensor([0.0, 0.0, 0.1, 0.0, 0.3, 0.9])
     hold = torch.tensor([0, 0, 2, nh, 1, 0], dtype=torch.int32)
     st0 = EnvState(e, peak, hold)
-    free_ok = nh == 0 and tr <= 0.05
+    free_ok = nh == 0 and tr <= TA and TA >= 0
     seen = dict(equal=0, at_rt=0, fall_at_rt=0, up=0, down=0, expiry=0,
                 free=0, general=0)
     env = torch.empty_like(x)
     free = torch.zeros_like(e, dtype=torch.bool)
     for k in range(t):
-        in_batch = k % CHUNK < (min(CHUNK, t - k // CHUNK * CHUNK)
-                                // BATCH * BATCH)
-        if k % BATCH == 0:
+        in_batch = k % chunk < (min(chunk, t - k // chunk * chunk)
+                                // batch * batch)
+        if k % batch == 0:
             free = (e == peak) & (hold == 0) & free_ok & in_batch
         if k % 5 == 0:
             x[3, k] = e[3]                      # x == e
@@ -362,9 +570,9 @@ def test_reordered_envelope_step_is_bitwise_the_plain_one(nh, rt, tr):
         seen["expiry"] += int(((hold == 1) & (hold2 == 0)).sum())
         e, hold = e2, hold2
         env[:, k] = e
-        if k % BATCH == BATCH - 1:
+        if k % batch == batch - 1:
             peak = torch.where(free, e, peak)
-    st, ref = eu.peak_envelope_plain(st0, x, 0.05, tr, nh, rt)
+    st, ref = eu.peak_envelope_plain(st0, x, TA, tr, nh, rt)
     assert torch.equal(env, ref)
     assert torch.equal(e, st.envelope) and torch.equal(peak, st.peak)
     assert torch.equal(hold, st.hold)
