@@ -25,9 +25,16 @@ Phases (any failure exits non-zero; nothing is caught):
             samples, each at T=16384 and 16383, release threshold on and
             off: envelope and state exact, the SASS stall cycles per
             step of its two batch bodies (cuobjdump) and the SM clock
-            (the spin kernel's cycles over its time); gate envelope at
-            T=16384: envelope, curve track and state exact.  Each plain
-            envelope is a per-sample Python loop, run (and timed) once.
+            (the spin kernel's cycles over its time); gate envelope with
+            a hold of 24 samples and with the gate's default hold of 0,
+            each at T=16384 and 16383 from both curves: envelope, curve
+            track (>= 64 switches), curve and state exact, and the SASS
+            of its chain's batches (no more float compares or
+            shared-memory stores than the peak envelope's, none of the
+            curve switch's), and peak_envelope without a threshold timed
+            on the gate's input (the same chain without the curve track).
+            Each plain envelope is a per-sample Python loop, run (and
+            timed) once.
 4. main   — FilterConvChain(48000, 64, rank=14, ir_seconds=1.0): build ->
             init_ring_state -> 24 blocks of step_ring + quantize_i16
             with the input rotated every block.  The launch counters are
@@ -47,15 +54,18 @@ Phases (any failure exits non-zero; nothing is caught):
             bulk_step; the first >= 85 dB from the float64 ideal over its
             8 blocks; its SNR against step on the same input is printed.
 7. units  — [64, 8192] detector signals through Sidechain (each mode) ->
-            Compressor (3 modes), Expander (2 modes) and Gate, on the card
-            and on the CPU: envelope and gain >= 110 dB between the two;
-            the gate_envelope counter, zeroed just before, advances.
+            Compressor (3 modes), Expander (2 modes) and Gate (a hold of
+            24 samples, and its default of 0), on the card and on the
+            CPU: envelope and gain >= 110 dB between the two; the
+            gate_envelope counter, zeroed just before, advances.
 8. ring   — the standalone ring convolver over the chain's 1 s IR at full
             width (C=64, B=8192, P=6): fdl_fused against its plain
-            version (y and the written slot, unpacked, >= 95 dB); 24
+            version (y and the written slot, unpacked, >= 95 dB; its
+            launch shape: all 64 clusters of 2 blocks resident); 24
             blocks of fdl_ring_step on a packed ring, input rotated, the
             fdl_fused counter zeroed just before and read just after (>=
-            24), 4 channels >= 85 dB from a float64 fftconvolve; ring_mac
+            24), 4 channels >= 85 dB from a float64 fftconvolve, and its
+            ms per block; ring_mac
             against its plain version on natural (F = 8193) and packed
             rows (acc >= 110 dB, ring identical); the three-kernel step
             rfft_packed -> ring_mac -> irfft_packed against fdl_fused (y
@@ -79,8 +89,8 @@ Phases (any failure exits non-zero; nothing is caught):
             computes the same function, that call's time; row #1 also
             times the inverse (irfft_packed, last half) beside
             torch.fft.irfft, row #3 gives its cycles per sample at the
-            boost clock, row #6 its cycles per step in step's
-            configuration and with the hold of 24.  Host clock:
+            boost clock, rows #6 and #7 their cycles per step without
+            and with a hold of 24.  Host clock:
             the time to enqueue a block of step_ring, and the delivered
             samples/s over 32 blocks ending in a sync.
 
@@ -130,7 +140,7 @@ from lsp_dsp_units_tpu_torch.ops.env import (  # noqa: E402
     chain_dyn, chain_dyn_plain)
 from lsp_dsp_units_tpu_torch.ops.fdl_fused import (  # noqa: E402
     eqfdl_fused, eqfdl_fused_plain, eqfdl_launch_shape, fdl_fused,
-    fdl_fused_plain)
+    fdl_fused_plain, fdl_launch_shape)
 from lsp_dsp_units_tpu_torch.ops.ring_mac import (  # noqa: E402
     ring_mac, ring_mac_plain)
 from lsp_dsp_units_tpu_torch.utils.delivery import (  # noqa: E402
@@ -203,6 +213,9 @@ EXTRA_KEYS = {
     "fft": ("inverse_ms", "inverse_plain_ms", "inverse_library_ms",
             "inverse_bound_ms", "blocks_resident"),
     "eqfdl": ("blocks_resident",),
+    "fdl": ("blocks_resident",),
+    "gate": ("chain_ms", "cycles_per_step", "hold0_ms",
+             "hold0_cycles_per_step", "peak_form_ms", "hold0_peak_form_ms"),
     "dyn": ("chain_ms", "cycles_per_sample"),
     "peak": ("chain_ms", "cycles_per_step", "hold24_ms",
              "hold24_cycles_per_step", "sass_free_cycles_per_step",
@@ -310,6 +323,25 @@ def parity_fft(dev, res):
                               f"resident")
 
 
+def clusters_resident(name: str, shape: dict):
+    """Print a cluster kernel's launch shape for the C channels and check
+    that all its blocks are resident at once; returns the shape and the
+    resident blocks."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    blocks = C * shape["blocks_per_channel"]
+    resident = min(blocks, shape["blocks_per_sm"] * sms,
+                   shape["clusters_resident"] * shape["blocks_per_channel"])
+    print(f"{name} launch: {blocks} blocks in clusters of "
+          f"{shape['blocks_per_channel']}, {shape['threads']} threads and "
+          f"{shape['smem_bytes']} B shared memory each, "
+          f"{shape['blocks_per_sm']} per SM x {sms} SMs, "
+          f"{shape['clusters_resident']} clusters at once: {resident} "
+          f"resident")
+    check(shape["blocks_per_channel"] == 2 and resident >= blocks,
+          f"only {resident} of {blocks} {name} blocks resident")
+    return shape, resident
+
+
 def parity_eqfdl(chain, params, dev, res):
     gen = torch.Generator().manual_seed(2)
     eqp = params.eq_block
@@ -360,19 +392,7 @@ def parity_eqfdl(chain, params, dev, res):
     for k, v in worst.items():
         check(v >= LIN_DB, f"eqfdl {k} {v:.1f} dB < {LIN_DB}")
     check(same, "eqfdl y or ring slot differs from fdl_fused's")
-    shape = eqfdl_launch_shape(N, C)
-    sms = torch.cuda.get_device_properties(0).multi_processor_count
-    blocks = C * shape["blocks_per_channel"]
-    resident = min(blocks, shape["blocks_per_sm"] * sms,
-                   shape["clusters_resident"] * shape["blocks_per_channel"])
-    print(f"eqfdl launch: {blocks} blocks in clusters of "
-          f"{shape['blocks_per_channel']}, {shape['threads']} threads and "
-          f"{shape['smem_bytes']} B shared memory each, "
-          f"{shape['blocks_per_sm']} per SM x {sms} SMs, "
-          f"{shape['clusters_resident']} clusters at once: {resident} "
-          f"resident")
-    check(resident >= blocks, f"only {resident} of {blocks} eqfdl blocks "
-                              f"resident")
+    shape, resident = clusters_resident("eqfdl", eqfdl_launch_shape(N, C))
     w = (ring_k.pos + 1) % p_n
     res["eqfdl"] = dict(db=worst, max_abs_err=err, launch_shape=shape,
                         blocks_resident=resident)
@@ -574,9 +594,10 @@ def rms_ideal(win, x, n):
 def sass_batches(lib: str, kernel: str) -> list:
     """The batch bodies of an envelope kernel in its SASS (cuobjdump
     beside nvcc): the basic blocks that hold a batch's 2 x 32 FFMAs, each
-    as (FMNMX count, static stall cycles per step).  An instruction's
-    stall count is bits 41-44 of its second 64-bit word; the count leaves
-    out waits on variable-latency results."""
+    as a dict: its FMNMX, FSETP (float compares) and STS (shared-memory
+    stores) counts and its static stall cycles per step.  An
+    instruction's stall count is bits 41-44 of its second 64-bit word;
+    the count leaves out waits on variable-latency results."""
     cuobjdump = os.path.join(os.path.dirname(_build.find_nvcc()), "cuobjdump")
     out = subprocess.run([cuobjdump, "-sass", _build.build(lib)],
                          capture_output=True, text=True, timeout=120)
@@ -607,22 +628,57 @@ def sass_batches(lib: str, kernel: str) -> list:
     def count(blk, name):
         return sum(1 for o, _ in blk if re.search(rf"\b{name}\b", o))
 
-    return [(count(blk, "FMNMX"), sum(s for _, s in blk) / 32)
+    return [dict(fmnmx=count(blk, "FMNMX"), fsetp=count(blk, "FSETP"),
+                 sts=count(blk, "STS"), stalls=sum(s for _, s in blk) / 32)
             for blk in blocks if count(blk, "FFMA") == 64]
+
+
+def free_batch(kernel: str, what: str) -> dict:
+    """The predicate-free batch body of an envelope kernel that allows
+    the free step: the one with a batch's FMNMXs."""
+    free = [b for b in sass_batches("env_units", kernel) if b["fmnmx"] >= 32]
+    check(len(free) == 1, f"SASS of {what}: {len(free)} free batch bodies")
+    return free[0]
+
+
+def reference_only(kernel: str, what: str) -> dict:
+    """The one batch body of an envelope kernel without the free step."""
+    ref = sass_batches("env_units", kernel)
+    check(len(ref) == 1 and ref[0]["fmnmx"] == 0,
+          f"SASS of {what}: {len(ref)} batch bodies")
+    return ref[0]
 
 
 def sass_peak_stalls() -> dict:
     """Static stall cycles per step of peak_envelope's batches with a
     release threshold: the predicate-free batch of the kernel that
     allows it, the reference batch of the one that does not."""
-    free = [s for n, s in sass_batches("env_units",
-                                       "envelope_kernelILb1ELb0ELb1E")
-            if n >= 32]
-    ref = sass_batches("env_units", "envelope_kernelILb1ELb0ELb0E")
-    check(len(free) == 1 and len(ref) == 1 and ref[0][0] == 0,
-          f"SASS: {len(free)} free and {len(ref)} reference batch bodies")
-    return dict(sass_free_cycles_per_step=free[0],
-                sass_ref_cycles_per_step=ref[0][1])
+    free = free_batch("envelope_kernelILb1ELb0ELb1E", "peak_envelope, free")
+    ref = reference_only("envelope_kernelILb1ELb0ELb0E", "peak_envelope")
+    return dict(sass_free_cycles_per_step=free["stalls"],
+                sass_ref_cycles_per_step=ref["stalls"])
+
+
+def sass_gate_chain() -> dict:
+    """The gate's chain in the SASS: its batch bodies hold no more float
+    compares and shared-memory stores than the peak envelope's without a
+    release threshold (the curve switch's two compares a step and the
+    curve track's stores are gone from the chain thread's loop), and the
+    free batch no float compare at all."""
+    peak_free = free_batch("envelope_kernelILb0ELb0ELb1E",
+                           "peak_envelope, no threshold, free")
+    peak_ref = reference_only("envelope_kernelILb0ELb0ELb0E",
+                              "peak_envelope, no threshold")
+    free = free_batch("envelope_kernelILb0ELb1ELb1E", "gate_envelope, free")
+    ref = reference_only("envelope_kernelILb0ELb1ELb0E", "gate_envelope")
+    for name, got, want in (("reference", ref, peak_ref),
+                            ("free", free, peak_free)):
+        check(got["fsetp"] <= want["fsetp"] and got["sts"] <= want["sts"],
+              f"gate_envelope's {name} batch: {got['fsetp']} FSETP and "
+              f"{got['sts']} STS, peak_envelope's {want['fsetp']} and "
+              f"{want['sts']}")
+    check(free["fsetp"] == 0, f"gate free batch: {free['fsetp']} FSETP")
+    return dict(sass_ref=ref, sass_free=free, sass_peak_ref=peak_ref)
 
 
 def sm_clock_hz() -> float:
@@ -721,30 +777,66 @@ def parity_env_units(chain, params, dev, res):
           f"free step {r['sass_free_cycles_per_step']:.2f}, reference step "
           f"{r['sass_ref_cycles_per_step']:.2f}")
 
-    gp = Gate(SR, threshold=0.2, zone=0.5, hyst_threshold=0.15,
-              attack_ms=2.0, release_ms=20.0, hold_ms=0.5).build()
+    # gate_envelope with a hold of 24 samples (the reference step on the
+    # chain) and with the gate's default hold of 0 (the free step), each
+    # at T and T - 1 from both curves, against the plain version bit for
+    # bit: envelope, curve track, curve and state
     xg = swell_levels(gen, C, t, dev)
     xg[:, t // 2:] *= 0.02                      # near silence: release
-    cur0 = torch.zeros(C, dtype=torch.int32, device=dev)
-    gargs = (xg, gp.tau_attack, gp.tau_release, gp.hold, gp.knees[0].end,
-             gp.knees[1].start)
+    cur0 = (torch.arange(C, dtype=torch.int32) % 2).to(dev)
     env0 = dyn.env_init((C,), dev)
-    sk, ck, ek, cvk = eu.gate_envelope(env0, cur0, *gargs)
-    plain_ms, (sp, cp_, ep, cvp) = time_once_ms(
-        lambda: eu.gate_envelope_plain(env0, cur0, *gargs))
-    switches = int((cvk[:, 1:] != cvk[:, :-1]).sum())
-    check(torch.equal(ek, ep) and torch.equal(cvk, cvp)
-          and torch.equal(ck, cp_), "gate_envelope differs")
-    check(all(torch.equal(a, b) for a, b in zip(sk, sp)),
-          "gate_envelope state differs")
-    check(switches >= C, f"gate curve track switched only {switches} times")
-    print(f"parity gate_envelope: T={t}: envelope, curve track "
-          f"({switches} switches) and state exact")
-    res["gate"] = dict(max_abs_err=max_abs(ep, ek), plain_ms=plain_ms,
-                       ms=time_ms(lambda: eu.gate_envelope(
-                           env0, cur0, *gargs), 20),
-                       library_ms=None, chain_ms=chain_ms(t),
-                       **bound(F32 * (3 * C * t + 8 * C), 8 * C * t))
+    r = res["gate"] = dict(library_ms=None, chain_ms=chain_ms(t), **bound(
+        F32 * (3 * C * t + 8 * C), 8 * C * t))
+    err = 0.0
+    for key, hold_ms in (("", 0.5), ("hold0_", 0.0)):
+        gp = Gate(SR, threshold=0.2, zone=0.5, hyst_threshold=0.15,
+                  attack_ms=2.0, release_ms=20.0, hold_ms=hold_ms).build()
+        check(gp.hold == (24 if hold_ms else 0), f"gate hold {gp.hold}")
+        for tt in (t, t - 1):
+            gargs = (xg[:, :tt].contiguous(), gp.tau_attack, gp.tau_release,
+                     gp.hold, gp.knees[0].end, gp.knees[1].start)
+            sk, ck, ek, cvk = eu.gate_envelope(env0, cur0, *gargs)
+            plain_ms, (sp, cp_, ep, cvp) = time_once_ms(
+                lambda: eu.gate_envelope_plain(env0, cur0, *gargs))
+            what = f"gate_envelope hold {gp.hold} T={tt}"
+            check(torch.equal(ek, ep) and torch.equal(cvk, cvp)
+                  and torch.equal(ck, cp_), f"{what} differs")
+            check(all(torch.equal(a, b) for a, b in zip(sk, sp)),
+                  f"{what}: state differs")
+            switches = int((cvk[:, 1:] != cvk[:, :-1]).sum())
+            check(switches >= C, f"{what}: curve track switched only "
+                                 f"{switches} times")
+            err = max(err, max_abs(ep, ek))
+            if tt == t:
+                r[f"{key}switches"] = switches
+                if not key:
+                    r["plain_ms"] = plain_ms
+        gargs = (xg,) + gargs[1:]
+        r[f"{key}ms"] = time_ms(lambda: eu.gate_envelope(env0, cur0, *gargs),
+                                20)
+        r[f"{key}cycles_per_step"] = r[f"{key}ms"] * 1e-3 * SM_HZ / t
+        # the same chain without the curve track: peak_envelope without
+        # a threshold on the same input
+        r[f"{key}peak_form_ms"] = time_ms(lambda: eu.peak_envelope(
+            env0, xg, gp.tau_attack, gp.tau_release, gp.hold, None), 20)
+    r["max_abs_err"] = err
+    r.update(sass_gate_chain())
+    print(f"parity gate_envelope: hold 24 and hold 0, T={t} and {t - 1}, "
+          f"from both curves: envelope, curve track ({r['switches']} and "
+          f"{r['hold0_switches']} switches), curve and state exact")
+    print(f"gate_envelope [{C}, {t}]: hold 24 {r['ms']:.4f} ms = "
+          f"{r['cycles_per_step']:.2f} cycles per step; hold 0 "
+          f"{r['hold0_ms']:.4f} ms = {r['hold0_cycles_per_step']:.2f}; at "
+          f"{SM_HZ / 1e9:.2f} GHz; peak_envelope without a threshold on the "
+          f"same input {r['peak_form_ms']:.4f} and "
+          f"{r['hold0_peak_form_ms']:.4f} ms.  SASS of the chain's batches (FSETP, STS, "
+          f"stall cycles per step): reference "
+          f"{r['sass_ref']['fsetp']}, {r['sass_ref']['sts']}, "
+          f"{r['sass_ref']['stalls']:.2f} (peak_envelope's without a "
+          f"threshold: {r['sass_peak_ref']['fsetp']}, "
+          f"{r['sass_peak_ref']['sts']}, {r['sass_peak_ref']['stalls']:.2f}); "
+          f"free {r['sass_free']['fsetp']}, {r['sass_free']['sts']}, "
+          f"{r['sass_free']['stalls']:.2f}")
 
 
 STEP_COUNTERS = (fp.rfft_packed, fp.rfft_packed_zeropad, fp.irfft_packed,
@@ -853,7 +945,7 @@ def units_phase(dev, res):
              + [Expander(SR, mode=m, attack_thresh=0.1, release_thresh=0.05,
                          **kw) for m in ExpanderMode]
              + [Gate(SR, threshold=0.1, zone=0.5, hyst_threshold=0.08,
-                     **kw)])
+                     **dict(kw, hold_ms=h)) for h in (0.5, 0.0)])
     torch.cuda.synchronize()
     eu.gate_envelope.launches = 0
     worst = dict(level=1e9, envelope=1e9, gain=1e9)
@@ -876,7 +968,7 @@ def units_phase(dev, res):
           + f"; gate_envelope launches {gate_launches}")
     for k in ("envelope", "gain"):
         check(worst[k] >= DYN_DB, f"units {k} {worst[k]:.1f} dB < {DYN_DB}")
-    check(gate_launches >= len(SidechainMode),
+    check(gate_launches >= 2 * len(SidechainMode),
           f"gate_envelope launched {gate_launches} times")
     res["units_db"] = worst
     res["gate"]["launches"] = gate_launches
@@ -919,9 +1011,11 @@ def ring_phase(chain, params, dev, res):
           + ", ".join(f"{k} {v:.1f} dB" for k, v in worst.items()))
     for k, v in worst.items():
         check(v >= LIN_DB, f"fdl_fused {k} {v:.1f} dB < {LIN_DB}")
+    shape, resident = clusters_resident("fdl", fdl_launch_shape(N, C))
     w = (ring_k.pos + 1) % p_n
     plane = C * B * F32
-    r = res["fdl"] = dict(db=worst, max_abs_err=err, library_ms=None)
+    r = res["fdl"] = dict(db=worst, max_abs_err=err, library_ms=None,
+                          launch_shape=shape, blocks_resident=resident)
     r["ms"] = time_ms(lambda: fdl_fused(*ring_k[:2], *hp, ring_k.history,
                                         x, w), 50)
     r["plain_ms"] = time_ms(lambda: fdl_fused_plain(
@@ -959,6 +1053,17 @@ def ring_phase(chain, params, dev, res):
           f"{GOLD_CH} channels vs float64 fftconvolve {db:.2f} dB")
     check(db >= CHAIN_DB, f"ring path {db:.2f} dB < {CHAIN_DB}")
     res["ring_vs_golden_db"] = db
+    xr = [torch.roll(x0d, shifts=k, dims=-1) for k in range(8)]
+    ring_state, i = [st], [0]
+
+    def one_ring():
+        ring_state[0], _ = fftconv.fdl_ring_step(h, ring_state[0],
+                                                 xr[i[0] % 8])
+        i[0] += 1
+
+    res["ring_step_ms"] = time_ms(one_ring, RING_BLOCKS)
+    print(f"fdl_ring_step (packed ring): {res['ring_step_ms']:.4f} ms/block "
+          f"on the card (CUDA events, {RING_BLOCKS} blocks)")
 
     # ring_mac against its plain version, natural and packed rows
     res["mac"] = dict(library_ms=None)

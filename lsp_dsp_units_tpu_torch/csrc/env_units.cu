@@ -139,15 +139,29 @@ sliding_rms_kernel(const float* __restrict__ x, const float* __restrict__ win,
 // The step itself: on this card a compare that feeds a select costs ~13
 // cycles, against ~4 for FADD, FFMA or FMNMX, so the reference step
 // (subtract, compare, select tau, FMA, selects) is ~28 cycles.  Where the
-// peak envelope cannot hold (hold 0, a hold time of 0 samples, peak == e,
+// envelope cannot hold (hold 0, a hold time of 0 samples, peak == e,
 // release no faster than attack and attack tau >= 0: the chain's
-// compressor from env_init, and any unit with hold_ms 0) a batch runs
-// env.cu's free step instead, sub -> fma -> min -> max with no predicate
-// on the envelope's path, and ends with peak := e; every other batch, each
-// chunk's tail and the gate (which holds and switches curves) run the
-// reference step.  There is no branch inside a batch.  Coefficients that
-// allow the free step select a kernel of its own (kFree), so that the
-// others run the reference step's code alone, scheduled as before.
+// compressor from env_init, and any unit with hold_ms 0, which is the
+// gate's default) a batch runs env.cu's free step instead, sub -> fma ->
+// min -> max with no predicate on the envelope's path, and ends with
+// peak := e; every other batch and each chunk's tail run the reference
+// step.  There is no branch inside a batch.  Coefficients that allow the
+// free step select a kernel of its own (kFree), so that the others run
+// the reference step's code alone, scheduled as before.
+//
+// The gate's curve track is no part of the chain: the curve never feeds
+// back into the envelope, it is a two-state automaton driven by the
+// finished envelope.  So the gate's chain is the peak envelope's without
+// a release threshold, and the curves of a chunk are computed afterwards
+// from its envelopes by a mover warp, as a scan: each sample is a map on
+// {0, 1} (to 1 above curve 0's end, to 0 below curve 1's start, else
+// stay), maps compose associatively, so each lane composes its four
+// consecutive samples, a shuffle scan composes the lanes, and the curve
+// carried from the tile before is applied.  The curves go from registers
+// to device memory.  The scan of chunk j - 1 runs while the chain runs
+// chunk j; a named barrier among the mover warps alone orders it before
+// the refill of that buffer, and the chain thread still meets the block
+// at one __syncthreads per chunk.
 // Mapping the serial chain better onto the card (e.g. splitting a channel
 // where the envelope provably resets) is later work.
 // ---------------------------------------------------------------------------
@@ -215,67 +229,116 @@ __device__ __forceinline__ float free_step(float x, float& e,
   return e;
 }
 
-// The hysteresis curve switch of the gate (the TPU kernel's _gate_step):
-// to curve 1 when the envelope rises above curve 0's end, back to 0 when
-// it falls below curve 1's start.
-__device__ __forceinline__ int gate_switch(int cur, float e,
-                                           const EnvCoef& k) {
-  if (cur == 0 && e > k.k0_end) return 1;
-  if (cur == 1 && e < k.k1_start) return 0;
+// The hysteresis curve switch of the gate (the TPU kernel's _gate_step)
+// as a map on the curve {0, 1}: to curve 1 when the envelope rises above
+// curve 0's end, back to 0 when it falls below curve 1's start.  Bit s of
+// the map is the curve after the sample for curve s before it; a NaN
+// level keeps the curve.
+__device__ __forceinline__ uint32_t curve_map(float e, float k0_end,
+                                              float k1_start) {
+  return (e > k0_end ? 1u : 0u) | (e < k1_start ? 0u : 2u);
+}
+
+// the map "f, then g"
+__device__ __forceinline__ uint32_t then(uint32_t f, uint32_t g) {
+  return ((g >> (f & 1u)) & 1u) | (((g >> (f >> 1)) & 1u) << 1);
+}
+
+constexpr uint32_t kStay = 2u;                // the identity map
+constexpr int kRun = 4;                       // samples per lane
+constexpr int kTile = 32 * kRun;              // samples per scan step
+
+// The curve track of one chunk from its finished envelopes (one warp):
+// tiles of kTile samples, lane i holding samples 4 i .. 4 i + 3 of the
+// tile.  cur is the curve before the chunk; returns the curve after it,
+// the same in every lane.  A carried curve other than 0 or 1 never
+// switches (neither does the reference step's).  Full runs go out as
+// 16-byte stores where the row allows them.  Not inlined: inside the
+// kernel's body the scan's registers and code cost the chain thread's
+// batch ~2.6 cycles a step in ptxas's schedule.
+__device__ __noinline__ int curve_scan(const float* buf, int len,
+                                       int* __restrict__ out, int cur,
+                                       float k0_end, float k1_start) {
+  const int lane = threadIdx.x & 31;
+  const bool aligned = (reinterpret_cast<uintptr_t>(out) & 15) == 0;
+  const bool stuck = (cur & ~1) != 0;
+  for (int t0 = 0; t0 < len; t0 += kTile) {
+    const int t = t0 + kRun * lane;
+    const float4 e = *reinterpret_cast<const float4*>(buf + t);
+    // inclusive maps of the lane's run; samples past the end stay
+    uint32_t m0 = t < len ? curve_map(e.x, k0_end, k1_start) : kStay;
+    uint32_t m1 = then(m0, t + 1 < len
+                               ? curve_map(e.y, k0_end, k1_start) : kStay);
+    uint32_t m2 = then(m1, t + 2 < len
+                               ? curve_map(e.z, k0_end, k1_start) : kStay);
+    uint32_t m3 = then(m2, t + 3 < len
+                               ? curve_map(e.w, k0_end, k1_start) : kStay);
+    uint32_t incl = m3;
+#pragma unroll
+    for (int off = 1; off < 32; off <<= 1) {
+      const uint32_t before = __shfl_up_sync(0xffffffffu, incl, off);
+      if (lane >= off) incl = then(before, incl);
+    }
+    uint32_t excl = __shfl_up_sync(0xffffffffu, incl, 1);
+    if (lane == 0) excl = kStay;
+    // the curve before the lane's run
+    const uint32_t in = stuck ? 0u : (excl >> cur) & 1u;
+    int4 c;
+    c.x = stuck ? cur : (int)((m0 >> in) & 1u);
+    c.y = stuck ? cur : (int)((m1 >> in) & 1u);
+    c.z = stuck ? cur : (int)((m2 >> in) & 1u);
+    c.w = stuck ? cur : (int)((m3 >> in) & 1u);
+    if (aligned && t + kRun <= len) {
+      *reinterpret_cast<int4*>(out + t) = c;
+    } else {
+      if (t < len) out[t] = c.x;
+      if (t + 1 < len) out[t + 1] = c.y;
+      if (t + 2 < len) out[t + 2] = c.z;
+      if (t + 3 < len) out[t + 3] = c.w;
+    }
+    cur = __shfl_sync(0xffffffffu, c.w, 31);
+  }
   return cur;
 }
 
 struct EnvRegs {
   float e, peak;
-  int hold, cur;
+  int hold;
 };
 
 // The chain over one chunk in shared memory, in place: levels in,
-// envelopes (and the gate's curve track) out.  Full batches move through
-// registers with 16-byte loads and stores (the buffers are 16-byte
-// aligned and batches start at multiples of kBatch).  With kFree (the
-// coefficients allow it), once a full batch starts where the envelope
-// cannot hold, it cannot hold for the rest of the chunk either (a free
-// step keeps peak == e and the hold at 0), so the chunk's remaining full
-// batches run free_step in a loop of their own, each batch's levels
-// loaded while the one before runs, and end with peak := e.  Every other
-// batch, and the tail, runs env_step.
-template <bool kUseRt, bool kGate, bool kFree>
-__device__ __forceinline__ void run_chunk(float* buf, int* cbuf, int len,
-                                          EnvRegs& s, const EnvCoef& k,
+// envelopes out.  Full batches move through registers with 16-byte loads
+// and stores (the buffers are 16-byte aligned and batches start at
+// multiples of kBatch).  With kFree (the coefficients allow it), once a
+// full batch starts where the envelope cannot hold, it cannot hold for
+// the rest of the chunk either (a free step keeps peak == e and the hold
+// at 0), so the chunk's remaining full batches run free_step in a loop of
+// their own, each batch's levels loaded while the one before runs, and
+// end with peak := e.  Every other batch, and the tail, runs env_step.
+template <bool kUseRt, bool kFree>
+__device__ __forceinline__ void run_chunk(float* buf, int len, EnvRegs& s,
+                                          const EnvCoef& k,
                                           uint32_t inf_bits) {
-  auto step = [&](float v, int* cv) {
-    v = env_step<kUseRt>(v, s.e, s.peak, s.hold, k);
-    if (kGate) {
-      s.cur = gate_switch(s.cur, v, k);
-      *cv = s.cur;
-    }
-    return v;
+  auto step = [&](float v) {
+    return env_step<kUseRt>(v, s.e, s.peak, s.hold, k);
   };
   const int full = len - len % kBatch;
   int t0 = 0;
   for (; t0 < full; t0 += kBatch) {
     if (kFree && s.e == s.peak && s.hold == 0) break;
     float4 lv[kBatch / 4];
-    int4 cv[kGate ? kBatch / 4 : 1];
     float4* l4 = reinterpret_cast<float4*>(buf + t0);
 #pragma unroll
     for (int q = 0; q < kBatch / 4; ++q) lv[q] = l4[q];
 #pragma unroll
     for (int q = 0; q < kBatch / 4; ++q) {
-      int4& c4 = cv[kGate ? q : 0];
-      lv[q].x = step(lv[q].x, &c4.x);
-      lv[q].y = step(lv[q].y, &c4.y);
-      lv[q].z = step(lv[q].z, &c4.z);
-      lv[q].w = step(lv[q].w, &c4.w);
+      lv[q].x = step(lv[q].x);
+      lv[q].y = step(lv[q].y);
+      lv[q].z = step(lv[q].z);
+      lv[q].w = step(lv[q].w);
     }
 #pragma unroll
     for (int q = 0; q < kBatch / 4; ++q) l4[q] = lv[q];
-    if (kGate) {
-      int4* c4 = reinterpret_cast<int4*>(cbuf + t0);
-#pragma unroll
-      for (int q = 0; q < kBatch / 4; ++q) c4[q] = cv[kGate ? q : 0];
-    }
   }
   if (kFree && t0 < full) {
     float4 lv[kBatch / 4];
@@ -305,15 +368,11 @@ __device__ __forceinline__ void run_chunk(float* buf, int* cbuf, int len,
     }
     s.peak = s.e;
   }
-  for (int t = full; t < len; ++t) {
-    int cv = 0;
-    buf[t] = step(buf[t], &cv);
-    if (kGate) cbuf[t] = cv;
-  }
+  for (int t = full; t < len; ++t) buf[t] = step(buf[t]);
 }
 
-// kGate: the gate's form (no release threshold) with the curve track.
-// kFree: the coefficients allow free_step (not with kGate).
+// kGate: the curve track beside the envelope (warp 1 scans each finished
+// chunk).  kFree: the coefficients allow free_step.
 template <bool kUseRt, bool kGate, bool kFree>
 __global__ void __launch_bounds__(kEnvThreads)
 envelope_kernel(const float* __restrict__ x, const float* __restrict__ e_in,
@@ -323,19 +382,18 @@ envelope_kernel(const float* __restrict__ x, const float* __restrict__ e_in,
                 float* __restrict__ p_out, int* __restrict__ h_out,
                 int* __restrict__ cur_out, int t_n, EnvCoef k) {
   __shared__ __align__(16) float s_x[2][kChunk];
-  __shared__ __align__(16) int s_cur[kGate ? 2 : 1][kGate ? kChunk : 4];
   const int c = blockIdx.x;
   const float* xr = x + (size_t)c * t_n;
   float* er = env + (size_t)c * t_n;
   int* cr = kGate ? curves + (size_t)c * t_n : nullptr;
   const int n_chunks = (t_n + kChunk - 1) / kChunk;
+  const bool scanner = kGate && (threadIdx.x >> 5) == 1;
 
   for (int i = threadIdx.x; i < min(kChunk, t_n); i += kEnvThreads)
     s_x[0][i] = xr[i];
-  EnvRegs s{0.0f, 0.0f, 0, 0};
-  if (threadIdx.x == 0)
-    s = EnvRegs{e_in[c], p_in[c], h_in[c], kGate ? cur_in[c] : 0};
-  static_assert(!(kGate && kFree), "the gate holds: no free step");
+  EnvRegs s{0.0f, 0.0f, 0};
+  if (threadIdx.x == 0) s = EnvRegs{e_in[c], p_in[c], h_in[c]};
+  int cur = scanner ? cur_in[c] : 0;
   uint32_t inf_bits = 0;               // 0x7f800000, kept in a register
   if (kFree) asm volatile("mov.b32 %0, 0x7f800000;" : "=r"(inf_bits));
   __syncthreads();
@@ -343,19 +401,22 @@ envelope_kernel(const float* __restrict__ x, const float* __restrict__ e_in,
     const int b = j & 1;
     const int t0 = j * kChunk;
     if (threadIdx.x == 0) {
-      run_chunk<kUseRt, kGate, kFree>(s_x[b], kGate ? s_cur[b] : nullptr,
-                                      min(kChunk, t_n - t0), s, k, inf_bits);
+      run_chunk<kUseRt, kFree>(s_x[b], min(kChunk, t_n - t0), s, k, inf_bits);
     } else if (threadIdx.x >= 32) {
+      if (kGate) {
+        // the curves of chunk j - 1, before any mover refills its buffer
+        if (scanner && j > 0)
+          cur = curve_scan(s_x[b ^ 1], kChunk, cr + t0 - kChunk, cur, k.k0_end,
+                           k.k1_start);
+        asm volatile("bar.sync 1, %0;" ::"n"(kMovers) : "memory");
+      }
       // chunk j - 1 out of the other buffer, chunk j + 1 into it: each
       // element is written out before the same thread refills it
       const int prev_len = j > 0 ? kChunk : 0;
       const int next_len = j + 1 < n_chunks ? min(kChunk, t_n - t0 - kChunk)
                                             : 0;
       for (int i = threadIdx.x - 32; i < kChunk; i += kMovers) {
-        if (i < prev_len) {
-          er[t0 - kChunk + i] = s_x[b ^ 1][i];
-          if (kGate) cr[t0 - kChunk + i] = s_cur[b ^ 1][i];
-        }
+        if (i < prev_len) er[t0 - kChunk + i] = s_x[b ^ 1][i];
         if (i < next_len) s_x[b ^ 1][i] = xr[t0 + kChunk + i];
       }
     }
@@ -363,16 +424,24 @@ envelope_kernel(const float* __restrict__ x, const float* __restrict__ e_in,
   }
   const int last = n_chunks - 1;
   const int tl = last * kChunk;
-  for (int i = threadIdx.x; i < t_n - tl; i += kEnvThreads) {
+  for (int i = threadIdx.x; i < t_n - tl; i += kEnvThreads)
     er[tl + i] = s_x[last & 1][i];
-    if (kGate) cr[tl + i] = s_cur[last & 1][i];
+  if (scanner) {
+    cur = curve_scan(s_x[last & 1], t_n - tl, cr + tl, cur, k.k0_end,
+                     k.k1_start);
+    if ((threadIdx.x & 31) == 0) cur_out[c] = cur;
   }
   if (threadIdx.x == 0) {
     e_out[c] = s.e;
     p_out[c] = s.peak;
     h_out[c] = s.hold;
-    if (kGate) cur_out[c] = s.cur;
   }
+}
+
+// coefficients under which an envelope with peak == e and no hold left
+// cannot hold: free_step's conditions
+bool allows_free_step(float ta, float tr, int nh) {
+  return nh == 0 && tr <= ta && ta >= 0.0f;
 }
 
 }  // namespace
@@ -396,7 +465,7 @@ int lsp_peak_envelope(const float* x, const float* e_in, const float* p_in,
   // rt + 0: -0 becomes +0, which compares the same and keeps free_step's
   // sign test exact
   const EnvCoef k{ta, tr, rt + 0.0f, nh, 0.0f, 0.0f};
-  const bool free = nh == 0 && tr <= ta && ta >= 0.0f;
+  const bool free = allows_free_step(ta, tr, nh);
   auto kernel = use_rt ? (free ? envelope_kernel<true, false, true>
                                : envelope_kernel<true, false, false>)
                        : (free ? envelope_kernel<false, false, true>
@@ -414,8 +483,10 @@ int lsp_gate_envelope(const float* x, const float* e_in, const float* p_in,
                       int nh, float k0_end, float k1_start, void* stream) {
   if (c_n < 1 || t_n < 1) return (int)cudaErrorInvalidValue;
   const EnvCoef k{ta, tr, 0.0f, nh, k0_end, k1_start};
-  envelope_kernel<false, true, false><<<c_n, kEnvThreads, 0,
-                                        (cudaStream_t)stream>>>(
+  auto kernel = allows_free_step(ta, tr, nh)
+                    ? envelope_kernel<false, true, true>
+                    : envelope_kernel<false, true, false>;
+  kernel<<<c_n, kEnvThreads, 0, (cudaStream_t)stream>>>(
       x, e_in, p_in, h_in, cur_in, env, curves, e_out, p_out, h_out, cur_out,
       t_n, k);
   return (int)cudaGetLastError();

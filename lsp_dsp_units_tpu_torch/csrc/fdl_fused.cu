@@ -13,11 +13,10 @@
 // which the TPU path left to XLA: computed here in FP32 FMA they cannot
 // change with any global TF32 or matmul-precision setting.
 //
-// fdl_kernel — the standalone convolver block, one thread block per
-// channel: the frame [hist || x] forward FFT (-> S), the same ring MAC and
-// slot write, the same last-half inverse (-> y) through fft_packed.cuh's
-// one-block dif/dit_inv.  Replaces ops/pallas_fdl_fused.py::
-// fdl_fused_pallas (_kernel).
+// fdl_kernel — the standalone convolver block: the frame [hist || x]
+// forward FFT (-> S), the same ring MAC and slot write, the same last-half
+// inverse (-> y).  Replaces ops/pallas_fdl_fused.py::fdl_fused_pallas
+// (_kernel).
 //
 // What bounds them: memory traffic.  Per block at 64 channels, N = 16384,
 // P = 6, each channel reads P-1 ring slots and P IR spectra (64 KB each)
@@ -26,30 +25,38 @@
 // us); eqfdl_kernel also reads the EQ's w_mat and g_t, 2K x M floats each
 // (K biquads; 2K = 18 on the chain: ~1.2 MB per channel), from L2.
 //
-// eqfdl_kernel runs the split schedule of fft_packed.cu: the two blocks
-// of a channel form a cluster, block b holding packed positions
+// Both run the split schedule of fft_packed.cu: the two blocks of a
+// channel form a cluster, block b holding packed positions
 // [b L, (b+1) L), L = M/2, in its own shared memory.  The EQ product,
-// the retangle, the MAC pass and every stage but the inverses' last run
-// on the block's own half (pair_of pairs positions within an octave);
-// the transforms run up to four radix-2 stages per register pass.  The
-// two stages that pair the halves cross the cluster through distributed
-// shared memory: the EQ inverse's last stage fused with the u correction
-// and the frame's first DIF stage (block b computes u for a quarter of
-// the outputs and writes both halves' frame values), and the FDL
-// inverse's last stage (block b writes y's quarter).  The work of the EQ
-// matrices is split too (rows of W x, outputs of g_mat @ sv), so each
-// block reads half of them and half of its channel's ring: 128 SMs carry
-// the traffic instead of 64.  Same butterflies on the same operands in
-// the same order as the one-block schedule, and every sum in the same
-// order, so the outputs are bitwise those of that schedule.  The only
-// global traffic is the inputs, the outputs and the ring.  The MAC,
-// untangle and retangle are fused into one pass over bin pairs, with ring
-// and IR reads coalesced in the packed (bit-reversed) order.  Slot w is
-// never read, only written, so the in-place write races with no read of
-// another slot.  What is left of eqfdl_kernel's time on the H100 (3.4x
-// its bytes bound) is latency: its L2 streams (ring and IR in the MAC,
-// W x, g_t), each with several loads in flight per thread, and the
-// register passes' shared-memory rounds.
+// the retangle, the MAC pass and every stage but the frame's first and
+// the inverses' last run on the block's own half (pair_of pairs positions
+// within an octave); the transforms run up to four radix-2 stages per
+// register pass.  So each block reads half of its channel's ring: 128 SMs
+// carry the traffic instead of 64.  From the frame's second stage on, the
+// two kernels share one function (fdl_tail); its last stage, the FDL
+// inverse's, crosses the cluster through distributed shared memory (block
+// b writes y's quarter).
+//
+// In eqfdl_kernel the EQ inverse's last stage crosses the cluster too,
+// fused with the u correction and the frame's first DIF stage: block b
+// computes u for a quarter of the outputs and writes both halves' frame
+// values.  The work of the EQ matrices is split as well (rows of W x,
+// outputs of g_mat @ sv), so each block reads half of them.  fdl_kernel's
+// frame is in device memory already, so each of its blocks reads hist and
+// x and forms its own half of the first stage (h + x, or (h - x) w) as it
+// loads the first register pass: no exchange, hist and x read twice (the
+// second time from L2).
+//
+// Same butterflies on the same operands in the same order as a one-block
+// radix-2 schedule, and every sum in the same order, so the outputs are
+// bitwise those of that schedule.  The only global traffic is the inputs,
+// the outputs and the ring.  The MAC, untangle and retangle are fused
+// into one pass over bin pairs, with ring and IR reads coalesced in the
+// packed (bit-reversed) order.  Slot w is never read, only written, so
+// the in-place write races with no read of another slot.  What is left
+// of their time on the H100 is latency: the L2 streams (ring and IR in
+// the MAC; eqfdl_kernel's W x and g_t), each with several loads in flight
+// per thread, and the register passes' shared-memory rounds.
 
 #include <cooperative_groups.h>
 
@@ -167,15 +174,65 @@ __device__ __forceinline__ void mac_pass(
   }
 }
 
-// y (one [B] row) = the last half of the inverse; buf holds M times the
-// complex inverse
-__device__ __forceinline__ void write_last_half(const float2* buf,
-                                                float* __restrict__ y, int m) {
-  const int half = m >> 1;
-  const float inv_m = 1.0f / (float)m;
-  float2* yz = reinterpret_cast<float2*>(y);
-  for (int n = threadIdx.x; n < half; n += blockDim.x)
-    yz[n] = cscale(buf[half + n], inv_m);
+// From the frame's first-stage outputs in the two blocks' shared memory
+// (block b: its half, local points 0 .. L - 1, synchronised) to y: the
+// DIF stages with spans below 2^rem locally, the MAC pass on the block's
+// own pairs, the DIT stages but the last locally, and the last stage
+// (span L: a - c of point i of each half, the last half of the inverse)
+// for this block's quarter of y across the cluster.
+template <class At, class Load, class Store>
+__device__ __forceinline__ void fdl_tail(
+    cg::cluster_group& cluster, float2* buf, At at, Load ld, Store st,
+    float* __restrict__ ring_re, float* __restrict__ ring_im,
+    const float* __restrict__ h_re, const float* __restrict__ h_im,
+    float* __restrict__ y, const float2* __restrict__ wst,
+    const float2* __restrict__ wnb, int log_m, int rem, int p_n, int w,
+    int c_n, size_t row) {
+  const int m = 1 << log_m;
+  const int log_l = log_m - 1;
+  const int l = m >> 1;
+  const int q4 = l >> 1;
+  const int b = (int)cluster.block_rank();
+  const int nt = l / kPts;
+  const bool passer = threadIdx.x < nt;
+  while (rem > 0) {
+    const int kk = min(kRadixBits, rem);
+    rem -= kk;
+    if (passer) pass<false>(kk, wst, rem, nt, ld, st);
+    __syncthreads();
+  }
+
+  {
+    int t0, count;
+    half_pairs(b, l, t0, count);
+    mac_pass<kMacLoads>(at, ring_re, ring_im, h_re, h_im, wnb, m, p_n, w,
+                        c_n, row, t0, count, b == 0);
+  }
+  // the FDL inverse: every DIT stage but the last, locally
+  for (int lo = 0; lo < log_l;) {
+    __syncthreads();
+    const int kk = min(kRadixBits, log_l - lo);
+    if (passer) pass<true>(kk, wst, lo, nt, ld, st);
+    lo += kk;
+  }
+  cluster.sync();
+
+  // its last stage: y (the last half, a - c of the span-L butterflies),
+  // this block's quarter
+  {
+    const float2* lower = b ? cluster.map_shared_rank(buf, 0) : buf;
+    const float2* upper = b ? buf : cluster.map_shared_rank(buf, 1);
+    const float inv_m = 1.0f / (float)m;
+    float2* yz = reinterpret_cast<float2*>(y + row);
+    const int i0 = b * q4;
+    for (int i = i0 + threadIdx.x; i < i0 + q4; i += blockDim.x) {
+      const float2 a = lower[pad(i)];
+      const float2 cc = cmulc(upper[pad(i)], __ldg(&wst[l + i]));
+      yz[i] = cscale(csub(a, cc), inv_m);
+    }
+  }
+  // the partner reads this block's shared memory until it passes here
+  cluster.sync();
 }
 
 // blockIdx.x = 2 * channel + b, b the block's rank in its cluster: block
@@ -359,48 +416,13 @@ eqfdl_kernel(float* __restrict__ ring_re, float* __restrict__ ring_im,
   }
   cluster.sync();
 
-  // the frame forward: its other DIF stages, locally
-  for (int rem = log_l; rem > 0;) {
-    const int kk = min(kRadixBits, rem);
-    rem -= kk;
-    if (passer) pass<false>(kk, wst, rem, nt, ld, st);
-    __syncthreads();
-  }
-
-  {
-    int t0, count;
-    half_pairs(b, l, t0, count);
-    mac_pass<kMacLoads>(at, ring_re, ring_im, h_re, h_im, wnb, m, p_n, w,
-                        c_n, row, t0, count, b == 0);
-  }
-  // the FDL inverse: every DIT stage but the last, locally
-  for (int lo = 0; lo < log_l;) {
-    __syncthreads();
-    const int kk = min(kRadixBits, log_l - lo);
-    if (passer) pass<true>(kk, wst, lo, nt, ld, st);
-    lo += kk;
-  }
-  cluster.sync();
-
-  // its last stage: y (the last half, a - c of the span-L butterflies),
-  // this block's quarter
-  {
-    const float2* lower = b ? cluster.map_shared_rank(buf, 0) : buf;
-    const float2* upper = b ? buf : cluster.map_shared_rank(buf, 1);
-    const float inv_m = 1.0f / (float)m;
-    float2* yz = reinterpret_cast<float2*>(y + row);
-    const int i0 = b * q4;
-    for (int i = i0 + threadIdx.x; i < i0 + q4; i += blockDim.x) {
-      const float2 a = lower[pad(i)];
-      const float2 cc = cmulc(upper[pad(i)], __ldg(&wst[l + i]));
-      yz[i] = cscale(csub(a, cc), inv_m);
-    }
-  }
-  // the partner reads this block's shared memory until it passes here
-  cluster.sync();
+  // the frame's other stages, the MAC and the FDL inverse (-> y)
+  fdl_tail(cluster, buf, at, ld, st, ring_re, ring_im, h_re, h_im, y, wst,
+           wnb, log_m, log_l, p_n, w, c_n, row);
 }
 
-__global__ void __launch_bounds__(kThreads)
+// blockIdx.x = 2 * channel + b as in eqfdl_kernel.
+__global__ void __cluster_dims__(2, 1, 1) __launch_bounds__(kThreads)
 fdl_kernel(float* __restrict__ ring_re, float* __restrict__ ring_im,
            const float* __restrict__ h_re, const float* __restrict__ h_im,
            const float* __restrict__ hist, const float* __restrict__ x,
@@ -408,35 +430,68 @@ fdl_kernel(float* __restrict__ ring_re, float* __restrict__ ring_im,
            const float2* __restrict__ wnb, int log_m, int p_n, int w,
            int c_n) {
   extern __shared__ __align__(16) float2 buf[];
-  const int m = 1 << log_m;
-  const int half = m >> 1;
-  const size_t row = (size_t)blockIdx.x * m;  // spectra rows and [C, B] rows
+  cg::cluster_group cluster = cg::this_cluster();
+  const int log_l = log_m - 1;
+  const int l = 1 << log_l;
+  const int b = (int)cluster.block_rank();
+  const int off = b * l;
+  const int nt = l / kPts;
+  const size_t row = (size_t)(blockIdx.x >> 1) << log_m;
+  auto at = [&](int j) -> float2& { return buf[pad(j - off)]; };
+  auto ld = [&](int i) { return buf[pad(i)]; };
+  auto st = [&](int i, float2 v) { buf[pad(i)] = v; };
 
-  // the frame [hist || x] as M complex values z[n] = (f[2n], f[2n+1]),
-  // with the first DIF stage (span M/2: hist half against x half) fused
-  // into the load
-  {
-    const float2* hz = reinterpret_cast<const float2*>(hist + row);
-    const float2* xz = reinterpret_cast<const float2*>(x + row);
-    for (int n = threadIdx.x; n < half; n += blockDim.x) {
-      const float2 h = hz[n];
-      const float2 v = xz[n];
-      buf[n] = cadd(h, v);
-      buf[n + half] = cmul(csub(h, v), __ldg(&wst[half + n]));
-    }
-  }
+  // the frame [hist || x] as M complex values z[n] = (f[2n], f[2n+1]);
+  // its first DIF stage (span L: hist half against x half) is fused into
+  // the first register pass's load, this block's half of it
+  const float2* hz = reinterpret_cast<const float2*>(hist + row);
+  const float2* xz = reinterpret_cast<const float2*>(x + row);
+  auto ld_first = [&](int i) {
+    const float2 h = hz[i];
+    const float2 v = xz[i];
+    return b ? cmul(csub(h, v), __ldg(&wst[l + i])) : cadd(h, v);
+  };
+  const int kk = min(kRadixBits, log_l);
+  if (threadIdx.x < nt) pass<false>(kk, wst, log_l - kk, nt, ld_first, st);
   __syncthreads();
-  dif(buf, wst, log_m, m >> 2);
-  mac_pass<2>([&](int j) -> float2& { return buf[j]; }, ring_re, ring_im,
-              h_re, h_im, wnb, m, p_n, w, c_n, row, 0, half - 1, true);
-  __syncthreads();
-  dit_inv(buf, wst, log_m);
-  write_last_half(buf, y + row, m);
+  fdl_tail(cluster, buf, at, ld, st, ring_re, ring_im, h_re, h_im, y, wst,
+           wnb, log_m, log_l - kk, p_n, w, c_n, row);
 }
 
-// eqfdl_kernel's dynamic shared memory: half a channel's M points, padded
-int eq_smem(int log_m) {
+// both kernels' dynamic shared memory: half a channel's M points, padded
+int half_smem(int log_m) {
   return padded(1 << (log_m - 1)) * (int)sizeof(float2);
+}
+
+// A kernel's launch shape at log2(M) = log_m for c_n channels: out[0]
+// blocks per channel (the cluster size), out[1] threads per block, out[2]
+// dynamic shared memory per block (bytes), out[3] blocks resident per SM
+// by the occupancy calculator, out[4] clusters of the whole launch
+// resident at once (cudaOccupancyMaxActiveClusters).
+template <class Kernel>
+int launch_shape(Kernel kernel, int log_m, int c_n, int* out) {
+  if (bad_size(log_m) || c_n < 1) return (int)cudaErrorInvalidValue;
+  const int smem = half_smem(log_m);
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  int per_sm = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                      kThreads, smem);
+  if (err != cudaSuccess) return (int)err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(2 * c_n);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = smem;
+  int clusters = 0;
+  err = cudaOccupancyMaxActiveClusters(&clusters, kernel, &cfg);
+  if (err != cudaSuccess) return (int)err;
+  out[0] = 2;
+  out[1] = kThreads;
+  out[2] = smem;
+  out[3] = per_sm;
+  out[4] = clusters;
+  return 0;
 }
 
 }  // namespace
@@ -452,7 +507,7 @@ int lsp_eqfdl_fused(float* ring_re, float* ring_im, const float* h_re,
                     const float2* wst, const float2* wnb, int log_m, int p_n,
                     int w, int c_n, int k2, void* stream) {
   if (k2 > kMaxK2 || bad_size(log_m)) return (int)cudaErrorInvalidValue;
-  const int smem = eq_smem(log_m);
+  const int smem = half_smem(log_m);
   cudaError_t err = cudaFuncSetAttribute(
       eqfdl_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
@@ -462,45 +517,25 @@ int lsp_eqfdl_fused(float* ring_re, float* ring_im, const float* h_re,
   return (int)cudaGetLastError();
 }
 
-// eqfdl_kernel's launch shape at log2(M) = log_m for c_n channels: out[0]
-// blocks per channel (the cluster size), out[1] threads per block, out[2]
-// dynamic shared memory per block (bytes), out[3] blocks resident per SM
-// by the occupancy calculator, out[4] clusters of the whole launch
-// resident at once (cudaOccupancyMaxActiveClusters).
+// launch_shape of each kernel
 int lsp_eqfdl_shape(int log_m, int c_n, int* out) {
-  if (bad_size(log_m) || c_n < 1) return (int)cudaErrorInvalidValue;
-  const int smem = eq_smem(log_m);
-  cudaError_t err = cudaFuncSetAttribute(
-      eqfdl_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return (int)err;
-  int per_sm = 0;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, eqfdl_kernel,
-                                                      kThreads, smem);
-  if (err != cudaSuccess) return (int)err;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(2 * c_n);
-  cfg.blockDim = dim3(kThreads);
-  cfg.dynamicSmemBytes = smem;
-  int clusters = 0;
-  err = cudaOccupancyMaxActiveClusters(&clusters, eqfdl_kernel, &cfg);
-  if (err != cudaSuccess) return (int)err;
-  out[0] = 2;
-  out[1] = kThreads;
-  out[2] = smem;
-  out[3] = per_sm;
-  out[4] = clusters;
-  return 0;
+  return launch_shape(eqfdl_kernel, log_m, c_n, out);
+}
+
+int lsp_fdl_shape(int log_m, int c_n, int* out) {
+  return launch_shape(fdl_kernel, log_m, c_n, out);
 }
 
 int lsp_fdl_fused(float* ring_re, float* ring_im, const float* h_re,
                   const float* h_im, const float* hist, const float* x,
                   float* y, const float2* wst, const float2* wnb, int log_m,
                   int p_n, int w, int c_n, void* stream) {
-  const int smem = (int)((size_t(1) << log_m) * sizeof(float2));
+  if (bad_size(log_m)) return (int)cudaErrorInvalidValue;
+  const int smem = half_smem(log_m);
   cudaError_t err = cudaFuncSetAttribute(
       fdl_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
-  fdl_kernel<<<c_n, kThreads, smem, (cudaStream_t)stream>>>(
+  fdl_kernel<<<2 * c_n, kThreads, smem, (cudaStream_t)stream>>>(
       ring_re, ring_im, h_re, h_im, hist, x, y, wst, wnb, log_m, p_n, w, c_n);
   return (int)cudaGetLastError();
 }

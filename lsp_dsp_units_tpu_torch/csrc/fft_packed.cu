@@ -7,9 +7,9 @@
 // transform as a four-step of bf16x3 matmuls on the MXU.  Here it is the
 // radix-2 FP32 FMA transform of fft_packed.cuh (in-place DIF forward,
 // DIT inverse, packed bit-reversed spectra), with the same butterflies on
-// the same operands in the same order, so its output is bitwise that of
-// the one-block-per-row schedule that the fused kernels (fdl_fused.cu)
-// still run through dif/dit_inv.  Only the schedule differs.
+// the same operands in the same order as one block per row running one
+// stage per pass would, so its output is bitwise that schedule's; the
+// fused kernels (fdl_fused.cu) run the same split.
 //
 // What bounds it: each row reads and writes N floats once (at the main
 // path's 64 x 16384, 4 MB each way: ~2.5 us of HBM at 3.35 TB/s).  One

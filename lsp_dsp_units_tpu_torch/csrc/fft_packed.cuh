@@ -1,12 +1,12 @@
 // Packed real FFT building blocks, shared by fft_packed.cu and
-// fdl_fused.cu: the one-block radix-2 passes (dif, dit_inv) and the
-// two-block split schedule's register passes (radix_pass), which run the
-// same butterflies on the same operands in the same order.
+// fdl_fused.cu: the untangle and the two-block split schedule's register
+// passes (radix_pass), which run the butterflies of the in-place radix-2
+// transform on the same operands in the same order.
 //
 // A real N-point frame x is transformed as the complex M-point FFT
 // (M = N/2) of z[n] = x[2n] + i x[2n+1], followed by the real-input
-// "untangle".  One thread block owns one row and keeps its M complex
-// values in shared memory (64 KB at N = 16384).
+// "untangle".  Two thread blocks own one row and keep half of its M
+// complex values each in shared memory (34 KB at N = 16384).
 //
 // Spectrum order ("packed"): position j holds bin rev(j), the log2(M)-bit
 // reversal of j, and position 0 holds the two real bins: re = DC,
@@ -31,7 +31,6 @@
 namespace lspfft {
 
 constexpr int kThreads = 512;
-constexpr int kGroup = 8;        // butterflies per thread in flight
 
 __device__ __forceinline__ float2 cadd(float2 a, float2 b) {
   return make_float2(a.x + b.x, a.y + b.y);
@@ -56,95 +55,6 @@ __device__ __forceinline__ float2 cscale(float2 a, float s) {
 // position 0, whose (DC, Nyquist) slots multiply slot-wise
 __device__ __forceinline__ float2 pmul(float2 a, float2 b, int j) {
   return j == 0 ? make_float2(a.x * b.x, a.y * b.y) : cmul(a, b);
-}
-
-// Forward DIF stages with spans h = h_start, h_start/2, ..., 1 (in place,
-// natural in, bit-reversed out once all log2(M) spans have run).  The
-// caller has synchronised after filling buf; every stage ends with a
-// barrier.  Once the transform has at least kGroup butterflies per
-// thread (M = 8192 at 512 threads: exactly kGroup), each thread loads
-// kGroup butterflies before it computes and stores any of them (they are
-// disjoint within a stage), with no bounds checks in the loop.
-__device__ __forceinline__ void dif(float2* buf, const float2* __restrict__ wst,
-                                    int log_m, int h_start) {
-  const int nb = 1 << (log_m - 1);
-  const int bd = blockDim.x;
-  const bool grouped = nb >= kGroup * bd;       // powers of two: divides
-  for (int h = h_start; h >= 1; h >>= 1) {
-    if (grouped) {
-      for (int b0 = threadIdx.x; b0 < nb; b0 += kGroup * bd) {
-        float2 a[kGroup], c[kGroup], w[kGroup];
-#pragma unroll
-        for (int u = 0; u < kGroup; ++u) {
-          const int b = b0 + u * bd;
-          const int i = 2 * b - (b & (h - 1));
-          a[u] = buf[i];
-          c[u] = buf[i + h];
-          w[u] = __ldg(&wst[h + (b & (h - 1))]);
-        }
-#pragma unroll
-        for (int u = 0; u < kGroup; ++u) {
-          const int b = b0 + u * bd;
-          const int i = 2 * b - (b & (h - 1));
-          buf[i] = cadd(a[u], c[u]);
-          buf[i + h] = cmul(csub(a[u], c[u]), w[u]);
-        }
-      }
-    } else {
-      for (int b = threadIdx.x; b < nb; b += bd) {
-        const int j = b & (h - 1);
-        const int i = 2 * b - j;
-        const float2 a = buf[i];
-        const float2 c = buf[i + h];
-        buf[i] = cadd(a, c);
-        buf[i + h] = cmul(csub(a, c), __ldg(&wst[h + j]));
-      }
-    }
-    __syncthreads();
-  }
-}
-
-// Inverse DIT stages, all spans (bit-reversed in, natural out, unscaled:
-// the result is M times the inverse DFT).  Same barrier contract and
-// grouping as dif.
-__device__ __forceinline__ void dit_inv(float2* buf,
-                                        const float2* __restrict__ wst,
-                                        int log_m) {
-  const int m = 1 << log_m;
-  const int nb = m >> 1;
-  const int bd = blockDim.x;
-  const bool grouped = nb >= kGroup * bd;
-  for (int h = 1; h < m; h <<= 1) {
-    if (grouped) {
-      for (int b0 = threadIdx.x; b0 < nb; b0 += kGroup * bd) {
-        float2 a[kGroup], c[kGroup];
-#pragma unroll
-        for (int u = 0; u < kGroup; ++u) {
-          const int b = b0 + u * bd;
-          const int i = 2 * b - (b & (h - 1));
-          a[u] = buf[i];
-          c[u] = cmulc(buf[i + h], __ldg(&wst[h + (b & (h - 1))]));
-        }
-#pragma unroll
-        for (int u = 0; u < kGroup; ++u) {
-          const int b = b0 + u * bd;
-          const int i = 2 * b - (b & (h - 1));
-          buf[i] = cadd(a[u], c[u]);
-          buf[i + h] = csub(a[u], c[u]);
-        }
-      }
-    } else {
-      for (int b = threadIdx.x; b < nb; b += bd) {
-        const int j = b & (h - 1);
-        const int i = 2 * b - j;
-        const float2 a = buf[i];
-        const float2 c = cmulc(buf[i + h], __ldg(&wst[h + j]));
-        buf[i] = cadd(a, c);
-        buf[i + h] = csub(a, c);
-      }
-    }
-    __syncthreads();
-  }
 }
 
 // Pair t in [0, M/2 - 1) -> packed positions (j, jp) holding bins k and
@@ -209,7 +119,8 @@ __host__ __device__ constexpr int padded(int l) { return l + (l >> 4); }
 
 // One radix-2 stage (span 2^(lo + S)) on the 2^KK points u[r] = point
 // base + (r << lo) of one group; jl = base mod 2^lo.  The butterflies are
-// dif's / dit_inv's, with the twiddle wst[h + (i & (h - 1))].
+// the radix-2 DIF's (a + c, (a - c) w) or DIT's (a + c conj(w), a - c
+// conj(w)), with the twiddle w = wst[h + (i & (h - 1))] of point i.
 template <int KK, int S, bool kInv>
 __device__ __forceinline__ void stage(float2* u,
                                       const float2* __restrict__ wst, int jl,

@@ -18,9 +18,9 @@ block (ops/fft_packed.rfft_packed_zeropad) and the EQ's balanced state
 ``[hist || x]``.  All spectra are packed (ops/fft_packed.py).  Each
 wrapper runs its plain version (``*_plain``) for CPU tensors and its CUDA
 kernel (``csrc/fdl_fused.cu``) for CUDA tensors, counting launches in
-``<wrapper>.launches``.  :func:`eqfdl_fused`'s kernel runs two blocks
-per channel as a cluster (:func:`eqfdl_launch_shape`), :func:`fdl_fused`'s
-one.  Unlike the JAX functions, the IR spectra come
+``<wrapper>.launches``.  Both kernels run two blocks per channel as a
+cluster (:func:`eqfdl_launch_shape`, :func:`fdl_launch_shape`) and take
+frame sizes 128 <= N <= 32768.  Unlike the JAX functions, the IR spectra come
 unrotated with the slot index ``w`` (the kernels index ``H[(w - p) % P]``
 themselves), and the G/M/W products are part of :func:`eqfdl_fused`, so
 that on the card no library matmul (and no global TF32 setting) touches
@@ -43,7 +43,9 @@ _SIGS = {"lsp_eqfdl_fused": [ctypes.c_void_p] * 19 + [ctypes.c_int] * 5
          "lsp_fdl_fused": [ctypes.c_void_p] * 9 + [ctypes.c_int] * 4
          + [ctypes.c_void_p],
          "lsp_eqfdl_shape": [ctypes.c_int, ctypes.c_int,
-                             ctypes.POINTER(ctypes.c_int)]}
+                             ctypes.POINTER(ctypes.c_int)],
+         "lsp_fdl_shape": [ctypes.c_int, ctypes.c_int,
+                           ctypes.POINTER(ctypes.c_int)]}
 
 
 def _lib():
@@ -108,17 +110,26 @@ def eqfdl_fused(ring_re, ring_im, h_re, h_im, heq_re, heq_im, xs_re, xs_im,
 eqfdl_fused.launches = 0
 
 
+def _launch_shape(entry: str, n: int, channels: int) -> dict:
+    out = (ctypes.c_int * 5)()
+    _build.check(getattr(_lib(), entry)(fp.log2_m(n), int(channels), out),
+                 f"{entry}: launch shape")
+    return dict(blocks_per_channel=out[0], threads=out[1], smem_bytes=out[2],
+                blocks_per_sm=out[3], clusters_resident=out[4])
+
+
 def eqfdl_launch_shape(n: int, channels: int) -> dict:
     """How :func:`eqfdl_fused`'s kernel launches at frame size N for
     ``channels`` channels (needs the card): blocks per channel (the
     cluster size), threads and dynamic shared memory (bytes) per block,
     blocks resident per SM by the occupancy calculator, and clusters of
     the launch resident at once."""
-    out = (ctypes.c_int * 5)()
-    _build.check(_lib().lsp_eqfdl_shape(fp.log2_m(n), int(channels), out),
-                 "eqfdl_fused launch shape")
-    return dict(blocks_per_channel=out[0], threads=out[1], smem_bytes=out[2],
-                blocks_per_sm=out[3], clusters_resident=out[4])
+    return _launch_shape("lsp_eqfdl_shape", n, channels)
+
+
+def fdl_launch_shape(n: int, channels: int) -> dict:
+    """:func:`eqfdl_launch_shape` for :func:`fdl_fused`'s kernel."""
+    return _launch_shape("lsp_fdl_shape", n, channels)
 
 
 def fdl_fused_plain(ring_re, ring_im, h_re, h_im, hist, x, w: int

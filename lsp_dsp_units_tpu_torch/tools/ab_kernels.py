@@ -18,7 +18,8 @@ compressor):
 * peak_envelope at [64, 16384], threshold on, in step's configuration
   (hold 0 from env_init) and with a hold of 24 samples from a random
   state: envelope, peak and hold;
-* gate_envelope at [64, 16384]: envelope, curve track and state.
+* gate_envelope at [64, 16384] with a hold of 24 samples and with the
+  gate's default hold of 0: envelope, curve track and state.
 
 Each case's outputs must be identical between the builds (the indices
 of those that differ are listed: eqfdl_fused's are y, u, EQ state per
@@ -158,6 +159,7 @@ def main(argv=None) -> int:
                                       dtype=torch.int32).cuda())
     gp = Gate(SR, threshold=0.2, zone=0.5, hyst_threshold=0.15,
               attack_ms=2.0, release_ms=20.0, hold_ms=0.5).build()
+    gp0 = gp._replace(hold=0)
     glev = lev.clone()
     glev[:, T_ENV // 2:] *= 0.02
     cur0 = torch.zeros(C, dtype=torch.int32, device="cuda")
@@ -194,6 +196,12 @@ def main(argv=None) -> int:
             eu.gate_envelope(dyn.env_init((C,)), cur0, glev, gp.tau_attack,
                              gp.tau_release, gp.hold, gp.knees[0].end,
                              gp.knees[1].start)), 20),
+        "gate_envelope_hold0": (lambda: flat(eu.gate_envelope(
+            dyn.env_init((C,)), cur0, glev, gp0.tau_attack, gp0.tau_release,
+            gp0.hold, gp0.knees[0].end, gp0.knees[1].start)), lambda: (
+            eu.gate_envelope(dyn.env_init((C,)), cur0, glev, gp0.tau_attack,
+                             gp0.tau_release, gp0.hold, gp0.knees[0].end,
+                             gp0.knees[1].start)), 20),
     }
     res, ok = {}, True
     for name, (run, call, reps) in cases.items():

@@ -30,7 +30,8 @@ from lsp_dsp_units_tpu_torch.models.sampling import device_mix as tdm
 from lsp_dsp_units_tpu_torch.ops import slicedma
 from lsp_dsp_units_tpu_torch.ops.fdl_fused import (eqfdl_fused,
                                                    eqfdl_fused_plain,
-                                                   fdl_fused, fdl_fused_plain)
+                                                   fdl_fused, fdl_fused_plain,
+                                                   fdl_launch_shape)
 from lsp_dsp_units_tpu_torch.ops.ring_mac import ring_mac, ring_mac_plain
 
 pytestmark = pytest.mark.cuda
@@ -288,6 +289,36 @@ def test_gate_envelope_kernel_matches_plain(cuda_device):
         assert torch.equal(a, b)
 
 
+@pytest.mark.parametrize("t", [2 * 2048 + 3 * 32 + 8, 2 * 2048 + 3 * 32 + 7])
+@pytest.mark.parametrize("hold", [0, 24])
+def test_gate_envelope_kernel_hold0_and_hold_matches_plain(cuda_device, hold,
+                                                           t):
+    """The gate's default hold of 0 samples (release no faster than
+    attack: the chain runs the predicate-free step) and a hold of 24
+    (the reference step), from env_init and from curve 0 and 1, over two
+    chunks and a ragged third whose rows are (T % 4 == 0) or are not
+    16-byte aligned: envelope, curve track, curve and state bitwise."""
+    c = 8
+    gen = torch.Generator().manual_seed(t + hold)
+    x = torch.cat([_levels(gen, c, 2048, cuda_device),
+                   _levels(gen, c, t - 2048, cuda_device)], dim=-1)
+    x[:, 1400:2048] *= 0.02
+    x[:, -600:] *= 0.02
+    st = tdyn.env_init((c,), cuda_device)
+    cur = (torch.arange(c, dtype=torch.int32) % 2).to(cuda_device)
+    args = (x, 0.05, 0.02, hold, 0.2, 0.075)
+    before = eu.gate_envelope.launches
+    sk, ck, ek, cvk = eu.gate_envelope(st, cur, *args)
+    sp, cp_, ep, cvp = eu.gate_envelope_plain(st, cur, *args)
+    torch.cuda.synchronize()
+    assert eu.gate_envelope.launches == before + 1
+    assert torch.equal(ek, ep) and torch.equal(cvk, cvp)
+    assert torch.equal(ck, cp_)
+    assert int((cvk[:, 1:] != cvk[:, :-1]).sum()) >= 3 * c
+    for a, b in zip(sk, sp):
+        assert torch.equal(a, b)
+
+
 def test_cplx_packed_route_matches_torch_fft(cuda_device):
     gen = torch.Generator().manual_seed(3)
     x = _randn(gen, 2, 3, 4096, device=cuda_device)
@@ -367,11 +398,14 @@ def test_step_and_bulk_on_card_match_cpu(cuda_device):
 # ---------------------------------------------------------------------------
 
 
-def test_fdl_fused_kernel_matches_plain(cuda_device):
-    c, b = 8, 2048
+@pytest.mark.parametrize("c, b, parts", [(8, 2048, 3), (5, 64, 2),
+                                         (64, 8192, 6)])
+def test_fdl_fused_kernel_matches_plain(cuda_device, c, b, parts):
+    """A 2-block cluster per channel: [64, 8192] with P = 6 is the ring
+    path's shape, B = 64 the smallest frame the split schedule takes."""
     gen = torch.Generator().manual_seed(21)
-    th = tfc.parse_ir(_randn(gen, 3 * b - 17, scale=0.1, device=cuda_device),
-                      b)
+    th = tfc.parse_ir(_randn(gen, parts * b - 17, scale=0.1,
+                             device=cuda_device), b)
     hp = tfft.pack_spectra(th.re, th.im, 2 * b)
     p_n = th.re.shape[0]
     ring_k = tfc.init_ring_fdl(th, (c,), packed=True, device=cuda_device)
@@ -391,6 +425,28 @@ def test_fdl_fused_kernel_matches_plain(cuda_device):
         assert _snr(ring_p.spec_im[w], ring_k.spec_im[w]) >= 95.0, k
     torch.cuda.synchronize()
     assert fdl_fused.launches == before + p_n + 2
+
+
+def test_fdl_fused_refuses_a_frame_below_the_split_schedule(cuda_device):
+    """B = 32 (M = 32 complex points) is below the pair mapping's
+    octaves: refused, nothing launched."""
+    c, b, p_n = 2, 32, 2
+    ring = [torch.zeros(p_n, c, b, device=cuda_device) for _ in range(2)]
+    h = [torch.zeros(p_n, b, device=cuda_device) for _ in range(2)]
+    x = torch.zeros(c, b, device=cuda_device)
+    before = fdl_fused.launches
+    with pytest.raises(ValueError, match="power of two"):
+        fdl_fused(*ring, *h, x, x, 0)
+    with pytest.raises(ValueError, match="power of two"):
+        fdl_launch_shape(2 * b, c)
+    assert fdl_fused.launches == before
+
+
+def test_fdl_launch_shape_is_a_cluster_of_two_all_resident(cuda_device):
+    shape = fdl_launch_shape(16384, 64)
+    assert shape["blocks_per_channel"] == 2
+    assert shape["smem_bytes"] == (4096 + 256) * 8
+    assert shape["clusters_resident"] >= 64
 
 
 def test_packed_ring_step_on_card_matches_cpu(cuda_device):

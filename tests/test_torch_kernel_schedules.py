@@ -5,9 +5,10 @@ The packed FFT (``csrc/fft_packed.cu``) runs the radix-2 transform of
 the halves are independent; the inverse's last DIT stage pairs them
 across a cluster) with up to four stages per shared-memory pass.  A
 numpy model of that schedule in float64 must be bitwise equal to a numpy
-model of the in-place radix-2 ``dif``/``dit_inv`` with the untangle,
-which the fused kernels still run: the same butterflies on the same
-operands.  Both must also agree with the plain versions.  This holds the
+model of the in-place radix-2 transform, one stage per pass over one
+block's M points, with the untangle (the schedule the kernels first ran,
+kept here as the reference): the same butterflies on the same operands.
+Both must also agree with the plain versions.  This holds the
 index maths (groups, twiddle indices, pair ranges per half, the cross
 stage) that only the card could otherwise show.
 
@@ -16,8 +17,11 @@ runs the same split as a two-block cluster per channel: the EQ inverse's
 last stage, fused with the u correction and the frame's first DIF stage,
 and the FDL inverse's last stage cross the halves; the MAC pass runs on
 each half's own octaves.  A float64 model of that schedule must equal a
-model of the one-block schedule (``dif``/``dit_inv`` with the untangle)
-bitwise, and ``eqfdl_fused_plain`` within the card's tolerance.
+model of the one-block schedule bitwise, and ``eqfdl_fused_plain``
+within the card's tolerance.  ``fdl_kernel`` runs the same cluster
+schedule from the frame [hist || x], whose first DIF stage each block
+forms for its own half as it loads its first register pass; its model
+is held against the one-block model and ``fdl_fused_plain`` likewise.
 
 The dynamics tail (``csrc/env.cu``) and the peak envelope
 (``csrc/env_units.cu``) replace their envelope step, where the envelope
@@ -26,6 +30,11 @@ max(e_rise, min(e_rel, +-inf)).  Written out in torch with the plain
 version's correctly rounded FMA (``_mul_add``) and run as each kernel's
 chain thread runs it (its chunk and batch sizes) beside the reference
 step, it must equal ``peak_envelope_plain`` bit for bit.
+
+The gate envelope (``csrc/env_units.cu``) takes its curve switch off the
+chain: a warp scans each finished chunk's envelopes, every sample a map
+on the curve {0, 1} and the maps composed per lane, across lanes and
+across tiles.  A numpy model of that scan must equal the serial switch.
 """
 
 import numpy as np
@@ -35,7 +44,8 @@ import torch
 from lsp_dsp_units_tpu_torch.ops import env_units as eu
 from lsp_dsp_units_tpu_torch.ops import fft_packed as fp
 from lsp_dsp_units_tpu_torch.ops.dynamics import EnvState
-from lsp_dsp_units_tpu_torch.ops.fdl_fused import eqfdl_fused_plain
+from lsp_dsp_units_tpu_torch.ops.fdl_fused import (eqfdl_fused_plain,
+                                                   fdl_fused_plain)
 
 SIZES = [1 << k for k in range(7, 16)]          # 128 ... 32768
 RADIX_BITS = 4                                   # stages per register pass
@@ -96,7 +106,7 @@ def _dit_butterfly(a, c, w):
     return a + c, a - c
 
 
-# --- the one-block in-place radix-2 schedule (dif / dit_inv) ---------------
+# --- the one-block in-place radix-2 schedule, one stage per pass -----------
 
 
 def _ref_forward(z, wst):
@@ -324,9 +334,8 @@ def _eq_state_rows(m_mat, w_mat, sv, x, rows):
 
 def _eqfdl_one_block(xs, heq, x, sv, g_t, m_mat, w_mat, hist, ring, h, w,
                      wst, wnb):
-    """eqfdl_kernel's one-block schedule (fdl_kernel's): dit_inv, the
-    fused u + frame stage over all M/2 points, dif from span M/4, the MAC
-    over every pair, dit_inv, the last half."""
+    """eqfdl_kernel's one-block schedule: the EQ inverse, u over all M/2
+    points, then the convolver block on the frame [hist || u]."""
     m = xs.size
     l = m // 2
     inv_m = 1.0 / m
@@ -335,9 +344,22 @@ def _eqfdl_one_block(xs, heq, x, sv, g_t, m_mat, w_mat, hist, ring, h, w,
     n = np.arange(l)
     u = buf[:l] * inv_m + _g_corr(g_t, sv, n)
     hz = hist[0::2] + 1j * hist[1::2]
-    frame = np.concatenate([hz + u, (hz - u) * wst[l + n]])
+    y, s = _fdl_one_block(hz, u, ring, h, w, wst, wnb)
+    sv2 = _eq_state_rows(m_mat, w_mat, sv, x, range(len(sv)))
+    return y, u, s, sv2
+
+
+def _fdl_one_block(hz, xz, ring, h, w, wst, wnb):
+    """The one-block schedule of the convolver block on the frame
+    [hz || xz] (complex [M/2] each): the first DIF stage fused into the
+    load, the other stages from span M/4, the MAC over every pair, the
+    inverse, the last half."""
+    l = hz.size
+    m = 2 * l
+    n = np.arange(l)
+    frame = np.concatenate([hz + xz, (hz - xz) * wst[l + n]])
     h_ = l // 2
-    while h_ >= 1:                                 # dif(buf, wst, log_m, M/4)
+    while h_ >= 1:
         b = np.arange(l)
         j = b & (h_ - 1)
         i = 2 * b - j
@@ -347,8 +369,7 @@ def _eqfdl_one_block(xs, heq, x, sv, g_t, m_mat, w_mat, hist, ring, h, w,
     s = _untangle_all(frame, wnb)
     acc = _mac_at(np.arange(m), s, ring, h, w)
     out = _ref_inverse_core(_retangle_all(acc, wnb), wst)
-    sv2 = _eq_state_rows(m_mat, w_mat, sv, x, range(len(sv)))
-    return out[l:] * inv_m, u, s, sv2
+    return out[l:] * (1.0 / m), s
 
 
 def _eqfdl_cluster(xs, heq, x, sv, g_t, m_mat, w_mat, hist, ring, h, w,
@@ -385,12 +406,29 @@ def _eqfdl_cluster(xs, heq, x, sv, g_t, m_mat, w_mat, hist, ring, h, w,
         lower, _ = _dit_butterfly(bufs[0][i], bufs[1][i], wst[l + i])
         u[i] = lower * inv_m + _g_corr(g_t, sv, i)
         new[0][i], new[1][i] = _dif_butterfly(hz[i], u[i], wst[l + i])
+    y, s = _fdl_tail_cluster(new, log_l, ring, h, w, wst, wnb)
+    k2 = len(sv)
+    sv2 = {}
+    for b in (0, 1):                               # rows k = b, b + 2, ...
+        sv2.update(_eq_state_rows(m_mat, w_mat, sv, x, range(b, k2, 2)))
+    assert not np.isnan(u).any()
+    return y, u, s, sv2
+
+
+def _fdl_tail_cluster(new, rem0, ring, h, w, wst, wnb):
+    """fdl_fused.cu::fdl_tail: from the two blocks' buffers after the
+    frame's stages down to span 2^rem0, the other DIF stages, the MAC on
+    each block's own pairs, the DIT stages but the last, and each block's
+    quarter of the last stage (-> y)."""
+    l = new[0].size
+    m = 2 * l
+    log_l = l.bit_length() - 1
     s = np.full(m, np.nan + 0j)
     acc = np.full(m, np.nan + 0j)
     for b in (0, 1):                               # frame forward, MAC
         buf = new[b]
         assert not np.isnan(buf).any()
-        rem = log_l
+        rem = rem0
         while rem > 0:
             kk = min(RADIX_BITS, rem)
             rem -= kk
@@ -405,7 +443,7 @@ def _eqfdl_cluster(xs, heq, x, sv, g_t, m_mat, w_mat, hist, ring, h, w,
             own = np.concatenate([[0, 1], own])
         assert np.all((own >= off) & (own < off + l))
         acc[own] = _mac_at(own, s, ring, h, w)
-        new[b] = buf
+    bufs = []
     for b in (0, 1):                               # the FDL inverse
         off = b * l
         buf = np.full(l, np.nan + 0j)
@@ -419,17 +457,26 @@ def _eqfdl_cluster(xs, heq, x, sv, g_t, m_mat, w_mat, hist, ring, h, w,
             kk = min(RADIX_BITS, log_l - lo)
             buf = _radix_pass(buf, wst, lo, kk, inverse=True)
             lo += kk
-        bufs[b] = buf
+        bufs.append(buf)
     y = np.full(l, np.nan + 0j)
     for b in (0, 1):
         i = np.arange(b * (l >> 1), (b + 1) * (l >> 1))
         _, y[i] = _dit_butterfly(bufs[0][i], bufs[1][i], wst[l + i])
-    k2 = len(sv)
-    sv2 = {}
-    for b in (0, 1):                               # rows k = b, b + 2, ...
-        sv2.update(_eq_state_rows(m_mat, w_mat, sv, x, range(b, k2, 2)))
-    assert not (np.isnan(y).any() or np.isnan(u).any() or np.isnan(s).any())
-    return y * inv_m, u, s, sv2
+    assert not (np.isnan(y).any() or np.isnan(s).any())
+    return y * (1.0 / m), s
+
+
+def _fdl_cluster(hz, xz, ring, h, w, wst, wnb):
+    """fdl_kernel's cluster schedule: block b forms its half of the
+    frame's first DIF stage as it loads its first register pass (both
+    blocks read hz and xz), then fdl_tail."""
+    l = hz.size
+    log_l = l.bit_length() - 1
+    kk = min(RADIX_BITS, log_l)
+    i = np.arange(l)
+    new = [_radix_pass(_dif_butterfly(hz, xz, wst[l + i])[b], wst,
+                       log_l - kk, kk, inverse=False) for b in (0, 1)]
+    return _fdl_tail_cluster(new, log_l - kk, ring, h, w, wst, wnb)
 
 
 @pytest.mark.parametrize("m", [1 << k for k in range(8, 14)])   # 256 ... 8192
@@ -477,6 +524,141 @@ def test_eqfdl_cluster_schedule_matches_one_block_and_plain(m):
         assert _snr(ring_after[0][w, ch].numpy(), new[2].real) >= 95.0, ch
         assert _snr(ring_after[1][w, ch].numpy(), new[2].imag) >= 95.0, ch
         assert _snr(psv[ch].numpy(), [new[3][k] for k in range(k2)]) >= 95.0
+
+
+@pytest.mark.parametrize("m", [1 << k for k in range(8, 14)])   # 256 ... 8192
+def test_fdl_cluster_schedule_matches_one_block_and_plain(m):
+    """Two channels, a ring of P = 4 with slot w = 1 written: y and the
+    written slot of fdl_kernel's cluster schedule are bitwise the
+    one-block schedule's, and within the card test's 95 dB of
+    fdl_fused_plain."""
+    n = 2 * m
+    p_n, c, w = 4, 2, 1
+    wst, wnb = _twiddles(n)
+    rng = np.random.default_rng(m + 1)
+    f32 = np.float32
+    x = (rng.standard_normal((c, m)) * 0.25).astype(f32)
+    hist = (rng.standard_normal((c, m)) * 0.25).astype(f32)
+    ring = rng.standard_normal((2, p_n, c, m)).astype(f32)
+    h = (rng.standard_normal((2, p_n, m)) * 0.1).astype(f32)
+    args = [torch.from_numpy(np.ascontiguousarray(a)) for a in (
+        ring[0], ring[1], h[0], h[1], hist, x)]
+    ring_after = [a.clone() for a in args[:2]]
+    py = fdl_fused_plain(*ring_after, *args[2:], w)
+    hz = h[0].astype(np.float64) + 1j * h[1]
+    for ch in range(c):
+        rz = ring[0, :, ch].astype(np.float64) + 1j * ring[1, :, ch]
+        frame = [a[ch].astype(np.float64) for a in (hist, x)]
+        frame = [a[0::2] + 1j * a[1::2] for a in frame]
+        one = _fdl_one_block(*frame, rz, hz, w, wst, wnb)
+        new = _fdl_cluster(*frame, rz, hz, w, wst, wnb)
+        for name, a, b in zip(("y", "slot"), one, new):
+            assert np.array_equal(a, b), (ch, name)
+        assert _snr(py[ch].numpy(), _as_real(new[0])) >= 95.0, ch
+        assert _snr(ring_after[0][w, ch].numpy(), new[1].real) >= 95.0, ch
+        assert _snr(ring_after[1][w, ch].numpy(), new[1].imag) >= 95.0, ch
+
+
+# --- the gate's curve track as a scan (env_units.cu) ------------------------
+
+SCAN_CHUNK, SCAN_RUN, SCAN_LANES = 2048, 4, 32     # kChunk, kRun, a warp
+STAY = 2                                           # the identity map
+
+
+def _curve_map(e, k0_end, k1_start):
+    """env_units.cu::curve_map: bit s = the curve after a sample at
+    level e for curve s before it."""
+    return (e > k0_end).astype(np.int64) | (
+        np.where(e < k1_start, 0, 2).astype(np.int64))
+
+
+def _then(f, g):
+    """The map "f, then g"."""
+    return ((g >> (f & 1)) & 1) | (((g >> (f >> 1)) & 1) << 1)
+
+
+def _curve_scan(env, cur, k0_end, k1_start):
+    """curve_scan as warp 1 runs it over one channel: per chunk, tiles of
+    128 samples; lane i composes samples 4 i .. 4 i + 3 (past the end:
+    stay), a shuffle scan composes the lanes, and the carried curve
+    selects each sample's bit."""
+    t_n = env.size
+    out = np.full(t_n, -1, np.int64)
+    stuck = cur not in (0, 1)
+    lane = np.arange(SCAN_LANES)
+    for c0 in range(0, t_n, SCAN_CHUNK):
+        ln = min(SCAN_CHUNK, t_n - c0)
+        buf = np.full(SCAN_CHUNK, np.float32(777.0))   # stale levels
+        buf[:ln] = env[c0:c0 + ln]
+        for t0 in range(0, ln, SCAN_RUN * SCAN_LANES):
+            t = t0 + SCAN_RUN * lane
+            m = []
+            for r in range(SCAN_RUN):
+                mr = np.where(t + r < ln,
+                              _curve_map(buf[t + r], k0_end, k1_start), STAY)
+                m.append(mr if r == 0 else _then(m[-1], mr))
+            incl = m[-1].copy()
+            off = 1
+            while off < SCAN_LANES:
+                before = np.roll(incl, off)             # __shfl_up_sync
+                incl = np.where(lane >= off, _then(before, incl), incl)
+                off <<= 1
+            excl = np.where(lane == 0, STAY, np.roll(incl, 1))
+            before_run = 0 if stuck else (excl >> cur) & 1
+            for r in range(SCAN_RUN):
+                c = np.full(SCAN_LANES, cur) if stuck else (
+                    (m[r] >> before_run) & 1)
+                ok = t + r < ln
+                out[c0 + t[ok] + r] = c[ok]
+                if r == SCAN_RUN - 1:
+                    cur = int(c[-1])
+    assert (out >= 0).all() or stuck
+    return out, cur
+
+
+def _curve_serial(env, cur, k0_end, k1_start):
+    """The reference step's switch, sample by sample."""
+    out = np.empty(env.size, np.int64)
+    for t, e in enumerate(env):
+        if cur == 0 and e > k0_end:
+            cur = 1
+        elif cur == 1 and e < k1_start:
+            cur = 0
+        out[t] = cur
+    return out, cur
+
+
+@pytest.mark.parametrize("cur0", [0, 1, 2])
+@pytest.mark.parametrize("k0_end, k1_start", [
+    (0.5, 0.25),          # the gate's: hysteresis between the two
+    (0.25, 0.5),          # crossed: levels between them toggle
+    (0.375, 0.375),       # equal
+])
+def test_gate_curve_scan_matches_serial_switch(k0_end, k1_start, cur0):
+    """Two chunks and a ragged third (T = 2 x 2048 + 3 x 128 + 5): a
+    slow wave across both thresholds with noise, levels exactly on each
+    threshold, runs of NaN, and stretches that stay on one side for more
+    than a tile.  A carried curve of 2 never switches."""
+    t_n = 2 * SCAN_CHUNK + 3 * SCAN_RUN * SCAN_LANES + 5
+    rng = np.random.default_rng(17)
+    k = np.arange(t_n)
+    env = (0.375 + 0.3 * np.sin(2 * np.pi * k / 700)
+           + 0.05 * rng.standard_normal(t_n)).astype(np.float32)
+    env[(k // 300) % 4 == 3] = np.float32(0.3)      # between, for 300
+    env[k % 11 == 0] = np.float32(k0_end)           # on a threshold
+    env[k % 13 == 0] = np.float32(k1_start)
+    env[(k % 257) < 3] = np.nan
+    env[-2:] = (np.float32(0.9), np.float32(0.0))   # switches in the tail
+    k0, k1 = np.float32(k0_end), np.float32(k1_start)
+    want, want_cur = _curve_serial(env, cur0, k0, k1)
+    got, got_cur = _curve_scan(env, cur0, k0, k1)
+    assert np.array_equal(got, want)
+    assert got_cur == want_cur
+    if cur0 in (0, 1):
+        assert np.abs(np.diff(want)).sum() >= 8
+        assert np.isnan(env).sum() > 0
+    else:
+        assert (want == 2).all()
 
 
 # --- the envelope steps of env.cu ------------------------------------------

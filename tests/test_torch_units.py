@@ -149,6 +149,42 @@ def test_gate_envelope_plain_matches_jax_pallas(t_len):
     _assert_env_equal(jst, tst)
 
 
+@pytest.mark.parametrize("hold_ms", [0.0, 0.5])
+def test_gate_envelope_hold0_and_hold_match_jax_pallas(hold_ms):
+    """The gate's default hold of 0 samples (where the CUDA kernel's
+    chain runs the predicate-free step) and a hold of 24, with the
+    gate's own coefficients, from env_init and from curve 0 and 1: T =
+    2048 + 3 x 32 + 7 is no multiple of the kernel's chunk or batch.
+    Envelope, curve track and state exact."""
+    kw = dict(GATE_KW, attack_ms=0.5, release_ms=2.0, hold_ms=hold_ms)
+    jp, tp = JGate(SR, **kw).build(), TGate(SR, **kw).build()
+    assert tp.hold == jp.hold == (0 if hold_ms == 0.0 else 24)
+    assert tp.tau_release <= tp.tau_attack
+    k0_end, k1_start = float(jp.knees[0].end), float(jp.knees[1].start)
+    assert float(tp.knees[0].end) == k0_end
+    assert float(tp.knees[1].start) == k1_start
+    t_len = 2048 + 3 * 32 + 7
+    rng = np.random.default_rng(23)
+    # two swells with near silence after each: up and down twice
+    x = np.concatenate([_detector(rng, (3, 1024)),
+                        _detector(rng, (3, t_len - 1024))], axis=-1)
+    x[:, 700:1024] *= 0.02
+    x[:, 1800:] *= 0.02
+    cur = np.array([0, 1, 0], np.int32)
+    jst, jcur, jenv, jcurves = gate_envelope_pallas(
+        jdyn.env_init((3,)), jnp.asarray(cur), jnp.asarray(x),
+        jp.tau_attack, jp.tau_release, jp.hold, k0_end, k1_start,
+        interpret=True)
+    tst, tcur, tenv, tcurves = eu.gate_envelope(
+        tdyn.env_init((3,), "cpu"), torch.from_numpy(cur), _t(x),
+        tp.tau_attack, tp.tau_release, tp.hold, k0_end, k1_start)
+    np.testing.assert_array_equal(tenv.numpy(), np.asarray(jenv))
+    np.testing.assert_array_equal(tcurves.numpy(), np.asarray(jcurves))
+    np.testing.assert_array_equal(tcur.numpy(), np.asarray(jcur))
+    assert np.abs(np.diff(np.asarray(jcurves), axis=-1)).sum() >= 9
+    _assert_env_equal(jst, tst)
+
+
 def test_wrappers_refuse_other_devices():
     m = torch.empty(2, 8, device="meta")
     w = torch.empty(2, 4, device="meta")
