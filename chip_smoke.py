@@ -19,7 +19,9 @@ Phases (any failure exits non-zero; nothing is caught):
             on the frame [hist || u]; its launch shape: all 64 clusters
             of 2 blocks resident), dynamics y >= 110 dB with window,
             envelope and peak to rtol 1e-5 and hold exact; sliding RMS at
-            T=16384 and T=300 (T < N): level >= 110 dB, window exact;
+            T=16384 and T=300 (T < N): level >= 110 dB and >= 140 dB
+            from the float64 ideal, window exact, and its launch shape
+            (time tiles, blocks resident by the occupancy calculator);
             peak envelope in step's configuration (the chain's
             compressor, hold 0, from env_init) and with a hold of 24
             samples, each at T=16384 and 16383, release threshold on and
@@ -79,8 +81,10 @@ Phases (any failure exits non-zero; nothing is caught):
             to mix_block with identical playheads; the first 8 blocks >=
             85 dB from the host SamplePlayer playing the same voices;
             batched_slice against its plain version, exact, starts at 0,
-            1023, 1024, the clamp limit and beyond; one block with TF32
-            on identical; the card's voice-samples/s.
+            1023, 1024, the clamp limit and beyond, and its launch shape
+            (one warp per window; blocks resident by the occupancy
+            calculator); one block with TF32 on identical; the card's
+            voice-samples/s.
 10. timing — CUDA events behind a spin kernel: step_ring ms per block,
             step ms per call and per block, bulk_step ms per super-block;
             each kernel against its plain version at the same shapes, its
@@ -89,8 +93,10 @@ Phases (any failure exits non-zero; nothing is caught):
             computes the same function, that call's time; row #1 also
             times the inverse (irfft_packed, last half) beside
             torch.fft.irfft, row #3 gives its cycles per sample at the
-            boost clock, rows #6 and #7 their cycles per step without
-            and with a hold of 24.  Host clock:
+            boost clock, row #5 is timed beside avg_pool1d over the
+            prebuilt squared frame (the sliding mean alone), rows #6
+            and #7 give their cycles per step without and with a hold
+            of 24.  Host clock:
             the time to enqueue a block of step_ring, and the delivered
             samples/s over 32 blocks ending in a sync.
 
@@ -150,6 +156,7 @@ C, RANK, SR, IR_S = 64, 14, 48000, 1.0
 B = 1 << (RANK - 1)
 N = 2 * B
 FFT_DB, LIN_DB, DYN_DB, CHAIN_DB = 95.0, 95.0, 110.0, 85.0
+RMS_F64_DB = 140.0            # sliding RMS level from the float64 ideal
 BLOCKS = 24
 CALLS = 8                     # step calls of STEP_BLOCKS blocks each
 STEP_BLOCKS = 2
@@ -212,6 +219,8 @@ KERNELS = (
 EXTRA_KEYS = {
     "fft": ("inverse_ms", "inverse_plain_ms", "inverse_library_ms",
             "inverse_bound_ms", "blocks_resident"),
+    "rms": ("blocks_resident", "db_vs_float64"),
+    "slice": ("blocks_resident",),
     "eqfdl": ("blocks_resident",),
     "fdl": ("blocks_resident",),
     "gate": ("chain_ms", "cycles_per_step", "hold0_ms",
@@ -720,12 +729,31 @@ def parity_env_units(chain, params, dev, res):
         + "; window exact")
     for k, v in dbs.items():
         check(v >= DYN_DB, f"sliding_rms T={k} {v:.1f} dB < {DYN_DB}")
+        check(ideal[k]["kernel"] >= RMS_F64_DB,
+              f"sliding_rms T={k} {ideal[k]['kernel']:.1f} dB from the "
+              f"float64 ideal < {RMS_F64_DB}")
     res["rms"] = dict(db=dbs, db_vs_float64=ideal, max_abs_err=err)
     res["rms"]["ms"] = time_ms(lambda: eu.sliding_rms(*timed, n, 1.0), 50)
     res["rms"]["plain_ms"] = time_ms(
         lambda: eu.sliding_rms_plain(*timed, n, 1.0), 20)
-    res["rms"].update(library_ms=None, **bound(
-        F32 * (2 * C * t + 2 * C * n), 4 * C * t))
+    # the library's sliding mean over the prebuilt squared frame (no
+    # squaring, no sqrt): a yardstick, not the same function
+    frame = torch.cat([timed[0], timed[1] * timed[1]], dim=-1)[:, None]
+    res["rms"].update(library_ms=time_ms(
+        lambda: torch.nn.functional.avg_pool1d(frame, n, stride=1), 50),
+        **bound(F32 * (2 * C * t + 2 * C * n), 4 * C * t))
+    shape = eu.rms_launch_shape(C, t)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    resident = min(shape["blocks"], shape["blocks_per_sm"] * sms)
+    res["rms"].update(launch_shape=shape, blocks_resident=resident)
+    print(f"sliding_rms launch at [{C}, {t}]: {shape['blocks']} blocks "
+          f"(channel x time tile) of {shape['threads']} threads, "
+          f"{shape['blocks_per_sm']} per SM x {sms} SMs: {resident} "
+          f"resident; {res['rms']['ms']:.4f} ms against avg_pool1d's "
+          f"{res['rms']['library_ms']:.4f} over the squared frame "
+          f"{tuple(frame.shape)} (kernel {n}, stride 1): "
+          + ("faster" if res["rms"]["ms"] < res["rms"]["library_ms"]
+             else "slower"))
 
     # peak_envelope as step runs it (the chain's compressor: its taus and
     # threshold, its hold of 0 samples, from env_init), and a hold of 24
@@ -1221,6 +1249,13 @@ def sampler_phase(dev, res):
                                   "version")
     print(f"parity batched_slice: {VOICES} windows of {VBLOCK} (starts 0, "
           f"1023, 1024, the clamp limit {lim} and beyond) exact")
+    shape = slicedma.launch_shape(VOICES)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    resident = min(shape["blocks"], shape["blocks_per_sm"] * sms)
+    print(f"batched_slice launch: {VOICES} windows, one warp each: "
+          f"{shape['blocks']} blocks of {shape['threads']} threads, "
+          f"{shape['blocks_per_sm']} per SM x {sms} SMs: {resident} "
+          f"resident")
     s64 = starts.long().clamp(0, lim)
     idx = torch.arange(VBLOCK, device=dev)
     res["slice"] = dict(
@@ -1230,6 +1265,7 @@ def sampler_phase(dev, res):
         plain_ms=time_ms(lambda: slicedma.batched_slice_plain(
             bank_p, starts, VBLOCK), 50),
         library_ms=time_ms(lambda: bank_p[s64[:, None] + idx], 50),
+        launch_shape=shape, blocks_resident=resident,
         # the windows written, the bank and the starts read once
         **bound(F32 * (VOICES * VBLOCK + bank_p.shape[0]) + 4 * VOICES, 0))
 

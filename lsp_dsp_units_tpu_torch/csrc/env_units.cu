@@ -22,24 +22,46 @@ namespace {
 // ---------------------------------------------------------------------------
 // sliding RMS
 //
-// What bounds it: latency, not bytes.  A [64, 16384] block moves ~8 MB
-// (x in, level out; 2.5 us of HBM), but one block per channel walks its
-// row in four tiles, each a load, a scan and three barriers (measured
-// 0.032 ms on the H100).  The TPU kernel ran the rolling sum as a
-// serial row loop; here the block runs it as a block-wide scan of
-// per-sample (new - old) squares over tiles of kRmsTile samples, with
-// the running sum carried between tiles.  The sum is kept in
-// double: it is a difference of long prefix sums, whose float32 rounding
-// grows with T, and FP64 costs nothing on a scan this size.  Any T >= 1
-// and N >= 1: the "old" sample of step t is frame[t] of
-// frame = [window || squares], read from the window for t < N and
+// level[t] = sqrt(S[t] / N), S[t] = frame[t + 1] + ... + frame[t + N] over
+// frame = [window || squares].  The TPU kernel carried the running sum
+// along a serial row loop.  But the sum has finite memory: a tile that
+// starts at t0 needs only the N frame values before it,
+// S[t0 - 1] = frame[t0] + ... + frame[t0 + N - 1] (its halo), and then
+// S[t] = S[t0 - 1] + sum over u in [t0, t] of (frame[u + N] - frame[u]).
+// So the tiles are independent blocks.
+//
+// What bounds it: bytes.  A [64, 16384] block moves ~8.4 MB (x in, level
+// out; 2.5 us of HBM), and the work per sample is a few operations.  The
+// design keeps the card full and every access coalesced:
+//
+// - a 1-D grid of C x ceil(T / kRmsTile) blocks, kRmsTile samples each
+//   (512 blocks of 512 threads at [64, 16384]).  On the H100 tiles of
+//   512, 1024 and 2048 samples ran within 1.2 % of each other, 2048 the
+//   fastest: its halo re-reads a quarter of the tile, 1024's a half;
+// - each thread owns four consecutive samples.  Where the rows allow it
+//   (T and N multiples of 4, 16-byte aligned pointers) it reads x[t] and
+//   frame[t] as one float4 each and writes its levels as one float4, so
+//   a warp's access is 512 contiguous bytes and needs no staging through
+//   shared memory; elsewhere (T = 300 is aligned, T = 301 is not) the
+//   same four samples go one by one;
+// - the halo is summed by the whole block, kRmsThreads consecutive
+//   frame values per round, in double; the squares are recomputed from x
+//   (the same two __fmul_rn as the plain version), so window' stays
+//   exact;
+// - S is a double: the thread's four differences, a shuffle scan of the
+//   thread totals per warp, then one barrier, after which every warp
+//   scans the warp totals and sums the warp halo parts by shuffles (no
+//   serial loop over warps).  Each level is that double rounded once.
+// - window' (frame[T .. T + N - 1]) is written by a slice of the grid:
+//   block (c, tile) writes entries tile * kRmsThreads + threadIdx.x, ...
+// Any T >= 1 and N >= 1: frame[j] is read from the window for j < N and
 // recomputed from x otherwise, so T < N needs no special case.
 // ---------------------------------------------------------------------------
 
-constexpr int kRmsThreads = 256;
+constexpr int kRmsItems = 4;                       // samples per thread
+constexpr int kRmsTile = 2048;                     // samples per block
+constexpr int kRmsThreads = kRmsTile / kRmsItems;
 constexpr int kRmsWarps = kRmsThreads / 32;
-constexpr int kRmsItems = 16;                      // samples per thread
-constexpr int kRmsTile = kRmsThreads * kRmsItems;  // samples per tile
 
 __device__ __forceinline__ float square_of(float x, float g) {
   const float v = __fmul_rn(fabsf(x), g);
@@ -51,72 +73,107 @@ __device__ __forceinline__ float frame_at(const float* wr, const float* xr,
   return j < n_win ? wr[j] : square_of(xr[j - n_win], g);
 }
 
+template <bool kVec>
 __global__ void __launch_bounds__(kRmsThreads)
 sliding_rms_kernel(const float* __restrict__ x, const float* __restrict__ win,
                    float* __restrict__ level, float* __restrict__ win_out,
-                   int t_n, int n_win, float g) {
-  __shared__ double s_warp[kRmsWarps];
-  __shared__ double s_carry;
-  const int c = blockIdx.x;
+                   int t_n, int n_win, int tiles, float g) {
+  __shared__ double s_tot[kRmsWarps];
+  __shared__ double s_halo[kRmsWarps];
+  const int c = blockIdx.x / tiles;
+  const int tile = blockIdx.x - c * tiles;
+  const int t0 = tile * kRmsTile;
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const float* xr = x + (size_t)c * t_n;
   const float* wr = win + (size_t)c * n_win;
   float* lr = level + (size_t)c * t_n;
-  const double n_d = (double)n_win;
+  const int tb = t0 + threadIdx.x * kRmsItems;     // the thread's first t
 
-  // running sum at t = -1: the sum of the carried window
-  double part = 0.0;
-  for (int i = threadIdx.x; i < n_win; i += kRmsThreads) part += (double)wr[i];
-  for (int off = 16; off > 0; off >>= 1)
-    part += __shfl_xor_sync(0xffffffffu, part, off);
-  if (lane == 0) s_warp[warp] = part;
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    double r = 0.0;
-    for (int i = 0; i < kRmsWarps; ++i) r += s_warp[i];
-    s_carry = r;
+  // the differences frame[t + N] - frame[t] of the thread's samples
+  float nw[kRmsItems], od[kRmsItems];
+  if (kVec) {
+    if (tb < t_n) {      // T % 4 == 0: the thread's four are all in range
+      const float4 xv = __ldg(reinterpret_cast<const float4*>(xr + tb));
+      const float4 ov = tb < n_win   // N % 4 == 0: all four on one side
+          ? __ldg(reinterpret_cast<const float4*>(wr + tb))
+          : __ldg(reinterpret_cast<const float4*>(xr + tb - n_win));
+      const bool sq = tb >= n_win;
+      nw[0] = square_of(xv.x, g); nw[1] = square_of(xv.y, g);
+      nw[2] = square_of(xv.z, g); nw[3] = square_of(xv.w, g);
+      od[0] = sq ? square_of(ov.x, g) : ov.x;
+      od[1] = sq ? square_of(ov.y, g) : ov.y;
+      od[2] = sq ? square_of(ov.z, g) : ov.z;
+      od[3] = sq ? square_of(ov.w, g) : ov.w;
+    } else {
+#pragma unroll
+      for (int k = 0; k < kRmsItems; ++k) nw[k] = od[k] = 0.0f;
+    }
+  } else {
+#pragma unroll
+    for (int k = 0; k < kRmsItems; ++k) {
+      const int t = tb + k;
+      nw[k] = t < t_n ? square_of(xr[t], g) : 0.0f;
+      od[k] = t < t_n ? frame_at(wr, xr, t, n_win, g) : 0.0f;
+    }
   }
+  double pre[kRmsItems];
+  double run = 0.0;
+#pragma unroll
+  for (int k = 0; k < kRmsItems; ++k) {
+    run += (double)nw[k] - (double)od[k];
+    pre[k] = run;
+  }
+
+  // the halo frame[t0 .. t0 + N - 1], summed by the block
+  double halo = 0.0;
+  for (int j = t0 + threadIdx.x; j < t0 + n_win; j += kRmsThreads)
+    halo += (double)frame_at(wr, xr, j, n_win, g);
+
+  // per warp: inclusive scan of the thread totals, sum of the halo parts
+  double incl = run;
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    const double v = __shfl_up_sync(0xffffffffu, incl, off);
+    if (lane >= off) incl += v;
+    halo += __shfl_xor_sync(0xffffffffu, halo, off);
+  }
+  if (lane == 31) s_tot[warp] = incl;
+  if (lane == 0) s_halo[warp] = halo;
   __syncthreads();
 
-  for (int t0 = 0; t0 < t_n; t0 += kRmsTile) {
-    const int base_t = t0 + threadIdx.x * kRmsItems;
-    double pre[kRmsItems];
-    double run = 0.0;
+  // across warps, in every warp: the halo's sum and the exclusive scan
+  // of the warp totals, by shuffles over lanes 0 .. kRmsWarps - 1
+  double wt = lane < kRmsWarps ? s_tot[lane] : 0.0;
+  double wh = lane < kRmsWarps ? s_halo[lane] : 0.0;
 #pragma unroll
-    for (int k = 0; k < kRmsItems; ++k) {
-      const int t = base_t + k;
-      if (t < t_n)
-        run += (double)square_of(xr[t], g) -
-               (double)frame_at(wr, xr, t, n_win, g);
-      pre[k] = run;
-    }
-    // block-wide exclusive prefix of the per-thread totals
-    double incl = run;
-    for (int off = 1; off < 32; off <<= 1) {
-      const double v = __shfl_up_sync(0xffffffffu, incl, off);
-      if (lane >= off) incl += v;
-    }
-    if (lane == 31) s_warp[warp] = incl;
-    __syncthreads();
-    double base = s_carry + (incl - run);
-    for (int i = 0; i < warp; ++i) base += s_warp[i];
+  for (int off = 1; off < kRmsWarps; off <<= 1) {
+    const double v = __shfl_up_sync(0xffffffffu, wt, off);
+    if (lane >= off) wt += v;
+    wh += __shfl_xor_sync(0xffffffffu, wh, off);
+  }
+  const double before = __shfl_sync(0xffffffffu, wt, warp > 0 ? warp - 1 : 0);
+  const double base = __shfl_sync(0xffffffffu, wh, 0) +
+                      (warp > 0 ? before : 0.0) + (incl - run);
+
+  const double n_d = (double)n_win;
+  float lv[kRmsItems];
 #pragma unroll
-    for (int k = 0; k < kRmsItems; ++k) {
-      const int t = base_t + k;
-      if (t < t_n) lr[t] = sqrtf((float)fmax((base + pre[k]) / n_d, 0.0));
-    }
-    __syncthreads();
-    if (threadIdx.x == 0) {
-      double r = s_carry;
-      for (int i = 0; i < kRmsWarps; ++i) r += s_warp[i];
-      s_carry = r;
-    }
-    __syncthreads();
+  for (int k = 0; k < kRmsItems; ++k)
+    lv[k] = sqrtf((float)fmax((base + pre[k]) / n_d, 0.0));
+  if (kVec) {
+    if (tb < t_n)
+      *reinterpret_cast<float4*>(lr + tb) = make_float4(lv[0], lv[1], lv[2],
+                                                        lv[3]);
+  } else {
+#pragma unroll
+    for (int k = 0; k < kRmsItems; ++k)
+      if (tb + k < t_n) lr[tb + k] = lv[k];
   }
 
   // window' = the last N samples of [window || squares]
-  for (int i = threadIdx.x; i < n_win; i += kRmsThreads)
+  for (int i = tile * kRmsThreads + threadIdx.x; i < n_win;
+       i += tiles * kRmsThreads)
     win_out[(size_t)c * n_win + i] = frame_at(wr, xr, t_n + i, n_win, g);
 }
 
@@ -444,6 +501,10 @@ bool allows_free_step(float ta, float tr, int nh) {
   return nh == 0 && tr <= ta && ta >= 0.0f;
 }
 
+bool aligned16(const void* p) {
+  return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
+}
+
 }  // namespace
 
 extern "C" {
@@ -452,9 +513,28 @@ int lsp_sliding_rms(const float* x, const float* win, float* level,
                     float* win_out, int c_n, int t_n, int n_win, float g,
                     void* stream) {
   if (c_n < 1 || t_n < 1 || n_win < 1) return (int)cudaErrorInvalidValue;
-  sliding_rms_kernel<<<c_n, kRmsThreads, 0, (cudaStream_t)stream>>>(
-      x, win, level, win_out, t_n, n_win, g);
+  const int tiles = (t_n + kRmsTile - 1) / kRmsTile;
+  const bool vec = t_n % kRmsItems == 0 && n_win % kRmsItems == 0 &&
+                   aligned16(x) && aligned16(win) && aligned16(level);
+  auto kernel = vec ? sliding_rms_kernel<true> : sliding_rms_kernel<false>;
+  kernel<<<c_n * tiles, kRmsThreads, 0, (cudaStream_t)stream>>>(
+      x, win, level, win_out, t_n, n_win, tiles, g);
   return (int)cudaGetLastError();
+}
+
+// The launch shape at [c_n, t_n]: out[0] blocks, out[1] threads per
+// block, out[2] blocks resident per SM (the occupancy calculator, for
+// the vector kernel).
+int lsp_sliding_rms_shape(int c_n, int t_n, int* out) {
+  if (c_n < 1 || t_n < 1) return (int)cudaErrorInvalidValue;
+  int per_sm = 0;
+  const cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &per_sm, sliding_rms_kernel<true>, kRmsThreads, 0);
+  if (err != cudaSuccess) return (int)err;
+  out[0] = c_n * ((t_n + kRmsTile - 1) / kRmsTile);
+  out[1] = kRmsThreads;
+  out[2] = per_sm;
+  return 0;
 }
 
 int lsp_peak_envelope(const float* x, const float* e_in, const float* p_in,

@@ -25,7 +25,8 @@ Agreement between kernel and plain version:
 * RMS: the window' is exact (the same two float32 multiplies per sample).
   The level is not: the plain version differences two-level float32
   prefix sums (the JAX cumsum form, whose error grows with T), the kernel
-  scans in float64.  At [64, 16384] they agree to >= 110 dB.
+  sums each time tile's window of history and scans the tile in float64.
+  At [64, 16384] they agree to >= 110 dB.
 """
 
 from __future__ import annotations
@@ -41,6 +42,7 @@ from lsp_dsp_units_tpu_torch.ops.sliding import sliding_sum
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGS = {
     "lsp_sliding_rms": [_P] * 4 + [_I] * 3 + [_F, _P],
+    "lsp_sliding_rms_shape": [_I, _I, _P],
     "lsp_peak_envelope": [_P] * 8 + [_I] * 2 + [_F] * 3 + [_I] * 2 + [_P],
     "lsp_gate_envelope": [_P] * 11 + [_I] * 2 + [_F] * 2 + [_I]
     + [_F] * 2 + [_P],
@@ -91,6 +93,16 @@ def sliding_rms(window: torch.Tensor, x: torch.Tensor, n_win: int, gain):
         "sliding_rms kernel")
     sliding_rms.launches += 1
     return w_out.reshape(window.shape), level.reshape(x.shape)
+
+
+def rms_launch_shape(channels: int, t: int) -> dict:
+    """How :func:`sliding_rms`'s kernel launches on [channels, t] (needs
+    the card): blocks (one per channel and time tile), threads per block
+    and blocks resident per SM by the occupancy calculator."""
+    out = (ctypes.c_int * 3)()
+    _build.check(_lib().lsp_sliding_rms_shape(int(channels), int(t), out),
+                 "sliding_rms launch shape")
+    return dict(blocks=out[0], threads=out[1], blocks_per_sm=out[2])
 
 
 # ---------------------------------------------------------------------------

@@ -10,8 +10,10 @@ The contract is the JAX function's: ``size`` and ``N`` multiples of 128,
 ``N >= size + 1024``, and every start clamped to ``[0, N - size - 1024]``
 (so a bad start reads in-bank samples, never outside).  Any number of
 voices.  :func:`batched_slice` runs :func:`batched_slice_plain` (a
-gather) for CPU tensors and the CUDA kernel (``csrc/slicedma.cu``) for
-CUDA tensors, counting launches in ``batched_slice.launches``.
+gather) for CPU tensors and the CUDA kernel (``csrc/slicedma.cu``: one
+warp per window, 16-byte loads and stores) for CUDA tensors, counting
+launches in ``batched_slice.launches``; the kernel takes a 16-byte
+aligned bank.
 """
 
 from __future__ import annotations
@@ -23,7 +25,8 @@ import torch
 from lsp_dsp_units_tpu_torch.ops import _build
 
 _SIGS = {"lsp_batched_slice": [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3
-         + [ctypes.c_void_p]}
+         + [ctypes.c_void_p],
+         "lsp_batched_slice_shape": [ctypes.c_int, ctypes.c_void_p]}
 
 LANE = 128
 SLACK = 1024           # tail slack the JAX kernel's aligned window needs
@@ -62,7 +65,7 @@ def batched_slice(bank: torch.Tensor, starts: torch.Tensor,
     if _build.is_cpu(bank, starts):
         return batched_slice_plain(bank, starts, size)
     lim = _limit(bank, starts, size)
-    _build.check_cuda(torch.float32, bank.device, bank=bank)
+    _build.check_cuda_f32(bank=bank)
     _build.check_cuda(torch.int32, bank.device, starts=starts)
     out = torch.empty((starts.shape[0], size), dtype=torch.float32,
                       device=bank.device)
@@ -76,3 +79,13 @@ def batched_slice(bank: torch.Tensor, starts: torch.Tensor,
 
 
 batched_slice.launches = 0
+
+
+def launch_shape(voices: int) -> dict:
+    """How the kernel launches for ``voices`` windows (needs the card):
+    blocks, threads per block and blocks resident per SM by the
+    occupancy calculator."""
+    out = (ctypes.c_int * 3)()
+    _build.check(_build.load("slicedma", _SIGS).lsp_batched_slice_shape(
+        int(voices), out), "batched_slice launch shape")
+    return dict(blocks=out[0], threads=out[1], blocks_per_sm=out[2])

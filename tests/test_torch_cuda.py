@@ -221,11 +221,14 @@ def _levels(gen, c, t, device):
     return (torch.randn(c, t, generator=gen).abs() * 0.6 * swell).to(device)
 
 
-@pytest.mark.parametrize("t", [16384, 300, 1])
-def test_sliding_rms_kernel_matches_plain(cuda_device, t):
-    """T < N runs the carried-window branch; level >= 110 dB against the
-    plain float32 cumsum form, window exact."""
-    c, n = 64, 480
+@pytest.mark.parametrize("c", [3, 64])
+@pytest.mark.parametrize("t", [1, 300, 479, 480, 481, 2049, 16383, 16384])
+def test_sliding_rms_kernel_matches_plain(cuda_device, t, c):
+    """Time tiles of 1024 with their halos: T < N (the halo lies in the
+    window alone), T = N +- 1, a ragged last tile, T % 4 != 0 (the
+    scalar path); level >= 110 dB against the plain float32 cumsum form,
+    window exact."""
+    n = 480
     gen = torch.Generator().manual_seed(t)
     win = (_randn(gen, c, n, scale=0.3) ** 2).to(cuda_device)
     x = _randn(gen, c, t, scale=0.25, device=cuda_device)
@@ -485,20 +488,30 @@ def test_ring_mac_kernel_matches_plain(cuda_device, packed):
         assert torch.equal(k_, p_)
 
 
-def test_batched_slice_kernel_matches_plain(cuda_device):
-    n, size = 1 << 16, 1024
+@pytest.mark.parametrize("size", [128, 1024, 2048])
+@pytest.mark.parametrize("v_n", [1, 300, 4097])
+def test_batched_slice_kernel_matches_plain(cuda_device, v_n, size):
+    """Every residual r = s & 3 (one warp per window composes its output
+    from aligned 16-byte loads), the edges, the clamp limit and beyond,
+    a negative start; V = 4097 leaves a block with one live warp."""
+    n = 1 << 16
     lim = n - size - 1024
-    gen = torch.Generator().manual_seed(24)
+    gen = torch.Generator().manual_seed(24 + v_n + size)
     bank = _randn(gen, n, device=cuda_device)
-    edge = [0, 1, 127, 128, 1023, 1024, lim - 1, lim, lim + 9, -3]
-    rnd = torch.randint(0, lim, (290,), generator=gen).tolist()
-    starts = torch.tensor(edge + rnd, dtype=torch.int32, device=cuda_device)
-    before = slicedma.batched_slice.launches
-    got = slicedma.batched_slice(bank, starts, size)
-    want = slicedma.batched_slice_plain(bank, starts, size)
-    torch.cuda.synchronize()
-    assert slicedma.batched_slice.launches == before + 1
-    assert got.shape == (300, size) and torch.equal(got, want)
+    edge = [0, 1, 2, 3, 127, 128, 1023, 1024, lim - 1, lim, lim + 9, -3]
+    rnd = torch.randint(0, lim, (max(v_n - len(edge), 0),),
+                        generator=gen).tolist()
+    picks = [(edge + rnd)[:v_n]] if v_n > 1 else [[s] for s in edge]
+    for pick in picks:
+        starts = torch.tensor(pick, dtype=torch.int32, device=cuda_device)
+        before = slicedma.batched_slice.launches
+        got = slicedma.batched_slice(bank, starts, size)
+        want = slicedma.batched_slice_plain(bank, starts, size)
+        torch.cuda.synchronize()
+        assert slicedma.batched_slice.launches == before + 1
+        assert got.shape == (v_n, size) and torch.equal(got, want), pick
+    if v_n > 1:
+        assert {s % 4 for s in pick if 0 < s < lim} == {0, 1, 2, 3}
 
 
 def test_mix_block_dma_on_card_matches_gather(cuda_device):

@@ -35,7 +35,20 @@ The gate envelope (``csrc/env_units.cu``) takes its curve switch off the
 chain: a warp scans each finished chunk's envelopes, every sample a map
 on the curve {0, 1} and the maps composed per lane, across lanes and
 across tiles.  A numpy model of that scan must equal the serial switch.
+
+The batched slice (``csrc/slicedma.cu``) copies each window with one
+warp: aligned 16-byte loads, the right neighbour's by a shuffle, and the
+four outputs selected by the start's residual r = s & 3.  A numpy model
+of that copy, with its batches of loads, must equal ``bank[s : s +
+size]`` bitwise and read inside the bank.  The sliding RMS
+(``csrc/env_units.cu``) runs independent time tiles, each from its own
+halo of N frame values: a float64 model of the halo sums and in-tile
+scans must give the plain version's window' exactly and its level
+within the card's tolerance.
 """
+
+import os
+import re
 
 import numpy as np
 import pytest
@@ -46,6 +59,7 @@ from lsp_dsp_units_tpu_torch.ops import fft_packed as fp
 from lsp_dsp_units_tpu_torch.ops.dynamics import EnvState
 from lsp_dsp_units_tpu_torch.ops.fdl_fused import (eqfdl_fused_plain,
                                                    fdl_fused_plain)
+from lsp_dsp_units_tpu_torch.ops.slicedma import SLACK, batched_slice_plain
 
 SIZES = [1 << k for k in range(7, 16)]          # 128 ... 32768
 RADIX_BITS = 4                                   # stages per register pass
@@ -762,3 +776,180 @@ def test_reordered_envelope_step_is_bitwise_the_plain_one(nh, rt, tr,
         assert seen[what] > 0, what
     assert seen["free"] > 0 or not free_ok
     assert seen["expiry"] > 0
+
+
+# --- the batched slice as a warp-per-window copy (slicedma.cu) -------------
+
+CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
+    __file__))), "lsp_dsp_units_tpu_torch", "csrc")
+
+
+def _csrc_const(name, const):
+    """An ``int`` constant of a CUDA source, so the models run with the
+    kernels' own geometry."""
+    with open(os.path.join(CSRC, name)) as f:
+        return int(re.search(rf"constexpr int {const} = (\d+);",
+                             f.read()).group(1))
+
+
+SLICE_WARPS = _csrc_const("slicedma.cu", "kWarps")
+SLICE_STEP = _csrc_const("slicedma.cu", "kStep")
+SLICE_BATCH = _csrc_const("slicedma.cu", "kBatch")
+
+
+def _slice_warp_copy(bank, starts, size):
+    """slice_kernel over every block and warp at once: warp w of block b
+    copies window v = b * kWarps + w (none past V); its start is clamped
+    and r = s & 3; per batch of kBatch steps of 128 samples, lane l loads
+    the float4 at (s - r) + 128 k + 4 l, lane 0 also the step after the
+    batch (where r != 0); each lane takes the float4 offered by lane
+    (l + 1) % 32 (lane 0 offers the next step's) and keeps samples r ..
+    r + 3 of the pair.  Every address read is checked against the bank;
+    every output sample must be written exactly once."""
+    n = bank.size
+    lim = n - size - SLACK
+    v_n = starts.size
+    blocks = -(-v_n // SLICE_WARPS)
+    v = (np.arange(blocks)[:, None] * SLICE_WARPS
+         + np.arange(SLICE_WARPS)).ravel()
+    v = v[v < v_n]
+    s = np.clip(starts[v].astype(np.int64), 0, lim)
+    r = s & 3
+    base = s - r
+    lane = np.arange(32)
+    right = (lane + 1) % 32
+    quad = np.arange(4)
+    out = np.zeros((v_n, size), np.float32)
+    writes = np.zeros((v_n, size), np.int64)
+    steps = size // SLICE_STEP
+    for k0 in range(0, steps, SLICE_BATCH):
+        nb = min(SLICE_BATCH, steps - k0)
+        a = []
+        for j in range(nb + 1):
+            idx = (base[:, None, None] + SLICE_STEP * (k0 + j)
+                   + 4 * lane[None, :, None] + quad)        # [V, 32, 4]
+            used = np.ones(idx.shape[:2], bool)
+            if j == nb:                                      # lane 0, r != 0
+                used = (lane[None, :] == 0) & (r[:, None] != 0)
+            assert (idx[..., 0] % 4 == 0).all()
+            assert idx[used].min(initial=0) >= 0
+            assert idx[used].max(initial=0) < n
+            a.append(np.where(used[..., None], bank[np.clip(idx, 0, n - 1)],
+                              np.float32(np.nan)))
+        for j in range(nb):
+            offer = a[j].copy()
+            offer[:, 0] = a[j + 1][:, 0]
+            pair = np.concatenate([a[j], offer[:, right]], axis=-1)
+            got = np.take_along_axis(pair, r[:, None, None] + quad, axis=-1)
+            col = SLICE_STEP * (k0 + j) + 4 * lane[:, None] + quad   # [32, 4]
+            out[v[:, None, None], col[None]] = got
+            writes[v[:, None, None], col[None]] += 1
+    assert (writes == 1).all()
+    return out
+
+
+@pytest.mark.parametrize("size", [128, 1024, 2048])
+@pytest.mark.parametrize("v_n", [1, 300, 4097])
+def test_slice_warp_copy_is_bitwise_the_window(v_n, size):
+    """Every residual r, the starts 0, 1, 1023, lim - 1, lim, beyond lim
+    and negative (V = 1: one launch each), random starts; V = 4097 leaves
+    a last block with one live warp."""
+    n = 4 * size + SLACK + 640
+    rng = np.random.default_rng(v_n + size)
+    bank = rng.standard_normal(n).astype(np.float32)
+    lim = n - size - SLACK
+    edge = [0, 1, 2, 3, 1023, lim - 1, lim, lim + 5, lim + 1000, -1, -77]
+    rnd = rng.integers(0, lim, max(v_n - len(edge), 0)).tolist()
+    picks = [[s] for s in edge] if v_n == 1 else [(edge + rnd)[:v_n]]
+    for pick in picks:
+        starts = np.array(pick, np.int32)
+        got = _slice_warp_copy(bank, starts, size)
+        s = np.clip(starts.astype(np.int64), 0, lim)
+        assert np.array_equal(got, bank[s[:, None] + np.arange(size)]), pick
+        want = batched_slice_plain(torch.from_numpy(bank),
+                                   torch.from_numpy(starts), size)
+        assert np.array_equal(got, want.numpy())
+    seen = {s % 4 for p in picks for s in p if 0 <= s <= lim}
+    assert seen == {0, 1, 2, 3}
+
+
+# --- the sliding RMS as independent time tiles (env_units.cu) ---------------
+
+RMS_ITEMS = _csrc_const("env_units.cu", "kRmsItems")
+RMS_TILE = _csrc_const("env_units.cu", "kRmsTile")
+N_WIN, RMS_GAIN = 480, 1.5
+
+
+def _rms_tiles(win, x, n, g, tile):
+    """sliding_rms_kernel in float64 over every block (c, tile): the halo
+    frame[t0 .. t0 + N - 1] summed as the block's threads read it (thread
+    i takes t0 + i, t0 + i + threads, ...); the tile's differences
+    frame[t + N] - frame[t], four consecutive per thread, scanned per
+    thread, across the lanes of each warp and across the warps; each
+    level that sum over N rounded once to float32 before its sqrt.
+    window' entries are written by the slice of the grid that covers
+    them.  Every level and window' entry must be written exactly once."""
+    c_n, t_n = x.shape
+    threads = tile // RMS_ITEMS
+    warps = threads // 32
+    v = (np.abs(x) * np.float32(g)).astype(np.float32)
+    frame = np.concatenate([win, (v * v).astype(np.float32)], axis=-1)
+    f64 = frame.astype(np.float64)
+    tiles = -(-t_n // tile)
+    level = np.zeros((c_n, t_n), np.float32)
+    w_out = np.zeros((c_n, n), np.float32)
+    writes = np.zeros(t_n + n, np.int64)
+    for tl in range(tiles):
+        t0 = tl * tile
+        parts = np.zeros((c_n, threads))
+        for j0 in range(t0, t0 + n, threads):
+            j = j0 + np.arange(threads)
+            ok = j < t0 + n
+            parts += np.where(ok, f64[:, np.minimum(j, n + t_n - 1)], 0.0)
+        halo = parts.reshape(c_n, warps, 32).sum(-1).sum(-1)
+        t = t0 + np.arange(tile)
+        ok = t < t_n
+        new = np.where(ok, f64[:, np.minimum(t + n, n + t_n - 1)], 0.0)
+        old = np.where(ok, f64[:, np.minimum(t, n + t_n - 1)], 0.0)
+        pre = np.cumsum((new - old).reshape(c_n, threads, RMS_ITEMS), -1)
+        run = pre[..., -1].reshape(c_n, warps, 32)
+        incl = np.cumsum(run, -1)
+        tot = incl[..., -1]
+        before = np.cumsum(tot, -1) - tot
+        base = halo[:, None, None] + before[..., None] + (incl - run)
+        s = (base.reshape(c_n, threads)[..., None] + pre).reshape(c_n, tile)
+        lv = np.sqrt(np.maximum(s / n, 0.0).astype(np.float32))
+        level[:, t[ok]] = lv[:, ok]
+        writes[t[ok]] += 1
+        i = np.arange(n)            # tl * threads + tid + m * tiles * threads
+        i = i[(i // threads) % tiles == tl]
+        w_out[:, i] = frame[:, t_n + i]
+        writes[t_n + i] += 1
+    assert (writes == 1).all()
+    return w_out, level
+
+
+@pytest.mark.parametrize("tile", [RMS_TILE, RMS_TILE // 2])
+@pytest.mark.parametrize("t", [1, 300, 479, 480, 481, 2049, 16383, 16384])
+def test_rms_tiles_match_plain_and_float64(t, tile):
+    """T < N (the first tiles' halos lie in the window), T = N +- 1, a
+    ragged last tile, one and many tiles: window' exact against the
+    plain version, level >= 110 dB against its float32 cumsum form and
+    >= 140 dB against the float64 ideal."""
+    c = 3
+    rng = np.random.default_rng(t)
+    win = ((rng.standard_normal((c, N_WIN)) * 0.3) ** 2).astype(np.float32)
+    x = (rng.standard_normal((c, t)) * 0.25).astype(np.float32)
+    w_got, l_got = _rms_tiles(win, x, N_WIN, RMS_GAIN, tile)
+    w_want, l_want = eu.sliding_rms_plain(torch.from_numpy(win),
+                                          torch.from_numpy(x), N_WIN,
+                                          RMS_GAIN)
+    assert np.array_equal(w_got, w_want.numpy())
+    assert _snr(l_want.numpy(), l_got) >= 110.0
+    v = (np.abs(x) * np.float32(RMS_GAIN)).astype(np.float32)
+    cs = np.cumsum(np.concatenate([win, (v * v).astype(np.float32)], -1)
+                   .astype(np.float64), -1)
+    cs = np.pad(cs, ((0, 0), (1, 0)))
+    ideal = np.sqrt(np.maximum((cs[:, N_WIN + 1:N_WIN + 1 + t]
+                                - cs[:, 1:1 + t]) / N_WIN, 0.0))
+    assert _snr(ideal, l_got) >= 140.0
