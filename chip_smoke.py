@@ -7,7 +7,7 @@ Phases (any failure exits non-zero; nothing is caught):
 
 1. card   — CUDA must be available; prints nvidia-smi's name and power
             limit.
-2. build  — compiles the seven CUDA sources of
+2. build  — compiles the nine CUDA sources of
             lsp_dsp_units_tpu_torch/csrc (nvcc, sm_90a), one nvcc each,
             all started together, and prints the seconds.
 3. parity — each kernel against its plain PyTorch version on the card, at
@@ -114,7 +114,33 @@ Phases (any failure exits non-zero; nothing is caught):
             its bytes bound and its dependent-chain bound (T x 4 ops x 4
             cycles at the measured SM clock), and the plain associative
             scan's launches per call (dispatched operations) and ms.
-11. timing — CUDA events behind a spin kernel: step_ring ms per block,
+11. dynamics — the Limiter, the serial riders and the meters at full
+            width (64 channels at 48 kHz, 2 calls of 16384, the state
+            carried), the launch counters zeroed just before and read just
+            after: BASELINE config 4 (Sidechain RMS 5 ms -> Compressor ->
+            Gate on rising-level noise, tests/test_baseline_configs.py)
+            into two limiters on |y| (HERM_THIN at 2 ms; EXP_WIDE at 5 ms
+            with ALR), each gain applied to the delayed y: |out| <= 0.8 x
+            1.002 and the loud half reduced; the riders (AutoGain with
+            quick_amp off and on, max_gain on; SimpleAutoGain;
+            SurgeProtector; PeakMeter; DynamicProcessor's envelope with a
+            4-dot curve); the loudness leg (a stereo program through
+            LoudnessMeter at 400 and 3000 ms into AutoGain; LoudnessMeter
+            over the 64 channels; ILUFS over 4 quarters x 4800;
+            TruePeakMeter on the 64 channels, Correlometer and Panometer,
+            both laws, on 32 channel pairs).  limiter_kernel and
+            rider_kernel against their plain versions on the drive's own
+            inputs and states, both calls, output and state identical (the
+            largest pass count of any row printed); the meters against
+            float64 at the JAX package's bars (loudness 110 dB, true peak
+            120, correlometer and panometer 100) and ILUFS within 0.05 dB
+            of its block's float64 loudness; TF32 on: identical.  Each
+            kernel's ms (CUDA events behind the spin kernel) beside its
+            plain version's (the first call), its bytes bound, its chain
+            bound (T x the step's dependent operations x 4 cycles at the
+            measured SM clock) and, for the limiter, its pass bound
+            (passes x T x 8 B at 128 B a cycle of shared memory).
+12. timing — CUDA events behind a spin kernel: step_ring ms per block,
             step ms per call and per block, bulk_step ms per super-block;
             each kernel against its plain version at the same shapes, its
             bound (bytes over 3.35 TB/s or operations over 67 TFLOP/s
@@ -130,7 +156,8 @@ Phases (any failure exits non-zero; nothing is caught):
             samples/s over 32 blocks ending in a sync.
 
 The last three lines of standard output are the kernel table (JSON:
-the nine TPU kernels' ports and biquad_seq), the card's name and power
+the nine TPU kernels' ports, biquad_seq, limiter_kernel and
+rider_kernel), the card's name and power
 limit, and the contract line
 {"ok": true, "device": {...}}.
 """
@@ -160,6 +187,10 @@ from lsp_dsp_units_tpu_torch.models.dynamics.compressor import (  # noqa: E402
 from lsp_dsp_units_tpu_torch.models.dynamics.expander import (  # noqa: E402
     Expander, ExpanderMode)
 from lsp_dsp_units_tpu_torch.models.dynamics.gate import Gate  # noqa: E402
+from lsp_dsp_units_tpu_torch.models.dynamics import (  # noqa: E402
+    AutoGain, DynamicProcessor, Limiter, LimiterMode, SimpleAutoGain,
+    SurgeProtector)
+from lsp_dsp_units_tpu_torch.models import meters as mtr  # noqa: E402
 from lsp_dsp_units_tpu_torch.models import filters as flt  # noqa: E402
 from lsp_dsp_units_tpu_torch.models.filters import (  # noqa: E402
     dynamic_filters as dynf)
@@ -178,6 +209,9 @@ from lsp_dsp_units_tpu_torch.ops import dynamics as dyn  # noqa: E402
 from lsp_dsp_units_tpu_torch.ops import env_units as eu  # noqa: E402
 from lsp_dsp_units_tpu_torch.ops import fft_packed as fp  # noqa: E402
 from lsp_dsp_units_tpu_torch.ops import fftconv  # noqa: E402
+from lsp_dsp_units_tpu_torch.ops import limiter as lim_ops  # noqa: E402
+from lsp_dsp_units_tpu_torch.ops import resample  # noqa: E402
+from lsp_dsp_units_tpu_torch.ops import riders  # noqa: E402
 from lsp_dsp_units_tpu_torch.ops import slicedma  # noqa: E402
 from lsp_dsp_units_tpu_torch.ops.env import (  # noqa: E402
     chain_dyn, chain_dyn_plain)
@@ -217,6 +251,20 @@ BW_DB = 100.0         # Butterworth (tests/test_reference_oracle_units.py)
 TILT_DB = 60.0        # SpectralTilt (tests/test_reference_oracle_units.py)
 XOVER_FLOORS = (55.0, 60.0, 60.0, 95.0)   # crossover bands, low to high
 #                       (tests/test_reference_oracle_meters.py, "3split")
+DYN_T, DYN_CALLS = 16384, 2   # the dynamics phase: 64 ch x T, state carried
+# the meters' bars against float64, from the JAX package's own tests
+LOUD_DB = 110.0   # LoudnessMeter (tests/test_reference_oracle_meters.py)
+TP_DB = 120.0     # Lanczos upsampling (tests/test_reference_oracle_wave3.py)
+CORR_DB = 100.0   # Correlometer, Panometer (test_reference_oracle_meters.py)
+CEILING = 0.8 * 1.002         # config 4's limiter ceiling
+#                               (tests/test_baseline_configs.py)
+SMEM_BYTES_PER_CLK = 128      # one SM's shared-memory rate (32 banks x 4 B)
+# each rider case's step functor in csrc/riders.cu, whose dependent
+# operations a step (riders.chain_ops) set its chain bound
+RIDER_KIND = {"autogain": "autogain", "autogain_quick": "autogain",
+              "simple": "simple_autogain", "surge": "surge",
+              "peak": "peak_meter", "dynproc": "dynproc"}
+ALR_CHAIN_OPS = 3             # compare-select, subtract, FMA
 
 # the card's limits for the bound of each kernel (NVIDIA H100 SXM data
 # sheet, at 700 W): HBM rate, FP32 rate outside the tensor cores, and the
@@ -249,20 +297,25 @@ def chain_ms(t: int) -> float:
 
 
 # the nine TPU kernels of the JAX package and their ports: result key,
-# name, CUDA source, the JAX function that reaches pl.pallas_call
+# name, CUDA source, the JAX function that reaches pl.pallas_call (under
+# lsp_dsp_units_tpu/)
 KERNELS = (
-    ("fft", "rfft_packed_zeropad", "fft_packed.cu", "pallas_fft.py:549"),
-    ("eqfdl", "eqfdl_fused", "fdl_fused.cu", "pallas_fdl_fused.py:222"),
-    ("dyn", "chain_dyn", "env.cu", "pallas_env.py:523"),
-    ("fdl", "fdl_fused", "fdl_fused.cu", "pallas_fdl_fused.py:80"),
-    ("rms", "sliding_rms", "env_units.cu", "pallas_env.py:294"),
-    ("peak", "peak_envelope", "env_units.cu", "pallas_env.py:334"),
-    ("gate", "gate_envelope", "env_units.cu", "pallas_env.py:183"),
-    ("slice", "batched_slice", "slicedma.cu", "slicedma.py:77"),
-    ("mac", "ring_mac", "ring_mac.cu", "pallas_fdl.py:85"),
-    # not a Pallas kernel: the card's counterpart of biquad_cascade_seq's
-    # lax.scan, which XLA compiles into a loop over samples
-    ("bq", "biquad_seq", "biquad.cu", "biquad.py:140"),
+    ("fft", "rfft_packed_zeropad", "fft_packed.cu", "ops/pallas_fft.py:549"),
+    ("eqfdl", "eqfdl_fused", "fdl_fused.cu", "ops/pallas_fdl_fused.py:222"),
+    ("dyn", "chain_dyn", "env.cu", "ops/pallas_env.py:523"),
+    ("fdl", "fdl_fused", "fdl_fused.cu", "ops/pallas_fdl_fused.py:80"),
+    ("rms", "sliding_rms", "env_units.cu", "ops/pallas_env.py:294"),
+    ("peak", "peak_envelope", "env_units.cu", "ops/pallas_env.py:334"),
+    ("gate", "gate_envelope", "env_units.cu", "ops/pallas_env.py:183"),
+    ("slice", "batched_slice", "slicedma.cu", "ops/slicedma.py:77"),
+    ("mac", "ring_mac", "ring_mac.cu", "ops/pallas_fdl.py:85"),
+    # not Pallas kernels: the card's counterparts of lax.scan and
+    # lax.while_loop bodies, which XLA compiles into loops over samples
+    ("bq", "biquad_seq", "biquad.cu", "ops/biquad.py:140"),
+    ("lim", "limiter_kernel", "limiter.cu",
+     "models/dynamics/limiter.py:200"),
+    ("rider", "rider_kernel", "riders.cu",
+     "models/dynamics/autogain.py:97"),
 )
 
 
@@ -281,6 +334,10 @@ EXTRA_KEYS = {
            "dyn_plain_ms", "dyn_bound_ms", "dyn_chain_ms",
            "dyn_cycles_per_step", "assoc_launches_per_call",
            "assoc_ms"),
+    "lim": ("pass_bound_ms", "passes_max", "sm_clock_hz",
+            "alr_ms", "alr_plain_ms", "alr_chain_ms", "alr_pass_bound_ms",
+            "alr_passes_max"),
+    "rider": ("chain_ms", "cycles_per_step", "sm_clock_hz", "steps"),
     "peak": ("chain_ms", "cycles_per_step", "hold24_ms",
              "hold24_cycles_per_step", "sass_free_cycles_per_step",
              "sass_ref_cycles_per_step", "sm_clock_hz"),
@@ -1681,6 +1738,422 @@ def filters_phase(dev, res):
     print(f"filters phase: {time.perf_counter() - t_start:.1f} s")
 
 
+def f64_sliding_mean(sq: np.ndarray, n: int) -> np.ndarray:
+    """Float64 trailing mean over n samples from zero history."""
+    cs = np.concatenate([np.zeros(sq.shape[:-1] + (1,)),
+                         np.cumsum(sq, axis=-1)], axis=-1)
+    t = sq.shape[-1]
+    lo = np.clip(np.arange(t) + 1 - n, 0, None)
+    return (cs[..., 1:] - cs[..., lo]) / n
+
+
+def loudness_f64(meter, x: np.ndarray) -> np.ndarray:
+    """LoudnessMeter's output in float64: scipy sosfilt on the same
+    weighting sections, squares, the trailing mean, the channel mix."""
+    y = sos_f64(meter._coeffs.cpu(), x)
+    ms = f64_sliding_mean(y * y, meter.period)
+    w = meter.weights.cpu().double().numpy()[:, None]
+    return np.sqrt(np.sum(w * ms, axis=0))
+
+
+def true_peak_f64(meter, x: np.ndarray) -> np.ndarray:
+    """TruePeakMeter in float64: the same Lanczos polyphase taps."""
+    m = resample._phase_matrix(meter.ratio, meter.lobes)
+    a = meter.lobes
+    fr = np.concatenate([np.zeros(x.shape[:-1] + (2 * a,)),
+                         x.astype(np.float64)], axis=-1)
+    t = x.shape[-1]
+    out = np.empty(x.shape)
+    for j0 in range(0, t, 4096):
+        idx = np.arange(j0, min(t, j0 + 4096))[:, None] + np.arange(
+            2 * a + 1)[None, :]
+        out[..., j0:j0 + idx.shape[0]] = np.abs(
+            np.einsum("...tj,jp->...tp", fr[..., idx], m)).max(-1)
+    return out
+
+
+def dynamics_phase(dev, res):
+    """The Limiter, the serial riders and the meters at full width (64
+    channels at 48 kHz, 2 calls of 16384 with the state carried):
+    BASELINE config 4 with two limiters, the riders, the loudness leg;
+    kernels limiter_kernel and rider_kernel against their plain versions
+    on the drive's own inputs; the meters against float64."""
+    t_start = time.perf_counter()
+    t_n, calls = DYN_T, DYN_CALLS
+    t_all = t_n * calls
+    rng = np.random.default_rng(2)
+    # config 4's rising-level noise (tests/test_baseline_configs.py),
+    # stretched to the phase's length
+    x_np = (rng.standard_normal((C, t_all))
+            * np.linspace(0.1, 1.5, t_all)).astype(np.float32)
+    xd = torch.from_numpy(x_np).to(dev)
+    side = Sidechain(SR, SidechainMode.RMS, reactivity_ms=5.0)
+    comp = Compressor(SR, attack_thresh=0.3, release_thresh=0.15,
+                      attack_ms=5.0, release_ms=50.0, ratio=4.0,
+                      knee=0.7071)
+    gate = Gate(SR, threshold=0.05, zone=0.5, reduction=0.05,
+                attack_ms=1.0, release_ms=20.0)
+    cp, gp = comp.build(), gate.build()
+    lims = {"thin_2ms": Limiter(SR, LimiterMode.HERM_THIN, threshold=0.8,
+                                lookahead_ms=2.0),
+            "exp_wide_alr_5ms": Limiter(SR, LimiterMode.EXP_WIDE,
+                                        threshold=0.8, lookahead_ms=5.0,
+                                        alr=True)}
+    lps = {k: v.build(device=dev) for k, v in lims.items()}
+
+    # the riders' inputs: levels over 100 dB, rising; a bursty detector
+    lvl_np = np.abs(rng.standard_normal((C, t_all))
+                    * np.geomspace(1e-5, 2.0, t_all)).astype(np.float32)
+    lvl = torch.from_numpy(lvl_np).to(dev)
+    short = (lvl * torch.from_numpy(np.clip(
+        1.0 + 0.3 * rng.standard_normal((C, t_all)), 0.1, None).astype(
+        np.float32)).to(dev)).contiguous()
+    burst = torch.from_numpy((rng.standard_normal((C, t_all)) * np.where(
+        np.arange(t_all) % 9000 < 4000, 0.5, 1e-3)).astype(
+        np.float32)).to(dev)
+    target = torch.full((C, 1), 0.2, device=dev)
+    dp = DynamicProcessor(SR, in_ratio=1.0, out_ratio=2.0, hold_ms=1.0,
+                          attack_time_ms=[5, 1, 2, 3, 4],
+                          release_time_ms=[50, 20, 30, 40, 60])
+    for i, dot in enumerate([(0.01, 0.02, 0.5), (0.1, 0.08, 0.7),
+                             (0.5, 0.3, 0.8), (0.9, 0.5, 0.9)]):
+        dp.set_dot(i, *dot)       # tests/test_dynamics2.py's curve, 4 dots
+    for i, lv in enumerate((0.05, 0.1, 0.3, 0.6)):
+        dp.set_attack_level(i, lv)
+        dp.set_release_level(i, lv * 0.8)
+    dpp = dp.build(device=dev)
+    ag = {"autogain": AutoGain(SR, long_grow_db_s=60.0, long_fall_db_s=60.0),
+          "autogain_quick": AutoGain(SR, quick_amplifier=True,
+                                     use_max_gain=True, max_gain=3.0)}
+    sag = SimpleAutoGain(SR, grow_db_s=120.0, deviation=1.5)
+    surge = SurgeProtector(0.1, 0.01, 100, 2000)
+    pm = mtr.PeakMeter(SR, hold_ms=2.0, release_ms=50.0)
+    # name -> (wrapper, plain, unit state factory, inputs of call k)
+    def sl(v, k):
+        return v[..., k * t_n:(k + 1) * t_n]
+
+    rider_cases = {
+        **{k: (lambda u: (
+            lambda st, *a: riders.autogain(u, st, *a),
+            lambda st, *a: riders.autogain_plain(u, st, *a),
+            lambda: u.init_state((C,), device=dev),
+            lambda k: (sl(lvl, k), sl(short, k), target)))(u)
+           for k, u in ag.items()},
+        "simple": (lambda st, *a: riders.simple_autogain(sag, st, *a),
+                   lambda st, *a: riders.simple_autogain_plain(sag, st, *a),
+                   lambda: sag.init_state((C,), device=dev),
+                   lambda k: (sl(lvl, k), target)),
+        "surge": (lambda st, *a: riders.surge_protector(surge, st, *a),
+                  lambda st, *a: riders.surge_protector_plain(surge, st, *a),
+                  lambda: surge.init_state((C,), device=dev),
+                  lambda k: (sl(burst, k),)),
+        "peak": (lambda st, *a: riders.peak_meter(pm, st, *a),
+                 lambda st, *a: riders.peak_meter_plain(pm, st, *a),
+                 lambda: pm.init_state((C,), device=dev),
+                 lambda k: (sl(burst, k),)),
+        "dynproc": (lambda st, *a: riders.dynproc_envelope(dpp, st, *a),
+                    lambda st, *a: riders.dynproc_envelope_plain(
+                        dpp, st, *a),
+                    lambda: dp.init_state((C,), device=dev),
+                    lambda k: (sl(lvl, k),)),
+    }
+
+    # the loudness leg: a stereo program with a slow level swell, the
+    # 64 channels, and 32 channel pairs
+    swell = (0.05 + 0.3 * np.sin(np.linspace(0.0, np.pi, t_all)) ** 2)
+    prog_np = (rng.standard_normal((2, t_all)) * swell).astype(np.float32)
+    prog = torch.from_numpy(prog_np).to(dev)
+    lm_s = mtr.LoudnessMeter(SR, 2, 400.0, device=dev)
+    lm_l = mtr.LoudnessMeter(SR, 2, 3000.0, device=dev)
+    lm_64 = mtr.LoudnessMeter(SR, C, 400.0, device=dev)
+    ilufs = mtr.ILUFSMeter(SR, C, device=dev)
+    t_ilufs = 4 * ilufs.block
+    tpm = mtr.TruePeakMeter(SR)
+    corr = mtr.Correlometer(window=4800)
+    pans = {law: mtr.Panometer(4800, law) for law in mtr.PanLaw}
+    lo_gain = AutoGain(SR, quick_amplifier=True)
+    l_exp = torch.tensor(10.0 ** (-20.0 / 20.0), device=dev)
+    pair_a, pair_b = xd[0::2], (0.6 * xd[0::2] + 0.4 * xd[1::2])
+
+    counted = (lim_ops.limiter, *riders.RIDERS, bq.biquad_cascade_seq)
+
+    def drive(n_calls):
+        """Every unit over n_calls calls; returns their outputs, and for
+        the limiters and riders each call's (state in, inputs, state out,
+        output)."""
+        st = dict(side=side.init_state((C,), dev),
+                  comp=comp.init_state((C,), dev),
+                  gate=gate.init_state((C,), dev),
+                  **{k: v.init_state((C,), device=dev)
+                     for k, v in lims.items()},
+                  **{k: c[2]() for k, c in rider_cases.items()},
+                  lm_s=lm_s.init_state(), lm_l=lm_l.init_state(),
+                  lm_64=lm_64.init_state(),
+                  lo_gain=lo_gain.init_state(device=dev),
+                  tp=tpm.init_state((C,), device=dev),
+                  corr=corr.init_state((C // 2,), device=dev),
+                  **{f"pan_{law.value}": p.init_state((C // 2,), device=dev)
+                     for law, p in pans.items()})
+        hist = {k: torch.zeros(C, v.lookahead, device=dev)
+                for k, v in lims.items()}
+        out = {k: [] for k in ("y", *(f"out_{n}" for n in lims),
+                               "lo_vca", "lm_64", "tp", "corr",
+                               *(f"pan_{w.value}" for w in mtr.PanLaw))}
+        trace = {k: [] for k in (*lims, *rider_cases)}
+        for k in range(n_calls):
+            xk = sl(xd, k)
+            st["side"], level = side.process(st["side"], xk)
+            st["comp"], cg, _ = comp.process(cp, st["comp"], level)
+            st["gate"], gg, _ = gate.process(gp, st["gate"], level)
+            y = xk * cg * gg
+            out["y"].append(y)
+            ay = torch.abs(y)
+            for name, lim in lims.items():
+                st0 = st[name]
+                st[name], g = lim.process(lps[name], st0, ay)
+                trace[name].append((st0, (ay,), st[name], g))
+                frame = torch.cat([hist[name], y], dim=-1)
+                hist[name] = frame[:, -lim.lookahead:]
+                out[f"out_{name}"].append(frame[:, :t_n] * g)
+            for name, (fn, _, _, ins) in rider_cases.items():
+                st0 = st[name]
+                st[name], o = fn(st0, *ins(k))
+                trace[name].append((st0, ins(k), st[name], o))
+            pk = sl(prog, k)
+            st["lm_s"], l_short = lm_s.process(st["lm_s"], pk)
+            st["lm_l"], l_long = lm_l.process(st["lm_l"], pk)
+            st["lo_gain"], vca = lo_gain.process(st["lo_gain"], l_long,
+                                                 l_short, l_exp)
+            out["lo_vca"].append(vca)
+            st["lm_64"], o = lm_64.process(st["lm_64"], xk)
+            out["lm_64"].append(o)
+            st["tp"], o = tpm.process(st["tp"], xk)
+            out["tp"].append(o)
+            st["corr"], o = corr.process(st["corr"], sl(pair_a, k),
+                                         sl(pair_b, k))
+            out["corr"].append(o)
+            for law, p in pans.items():
+                key = f"pan_{law.value}"
+                st[key], o = p.process(st[key], sl(pair_a, k),
+                                       sl(pair_b, k))
+                out[key].append(o)
+        ist, o = ilufs.process(ilufs.init_state(), xd[:, :t_ilufs])
+        out["ilufs"] = [o]
+        for name, tr in trace.items():
+            out[name] = [o for (_, _, _, o) in tr]
+        return out, trace, ist
+
+    torch.cuda.synchronize()
+    for f in counted:
+        f.launches = 0
+    t0 = time.perf_counter()
+    outs, trace, ilufs_state = drive(calls)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launched = {f.__name__: f.launches for f in counted}
+    print(f"dynamics: config 4 + 2 limiters, {len(rider_cases)} riders, "
+          f"the loudness leg over {calls} calls of [{C}, {t_n}] in "
+          f"{wall:.2f} s (host clock); launches {launched}")
+    check(launched["limiter"] >= len(lims) * calls,
+          f"limiter_kernel launched {launched['limiter']} times")
+    for f in riders.RIDERS:
+        check(launched[f.__name__] >= calls,
+              f"rider_kernel ({f.__name__}) launched "
+              f"{launched[f.__name__]} times")
+    # three LoudnessMeters a call, and ILUFS once
+    check(launched["biquad_cascade_seq"] >= 3 * calls + 1,
+          f"biquad_seq launched {launched['biquad_cascade_seq']} times")
+    ys = {k: torch.cat(v, dim=-1) for k, v in outs.items()}
+    for k, v in ys.items():
+        check(bool(torch.isfinite(v).all()), f"{k} output not finite")
+
+    # config 4's checks: the ceiling on each limiter's output, and the
+    # compressor reduced the loud half
+    y = ys["y"].cpu().numpy()
+    half = t_all // 2
+    reduced = float(np.abs(y[:, half:]).max()) < float(
+        np.abs(x_np[:, half:]).max())
+    peaks = {k: float(ys[f"out_{k}"].abs().max()) for k in lims}
+    print(f"config 4: |y| max {np.abs(y).max():.4f} (loud half "
+          f"{np.abs(y[:, half:]).max():.4f} < input's "
+          f"{np.abs(x_np[:, half:]).max():.4f}: {reduced}); limited |out| "
+          f"max " + ", ".join(f"{k} {v:.6f}" for k, v in peaks.items())
+          + f" (ceiling {CEILING:.4f})")
+    check(reduced, "the compressor did not reduce the loud half")
+    for k, v in peaks.items():
+        check(v <= CEILING, f"limiter {k}: |out| {v} above {CEILING}")
+
+    # kernels against their plain versions on the drive's own inputs and
+    # states, both calls, output and state
+    def lim_plain(name):
+        lim, p = lims[name], lps[name]
+
+        def run(st0, ay):
+            g_c, e_c, gain, pss = lim_ops.limiter_plain(
+                p, *st0, ay, lim.lookahead, lim.alr)
+            return pss, type(st0)(g_c, e_c), gain
+        return run
+
+    plain = {name: lim_plain(name) for name in lims}
+    plain.update({k: (lambda f: lambda st0, *a: (None, *f(st0, *a)))(c[1])
+                  for k, c in rider_cases.items()})
+    plain_ms, passes = {}, {}
+    same = {"lim": True, "rider": True}
+    worst = {"lim": 0.0, "rider": 0.0}
+    for name, tr in trace.items():
+        kind = "lim" if name in lims else "rider"
+        for st0, args, st1, o in tr:
+            ms_p, (pss, st_p, o_p) = time_once_ms(
+                lambda: plain[name](st0, *args))
+            plain_ms.setdefault(name, ms_p)
+            if pss is not None:
+                passes.setdefault(name, []).append(pss)
+            pairs = [(o_p, o), *zip(st_p, st1)]
+            torch.cuda.synchronize()
+            same[kind] = same[kind] and all(torch.equal(a, b)
+                                            for a, b in pairs)
+            worst[kind] = max(worst[kind], *(max_abs(a, b)
+                                             for a, b in pairs))
+    n_pass = {k: [int(p.max()) for p in v] for k, v in passes.items()}
+    print(f"parity limiter_kernel: [{C}, {t_n}] x {calls} calls, config 4's "
+          f"|y|, state carried, HERM_THIN 2 ms and EXP_WIDE 5 ms with ALR: "
+          f"gain and state identical = {same['lim']}, max abs err "
+          f"{worst['lim']:.3g}; largest pass count of any row, by call: "
+          + ", ".join(f"{k} {v}" for k, v in n_pass.items()))
+    print(f"parity rider_kernel: [{C}, {t_n}] x {calls} calls, state "
+          f"carried, {', '.join(rider_cases)}: output and state identical "
+          f"= {same['rider']}, max abs err {worst['rider']:.3g}")
+    check(same["lim"], "limiter_kernel differs from its plain version")
+    check(same["rider"], "rider_kernel differs from its plain version")
+
+    # the meters against float64 (whole [.., 2 x 16384])
+    dbs = {}
+    loud_ref = loudness_f64(lm_64, x_np)
+    dbs["loudness_64ch_400ms"] = snr_db(torch.from_numpy(loud_ref),
+                                        ys["lm_64"].cpu())
+    tp_ref = true_peak_f64(tpm, x_np)
+    dbs["true_peak"] = snr_db(torch.from_numpy(tp_ref), ys["tp"].cpu())
+    a64 = pair_a.cpu().double().numpy()
+    b64 = pair_b.cpu().double().numpy()
+    sxy = f64_sliding_mean(a64 * b64, corr.window)
+    sxx = f64_sliding_mean(a64 * a64, corr.window)
+    syy = f64_sliding_mean(b64 * b64, corr.window)
+    dbs["correlometer"] = snr_db(torch.from_numpy(
+        sxy / np.sqrt(sxx * syy)), ys["corr"].cpu())
+    for law in mtr.PanLaw:
+        va, vb = sxx, syy
+        if law == mtr.PanLaw.LINEAR:
+            va, vb = np.sqrt(va), np.sqrt(vb)
+        dbs[f"panometer_{law.value}"] = snr_db(
+            torch.from_numpy(vb / (va + vb)), ys[f"pan_{law.value}"].cpu())
+    bars = {"loudness_64ch_400ms": LOUD_DB, "true_peak": TP_DB,
+            "correlometer": CORR_DB, "panometer_linear": CORR_DB,
+            "panometer_equal_power": CORR_DB}
+    for name, bar in bars.items():
+        print(f"dynamics {name} vs float64: {dbs[name]:.2f} dB (bar {bar})")
+        check(dbs[name] >= bar, f"{name} {dbs[name]:.2f} dB < {bar}")
+    il = ys["ilufs"].cpu().numpy()
+    lufs = 20 * np.log10(float(ilufs.loudness_lufs_gain(ilufs_state)))
+    want = 10 * np.log10(np.mean(loudness_f64(
+        lm_64, x_np[:, :t_ilufs])[-1:] ** 2)) - 0.691
+    print(f"ILUFS over 4 quarters x {ilufs.block} at [{C}, {t_ilufs}]: "
+          f"{lufs:.3f} LUFS, the float64 momentary loudness of the block "
+          f"{want:.3f} (output steps: {np.unique(il).size})")
+    check(abs(lufs - want) < 0.05, "ILUFS far from its block's loudness")
+    vca = ys["lo_vca"].cpu()
+    print(f"loudness leg: AutoGain on the stereo program's 400 ms / 3000 "
+          f"ms loudness, vca {float(vca.min()):.4f}..{float(vca.max()):.4f}")
+    res["dynamics_vs_float64_db"] = dbs
+    res["config4_peaks"] = peaks
+
+    # TF32 on: the first call of every unit again, identical
+    prev = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = True
+    torch.backends.cudnn.allow_tf32 = True
+    outs_tf, _, _ = drive(1)
+    torch.backends.cuda.matmul.allow_tf32, \
+        torch.backends.cudnn.allow_tf32 = prev
+    same_tf = all(torch.equal(outs_tf[k][0], outs[k][0]) for k in outs_tf)
+    print(f"dynamics, TF32 on: every unit's first call identical = "
+          f"{same_tf}")
+    check(same_tf, "dynamics output changed with TF32 switched on")
+
+    # timings at [64, 16384], the first call's inputs and states
+    clock = sm_clock_hz()
+    lim_ms, lim_passes = {}, {}
+    for name, lim in lims.items():
+        st0, (ay,), _, _ = trace[name][0]
+        lim_ms[name] = time_ms(lambda: lim_ops.limiter(
+            lps[name], *st0, ay, lim.lookahead, lim.alr), 5)
+        pk = lim_ops.limiter(lps[name], *st0, ay, lim.lookahead,
+                             lim.alr)[3]
+        check(torch.equal(pk, passes[name][0]),
+              f"{name}: the kernel's pass counts differ from the plain's")
+        lim_passes[name] = int(pk.max())
+    la_b = {k: v.lookahead for k, v in lims.items()}
+
+    def lim_bytes(name):
+        p_n = lps[name].patch.shape[0]
+        return F32 * (2 * C * t_n + 2 * C * 5 * la_b[name] + p_n + 2 * C) \
+            + 4 * C
+
+    def pass_ms(name):
+        return lim_passes[name] * t_n * 8 / (SMEM_BYTES_PER_CLK * clock) * 1e3
+
+    a, b = "thin_2ms", "exp_wide_alr_5ms"
+    res["lim"] = dict(
+        launches=launched["limiter"], max_abs_err=worst["lim"],
+        ms=lim_ms[a], plain_ms=plain_ms[a], library_ms=None,
+        # what the function needs: a multiply and a compare a sample for
+        # the first scan, the same for the P samples each pass patches,
+        # over the passes each row ran, and the clamp's four a sample
+        # (this kernel's rescan of all T a pass is in pass_bound_ms)
+        **bound(lim_bytes(a), 2.0 * (3 * C * t_n + lps[a].patch.shape[0]
+                                     * int(passes[a][0].sum()))),
+        pass_bound_ms=pass_ms(a), passes_max=lim_passes[a],
+        sm_clock_hz=clock, alr_ms=lim_ms[b], alr_plain_ms=plain_ms[b],
+        alr_chain_ms=t_n * ALR_CHAIN_OPS * 4 / clock * 1e3,
+        alr_pass_bound_ms=pass_ms(b), alr_passes_max=lim_passes[b])
+    r = res["lim"]
+    print(f"limiter_kernel: [{C}, {t_n}] HERM_THIN 2 ms: {r['ms']:.4f} ms "
+          f"({lim_passes[a]} passes at most), plain {r['plain_ms']:.1f} ms; "
+          f"bounds: {r['bound_ms']:.4f} ms ({r['bound_by']}), passes "
+          f"{r['pass_bound_ms']:.4f} ms (passes x T x 8 B at "
+          f"{SMEM_BYTES_PER_CLK} B a cycle); EXP_WIDE 5 ms with ALR: "
+          f"{r['alr_ms']:.4f} ms ({lim_passes[b]} passes), plain "
+          f"{r['alr_plain_ms']:.1f} ms, ALR chain bound "
+          f"{r['alr_chain_ms']:.4f} ms, passes {r['alr_pass_bound_ms']:.4f} "
+          f"ms ({card_line()})")
+    steps = {}
+    for name, (fn, _, _, _) in rider_cases.items():
+        st0, args, _, _ = trace[name][0]
+        ms = time_ms(lambda: fn(st0, *args), 5)
+        n_in = len(args) if args[-1].shape[-1] == t_n else len(args) - 1
+        ops = riders.chain_ops(RIDER_KIND[name])
+        steps[name] = dict(
+            ms=ms, plain_ms=plain_ms[name],
+            bound_ms=bound(F32 * C * t_n * (n_in + 1), 0.0)["bound_ms"],
+            chain_ms=t_n * ops * 4 / clock * 1e3, chain_ops=ops,
+            cycles_per_step=ms * 1e-3 * clock / t_n)
+        print(f"rider_kernel {name}: {ms:.4f} ms "
+              f"({steps[name]['cycles_per_step']:.1f} cycles a step), plain "
+              f"{plain_ms[name]:.1f} ms, chain bound "
+              f"{steps[name]['chain_ms']:.4f} ms "
+              f"({ops} dependent ops), bytes bound "
+              f"{steps[name]['bound_ms']:.4f} ms")
+    main = steps["autogain"]
+    res["rider"] = dict(
+        launches=sum(launched[f.__name__] for f in riders.RIDERS),
+        max_abs_err=worst["rider"], ms=main["ms"],
+        plain_ms=main["plain_ms"], library_ms=None,
+        bound_ms=main["bound_ms"], bound_by="bytes",
+        chain_ms=main["chain_ms"],
+        cycles_per_step=main["cycles_per_step"], sm_clock_hz=clock,
+        steps=steps)
+    print(f"dynamics phase: {time.perf_counter() - t_start:.1f} s")
+
+
 def timing_phase(chain, params, dev, res):
     """Device time of ``step`` per call and of ``bulk_step`` per
     super-block (CUDA events behind the spin kernel), and the host's
@@ -1740,7 +2213,7 @@ def main(argv=None) -> int:
 
     t0 = time.perf_counter()
     sources = ("fft_packed", "fdl_fused", "env", "env_units", "ring_mac",
-               "slicedma", "biquad")
+               "slicedma", "biquad", "limiter", "riders")
     with concurrent.futures.ThreadPoolExecutor(len(sources)) as pool:
         list(pool.map(_build.build, sources))
     res["build_s"] = time.perf_counter() - t0
@@ -1763,6 +2236,7 @@ def main(argv=None) -> int:
     ring_phase(chain, params, dev, res)
     sampler_phase(dev, res)
     filters_phase(dev, res)
+    dynamics_phase(dev, res)
     timing_phase(chain, params, dev, res)
 
     res["fft"]["launches"] = res["launches"]["fft"]
@@ -1781,7 +2255,7 @@ def main(argv=None) -> int:
         kernels.append(dict(
             name=name, route="cuda",
             source=f"lsp_dsp_units_tpu_torch/csrc/{src}",
-            replaces=f"lsp_dsp_units_tpu/ops/{replaces}",
+            replaces=f"lsp_dsp_units_tpu/{replaces}",
             **{k: r[k] for k in ("launches", "max_abs_err", "ms", "plain_ms",
                                  "bound_ms", "bound_by", "library_ms")
                + EXTRA_KEYS.get(key, ())}))

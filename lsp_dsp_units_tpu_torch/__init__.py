@@ -23,7 +23,11 @@ sequential cascade on the CUDA kernel ``csrc/biquad.cu``) with the
 filter units on them (``models.filters``: Filter, FilterBank,
 ButterworthFilter, SpectralTilt, Equalizer in its IIR/FIR/FFT/SPM modes,
 DynamicFilters; ``models.misc.windows``) and the IIR ``Crossover``
-(``models.util.crossover``).
+(``models.util.crossover``); the Limiter (CUDA kernel
+``csrc/limiter.cu``), AutoGain, SimpleAutoGain, SurgeProtector and
+DynamicProcessor (their chains on ``csrc/riders.cu``) in
+``models.dynamics``; and the meters (``models.meters``: LoudnessMeter,
+ILUFSMeter, TruePeakMeter, PeakMeter, Correlometer, Panometer).
 Entry points allocate on the card (``device="cuda"``) unless the caller
 passes another device.
 """

@@ -4,8 +4,10 @@ packages can run the same path from the same point.
 Inputs are the JAX package's ``ChainParams``, chain states
 (``ChainState``, ``ChainBulkState``, ``ChainRingState``), ring convolver
 states (``RingFDLState``), sampler tables (``DeviceVoices``,
-``DeviceMixState``), biquad cascade states and the Equalizer's
-``EqParams`` and ``EqState``, with every array leaf converted to numpy
+``DeviceMixState``), biquad cascade states, the Equalizer's
+``EqParams`` and ``EqState``, and the parameters and states of the
+Limiter, DynamicProcessor, AutoGain, SimpleAutoGain, SurgeProtector and
+the meters, with every array leaf converted to numpy
 (``jax.tree_util.tree_map(np.asarray, ...)``); this module imports no
 JAX.  ``ChainState`` and ``ChainBulkState`` keep the JAX layouts as they
 are.  A JAX ring comes in natural order [P, ..., B + 1] (its CPU layout;
@@ -19,10 +21,25 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from lsp_dsp_units_tpu_torch.models.dynamics.autogain import (
+    AutoGainState, SimpleAutoGainState)
 from lsp_dsp_units_tpu_torch.models.dynamics.compressor import (
     CompressorParams)
+from lsp_dsp_units_tpu_torch.models.dynamics.dynamic_processor import (
+    DynProcParams)
+from lsp_dsp_units_tpu_torch.models.dynamics.limiter import (
+    LimiterParams, LimiterState)
+from lsp_dsp_units_tpu_torch.models.dynamics.surge_protector import (
+    SurgeProtectorState)
 from lsp_dsp_units_tpu_torch.models.filters.equalizer import (
     EqParams, EqState)
+from lsp_dsp_units_tpu_torch.models.meters.correlometer import (
+    CorrelometerState)
+from lsp_dsp_units_tpu_torch.models.meters.loudness import (
+    ILUFSState, LoudnessMeterState)
+from lsp_dsp_units_tpu_torch.models.meters.peak import (
+    PanometerState, PeakMeterState)
+from lsp_dsp_units_tpu_torch.models.meters.true_peak import TruePeakState
 from lsp_dsp_units_tpu_torch.models.sampling import device_mix
 from lsp_dsp_units_tpu_torch.models.util.sidechain import SidechainState
 from lsp_dsp_units_tpu_torch.ops import biquad_block, fftconv
@@ -64,12 +81,17 @@ def params_from_jax(p, device="cuda") -> ChainParams:
         comp=comp)
 
 
+def env_state_from_jax(s, device="cuda") -> dyn.EnvState:
+    """A JAX ``EnvState`` (numpy leaves) -> port ``EnvState``."""
+    return dyn.EnvState(envelope=_t(s.envelope, device),
+                        peak=_t(s.peak, device),
+                        hold=_t(s.hold, device, torch.int32))
+
+
 def _sc_env(s, device):
     return (SidechainState(window=_t(s.sc.window, device),
                            rms=_t(s.sc.rms, device)),
-            dyn.EnvState(envelope=_t(s.env.envelope, device),
-                         peak=_t(s.env.peak, device),
-                         hold=_t(s.env.hold, device, torch.int32)))
+            env_state_from_jax(s.env, device))
 
 
 def state_from_jax(s, device="cuda") -> ChainState:
@@ -151,3 +173,97 @@ def eq_params_from_jax(p, device="cuda") -> EqParams:
 def eq_state_from_jax(s, device="cuda") -> EqState:
     """JAX ``EqState`` (numpy leaves) -> port ``EqState``."""
     return EqState(*(_t(v, device) for v in s))
+
+
+def limiter_params_from_jax(p, device="cuda") -> LimiterParams:
+    """JAX ``LimiterParams`` (numpy leaves) -> port ``LimiterParams``."""
+    return LimiterParams(
+        patch=_t(p.patch, device), middle=int(np.asarray(p.middle)),
+        threshold=_f32(p.threshold), alr_ks=_f32(p.alr_ks),
+        alr_ke=_f32(p.alr_ke), alr_gain=_f32(p.alr_gain),
+        alr_herm=tuple(_f32(v) for v in np.asarray(p.alr_herm)),
+        alr_tau_att=_f32(p.alr_tau_att), alr_tau_rel=_f32(p.alr_tau_rel))
+
+
+def limiter_state_from_jax(s, device="cuda") -> LimiterState:
+    """JAX ``LimiterState`` (numpy leaves) -> port ``LimiterState``."""
+    return LimiterState(gcarry=_t(s.gcarry, device),
+                        alr_env=_t(s.alr_env, device))
+
+
+def dynproc_params_from_jax(p, device="cuda") -> DynProcParams:
+    """JAX ``DynProcParams`` (numpy leaves) -> port ``DynProcParams``
+    (its envelope state comes through :func:`env_state_from_jax`)."""
+    def floats(v):
+        return tuple(_f32(f) for f in np.asarray(v).reshape(-1))
+
+    return DynProcParams(
+        **{k: _t(getattr(p, k), device) for k in (
+            "sp_thresh", "sp_makeup", "sp_kstart", "sp_kstop", "sp_pre",
+            "sp_post", "sp_herm")},
+        **{k: floats(getattr(p, k)) for k in (
+            "att_level", "att_tau", "rel_level", "rel_tau")},
+        hold=int(np.asarray(p.hold)))
+
+
+def autogain_state_from_jax(s, device="cuda") -> AutoGainState:
+    """JAX ``AutoGainState`` (numpy leaves) -> port ``AutoGainState``."""
+    return AutoGainState(gain=_t(s.gain, device),
+                         out_gain=_t(s.out_gain, device),
+                         surge_up=_t(s.surge_up, device, torch.bool),
+                         surge_down=_t(s.surge_down, device, torch.bool))
+
+
+def simple_autogain_state_from_jax(s, device="cuda") -> SimpleAutoGainState:
+    """JAX ``SimpleAutoGainState`` -> port ``SimpleAutoGainState``."""
+    return SimpleAutoGainState(gain=_t(s.gain, device))
+
+
+def surge_state_from_jax(s, device="cuda") -> SurgeProtectorState:
+    """JAX ``SurgeProtectorState`` -> port ``SurgeProtectorState``."""
+    return SurgeProtectorState(
+        on=_t(s.on, device, torch.bool),
+        shutdown_time=_t(s.shutdown_time, device, torch.int32),
+        transition_time=_t(s.transition_time, device, torch.int32))
+
+
+def peak_meter_state_from_jax(s, device="cuda") -> PeakMeterState:
+    """JAX ``PeakMeterState`` -> port ``PeakMeterState``."""
+    return PeakMeterState(peak=_t(s.peak, device),
+                          counter=_t(s.counter, device, torch.int32))
+
+
+def loudness_state_from_jax(s, device="cuda") -> LoudnessMeterState:
+    """JAX ``LoudnessMeterState`` -> port ``LoudnessMeterState``."""
+    return LoudnessMeterState(flt=_t(s.flt, device),
+                              window=_t(s.window, device))
+
+
+def ilufs_state_from_jax(s, device="cuda") -> ILUFSState:
+    """JAX ``ILUFSState`` (numpy leaves) -> port ``ILUFSState``, its
+    scalar bookkeeping as host ints and a bool."""
+    return ILUFSState(
+        flt=_t(s.flt, device), part_sums=_t(s.part_sums, device),
+        part_idx=int(np.asarray(s.part_idx)),
+        part_fill=int(np.asarray(s.part_fill)),
+        blk_full=bool(np.asarray(s.blk_full)), ring=_t(s.ring, device),
+        ring_pos=int(np.asarray(s.ring_pos)),
+        ring_cnt=int(np.asarray(s.ring_cnt)),
+        loudness=_t(s.loudness, device))
+
+
+def true_peak_state_from_jax(s, device="cuda") -> TruePeakState:
+    """JAX ``TruePeakState`` -> port ``TruePeakState``."""
+    return TruePeakState(hist=_t(s.hist, device))
+
+
+def correlometer_state_from_jax(s, device="cuda") -> CorrelometerState:
+    """JAX ``CorrelometerState`` -> port ``CorrelometerState``."""
+    return CorrelometerState(win_a=_t(s.win_a, device),
+                             win_b=_t(s.win_b, device))
+
+
+def panometer_state_from_jax(s, device="cuda") -> PanometerState:
+    """JAX ``PanometerState`` -> port ``PanometerState``."""
+    return PanometerState(win_a=_t(s.win_a, device),
+                          win_b=_t(s.win_b, device))

@@ -1,12 +1,14 @@
-"""Hold this checkout's EQ + convolver, envelope, sliding RMS, slice and
-biquad cascade kernels against another checkout's on the card: outputs
+"""Hold this checkout's EQ + convolver, envelope, sliding RMS, slice,
+biquad cascade, limiter and rider kernels against another checkout's on
+the card: outputs
 bit for bit, device times in turns.
 
     python3 -m lsp_dsp_units_tpu_torch.tools.ab_kernels OTHER [--out F]
 
 OTHER is the root of another checkout (for a redesign, its parent commit
 unpacked with ``git archive``).  Its ``csrc/fdl_fused.cu``,
-``csrc/env_units.cu``, ``csrc/slicedma.cu`` and ``csrc/biquad.cu`` (those
+``csrc/env_units.cu``, ``csrc/slicedma.cu``, ``csrc/biquad.cu``,
+``csrc/limiter.cu`` and ``csrc/riders.cu`` (those
 it has; the cases of a missing one are skipped) are built with this
 checkout's nvcc flags into
 ``build/lsp_dsp_units_tpu_torch/ab/`` and stand in for this checkout's
@@ -30,6 +32,13 @@ compressor):
   (K = 9, shared coefficients) and DynamicFilters' bell (BT_BWC_BELL,
   slope 2, K = 4) with per-sample coefficients on a -12..+12 dB swell:
   y and state.
+* limiter_kernel at [64, 16384] on a rising noise sidechain from a
+  random carry: HERM_THIN at 2 ms (the patch passes alone) and EXP_WIDE
+  at 5 ms with ALR: gain, carry, ALR envelope and pass counts;
+* rider_kernel at [64, 16384], each step functor: AutoGain (quick_amp
+  and max_gain on), DynamicProcessor's envelope (4 attack and 4 release
+  levels, a hold), SimpleAutoGain, SurgeProtector and PeakMeter: output
+  and state.
 
 Each case's outputs must be identical between the builds (the indices
 of those that differ are listed: eqfdl_fused's are y, u, EQ state per
@@ -57,6 +66,10 @@ import torch
 from lsp_dsp_units_tpu_torch import pipeline
 from lsp_dsp_units_tpu_torch.models import filters as flt
 from lsp_dsp_units_tpu_torch.models.filters import dynamic_filters as dynf
+from lsp_dsp_units_tpu_torch.models.dynamics import (
+    AutoGain, DynamicProcessor, Limiter, LimiterMode, SimpleAutoGain,
+    SurgeProtector)
+from lsp_dsp_units_tpu_torch.models.meters import PeakMeter
 from lsp_dsp_units_tpu_torch.models.dynamics.gate import Gate
 from lsp_dsp_units_tpu_torch.models.sampling import device_mix as dm
 from lsp_dsp_units_tpu_torch.ops import _build
@@ -66,13 +79,16 @@ from lsp_dsp_units_tpu_torch.ops import env_units as eu
 from lsp_dsp_units_tpu_torch.ops import fdl_fused as ff
 from lsp_dsp_units_tpu_torch.ops import fft_packed as fp
 from lsp_dsp_units_tpu_torch.ops import fftconv
+from lsp_dsp_units_tpu_torch.ops import limiter as lim_ops
+from lsp_dsp_units_tpu_torch.ops import riders
 from lsp_dsp_units_tpu_torch.ops import slicedma
 
 C, RANK, SR = 64, 14, 48000
 B = 1 << (RANK - 1)
 T_ENV = 2 * B                        # step's envelope call: [64, 16384]
 SIGS = {"fdl_fused": ff._SIGS, "env_units": eu._SIGS,
-        "slicedma": slicedma._SIGS, "biquad": bq._SIGS}
+        "slicedma": slicedma._SIGS, "biquad": bq._SIGS,
+        "limiter": lim_ops._SIGS, "riders": riders._SIGS}
 VOICES, VBLOCK = 4096, 1024          # the sampler's configuration
 SPIN_CYCLES = 200_000_000
 
@@ -240,7 +256,51 @@ def main(argv=None) -> int:
     s9 = (torch.randn(C, c9.shape[0], 2, generator=gen) * 0.1).cuda()
     s4 = (torch.randn(C, cdyn.shape[-2], 2, generator=gen) * 0.1).cuda()
 
+    rise = torch.linspace(0.1, 1.5, T_ENV)
+    sc = (torch.randn(C, T_ENV, generator=gen) * rise).abs().cuda()
+    lims = {"limiter": Limiter(SR, LimiterMode.HERM_THIN, threshold=0.8,
+                               lookahead_ms=2.0),
+            "limiter_alr": Limiter(SR, LimiterMode.EXP_WIDE, threshold=0.8,
+                                   lookahead_ms=5.0, alr=True)}
+    lim_args = {k: (v.build(), (0.9 + 0.1 * torch.rand(
+        C, 5 * v.lookahead, generator=gen)).cuda(),
+        (torch.rand(C, generator=gen) * 0.5).cuda(), sc, v.lookahead, v.alr)
+        for k, v in lims.items()}
+    ag = AutoGain(SR, quick_amplifier=True, use_max_gain=True, max_gain=3.0)
+    ag_st = ag.init_state((C,))
+    ag_in = (lev, (lev * 1.3).contiguous(), torch.full((C, 1), 0.2,
+                                                       device="cuda"))
+    dp = DynamicProcessor(SR, out_ratio=2.0, hold_ms=1.0,
+                          attack_time_ms=[5, 1, 2, 3, 4],
+                          release_time_ms=[50, 20, 30, 40, 60])
+    for i, lv in enumerate((0.05, 0.1, 0.3, 0.6)):
+        dp.set_dot(i, lv, lv * 0.7, 0.8)
+        dp.set_attack_level(i, lv)
+        dp.set_release_level(i, lv * 0.8)
+    dpp = dp.build()
+    sag = SimpleAutoGain(SR, grow_db_s=120.0, deviation=1.5)
+    surge = SurgeProtector(0.1, 0.01, 100, 2000)
+    pm = PeakMeter(SR, hold_ms=2.0, release_ms=50.0)
+    light = {
+        "rider_simple": (lambda: riders.simple_autogain(
+            sag, sag.init_state((C,)), lev, ag_in[2])),
+        "rider_surge": (lambda: riders.surge_protector(
+            surge, surge.init_state((C,)), xr)),
+        "rider_peak": (lambda: riders.peak_meter(pm, pm.init_state((C,)),
+                                                 xr)),
+    }
+
     cases = {
+        **{k: (lambda a: (lambda: list(lim_ops.limiter(*a)),
+                          lambda: lim_ops.limiter(*a), 10))(a)
+           for k, a in lim_args.items()},
+        "rider_autogain": (lambda: flat(riders.autogain(ag, ag_st, *ag_in)),
+                           lambda: riders.autogain(ag, ag_st, *ag_in), 10),
+        "rider_dynproc": (lambda: flat(riders.dynproc_envelope(
+            dpp, st24, lev)), lambda: riders.dynproc_envelope(
+            dpp, st24, lev), 10),
+        **{k: (lambda f: (lambda: flat(f()), f, 10))(f)
+           for k, f in light.items()},
         "eqfdl_fused": (lambda: eqfdl_run(params, blocks), lambda: (
             ff.eqfdl_fused(ring_t.spec_re, ring_t.spec_im, params.h_re,
                            params.h_im, params.heq_re, params.heq_im, *xs0,
@@ -285,7 +345,11 @@ def main(argv=None) -> int:
     }
     lib_of = {"eqfdl_fused": "fdl_fused", "fdl_fused": "fdl_fused",
               "sliding_rms": "env_units", "batched_slice": "slicedma",
-              "biquad_seq": "biquad", "biquad_seq_dyn": "biquad"}
+              "biquad_seq": "biquad", "biquad_seq_dyn": "biquad",
+              "limiter": "limiter", "limiter_alr": "limiter",
+              "rider_autogain": "riders", "rider_dynproc": "riders",
+              "rider_simple": "riders", "rider_surge": "riders",
+              "rider_peak": "riders"}
     res, ok = {}, True
     for name, (run, call, reps) in cases.items():
         if lib_of.get(name, "env_units") not in other:

@@ -699,3 +699,172 @@ def test_dynamic_filters_design_on_the_card(cuda_device):
     _, yc = dyn.process(0, dyn.init_state(0, (4,), device="cpu"), x, gain,
                         method="seq")
     assert _snr(yc, yd) >= 90.0
+
+
+# ---------------------------------------------------------------------------
+# the limiter (csrc/limiter.cu) and the serial riders (csrc/riders.cu)
+# ---------------------------------------------------------------------------
+
+
+def _limiter_input(rows, t, seed):
+    """Rows from quiet (no pass) to one at 300 (at the 1024-pass cap
+    where T >= 2400 with 0.1 ms patches)."""
+    rng = np.random.default_rng(seed)
+    base = rng.standard_normal((rows, t)).astype(np.float32)
+    scale = np.geomspace(0.05, 300.0, rows).astype(np.float32)[:, None]
+    return torch.from_numpy(base * scale)
+
+
+def _same(a, b):
+    return all(torch.equal(x.cpu(), y.cpu()) for x, y in zip(a, b))
+
+
+@pytest.mark.parametrize("t", [1, 777, 4096, 30000])
+@pytest.mark.parametrize("rows", [1, 5])
+@pytest.mark.parametrize("alr", [False, True])
+def test_limiter_kernel_matches_plain(cuda_device, alr, rows, t):
+    """Gain, carry, ALR envelope and pass counts bit for bit against the
+    plain loop, two calls with the state carried; T = 30000 does not fit
+    shared memory and runs from a scratch row in global memory; from T =
+    4096 on, the loudest row runs to the cap."""
+    from lsp_dsp_units_tpu_torch.models.dynamics.limiter import (
+        Limiter, LimiterMode)
+    from lsp_dsp_units_tpu_torch.ops import limiter as lo
+    lim = Limiter(48000, LimiterMode.EXP_WIDE if alr else
+                  LimiterMode.HERM_THIN, threshold=0.2, lookahead_ms=2.0,
+                  attack_ms=0.1, release_ms=0.1, alr=alr)
+    pc, pd = lim.build(device="cpu"), lim.build(device=cuda_device)
+    fits = lo.smem_bytes(t, lim.lookahead, pc.patch.shape[0], alr) > 0
+    assert fits == (t < 30000)
+    x = _limiter_input(rows, 2 * t, rows + t)
+    sc = lim.init_state((rows,), device="cpu")
+    sd = lim.init_state((rows,), device=cuda_device)
+    before = lo.limiter.launches
+    for k in range(2):
+        xk = x[:, k * t:(k + 1) * t].contiguous()
+        want = lo.limiter_plain(pc, *sc, xk, lim.lookahead, alr)
+        got = lo.limiter(pd, *sd, xk.to(cuda_device), lim.lookahead, alr)
+        torch.cuda.synchronize()
+        assert _same(want, got), k
+        sc, sd = want[:2], got[:2]
+    assert lo.limiter.launches == before + 2
+    if t >= 4096 and rows == 5 and not alr:
+        assert int(want[3].max()) == lo.MAX_PATCH_ITERS
+        assert int(want[3].min()) < lo.MAX_PATCH_ITERS
+
+
+def test_limiter_kernel_matches_plain_on_the_card(cuda_device):
+    """The plain loop on the card itself (as chip_smoke.py holds it)
+    equals the kernel, on the global path (T = 30000 at a 5 ms
+    lookahead with ALR does not fit shared memory; 16384 does)."""
+    from lsp_dsp_units_tpu_torch.models.dynamics.limiter import Limiter
+    from lsp_dsp_units_tpu_torch.ops import limiter as lo
+    lim = Limiter(48000, threshold=0.5, lookahead_ms=5.0, alr=True)
+    p = lim.build(device=cuda_device)
+    assert lo.smem_bytes(16384, lim.lookahead, p.patch.shape[0], True) > 0
+    assert lo.smem_bytes(30000, lim.lookahead, p.patch.shape[0], True) == 0
+    x = _limiter_input(2, 30000, 3).to(cuda_device) * 0.01
+    st = lim.init_state((2,), device=cuda_device)
+    got = lo.limiter(p, *st, x, lim.lookahead, True)
+    want = lo.limiter_plain(p, *st, x, lim.lookahead, True)
+    torch.cuda.synchronize()
+    assert _same(want, got)
+
+
+def _rider_case(kind, rows, t, dev):
+    """(call on device tensors, the same unit's plain call) for each of
+    the five step functors (AutoGain in two flag settings)."""
+    from lsp_dsp_units_tpu_torch.models.dynamics import (
+        AutoGain, DynamicProcessor, SimpleAutoGain, SurgeProtector)
+    from lsp_dsp_units_tpu_torch.models.meters import PeakMeter
+    from lsp_dsp_units_tpu_torch.ops import riders as rd
+    rng = np.random.default_rng(rows * 131 + t)
+    lvl = torch.from_numpy(np.abs(rng.standard_normal((rows, t))
+                                  * np.geomspace(1e-5, 2.0, t)).astype(
+        np.float32))
+    short = (lvl * 1.3).contiguous()
+    if kind.startswith("autogain"):
+        quick = kind == "autogain_quick"
+        u = AutoGain(48000, quick_amplifier=quick, use_max_gain=quick,
+                     max_gain=3.0, long_grow_db_s=60.0)
+        args = (lvl, short, torch.full((rows, 1), 0.2))
+        return (u.init_state((rows,), device=dev), args,
+                lambda s, *a: rd.autogain(u, s, *a),
+                lambda s, *a: rd.autogain_plain(u, s, *a), rd.autogain)
+    if kind == "simple":
+        u = SimpleAutoGain(48000, grow_db_s=120.0, deviation=1.5)
+        return (u.init_state((rows,), device=dev),
+                (lvl, torch.full((rows, t), 0.25)),
+                lambda s, *a: rd.simple_autogain(u, s, *a),
+                lambda s, *a: rd.simple_autogain_plain(u, s, *a),
+                rd.simple_autogain)
+    x = torch.from_numpy((rng.standard_normal((rows, t))
+                          * np.where(np.arange(t) % 400 < 200, 0.5,
+                                     1e-3)).astype(np.float32))
+    if kind == "surge":
+        u = SurgeProtector(0.1, 0.01, 100, 150)
+        return (u.init_state((rows,), device=dev), (x,),
+                lambda s, *a: rd.surge_protector(u, s, *a),
+                lambda s, *a: rd.surge_protector_plain(u, s, *a),
+                rd.surge_protector)
+    if kind == "peak":
+        u = PeakMeter(48000, hold_ms=1.0, release_ms=3.0)
+        return (u.init_state((rows,), device=dev), (x,),
+                lambda s, *a: rd.peak_meter(u, s, *a),
+                lambda s, *a: rd.peak_meter_plain(u, s, *a), rd.peak_meter)
+    u = DynamicProcessor(48000, hold_ms=1.0, attack_time_ms=[5, 1, 2, 3, 4],
+                         release_time_ms=[50, 20, 30, 40, 60])
+    for i, dot in enumerate([(0.01, 0.02, 0.5), (0.1, 0.08, 0.7)]):
+        u.set_dot(i, *dot)
+    for i, lv in enumerate((0.05, 0.1, 0.2, 0.3)):
+        u.set_attack_level(i, lv)
+        u.set_release_level(i, lv * 2)
+    p = u.build(device=dev)
+    return (u.init_state((rows,), device=dev), (x.abs(),),
+            lambda s, *a: rd.dynproc_envelope(p, s, *a),
+            lambda s, *a: rd.dynproc_envelope_plain(p, s, *a),
+            rd.dynproc_envelope)
+
+
+@pytest.mark.parametrize("kind", ["autogain", "autogain_quick", "simple",
+                                  "surge", "peak", "dynproc"])
+@pytest.mark.parametrize("t", [1, 1037])
+@pytest.mark.parametrize("rows", [1, 6])
+def test_rider_kernels_match_plain(cuda_device, kind, rows, t):
+    """Each step functor of rider_kernel against its plain loop, two
+    calls with the state carried (odd T: a partial last tile), output
+    and state bit for bit; the launch counter advances once a call."""
+    st_d, args, kernel, plain, wrapper = _rider_case(kind, rows, t,
+                                                     cuda_device)
+    st_c = st_d._make(f.cpu() for f in st_d)
+    before = wrapper.launches
+    for k in range(2):
+        st_c, yc = plain(st_c, *args)
+        st_d, yd = kernel(st_d, *(a.to(cuda_device) for a in args))
+        torch.cuda.synchronize()
+        assert torch.equal(yd.cpu(), yc), k
+        assert all(torch.equal(a.cpu(), b) for a, b in zip(st_d, st_c)), k
+    assert wrapper.launches == before + 2
+
+
+def test_rider_plain_on_the_card_matches_the_kernel(cuda_device):
+    """The plain loop on the card itself (as chip_smoke.py holds it)
+    equals the kernel: DynamicProcessor's envelope and AutoGain."""
+    for kind in ("dynproc", "autogain_quick"):
+        st, args, kernel, plain, _ = _rider_case(kind, 3, 300, cuda_device)
+        args = tuple(a.to(cuda_device) for a in args)
+        sk, yk = kernel(st, *args)
+        sp, yp = plain(st, *args)
+        torch.cuda.synchronize()
+        assert torch.equal(yk, yp) and all(
+            torch.equal(a, b) for a, b in zip(sk, sp))
+
+
+def test_rider_chain_ops_come_from_the_functors(cuda_device):
+    """Each step functor states its chain's dependent operations
+    (kChainOps, which chip_smoke.py's chain bounds read): a positive
+    count for every kind, AutoGain's the longest."""
+    from lsp_dsp_units_tpu_torch.ops import riders as rd
+    ops = {k: rd.chain_ops(k) for k in rd.KIND}
+    assert all(v > 0 for v in ops.values()), ops
+    assert max(ops, key=ops.get) == "autogain"

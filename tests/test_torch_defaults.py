@@ -15,12 +15,17 @@ import torch
 from lsp_dsp_units_tpu.ops import fftconv as jfc
 
 from lsp_dsp_units_tpu_torch import convert, pipeline
+from lsp_dsp_units_tpu_torch.models.dynamics import (
+    AutoGain, DynamicProcessor, Limiter, SimpleAutoGain, SurgeProtector)
 from lsp_dsp_units_tpu_torch.models.dynamics.compressor import Compressor
 from lsp_dsp_units_tpu_torch.models.dynamics.expander import Expander
 from lsp_dsp_units_tpu_torch.models.dynamics.gate import Gate
 from lsp_dsp_units_tpu_torch.models.filters import (
     ButterworthFilter, DynamicFilters, Equalizer, Filter, FilterBank,
     SpectralTilt)
+from lsp_dsp_units_tpu_torch.models.meters import (
+    Correlometer, ILUFSMeter, LoudnessMeter, Panometer, PeakMeter,
+    TruePeakMeter)
 from lsp_dsp_units_tpu_torch.models.sampling import device_mix
 from lsp_dsp_units_tpu_torch.models.util.convolver import Convolver
 from lsp_dsp_units_tpu_torch.models.util.crossover import Crossover
@@ -50,6 +55,18 @@ ALLOCATING = [
     DynamicFilters.init_state, Crossover.__init__, Crossover.init_state,
     convert.biquad_state_from_jax, convert.eq_params_from_jax,
     convert.eq_state_from_jax,
+    Limiter.build, Limiter.init_state, AutoGain.init_state,
+    SimpleAutoGain.init_state, SurgeProtector.init_state,
+    DynamicProcessor.build, DynamicProcessor.init_state,
+    PeakMeter.init_state, Panometer.init_state, Correlometer.init_state,
+    TruePeakMeter.init_state, LoudnessMeter.__init__, ILUFSMeter.__init__,
+    convert.env_state_from_jax, convert.limiter_params_from_jax,
+    convert.limiter_state_from_jax, convert.dynproc_params_from_jax,
+    convert.autogain_state_from_jax, convert.simple_autogain_state_from_jax,
+    convert.surge_state_from_jax, convert.peak_meter_state_from_jax,
+    convert.loudness_state_from_jax, convert.ilufs_state_from_jax,
+    convert.true_peak_state_from_jax, convert.correlometer_state_from_jax,
+    convert.panometer_state_from_jax,
 ]
 
 
