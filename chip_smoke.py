@@ -201,7 +201,27 @@ Phases (any failure exits non-zero; nothing is caught):
             plain loop's (one call, host-paced), its bytes bound and its
             chain bound (T x the step's dependent operations x 4 cycles
             at the measured SM clock), one launch a call.
-14. timing — CUDA events behind a spin kernel: step_ring ms per block,
+14. parallel — the sharded chain at world size 1: NCCL with an in-process
+            store, a (1, 1) ('chan', 'time') mesh on the card,
+            sharded_step for 2 calls of [64, 16384] with the state
+            carried, the launch counters of rfft_packed,
+            rfft_packed_zeropad, irfft_packed (#1), sliding_rms (#5) and
+            peak_envelope (#6) zeroed just before and read just after
+            (each >= 2); >= 95 dB from step on the same inputs and state
+            (the JAX package's bar for its sharded chain); the second
+            call again with TF32 on: identical; the time-sharded ILUFS
+            gate over 64 channels x 16 quarters within 1e-5 relative of
+            ILUFSMeter, the global mean square (rtol 1e-5), true peak
+            (exact) and correlation (rtol 1e-4) against their local
+            values; then dryrun_multichip(1) on the card (its own NCCL
+            group); Bypass, Crossfade and QuantizedCounter (period 0, and
+            a 1 s window in a ring of 65536, NaNs and values beyond int32
+            indices) over 2 calls of [64, 16384] on the card against the
+            CPU: every output and state identical; sharded_step's and
+            step's device ms per call, in turns.  One card tests world
+            size 1 only; gloo processes on the CPU prove the multi-rank
+            behaviour (tests/test_torch_parallel.py).
+15. timing — CUDA events behind a spin kernel: step_ring ms per block,
             step ms per call and per block, bulk_step ms per super-block;
             each kernel against its plain version at the same shapes, its
             bound (bytes over 3.35 TB/s or operations over 67 TFLOP/s
@@ -273,7 +293,12 @@ from lsp_dsp_units_tpu_torch.models.util.crossover import (  # noqa: E402
     Crossover, CrossoverSlope)
 from lsp_dsp_units_tpu_torch.models.util.sidechain import (  # noqa: E402
     Sidechain, SidechainMode)
+from lsp_dsp_units_tpu_torch.entry import dryrun_multichip  # noqa: E402
+from lsp_dsp_units_tpu_torch.models.ctl import (  # noqa: E402
+    Bypass, Crossfade)
+from lsp_dsp_units_tpu_torch.models.stat import QuantizedCounter  # noqa: E402
 from lsp_dsp_units_tpu_torch.ops import _build  # noqa: E402
+from lsp_dsp_units_tpu_torch.ops import biquad_block  # noqa: E402
 from lsp_dsp_units_tpu_torch.ops import biquad as bq  # noqa: E402
 from lsp_dsp_units_tpu_torch.ops import delay as delay_ops  # noqa: E402
 from lsp_dsp_units_tpu_torch.ops import dynamics as dyn  # noqa: E402
@@ -291,6 +316,10 @@ from lsp_dsp_units_tpu_torch.ops.fdl_fused import (  # noqa: E402
     fdl_fused_plain, fdl_launch_shape)
 from lsp_dsp_units_tpu_torch.ops.ring_mac import (  # noqa: E402
     ring_mac, ring_mac_plain)
+from lsp_dsp_units_tpu_torch.parallel import mesh as pmesh  # noqa: E402
+from lsp_dsp_units_tpu_torch.parallel.meters import (  # noqa: E402
+    global_correlation, global_mean_square, global_true_peak,
+    ilufs_integrated_time_sharded)
 from lsp_dsp_units_tpu_torch.utils.delivery import (  # noqa: E402
     quantize_i16, tpdf_i16_table)
 
@@ -337,6 +366,12 @@ RIDER_KIND = {"autogain": "autogain", "autogain_quick": "autogain",
               "simple": "simple_autogain", "surge": "surge",
               "peak": "peak_meter", "dynproc": "dynproc"}
 ALR_CHAIN_OPS = 3             # compare-select, subtract, FMA
+
+PAR_T, PAR_CALLS = 16384, 2   # the parallel phase: 64 ch x T, state carried
+SHARD_DB = 95.0       # sharded_step vs step (tests/test_parallel.py:320)
+METER_RTOL = 1e-5     # ILUFS sharded vs sequential (test_parallel.py:253)
+PAR_COUNTERS = (fp.rfft_packed, fp.rfft_packed_zeropad, fp.irfft_packed,
+                eu.sliding_rms, eu.peak_envelope)
 
 # the card's limits for the bound of each kernel (NVIDIA H100 SXM data
 # sheet, at 700 W): HBM rate, FP32 rate outside the tensor cores, and the
@@ -3236,6 +3271,183 @@ def synth_phase(dev, res):
     print(f"synth phase: {time.perf_counter() - t_start:.1f} s")
 
 
+def small_units_run(dev, sig, qx) -> dict:
+    """Bypass, Crossfade and QuantizedCounter (period 0 and a 1 s window
+    in a ring of 65536) over 2 calls of [64, 16384] on ``dev``: every
+    output and state, on the host."""
+    out = {}
+    byp = Bypass(SR, 5.0)
+    bst = byp.init_state((C,), device=dev)
+    mask = torch.arange(C, device=dev) % 3 == 0
+    xf = Crossfade(SR, 0.005)
+    xst = xf.toggle(xf.reset(xf.init_state(device=dev)))
+    qcs = [QuantizedCounter(-1.0, 1.0, 256),
+           QuantizedCounter(-0.7, 1.3, 1000, period=SR, capacity=65536)]
+    qst = [q.init_state(device=dev) for q in qcs]
+    for k in range(PAR_CALLS):
+        dry, wet = (sig[j][:, k * PAR_T:(k + 1) * PAR_T].to(dev)
+                    for j in (0, 1))
+        bst = byp.set_bypass(bst, mask if k == 0 else ~mask)
+        bst, out[f"bypass{k}"] = byp.process(bst, dry, wet)
+        xst, out[f"crossfade{k}"] = xf.process(xst, dry, wet, PAR_T)
+        out[f"bypass_state{k}"] = torch.stack(list(bst))
+        out[f"crossfade_state{k}"] = torch.stack(
+            [xst.counter.float(), xst.gain])
+        for i, q in enumerate(qcs):
+            qst[i] = q.process(qst[i], qx[:, k * PAR_T:(k + 1) * PAR_T]
+                               .to(dev))
+            for f, v in zip(qst[i]._fields, qst[i]):
+                out[f"qc{i}_{f}{k}"] = v
+    return {k: v.cpu() for k, v in out.items()}
+
+
+def parallel_phase(chain, params, dev, res):
+    """The sharded chain at world size 1 on the card: NCCL, a (1, 1) mesh,
+    ``sharded_step`` for 2 calls of [64, 16384] with the state carried
+    against ``step`` on the same inputs and state; the TF32 identity; the
+    launches of kernels #1, #5 and #6 in the sharded run; the
+    time-sharded ILUFS gate and the global meters; ``dryrun_multichip(1)``;
+    Bypass, Crossfade and QuantizedCounter on the card against the CPU;
+    the sharded step's device ms beside step's."""
+    t_start = time.perf_counter()
+    r = res["parallel"] = {}
+    rng = np.random.default_rng(12)
+    xs = [torch.from_numpy((rng.standard_normal((C, PAR_T)) * 0.25).astype(
+        np.float32)).to(dev) for _ in range(PAR_CALLS)]
+    pmesh.init_distributed(num_processes=1, process_id=0,
+                           platform=dev.type)
+    try:
+        mesh = pmesh.make_mesh(1, 1, dev.type)
+        tg = mesh.get_group(pmesh.TIME_AXIS)
+        step = chain.sharded_step(mesh, params)
+        st = pmesh.chan_sharding(mesh, chain.init_state(params))
+        torch.cuda.synchronize()
+        for f in PAR_COUNTERS:
+            f.launches = 0
+        ys, states = [], []
+        for x in xs:
+            states.append(clone_state(st))
+            st, y = step(st, pmesh.chan_time_sharding(mesh, x))
+            ys.append(y)
+        torch.cuda.synchronize()
+        launched = {f.__name__: f.launches for f in PAR_COUNTERS}
+        print(f"parallel: {torch.distributed.get_backend()} world size 1, "
+              f"mesh (1, 1); {PAR_CALLS} "
+              f"calls of sharded_step on [{C}, {PAR_T}]; launches "
+              f"{launched}")
+        for name, cnt in launched.items():
+            check(cnt >= PAR_CALLS, f"{name} launched {cnt} < {PAR_CALLS} "
+                  f"times by sharded_step")
+        check(all(y.shape == (C, PAR_T) and bool(torch.isfinite(y).all())
+                  for y in ys), "sharded_step output")
+
+        sst = chain.init_state(params)
+        dbs = []
+        for x, y in zip(xs, ys):
+            sst, yr = chain.step(params, sst, x)
+            dbs.append(snr_db(yr, y))
+        state_db = min(snr_db(a, b) for a, b in zip(
+            (sst.eq, sst.fdl.spec_re, sst.fdl.spec_im, sst.env.envelope),
+            (st.eq, st.fdl.spec_re, st.fdl.spec_im, st.env.envelope)))
+        print("sharded_step vs step: " + ", ".join(
+            f"call {i} {v:.2f} dB" for i, v in enumerate(dbs))
+            + f"; carried state (worst leaf) {state_db:.2f} dB")
+        check(min(dbs) >= SHARD_DB, f"sharded_step {min(dbs):.2f} dB from "
+              f"step < {SHARD_DB}")
+
+        # TF32 on: no library matmul on the path, so the output is identical
+        prev = (torch.backends.cuda.matmul.allow_tf32,
+                torch.backends.cudnn.allow_tf32)
+        torch.backends.cuda.matmul.allow_tf32 = True
+        torch.backends.cudnn.allow_tf32 = True
+        _, y_tf32 = step(clone_state(states[-1]), xs[-1])
+        torch.backends.cuda.matmul.allow_tf32, \
+            torch.backends.cudnn.allow_tf32 = prev
+        same = bool(torch.equal(ys[-1], y_tf32))
+        print(f"sharded_step, TF32 on: output identical = {same}")
+        check(same, "sharded_step output changed with TF32 switched on")
+
+        # the reductions: 1.6 s at 48 kHz (16 quarters), a quiet stretch
+        meter = mtr.ILUFSMeter(SR, C, max_int_time_s=10.0, device=dev)
+        blk = meter.blk_size
+        xm_np = (rng.standard_normal((C, 16 * blk)) * 0.2).astype(np.float32)
+        xm_np[:, 8 * blk:11 * blk] *= 1e-5
+        xm = torch.from_numpy(xm_np).to(dev)
+        mst, _ = meter.process(meter.init_state(), xm)
+        loud_ref = float(mst.loudness)
+        fpm = biquad_block.precompute_fused(meter._coeffs.cpu().numpy(), blk,
+                                            device=dev)
+        loud = float(ilufs_integrated_time_sharded(meter, fpm, xm, tg))
+        rel = abs(loud - loud_ref) / loud_ref
+        ms = global_mean_square(xm, tg)
+        tp = global_true_peak(xm, tg)
+        cor = global_correlation(xm, torch.roll(xm, 1, dims=0), tg)
+        x64 = xm.double()
+        cor_ref = (x64 * torch.roll(x64, 1, 0)).sum(-1) / torch.sqrt(
+            (x64 ** 2).sum(-1) * (torch.roll(x64, 1, 0) ** 2).sum(-1))
+        print(f"ILUFS sharded {loud:.9g} vs ILUFSMeter {loud_ref:.9g} "
+              f"(relative {rel:.3g}); global meters vs local: mean square "
+              f"{max_abs((x64 ** 2).mean(-1), ms):.3g}, true peak "
+              f"{max_abs(x64.abs().amax(-1), tp):.3g}, correlation "
+              f"{max_abs(cor_ref, cor):.3g} max abs")
+        check(rel <= METER_RTOL, f"sharded ILUFS {rel:.3g} relative from "
+              f"the meter > {METER_RTOL}")
+        check(torch.allclose(ms.double(), (x64 ** 2).mean(-1), rtol=1e-5),
+              "global mean square")
+        check(torch.equal(tp.double(), x64.abs().amax(-1)),
+              "global true peak")
+        check(torch.allclose(cor.double(), cor_ref, rtol=1e-4, atol=1e-6),
+              "global correlation")
+
+        # device time per call: the sharded step against step, the same
+        # input, the state carried (CUDA events behind the spin kernel)
+        carry = [clone_state(states[0]), clone_state(states[0])]
+
+        def one_sharded():
+            carry[0], _ = step(carry[0], xs[0])
+
+        def one_step():
+            carry[1], _ = chain.step(params, carry[1], xs[0])
+
+        ms_sh = time_ms(one_sharded, 4, warmup=2)
+        ms_st = time_ms(one_step, 4, warmup=2)
+        ms_sh2 = time_ms(one_sharded, 4, warmup=1)
+        ms_st2 = time_ms(one_step, 4, warmup=1)
+    finally:
+        torch.distributed.destroy_process_group()
+    print(f"sharded_step {ms_sh:.4f} / {ms_sh2:.4f} ms per call, step "
+          f"{ms_st:.4f} / {ms_st2:.4f} (in turns, [{C}, {PAR_T}], CUDA "
+          f"events, 4 calls; {card_line()})")
+
+    dr = dryrun_multichip(1, device=dev.type)
+    print(f"dryrun_multichip(1): mesh {dr['mesh']}, vs step "
+          + ", ".join(f"{v:.2f}" for v in dr["snr_db"]) + " dB, ILUFS "
+          f"{dr['ilufs_sharded']:.9g} vs {dr['ilufs_sequential']:.9g}")
+
+    sig = [torch.from_numpy((rng.standard_normal((C, PAR_CALLS * PAR_T))
+                             * 0.5).astype(np.float32)) for _ in range(2)]
+    qx_np = (rng.standard_normal((C, PAR_CALLS * PAR_T)) * 0.6).astype(
+        np.float32)
+    qx_np.flat[::997] = np.nan
+    qx_np.flat[5::1009] = 3e9
+    qx = torch.from_numpy(qx_np)
+    card = small_units_run(dev, sig, qx)
+    host = small_units_run(torch.device("cpu"), sig, qx)
+    # NaNs in the ring are the input's own, compared as such
+    differ = [k for k in host if not (
+        torch.equal(card[k].isnan(), host[k].isnan())
+        and torch.equal(card[k].nan_to_num(0.0), host[k].nan_to_num(0.0)))]
+    print(f"Bypass, Crossfade, QuantizedCounter on [{C}, {PAR_T}] x "
+          f"{PAR_CALLS}, card vs CPU: {len(host) - len(differ)} of "
+          f"{len(host)} outputs and states identical")
+    check(not differ, f"small units differ from the CPU: {differ}")
+    r.update(launches=launched, vs_step_db=dbs, state_db=state_db,
+             tf32_identical=same, ilufs=loud, ilufs_meter=loud_ref,
+             ilufs_rel=rel, sharded_ms=[ms_sh, ms_sh2],
+             step_ms=[ms_st, ms_st2], dryrun=dr, units_identical=True)
+    print(f"parallel phase: {time.perf_counter() - t_start:.1f} s")
+
+
 def timing_phase(chain, params, dev, res):
     """Device time of ``step`` per call and of ``bulk_step`` per
     super-block (CUDA events behind the spin kernel), and the host's
@@ -3323,6 +3535,7 @@ def main(argv=None) -> int:
     spectral_phase(dev, res)
     spectral_timings(dev, res)
     synth_phase(dev, res)
+    parallel_phase(chain, params, dev, res)
     timing_phase(chain, params, dev, res)
 
     res["fft"]["launches"] = res["launches"]["fft"]

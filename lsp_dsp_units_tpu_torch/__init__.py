@@ -39,8 +39,15 @@ ShiftBuffer, RawRingBuffer, MeterGraph, ScaledMeterGraph), ADSREnvelope,
 the Oscillator, the delay lines (Delay; DynamicDelay on the CUDA kernel
 ``csrc/delay.cu``), the Trigger and the Depopper (their machines on
 ``csrc/riders.cu``), and ``models.misc``'s quickmath, LFO and sigmoid
-functions.  Entry points allocate on the card (``device="cuda"``)
-unless the caller passes another device.
+functions; the sharded chain (``parallel/``: the ('chan', 'time') mesh
+on ``torch.distributed``, halo exchange, the time-sharded IIR cascades
+and the global meters; ``FilterConvChain.sharded_step``,
+``entry.dryrun_multichip``, ``tools/multihost_demo.py``), the control
+units (``models.ctl``: Bypass, Crossfade, Counter, Toggle, Blink), the
+QuantizedCounter (``models.stat``), state checkpoints
+(``utils.state``, whose paths are the JAX package's) and
+``utils.profiling``.  Entry points allocate on the card
+(``device="cuda"``) unless the caller passes another device.
 """
 
 __version__ = "0.1.0"

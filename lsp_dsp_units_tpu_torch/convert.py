@@ -8,9 +8,10 @@ states (``RingFDLState``), sampler tables (``DeviceVoices``,
 ``EqParams`` and ``EqState``, the parameters and states of the
 Limiter, DynamicProcessor, AutoGain, SimpleAutoGain, SurgeProtector and
 the meters, the states of the spectral units, the Analyzer and the
-Oversampler, and those of the delay lines, the Trigger, the Depopper and
+Oversampler, those of the delay lines, the Trigger, the Depopper and
 the Oscillator (a NoiseGenerator's state is its SpectralTilt's biquad
-state), with every array leaf converted to numpy
+state), and those of Bypass, Crossfade and QuantizedCounter, with every
+array leaf converted to numpy
 (``jax.tree_util.tree_map(np.asarray, ...)``); this module imports no
 JAX.  ``ChainState`` and ``ChainBulkState`` keep the JAX layouts as they
 are.  A JAX ring comes in natural order [P, ..., B + 1] (its CPU layout;
@@ -24,6 +25,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from lsp_dsp_units_tpu_torch.models.ctl import BypassState, CrossfadeState
 from lsp_dsp_units_tpu_torch.models.dynamics.autogain import (
     AutoGainState, SimpleAutoGainState)
 from lsp_dsp_units_tpu_torch.models.dynamics.compressor import (
@@ -44,6 +46,7 @@ from lsp_dsp_units_tpu_torch.models.meters.peak import (
     PanometerState, PeakMeterState)
 from lsp_dsp_units_tpu_torch.models.meters.true_peak import TruePeakState
 from lsp_dsp_units_tpu_torch.models.sampling import device_mix
+from lsp_dsp_units_tpu_torch.models.stat import QuantizedCounterState
 from lsp_dsp_units_tpu_torch.models.util.analyzer import AnalyzerState
 from lsp_dsp_units_tpu_torch.models.util.delay import (DelayState,
                                                        DynamicDelayState)
@@ -344,3 +347,23 @@ def oscillator_state_from_jax(s, device="cuda") -> OscillatorState:
     return OscillatorState(
         phase=torch.tensor(int(np.asarray(s.phase, np.uint64)),
                            dtype=torch.int64, device=device), ovs=ovs)
+
+
+def bypass_state_from_jax(s, device="cuda") -> BypassState:
+    """JAX ``BypassState`` -> port ``BypassState``."""
+    return BypassState(gain=_t(s.gain, device), delta=_t(s.delta, device))
+
+
+def crossfade_state_from_jax(s, device="cuda") -> CrossfadeState:
+    """JAX ``CrossfadeState`` -> port ``CrossfadeState``."""
+    return CrossfadeState(counter=_t(s.counter, device, torch.int32),
+                          gain=_t(s.gain, device))
+
+
+def quantized_counter_state_from_jax(s, device="cuda"
+                                     ) -> QuantizedCounterState:
+    """JAX ``QuantizedCounterState`` -> port ``QuantizedCounterState``."""
+    return QuantizedCounterState(**{
+        f: _t(getattr(s, f), device,
+              torch.float32 if f == "history" else torch.int32)
+        for f in QuantizedCounterState._fields})

@@ -82,3 +82,52 @@ def sc_mul(a: SC, b: SC) -> SC:
 
 def sc_sum(a: SC, dim: int) -> SC:
     return torch.sum(a[0], dim=dim), torch.sum(a[1], dim=dim)
+
+
+def sc_from(z: torch.Tensor) -> SC:
+    return z.real.contiguous(), z.imag.contiguous()
+
+
+def sc_to(sc: SC) -> torch.Tensor:
+    return torch.complex(sc[0], sc[1])
+
+
+def sc_rmul(a: SC, g: torch.Tensor) -> SC:
+    return a[0] * g, a[1] * g
+
+
+def sc_add(a: SC, b: SC) -> SC:
+    return a[0] + b[0], a[1] + b[1]
+
+
+def sc_concat(parts, dim: int) -> SC:
+    return (torch.cat([p[0] for p in parts], dim=dim),
+            torch.cat([p[1] for p in parts], dim=dim))
+
+
+def sc_zeros(shape, dtype=torch.float32, device="cuda") -> SC:
+    return (torch.zeros(shape, dtype=dtype, device=device),
+            torch.zeros(shape, dtype=dtype, device=device))
+
+
+def sc_conj(a: SC) -> SC:
+    return a[0], -a[1]
+
+
+def sc_abs(a: SC) -> torch.Tensor:
+    """|a|: the root taken in float64 and rounded once, as XLA's and
+    CUDA's float32 sqrt round (torch's vectorised CPU sqrt can miss by an
+    ulp)."""
+    sq = a[0] * a[0] + a[1] * a[1]
+    return torch.sqrt(sq.double()).to(sq.dtype)
+
+
+def cmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Complex multiply of complex tensors by real arithmetic."""
+    ar, ai, br, bi = a.real, a.imag, b.real, b.imag
+    return torch.complex(ar * br - ai * bi, ar * bi + ai * br)
+
+
+def crmul(a: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """Complex tensor times a real one, part by part."""
+    return torch.complex(a.real * g, a.imag * g)

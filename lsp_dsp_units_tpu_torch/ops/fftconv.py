@@ -30,6 +30,7 @@ from __future__ import annotations
 
 from typing import Dict, NamedTuple, Tuple
 
+import numpy as np
 import torch
 
 from lsp_dsp_units_tpu_torch.ops import fft_packed as fp
@@ -271,3 +272,24 @@ def ols_bulk_process(h: Spectra, state: OLSBulkState, x: torch.Tensor
     acc = sc_mul(rfft_sc(frame), (h.re, h.im))
     y = irfft_sc(acc, 2 * t, half="last")
     return OLSBulkState(history=x.to(torch.float32)), y.to(x.dtype)
+
+
+def direct_conv_block(h: torch.Tensor, history: torch.Tensor,
+                      x_block: torch.Tensor) -> torch.Tensor:
+    """Direct FIR over one block with history (time domain): ``h`` [K]
+    taps, ``history`` [..., K - 1], ``x_block`` [..., B] -> [..., B].
+    The windows' products with the reversed taps are a broadcast
+    multiply-and-sum, pinned in code (no library matmul)."""
+    k = h.shape[-1]
+    frame = torch.cat([history, x_block], dim=-1)
+    idx = (torch.arange(x_block.shape[-1], device=frame.device)[:, None]
+           + torch.arange(k, device=frame.device)[None, :])
+    windows = frame[..., idx]                          # [..., B, K]
+    return torch.sum(windows * torch.flip(h, dims=(-1,)), dim=-1)
+
+
+def np_convolve_golden(x: np.ndarray, h: np.ndarray) -> np.ndarray:
+    """Float64 full linear convolution golden model (truncated to
+    len(x))."""
+    y = np.convolve(np.asarray(x, np.float64), np.asarray(h, np.float64))
+    return y[: len(x)]

@@ -19,6 +19,10 @@ and their plain PyTorch versions for CPU tensors.
 * ``bulk_step`` — one super-block: ``step``'s EQ and dynamics around a
   single big-FFT overlap-save convolver (ops.fftconv.ols_bulk_process;
   at frame sizes above the packed FFT's 32768, torch.fft).
+* ``sharded_step`` — ``step`` over a ('chan', 'time') mesh of ranks
+  (parallel/): the EQ exact across time shards (parallel.fused_iir), the
+  convolver by halo exchange (parallel.halo), the dynamics on the
+  time-gathered signal; the same kernels as ``step``.
 
 No library matmul runs on any of them (the small state contractions are
 broadcast multiply-and-sums), so global TF32 or matmul-precision
@@ -43,6 +47,10 @@ from lsp_dsp_units_tpu_torch.ops import dynamics as dyn
 from lsp_dsp_units_tpu_torch.ops import fft_packed as fp
 from lsp_dsp_units_tpu_torch.ops.env import chain_dyn
 from lsp_dsp_units_tpu_torch.ops.fdl_fused import eqfdl_fused
+from lsp_dsp_units_tpu_torch.parallel import mesh as pmesh
+from lsp_dsp_units_tpu_torch.parallel.fused_iir import (
+    fused_cascade_time_sharded, host_m_powers)
+from lsp_dsp_units_tpu_torch.parallel.halo import fir_conv_time_sharded
 
 
 def default_eq_params(sample_rate: int):
@@ -243,3 +251,44 @@ class FilterConvChain:
         return ChainRingState(eq=sv2.reshape(state.eq.shape), fdl=fdl_st,
                               sc=state.sc._replace(window=win),
                               env=env_st), y
+
+    def sharded_step(self, mesh, params: ChainParams):
+        """``step`` over a ('chan', 'time') mesh (parallel.mesh.make_mesh).
+
+        Returns ``fn(state_local, x_local) -> (state_local, y_local)``: x
+        this rank's [C / chan, T / time] shard
+        (``mesh.chan_time_sharding``), the state sharded over channels
+        only (``mesh.chan_sharding``) and the same on every time rank of
+        a channel shard.  Collectives run over the mesh's time group.
+        """
+        chain = self
+        group = mesh.get_group(pmesh.TIME_AXIS)
+        powers = {}         # the EQ's host-side transitions, by shard size
+
+        def fn(state: ChainState, x: torch.Tensor
+               ) -> Tuple[ChainState, torch.Tensor]:
+            # EQ: exact across time shards (the fused block cascade's
+            # float64-precomputed transitions, ~120 dB like step's)
+            m = x.shape[-1] // chain.block
+            if m not in powers:
+                powers[m] = host_m_powers(params.eq_block, m)
+            y, eq_st = fused_cascade_time_sharded(params.eq_block, state.eq,
+                                                  x, group, powers[m])
+            # convolver: halo FIR over the time axis; the carried FDL
+            # supplies history older than the call, so the reverb tail
+            # survives call boundaries (as in step)
+            y, fdl_st = fir_conv_time_sharded(params.h_spectra, chain.block,
+                                              y, group, carry=state.fdl)
+            # dynamics are sequential in time: gather the time axis for
+            # the detector and the envelope (channels stay parallel), then
+            # take this rank's slice of the gain
+            y_full = pmesh.all_gather(y, group, dim=-1, tiled=True)
+            sc_st, level = chain.sidechain.process(state.sc, y_full)
+            env_st, gain, _ = chain.compressor.process(params.comp,
+                                                       state.env, level)
+            t_loc = x.shape[-1]
+            i = pmesh.axis_index(group)
+            return ChainState(eq=eq_st, fdl=fdl_st, sc=sc_st, env=env_st), \
+                y * gain[..., i * t_loc:(i + 1) * t_loc]
+
+        return fn

@@ -1325,3 +1325,78 @@ def test_generators_on_card_match_cpu(cuda_device):
     d = dither_device(gen, x, 16)
     assert float(d.abs().max()) <= 0.5 / (1 << 15)
     assert float(d.abs().max()) > 0.25 / (1 << 15)
+
+
+# ---------------------------------------------------------------------------
+# slice 12: the sharded chain (parallel/) at world size 1 on one card
+# ---------------------------------------------------------------------------
+
+
+def test_sharded_step_world_one_on_card_matches_cpu(cuda_device):
+    """NCCL at world size 1 with a (1, 1) mesh: 3 calls of sharded_step on
+    the card against the CPU's step on the same inputs (>= 95 dB, the bar
+    of step's own card-vs-CPU test and of the JAX package's sharded
+    chain); kernels #1, #5 and #6 launched on every call; TF32 on leaves
+    the output identical."""
+    from lsp_dsp_units_tpu_torch.parallel import mesh as pmesh
+    c = 8
+    cg = tpipe.FilterConvChain(48000, c, rank=12, ir_seconds=0.2,
+                               device=cuda_device)
+    cc = tpipe.FilterConvChain(48000, c, rank=12, ir_seconds=0.2,
+                               device="cpu")
+    pg, pc = cg.build(), cc.build()
+    sc = cc.init_state(pc)
+    rng = np.random.default_rng(12)
+    counters = (tfft.rfft_packed, tfft.rfft_packed_zeropad,
+                tfft.irfft_packed, eu.sliding_rms, eu.peak_envelope)
+    pmesh.init_distributed(num_processes=1, process_id=0, platform="cuda")
+    try:
+        mesh = pmesh.make_mesh(1, 1, "cuda")
+        step = cg.sharded_step(mesh, pg)
+        sg = pmesh.chan_sharding(mesh, cg.init_state(pg))
+        before = [f.launches for f in counters]
+        for k in range(3):
+            x = (rng.standard_normal((c, 2 * cg.block)) * 0.25).astype(
+                np.float32)
+            prev = sg
+            sg, yg = step(sg, torch.from_numpy(x).to(cuda_device))
+            sc, yc = cc.step(pc, sc, torch.from_numpy(x))
+            assert _snr(yc, yg) >= 95.0, k
+        assert all(f.launches - b >= 3 for f, b in zip(counters, before))
+        torch.backends.cuda.matmul.allow_tf32 = True
+        try:
+            _, y_tf32 = step(prev, torch.from_numpy(x).to(cuda_device))
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = False
+        assert torch.equal(y_tf32, yg)
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def test_sharded_path_kernels_match_plain(cuda_device):
+    """The sharded chain's kernels at its shapes against their plain
+    versions: the halo FIR's frame FFT (#1, [C P, 2B] >= 95 dB, the FFT
+    bar), the gathered signal's sliding RMS (#5, >= 110 dB, window exact)
+    and the compressor's envelope (#6, exact)."""
+    c, b, p = 8, 2048, 3
+    gen = torch.Generator().manual_seed(12)
+    frames = _randn(gen, c * p, 2 * b, scale=0.3, device=cuda_device)
+    for got, want in zip(tfft.rfft_packed(frames),
+                         tfft.rfft_packed_plain(frames)):
+        assert _snr(want, got) >= 95.0
+    x = _randn(gen, c, 4 * b, scale=0.25, device=cuda_device)
+    win = torch.zeros(c, 480, device=cuda_device)
+    wk, lk = eu.sliding_rms(win, x, 480, 1.0)
+    wp, lp = eu.sliding_rms_plain(win, x, 480, 1.0)
+    assert torch.equal(wk, wp) and _snr(lp, lk) >= 110.0
+    st = tdyn.env_init((c,), cuda_device)
+    sk, ek = tdyn.peak_envelope(st, lk, 0.05, 0.01, 0, 0.125)
+    sp, ep = tdyn.peak_envelope_plain(st, lk, 0.05, 0.01, 0, 0.125)
+    assert torch.equal(ek, ep)
+    assert all(torch.equal(a, b) for a, b in zip(sk, sp))
+
+
+def test_dryrun_multichip_on_the_card(cuda_device):
+    from lsp_dsp_units_tpu_torch.entry import dryrun_multichip
+    got = dryrun_multichip(1)
+    assert tuple(got["mesh"]) == (1, 1) and min(got["snr_db"]) >= 95.0

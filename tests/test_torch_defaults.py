@@ -36,7 +36,10 @@ from lsp_dsp_units_tpu_torch.models.util.sidechain import Sidechain
 from lsp_dsp_units_tpu_torch.models.util import (
     Delay, Depopper, DynamicDelay, Oscillator, Trigger)
 from lsp_dsp_units_tpu_torch.models.noise import NoiseGenerator, lcg_device
-from lsp_dsp_units_tpu_torch.ops import biquad, biquad_block, dynamics
+from lsp_dsp_units_tpu_torch.entry import dryrun_multichip
+from lsp_dsp_units_tpu_torch.models.ctl import Bypass, Crossfade
+from lsp_dsp_units_tpu_torch.models.stat import QuantizedCounter
+from lsp_dsp_units_tpu_torch.ops import biquad, biquad_block, cplx, dynamics
 from lsp_dsp_units_tpu_torch.ops import fftconv
 from lsp_dsp_units_tpu_torch.ops import resample
 from lsp_dsp_units_tpu_torch.utils import blocks, delivery
@@ -87,6 +90,10 @@ ALLOCATING = [
     Depopper.init_state, convert.delay_state_from_jax,
     convert.dynamic_delay_state_from_jax, convert.trigger_state_from_jax,
     convert.depopper_state_from_jax, convert.oscillator_state_from_jax,
+    Bypass.init_state, Crossfade.init_state, QuantizedCounter.init_state,
+    cplx.sc_zeros, convert.bypass_state_from_jax,
+    convert.crossfade_state_from_jax,
+    convert.quantized_counter_state_from_jax, dryrun_multichip,
 ]
 
 
