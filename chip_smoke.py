@@ -247,7 +247,35 @@ Phases (any failure exits non-zero; nothing is caught):
             step run directly on the same 24 gathered batches (the state
             carried from the same warm call); M samples/s and host ms
             per pump iteration.
-17. timing — CUDA events behind a spin kernel: step_ring ms per block,
+17. grad   — gradients through the bench graph at full width: two
+            calls of step on [64, 2 x 8192] with the state carried
+            (inputs at amplitude 2.0, seeded; the share of the first
+            call's envelope above the compressor's first knee printed and
+            > 0), loss the sum of both outputs squared, d/d both inputs
+            and the compressor's 20 leaves (0-d tensors that require
+            grad).  The backward counters of #1's adjoints
+            (rfft_packed, rfft_packed_zeropad, irfft_packed
+            .bwd_launches), sliding_rms_bwd and peak_envelope_bwd, zeroed
+            just before and read just after, each >= 2.  Card against the
+            port's CPU run of the same: >= 100 dB per input and per
+            non-zero leaf, zeros at the same leaves; again with TF32 on:
+            identical.  Device ms of a call forward alone and forward +
+            backward (x requires grad; CUDA events around one pair of
+            calls behind the spin kernel), its host ms with a sync, and
+            torch.profiler's kernel time of one forward + backward, with
+            its largest kernels.  sliding_rms_bwd against its plain
+            version at [64, 16384], N = 480 (>= 120 dB: both sum in
+            float64, in other orders), beside avg_pool1d over a prebuilt
+            frame; peak_envelope_bwd against its plain loop, bit for bit,
+            in step's configuration at [64, 16384] (the plain loop on the
+            card, timed once) and with a hold of 24 from a random state,
+            threshold on and off, at [64, 4096] (the plain loop's time);
+            biquad_cascade_bwd at [64, 16384], K = 9 (the chain's 8 bands)
+            against its plain backward (the same adjoint on the plain
+            scan), >= 120 dB, its scan launches a call; #1's four
+            adjoints as step runs them, against the same adjoints on
+            torch.fft (>= 95 dB).  Each timed, with its bound.
+18. timing — CUDA events behind a spin kernel: step_ring ms per block,
             step ms per call and per block, bulk_step ms per super-block;
             each kernel against its plain version at the same shapes, its
             bound (bytes over 3.35 TB/s or operations over 67 TFLOP/s
@@ -264,8 +292,10 @@ Phases (any failure exits non-zero; nothing is caught):
 
 The last three lines of standard output are the kernel table (JSON:
 the nine TPU kernels' ports, biquad_seq, limiter_kernel,
-rider_kernel, biquad_scan, delay_kernel, rider_kernel<TriggerStep> and
-rider_kernel<DepopperStep>), the card's name and power limit, and the
+rider_kernel, biquad_scan, delay_kernel, rider_kernel<TriggerStep>,
+rider_kernel<DepopperStep>, and the backward kernels sliding_rms_bwd
+and peak_envelope_bwd, whose launches are the grad phase's), the card's
+name and power limit, and the
 contract line
 {"ok": true, "device": {...}}.
 """
@@ -274,6 +304,7 @@ from __future__ import annotations
 
 import argparse
 import concurrent.futures
+import contextlib
 import json
 import multiprocessing
 import os
@@ -329,6 +360,7 @@ from lsp_dsp_units_tpu_torch.models.threed import (  # noqa: E402
 from lsp_dsp_units_tpu_torch.tools import room_demo, serve  # noqa: E402
 from lsp_dsp_units_tpu_torch.ops import _build  # noqa: E402
 from lsp_dsp_units_tpu_torch.ops import biquad_block  # noqa: E402
+from lsp_dsp_units_tpu_torch.ops import cplx  # noqa: E402
 from lsp_dsp_units_tpu_torch.ops import biquad as bq  # noqa: E402
 from lsp_dsp_units_tpu_torch.ops import delay as delay_ops  # noqa: E402
 from lsp_dsp_units_tpu_torch.ops import dynamics as dyn  # noqa: E402
@@ -350,6 +382,7 @@ from lsp_dsp_units_tpu_torch.parallel import mesh as pmesh  # noqa: E402
 from lsp_dsp_units_tpu_torch.parallel.meters import (  # noqa: E402
     global_correlation, global_mean_square, global_true_peak,
     ilufs_integrated_time_sharded)
+from lsp_dsp_units_tpu_torch.utils import tree  # noqa: E402
 from lsp_dsp_units_tpu_torch.utils.delivery import (  # noqa: E402
     quantize_i16, tpdf_i16_table)
 
@@ -469,6 +502,11 @@ KERNELS = (
      "models/util/trigger.py:166"),
     ("depop", "rider_kernel<DepopperStep>", "riders.cu",
      "models/util/depopper.py:188"),
+    # backward kernels: what jax.grad differentiates in the JAX package
+    # (the RMS's cumsum form, the envelope's scan body)
+    ("rms_bwd", "sliding_rms_bwd", "env_units.cu",
+     "models/util/sidechain.py:121"),
+    ("peak_bwd", "peak_envelope_bwd", "env_units.cu", "ops/dynamics.py:102"),
 )
 
 
@@ -500,6 +538,8 @@ EXTRA_KEYS = {
              "launches_per_call", "types"),
     "depop": ("chain_ms", "chain_ops", "cycles_per_step", "sm_clock_hz",
               "launches_per_call", "modes"),
+    "rms_bwd": ("db", "identical_share"),
+    "peak_bwd": ("chain_ms", "cycles_per_step"),
     "peak": ("chain_ms", "cycles_per_step", "hold24_ms",
              "hold24_cycles_per_step", "sass_free_cycles_per_step",
              "sass_ref_cycles_per_step", "sm_clock_hz"),
@@ -3569,6 +3609,26 @@ def device_ms(fn):
     return total / 1e3 if total > 0 else None
 
 
+def device_kernels(fn, top: int = 10):
+    """Kernel time on the card while ``fn()`` runs, by kernel
+    (torch.profiler's CUDA activity): the total ms and the ``top``
+    kernels as (name, ms, launches), or (None, []) where the profiler
+    records no device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    rows = sorted(((e.key, e.self_device_time_total / 1e3, e.count)
+                   for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA
+                   and e.self_device_time_total > 0),
+                  key=lambda r: -r[1])
+    total = sum(r[1] for r in rows)
+    return (total or None), rows[:top]
+
+
 def schroeder_db(ir: np.ndarray) -> np.ndarray:
     """Backward-integrated energy decay in dB (0 at the start)."""
     e = np.cumsum((ir.astype(np.float64) ** 2)[::-1])[::-1]
@@ -3753,6 +3813,360 @@ def serve_phase(dev, res):
           + f"; phase {time.perf_counter() - t_start:.1f} s")
 
 
+# --- the grad phase: gradients through step on the card --------------------
+
+GRAD_AMP = 2.0        # step's inputs: loud enough that the compressor works
+GRAD_DB = 100.0       # the card's step gradients vs the port's CPU run
+RMS_BWD_DB = 120.0    # sliding_rms_bwd vs its plain version (float64 sums
+#                       of the window in another order)
+SCAN_BWD_DB = 120.0   # the scan's backward vs its plain backward
+FFT_BWD_DB = FFT_DB   # #1's adjoints on the kernel vs on torch.fft
+ENV_BWD_T = 4096      # the plain envelope backward's length off step's case
+GRAD_COUNTERS = ((fp.rfft_packed, "bwd_launches"),
+                 (fp.rfft_packed_zeropad, "bwd_launches"),
+                 (fp.irfft_packed, "bwd_launches"),
+                 (eu.sliding_rms_bwd, "launches"),
+                 (eu.peak_envelope_bwd, "launches"))
+
+
+@contextlib.contextmanager
+def f64_ffts():
+    """The CPU route's FFTs (ops/cplx) taken in float64 and rounded to
+    float32: another rounding of the same function."""
+    mods = (cplx, biquad_block, fftconv)
+    saved = [(m.rfft_sc, m.irfft_sc) for m in mods]
+    rfft, irfft = saved[0]
+
+    def rfft64(x, n=None, dim=-1):
+        re, im = rfft(x.double(), n, dim)
+        return re.float(), im.float()
+
+    def irfft64(sc, n=None, dim=-1, half=False):
+        return irfft((sc[0].double(), sc[1].double()), n, dim, half).float()
+
+    for m in mods:
+        m.rfft_sc, m.irfft_sc = rfft64, irfft64
+    try:
+        yield
+    finally:
+        for m, (r, i) in zip(mods, saved):
+            m.rfft_sc, m.irfft_sc = r, i
+
+
+def grad_run(chain, params, xs, device):
+    """Two calls of ``step`` with the state carried, loss the sum of both
+    outputs squared, the compressor's 20 leaves 0-d tensors that require
+    grad: the gradients of both inputs and of the leaves (the hold's is
+    None: the envelope casts it to int)."""
+    leaves = [torch.tensor(float(v), device=device, requires_grad=True)
+              for v in tree.tree_flatten(params.comp)[0]]
+    skel = tree.tree_flatten(params.comp)[1]
+    p = params._replace(comp=tree.tree_unflatten(skel, leaves))
+    x0, x1 = (torch.from_numpy(x).to(device).requires_grad_(True)
+              for x in xs)
+    st, y0 = chain.step(p, chain.init_state(p), x0)
+    _, y1 = chain.step(p, st, x1)
+    (torch.sum(y0 * y0) + torch.sum(y1 * y1)).backward()
+    return [x0.grad, x1.grad] + [v.grad for v in leaves]
+
+
+def envelope_codes(chain, params, xs, device):
+    """``step``'s stages run one by one over the calls (no grad): each
+    call's envelope branch codes (ops/env_units.peak_envelope_codes, on
+    the CPU), the first call's share of envelope samples above the
+    compressor's first knee (where its gain leaves 1), and the last
+    output, which must be step's own."""
+    cp = params.comp
+    st = chain.init_state(params)
+    codes = []
+    with torch.no_grad():
+        for x in xs:
+            x = torch.from_numpy(x).to(device)
+            y, eq = biquad_block.cascade_block_fused(params.eq_block, st.eq,
+                                                     x)
+            fdl, y = fftconv.fdl_process(params.h_spectra, st.fdl, y)
+            sc, level = chain.sidechain.process(st.sc, y)
+            env_st, gain, env = chain.compressor.process(cp, st.env, level)
+            codes.append(eu.peak_envelope_codes(
+                level.cpu(), env.cpu(), *(v.cpu() for v in st.env), cp.hold,
+                cp.release_thresh))
+            if not codes[1:]:
+                share = float(torch.mean((env > cp.knees[0].start).float()))
+            st = pipeline.ChainState(eq=eq, fdl=fdl, sc=sc, env=env_st)
+    return codes, share, y * gain
+
+
+def grad_phase(chain, params, dev, res):
+    """Gradients through two calls of ``step`` at the bench graph's width
+    on the card against the port's CPU run; the backward kernels against
+    their plain versions; TF32; device times."""
+    t_start = time.perf_counter()
+    t = STEP_BLOCKS * B
+    rng = np.random.default_rng(14)
+    xs = [(rng.standard_normal((C, t)) * GRAD_AMP).astype(np.float32)
+          for _ in range(2)]
+    codes, share, y_st = envelope_codes(chain, params, xs, dev)
+    with torch.no_grad():
+        st, _ = chain.step(params, chain.init_state(params),
+                           torch.from_numpy(xs[0]).to(dev))
+        _, y_ref = chain.step(params, st, torch.from_numpy(xs[1]).to(dev))
+    check(torch.equal(y_st, y_ref), "grad: step's stages one by one are not "
+          "step")
+    check(share > 0.0, "grad: the compressor never engages")
+
+    torch.cuda.synchronize()
+    for f, attr in GRAD_COUNTERS:
+        setattr(f, attr, 0)
+    g_card = grad_run(chain, params, xs, dev)
+    torch.cuda.synchronize()
+    launched = {f"{f.__name__}.{attr}": getattr(f, attr)
+                for f, attr in GRAD_COUNTERS}
+    print(f"grad: 2 calls of step on [{C}, {t}] at amplitude {GRAD_AMP} "
+          f"({100 * share:.1f} % of the envelope above the first knee); "
+          f"backward launches {launched}")
+    for name, cnt in launched.items():
+        check(cnt >= 2, f"grad: {name} {cnt} < 2")
+    prev = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = True
+    torch.backends.cudnn.allow_tf32 = True
+    g_tf32 = grad_run(chain, params, xs, dev)
+    torch.backends.cuda.matmul.allow_tf32, \
+        torch.backends.cudnn.allow_tf32 = prev
+    tf32_same = all((a is None and b is None) or torch.equal(a, b)
+                    for a, b in zip(g_card, g_tf32))
+    check(tf32_same, "grad: gradients changed with TF32 switched on")
+
+    t0 = time.perf_counter()
+    cpu_chain = pipeline.FilterConvChain(SR, C, rank=RANK, ir_seconds=IR_S,
+                                         device="cpu")
+    cpu_params = tree.tree_map(
+        lambda v: v.cpu() if torch.is_tensor(v) else v, params)
+    g_cpu = grad_run(cpu_chain, cpu_params, xs, "cpu")
+    cpu_s = time.perf_counter() - t0
+    # the envelope's gradient jumps where a step's branch changes; where
+    # a level sits within float32 rounding of a comparison (e at the
+    # release threshold), the two devices' roundings (kernel #1 against
+    # torch.fft) take different branches.  Channels whose envelope took
+    # the same branches on both are held to the bar; the others are
+    # printed, beside a control: the CPU run against itself with its
+    # FFTs taken in float64 (another rounding of the same function)
+    codes_cpu = envelope_codes(cpu_chain, cpu_params, xs, "cpu")[0]
+    flips = sum((a != b).sum(dim=-1) for a, b in zip(codes_cpu, codes))
+    agree = torch.nonzero(flips == 0)[:, 0]
+    zero = torch.zeros(())
+    dbs, flipped_dbs = {}, {}
+    for i, (a, b) in enumerate(zip(g_cpu, g_card)):
+        a = zero if a is None else a
+        b = zero if b is None else b.cpu()
+        name = ("x0", "x1")[i] if i < 2 else f"leaf{i - 2}"
+        check(bool(torch.equal(a == 0, b == 0)),
+              f"grad {name}: zeros differ from the CPU run's")
+        if i < 2:
+            flipped_dbs[name] = snr_db(a, b)
+            a, b = a[agree], b[agree]
+        if bool(torch.any(a != 0)):
+            dbs[name] = snr_db(a, b)
+    worst = min(dbs.values())
+    t0 = time.perf_counter()
+    with f64_ffts():
+        g_64 = grad_run(cpu_chain, cpu_params, xs, "cpu")[:2]
+        codes_64 = envelope_codes(cpu_chain, cpu_params, xs, "cpu")[0]
+    control = dict(flipped_samples=int(sum((a != b).sum() for a, b in zip(
+        codes_cpu, codes_64))), x0_db=snr_db(g_cpu[0], g_64[0]),
+        x1_db=snr_db(g_cpu[1], g_64[1]))
+    print(f"grad: card vs the port's CPU run ({cpu_s:.1f} s): "
+          f"{len(agree)} of {C} channels took the same envelope branches on "
+          f"both: x0 {dbs['x0']:.2f} dB, x1 {dbs['x1']:.2f} dB there; "
+          f"{int(flips.sum())} samples of the other {C - len(agree)} took "
+          f"another branch (all channels: x0 {flipped_dbs['x0']:.2f}, x1 "
+          f"{flipped_dbs['x1']:.2f} dB; the CPU against itself with float64 "
+          f"FFTs: {control['flipped_samples']} samples, x0 "
+          f"{control['x0_db']:.2f}, x1 {control['x1_db']:.2f} dB, "
+          f"{time.perf_counter() - t0:.1f} s); the {len(dbs) - 2} non-zero "
+          f"compressor leaves >= "
+          f"{min(v for k, v in dbs.items() if k.startswith('leaf')):.2f} "
+          f"dB, zeros at the same leaves ({20 - len(dbs) + 2} of 20); TF32 "
+          f"on: identical = {tf32_same}")
+    check(worst >= GRAD_DB, f"grad: {worst:.2f} dB < {GRAD_DB}")
+
+    # device time of a call, forward alone and forward + backward (x
+    # requires grad; the parameters host numbers)
+    xg = [torch.from_numpy(x).to(dev) for x in xs]
+    st0 = chain.init_state(params)
+
+    def fwd():
+        with torch.no_grad():
+            s, _ = chain.step(params, st0, xg[0])
+            chain.step(params, s, xg[1])
+
+    def fwd_bwd():
+        x0, x1 = (x.detach().requires_grad_(True) for x in xg)
+        s, y0 = chain.step(params, st0, x0)
+        _, y1 = chain.step(params, s, x1)
+        (torch.sum(y0 * y0) + torch.sum(y1 * y1)).backward()
+
+    # one pair of calls a timing: forward + backward makes ~500 launches,
+    # which stay inside the card's queue of pending launches behind the
+    # spin kernel (more would let the host's pace show through)
+    fwd_ms = time_ms(fwd, 1, warmup=3) / 2
+    fwd_bwd_ms = time_ms(fwd_bwd, 1, warmup=3) / 2
+    t0 = time.perf_counter()
+    fwd_bwd()
+    torch.cuda.synchronize()
+    host_ms = (time.perf_counter() - t0) * 1e3 / 2
+    busy, top = device_kernels(fwd_bwd)
+    print(f"grad: step {fwd_ms:.4f} ms a call forward, {fwd_bwd_ms:.4f} "
+          f"ms forward + backward (CUDA events behind the spin kernel, one "
+          f"pair of calls); {host_ms:.4f} ms a call of host time with a "
+          f"sync; kernels of one forward + backward of the 2 calls "
+          + ("not measured" if busy is None else
+             f"{busy:.4f} ms, the most: " + "; ".join(
+                 f"{name[:60]} {ms:.4f} ms x {n}" for name, ms, n in top)))
+
+    gen = torch.Generator().manual_seed(15)
+    sm_hz = res.get("peak", {}).get("sm_clock_hz", SM_HZ)
+    n = chain.sidechain.reactivity
+    # sliding_rms_bwd at step's shape, on step's |y| and a carried window
+    y = randn(gen, C, t, scale=GRAD_AMP, dev=dev).abs()
+    win = randn(gen, C, n, scale=0.5, dev=dev) ** 2
+    _, level = eu.sliding_rms(win, y, n, 1.0)
+    rms_args = (win, y, level, randn(gen, C, t, dev=dev),
+                randn(gen, C, n, dev=dev), n, 1.0)
+    gw_k, gx_k = eu.sliding_rms_bwd(*rms_args)
+    gw_p, gx_p = eu.sliding_rms_bwd_plain(*rms_args)
+    rms_db = min(snr_db(gx_p, gx_k), snr_db(gw_p, gw_k))
+    rms_same = float(torch.mean((gx_p == gx_k).float()))
+    check(rms_db >= RMS_BWD_DB,
+          f"sliding_rms_bwd {rms_db:.1f} dB < {RMS_BWD_DB}")
+    a_frame = randn(gen, C, 1, t + 2 * n, dev=dev)
+    res["rms_bwd"] = dict(
+        db=rms_db, identical_share=rms_same,
+        max_abs_err=max(max_abs(gx_p, gx_k), max_abs(gw_p, gw_k)),
+        ms=time_ms(lambda: eu.sliding_rms_bwd(*rms_args), 50),
+        plain_ms=time_ms(lambda: eu.sliding_rms_bwd_plain(*rms_args), 20),
+        library_ms=time_ms(lambda: torch.nn.functional.avg_pool1d(
+            a_frame, n, stride=1), 50),
+        **bound(F32 * (4 * C * t + 2 * C * n), 8 * C * (t + n)))
+    r = res["rms_bwd"]
+    print(f"sliding_rms_bwd [{C}, {t}], N = {n}: {r['ms']:.4f} ms, plain "
+          f"{r['plain_ms']:.4f}, bound {r['bound_ms']:.4f} ({r['bound_by']})"
+          f", avg_pool1d over a prebuilt frame {r['library_ms']:.4f}; vs "
+          f"plain {rms_db:.1f} dB, {100 * rms_same:.2f} % of g_x identical")
+
+    # peak_envelope_bwd in step's configuration at step's shape (the plain
+    # loop on the card, timed once), then a hold of 24 from a random state
+    # at [C, ENV_BWD_T], threshold on and off: bit for bit
+    cp = params.comp
+    cases = [("step", level, dyn.env_init((C,), dev), cp.hold,
+              cp.release_thresh)]
+    xh = swell_levels(gen, C, ENV_BWD_T, dev)
+    sth = dyn.EnvState(torch.rand(C, generator=gen).to(dev),
+                       torch.rand(C, generator=gen).to(dev),
+                       torch.randint(0, 25, (C,), generator=gen,
+                                     dtype=torch.int32).to(dev))
+    cases += [("hold24", xh, sth, 24, rt) for rt in (cp.release_thresh,
+                                                     None)]
+    err, peak_args = 0.0, None
+    for name, xx, s0, hold, rt in cases:
+        _, env = eu.peak_envelope(s0, xx, cp.tau_attack, cp.tau_release,
+                                  hold, rt)
+        lead = xx.shape[:-1]
+        args = (xx, env, *s0, randn(gen, *xx.shape, dev=dev),
+                randn(gen, *lead, dev=dev), randn(gen, *lead, dev=dev),
+                cp.tau_attack, cp.tau_release, hold, rt)
+        k_out = eu.peak_envelope_bwd(*args)
+        p_ms, p_out = time_once_ms(lambda: eu.peak_envelope_bwd_plain(*args))
+        same = all(torch.equal(a, b) for a, b in zip(k_out, p_out))
+        check(same, f"peak_envelope_bwd {name} rt={rt} differs from its "
+              f"plain version")
+        err = max(err, max(max_abs(a, b) for a, b in zip(p_out, k_out)))
+        if name == "step":
+            peak_args, peak_plain_ms = args, p_ms
+    ms = time_ms(lambda: eu.peak_envelope_bwd(*peak_args), 20)
+    res["peak_bwd"] = dict(
+        max_abs_err=err, ms=ms, plain_ms=peak_plain_ms, library_ms=None,
+        chain_ms=chain_ms(2 * t), cycles_per_step=ms * 1e-3 * sm_hz / (2 * t),
+        **bound(F32 * (4 * C * t + 8 * C), 8 * C * t))
+    r = res["peak_bwd"]
+    print(f"peak_envelope_bwd [{C}, {t}] (step's configuration): "
+          f"{ms:.4f} ms ({r['cycles_per_step']:.1f} cycles a step of its "
+          f"two passes), plain {peak_plain_ms:.1f} ms (one call, "
+          f"host-paced), bound {r['bound_ms']:.4f} ({r['bound_by']}), chain "
+          f"{r['chain_ms']:.4f}; identical to plain in step's case and with "
+          f"a hold of 24 at [{C}, {ENV_BWD_T}], threshold on and off")
+
+    # the scan's backward: the chain's 8 bands (K = 9) at [C, t]
+    coeffs = torch.from_numpy(np.asarray(params.eq_coeffs)).to(dev)
+    k = coeffs.shape[0]
+    s0 = randn(gen, C, k, 2, scale=0.1, dev=dev)
+    xq = randn(gen, C, t, scale=0.25, dev=dev)
+    yq, _ = bq.biquad_cascade(coeffs, s0, xq)
+    scan_args = (coeffs, s0, xq, yq, randn(gen, C, t, dev=dev),
+                 randn(gen, C, k, 2, dev=dev))
+    before = bq.biquad_cascade.bwd_launches
+    k_out = bq.biquad_cascade_bwd(*scan_args)
+    per_call = bq.biquad_cascade.bwd_launches - before
+    p_ms, p_out = time_once_ms(lambda: bq.biquad_cascade_bwd_plain(
+        *scan_args))
+    scan_same = all(torch.equal(a, b) for a, b in zip(k_out, p_out))
+    scan_db = min(snr_db(a, b) for a, b in zip(p_out, k_out))
+    check(scan_db >= SCAN_BWD_DB,
+          f"biquad_cascade_bwd {scan_db:.1f} dB < {SCAN_BWD_DB}")
+    res["scan_bwd"] = dict(
+        launches_per_call=per_call, db=scan_db, identical=scan_same,
+        max_abs_err=max(max_abs(a, b) for a, b in zip(p_out, k_out)),
+        ms=time_ms(lambda: bq.biquad_cascade_bwd(*scan_args), 10),
+        plain_ms=p_ms, library_ms=None,
+        **bound(F32 * (4 * C * t + 10 * k + 4 * C * k),
+                (2 * k - 1) * scan_flops(t, 1, C) + 16 * C * t * k))
+    r = res["scan_bwd"]
+    print(f"biquad_cascade_bwd [{C}, {t}] K = {k}: {r['ms']:.4f} ms "
+          f"({per_call} scan launches), plain {p_ms:.1f} ms (one call, "
+          f"host-paced), bound {r['bound_ms']:.4f} ({r['bound_by']}); vs "
+          f"plain {scan_db:.1f} dB, identical = {scan_same}")
+
+    # #1's four adjoints as step runs them, at step's shapes
+    rows = C * STEP_BLOCKS
+    gre, gim = randn(gen, rows, B, dev=dev), randn(gen, rows, B, dev=dev)
+    g_half = randn(gen, rows, B, dev=dev)
+    adj = dict(
+        rfft_zeropad=(fp.rfft_packed_bwd, fp.rfft_packed_bwd_plain,
+                      (gre, gim, N, 1), 2 * rows * B + rows * B),
+        rfft=(fp.rfft_packed_bwd, fp.rfft_packed_bwd_plain,
+              (gre, gim, N, 0), 2 * rows * B + rows * N),
+        irfft_first=(fp.irfft_packed_bwd, fp.irfft_packed_bwd_plain,
+                     (g_half, N, "first"), rows * B + 2 * rows * B),
+        irfft_last=(fp.irfft_packed_bwd, fp.irfft_packed_bwd_plain,
+                    (g_half, N, "last"), rows * B + 2 * rows * B))
+    res["fft_bwd"] = {}
+    for name, (fn, plain, args, floats) in adj.items():
+        out_k, out_p = fn(*args), plain(*args)
+        out_k = out_k if isinstance(out_k, tuple) else (out_k,)
+        out_p = out_p if isinstance(out_p, tuple) else (out_p,)
+        db = min(snr_db(a, b) for a, b in zip(out_p, out_k))
+        check(db >= FFT_BWD_DB, f"#1 adjoint {name} {db:.1f} dB")
+        res["fft_bwd"][name] = dict(
+            db=db, ms=time_ms(lambda: fn(*args), 50),
+            plain_ms=time_ms(lambda: plain(*args), 20),
+            **bound(F32 * floats, rows * fft_flops(N)))
+    print("#1's adjoints at step's shapes ([" + f"{rows}, N = {N}]): "
+          + "; ".join(f"{k} {v['ms']:.4f} ms (plain {v['plain_ms']:.4f}, "
+                      f"bound {v['bound_ms']:.4f}) {v['db']:.1f} dB"
+                      for k, v in res["fft_bwd"].items()))
+    res["grad"] = dict(
+        knee_share=share, launches=launched, db=dbs,
+        all_channels_db=flipped_dbs,
+        same_branch_channels=len(agree), flipped_samples=int(flips.sum()),
+        f64_fft_control=control, tf32_identical=tf32_same, cpu_s=cpu_s,
+        fwd_ms=fwd_ms, fwd_bwd_ms=fwd_bwd_ms, fwd_bwd_host_ms=host_ms,
+        fwd_bwd_kernels_ms=busy,
+        fwd_bwd_top_kernels=top)
+    res["rms_bwd"]["launches"] = launched["sliding_rms_bwd.launches"]
+    res["peak_bwd"]["launches"] = launched["peak_envelope_bwd.launches"]
+    print(f"grad phase: {time.perf_counter() - t_start:.1f} s")
+
+
 def timing_phase(chain, params, dev, res):
     """Device time of ``step`` per call and of ``bulk_step`` per
     super-block (CUDA events behind the spin kernel), and the host's
@@ -3843,6 +4257,7 @@ def main(argv=None) -> int:
     parallel_phase(chain, params, dev, res)
     threed_phase(dev, res)
     serve_phase(dev, res)
+    grad_phase(chain, params, dev, res)
     timing_phase(chain, params, dev, res)
 
     res["fft"]["launches"] = res["launches"]["fft"]

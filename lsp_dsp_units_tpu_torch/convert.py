@@ -4,7 +4,8 @@ packages can run the same path from the same point.
 Inputs are the JAX package's ``ChainParams``, chain states
 (``ChainState``, ``ChainBulkState``, ``ChainRingState``), ring convolver
 states (``RingFDLState``), sampler tables (``DeviceVoices``,
-``DeviceMixState``), biquad cascade states, the Equalizer's
+``DeviceMixState``), the Compressor's parameters (as tensors, for
+gradients), biquad cascade states, the Equalizer's
 ``EqParams`` and ``EqState``, the parameters and states of the
 Limiter, DynamicProcessor, AutoGain, SimpleAutoGain, SurgeProtector and
 the meters, the states of the spectral units, the Analyzer and the
@@ -62,6 +63,7 @@ from lsp_dsp_units_tpu_torch.ops import dynamics as dyn
 from lsp_dsp_units_tpu_torch.ops import fft_packed as fp
 from lsp_dsp_units_tpu_torch.pipeline import (
     ChainBulkState, ChainParams, ChainRingState, ChainState, chain_params)
+from lsp_dsp_units_tpu_torch.utils import tree
 
 
 def _t(v, device, dtype=torch.float32) -> torch.Tensor:
@@ -94,6 +96,33 @@ def params_from_jax(p, device="cuda") -> ChainParams:
         h_spectra=fftconv.Spectra(_t(p.h_spectra.re, device),
                                   _t(p.h_spectra.im, device)),
         comp=comp)
+
+
+_COMP_SKELETON = tree.tree_flatten(CompressorParams(
+    knees=(dyn.CompKnee(*[0.0] * 8), dyn.CompKnee(*[0.0] * 8)),
+    tau_attack=0.0, tau_release=0.0, release_thresh=0.0, hold=0))[1]
+
+
+def compressor_params_from_jax(p, device="cuda", requires_grad=False
+                               ) -> CompressorParams:
+    """JAX ``CompressorParams`` (numpy leaves), or its 20 leaves in
+    ``jax.tree_util.tree_flatten`` order, -> port ``CompressorParams`` of
+    0-d float32 tensors on ``device``: the 16 knee fields, the taus and
+    the release threshold.  The hold is an int; with ``requires_grad``
+    it is a float32 leaf like the others (the JAX test casts every leaf
+    to float32), which the envelope casts to int, so its gradient is
+    zero, as JAX's."""
+    leaves = tree.tree_flatten(p)[0]
+    if len(leaves) != 20:
+        raise ValueError(f"CompressorParams has 20 leaves, got "
+                         f"{len(leaves)}")
+
+    def leaf(v):
+        return _t(np.float32(v), device).requires_grad_(requires_grad)
+    hold = leaf(leaves[19]) if requires_grad \
+        else int(np.asarray(leaves[19]))
+    return tree.tree_unflatten(_COMP_SKELETON,
+                               [leaf(v) for v in leaves[:19]] + [hold])
 
 
 def env_state_from_jax(s, device="cuda") -> dyn.EnvState:

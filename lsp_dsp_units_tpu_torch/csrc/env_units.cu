@@ -6,6 +6,13 @@
 //   lsp_gate_envelope  replaces gate_envelope_pallas (_gate_kernel,
 //                      _gate_step)
 //
+// and the backward passes of the first two, for gradients through them
+// (the JAX package differentiates its scan and cumsum forms with
+// jax.grad; the Pallas kernels have no backward of their own):
+//
+//   lsp_sliding_rms_bwd    the adjoint of the sliding RMS
+//   lsp_peak_envelope_bwd  the adjoint of the peak-hold envelope
+//
 // The envelope update ``e + tau * d`` is one fused multiply-add,
 // __fmaf_rn: a single rounding, as XLA contracts it in the JAX package.
 // The plain PyTorch versions form the same correctly rounded value from
@@ -495,6 +502,263 @@ envelope_kernel(const float* __restrict__ x, const float* __restrict__ e_in,
   }
 }
 
+// ---------------------------------------------------------------------------
+// sliding RMS, backward
+//
+// The adjoint of level[t] = sqrt(max(S[t] / N, 0)) carries the level's
+// cotangent g onto S as a[t] = ((g * (0.5 / level)) * mask) / N (mask 1
+// where the level is positive, jnp.maximum's 0.5 at a zero level: the
+// forward's S is a float64 sum of squares, so a zero level means S = 0),
+// and S[t] = frame[t + 1] + ... + frame[t + N] hands it on to the frame:
+// gf[j] = a[j - N] + ... + a[j - 1] over the frame index j in [0, N + T),
+// plus the cotangent of window' (the frame's last N) where j >= T.  The
+// window takes gf[0 .. N - 1]; x[t] takes 2 (gf[N + t] v) gain sign(x)
+// with v = |x| gain, each product rounded alone (ops/env_units.py::
+// sliding_rms_bwd_plain rounds the same products; it sums gf in another
+// float64 order).
+//
+// What bounds it: bytes, as the forward.  The design is the forward's
+// turned around: gf has finite memory too, gf[j] = gf[j0] + the sum over
+// u in [j0, j) of (a[u] - a[u - N]), so independent tiles of kRmsTile
+// frame indices, each from its halo gf[j0] (N adjoints before it), the
+// scan of the differences in double by shuffles; a is recomputed from
+// the level and its cotangent where it is read, rather than written out.
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ float rms_adjoint(const float* g, const float* lv,
+                                             int s, int t_n, float n_f) {
+  if (s < 0 || s >= t_n) return 0.0f;
+  const float l = lv[s];
+  float a = __fmul_rn(g[s], __fdiv_rn(0.5f, l));
+  if (l == 0.0f) a = __fmul_rn(a, 0.5f);
+  return __fdiv_rn(a, n_f);
+}
+
+__global__ void __launch_bounds__(kRmsThreads)
+sliding_rms_bwd_kernel(const float* __restrict__ x,
+                       const float* __restrict__ level,
+                       const float* __restrict__ g_level,
+                       const float* __restrict__ g_wout,
+                       float* __restrict__ g_x, float* __restrict__ g_win,
+                       int t_n, int n_win, int tiles, float g) {
+  __shared__ double s_tot[kRmsWarps];
+  __shared__ double s_halo[kRmsWarps];
+  const int c = blockIdx.x / tiles;
+  const int tile = blockIdx.x - c * tiles;
+  const int j0 = tile * kRmsTile;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const float* xr = x + (size_t)c * t_n;
+  const float* lr = level + (size_t)c * t_n;
+  const float* gr = g_level + (size_t)c * t_n;
+  const float* wo = g_wout + (size_t)c * n_win;
+  const int l_n = t_n + n_win;                       // frame length
+  const float n_f = (float)n_win;
+  const int jb = j0 + threadIdx.x * kRmsItems;       // the thread's first j
+
+  // exclusive running sums of the differences a[j] - a[j - N]
+  double pre[kRmsItems];
+  double run = 0.0;
+#pragma unroll
+  for (int k = 0; k < kRmsItems; ++k) {
+    const int j = jb + k;
+    pre[k] = run;
+    if (j < l_n)
+      run += (double)rms_adjoint(gr, lr, j, t_n, n_f) -
+             (double)rms_adjoint(gr, lr, j - n_win, t_n, n_f);
+  }
+
+  // the halo gf[j0] = a[j0 - N] + ... + a[j0 - 1], summed by the block
+  double halo = 0.0;
+  for (int s = j0 - n_win + threadIdx.x; s < j0; s += kRmsThreads)
+    halo += (double)rms_adjoint(gr, lr, s, t_n, n_f);
+
+  double incl = run;
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    const double v = __shfl_up_sync(0xffffffffu, incl, off);
+    if (lane >= off) incl += v;
+    halo += __shfl_xor_sync(0xffffffffu, halo, off);
+  }
+  if (lane == 31) s_tot[warp] = incl;
+  if (lane == 0) s_halo[warp] = halo;
+  __syncthreads();
+  double wt = lane < kRmsWarps ? s_tot[lane] : 0.0;
+  double wh = lane < kRmsWarps ? s_halo[lane] : 0.0;
+#pragma unroll
+  for (int off = 1; off < kRmsWarps; off <<= 1) {
+    const double v = __shfl_up_sync(0xffffffffu, wt, off);
+    if (lane >= off) wt += v;
+    wh += __shfl_xor_sync(0xffffffffu, wh, off);
+  }
+  const double before = __shfl_sync(0xffffffffu, wt, warp > 0 ? warp - 1 : 0);
+  const double base = __shfl_sync(0xffffffffu, wh, 0) +
+                      (warp > 0 ? before : 0.0) + (incl - run);
+
+#pragma unroll
+  for (int k = 0; k < kRmsItems; ++k) {
+    const int j = jb + k;
+    if (j >= l_n) continue;
+    double gd = base + pre[k];
+    if (j >= t_n) gd += (double)wo[j - t_n];
+    const float gf = (float)gd;
+    if (j < n_win) {
+      g_win[(size_t)c * n_win + j] = gf;
+    } else {
+      const int t = j - n_win;
+      const float xv = xr[t];
+      const float q = __fmul_rn(gf, __fmul_rn(fabsf(xv), g));
+      const float gx = __fmul_rn(__fadd_rn(q, q), g);
+      g_x[(size_t)c * t_n + t] = xv < 0.0f ? -gx : gx;
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// peak-hold envelope, backward
+//
+// The adjoint of the scan body (lsp_dsp_units_tpu/ops/dynamics.py:102-123)
+// in reverse time, with lam the envelope's cotangent and lp the peak's: a
+// step that set the peak to its new envelope (a fall that does not hold,
+// a rise that reaches the peak) adds lp to lam and clears it; a step that
+// updates e' = e + tau (x - e) gives x lam tau, tau lam (x - e), and
+// leaves lam - lam tau; a held step passes lam on.  The hold, the peak
+// and the release threshold only steer the branches.
+//
+// The backward needs each step's branch.  The step's new envelope is the
+// forward's output, so the branches replay from x and the saved envelope
+// without the envelope's arithmetic: pass 1 runs the peak and hold
+// recurrences forward and writes a code a sample (bits 0-1: the tau, 0
+// none, 1 release, 2 attack; bit 2: the step set the peak; the codes of
+// ops/env_units.py), pass 2 runs the adjoint backward over the codes.
+// The inference kernel above is untouched.
+//
+// What bounds it: the two serial chains (hold and peak forward; the
+// cotangent backward), each one thread a row, as the forward's.  The
+// design is the simple one: one block a channel, chunks of kBwdChunk
+// samples staged through shared memory by the block (coalesced), thread
+// 0 running the chain over each chunk in turn.  Each product and sum is
+// rounded alone, and the per-row tau partials are summed row after row by
+// a second kernel, as the plain version sums them, so the two agree bit
+// for bit.
+// ---------------------------------------------------------------------------
+
+constexpr int kBwdThreads = 128;
+constexpr int kBwdChunk = 2048;
+constexpr uint8_t kHoldCode = 0, kRiseCode = 2, kFallTrCode = 5, kSetTaCode = 6;
+
+template <bool kUseRt>
+__global__ void __launch_bounds__(kBwdThreads)
+peak_envelope_bwd_kernel(const float* __restrict__ x,
+                         const float* __restrict__ env,
+                         const float* __restrict__ e_in,
+                         const float* __restrict__ p_in,
+                         const int* __restrict__ h_in,
+                         const float* __restrict__ g_env,
+                         const float* __restrict__ g_e,
+                         const float* __restrict__ g_p,
+                         float* __restrict__ g_x, float* __restrict__ ge_out,
+                         float* __restrict__ gp_out,
+                         float* __restrict__ partials,
+                         uint8_t* __restrict__ codes, int c_n, int t_n,
+                         EnvCoef k) {
+  __shared__ float s_x[kBwdChunk];
+  __shared__ float s_e[kBwdChunk + 1];   // s_e[i]: the envelope before t0 + i
+  __shared__ float s_g[kBwdChunk];       // g_env in, g_x out
+  __shared__ uint8_t s_c[kBwdChunk];
+  const int c = blockIdx.x;
+  const float* xr = x + (size_t)c * t_n;
+  const float* er = env + (size_t)c * t_n;
+  const float* gr = g_env + (size_t)c * t_n;
+  float* gxr = g_x + (size_t)c * t_n;
+  uint8_t* cr = codes + (size_t)c * t_n;
+  const int n_chunks = (t_n + kBwdChunk - 1) / kBwdChunk;
+  const float e0 = e_in[c];
+
+  auto stage = [&](int t0, int len, bool with_g) {
+    for (int i = threadIdx.x; i < len; i += kBwdThreads) {
+      s_x[i] = xr[t0 + i];
+      s_e[i + 1] = er[t0 + i];
+      if (with_g) {
+        s_g[i] = gr[t0 + i];
+        s_c[i] = cr[t0 + i];
+      }
+    }
+    if (threadIdx.x == 0) s_e[0] = t0 > 0 ? er[t0 - 1] : e0;
+    __syncthreads();
+  };
+
+  // pass 1: the branch codes, forward
+  float peak = p_in[c];
+  int hold = h_in[c];
+  for (int j = 0; j < n_chunks; ++j) {
+    const int t0 = j * kBwdChunk;
+    const int len = min(kBwdChunk, t_n - t0);
+    stage(t0, len, false);
+    if (threadIdx.x == 0) {
+      for (int i = 0; i < len; ++i) {
+        const float e = s_e[i];
+        const float en = s_e[i + 1];
+        const bool falling = __fsub_rn(s_x[i], e) < 0.0f;
+        const bool holding = hold > 0;
+        const bool peaked = !falling && en >= peak;
+        const uint8_t fall = (!kUseRt || e > k.rt) ? kFallTrCode : kSetTaCode;
+        s_c[i] = falling ? (holding ? kHoldCode : fall)
+                         : (peaked ? kSetTaCode : kRiseCode);
+        peak = (falling && !holding) || peaked ? en : peak;
+        hold = falling ? (holding ? hold - 1 : hold) : (peaked ? k.nh : hold);
+      }
+    }
+    __syncthreads();
+    for (int i = threadIdx.x; i < len; i += kBwdThreads) cr[t0 + i] = s_c[i];
+    __syncthreads();
+  }
+
+  // pass 2: the adjoint, backward
+  float lam = g_e[c], lp = g_p[c], acc_ta = 0.0f, acc_tr = 0.0f;
+  for (int j = n_chunks - 1; j >= 0; --j) {
+    const int t0 = j * kBwdChunk;
+    const int len = min(kBwdChunk, t_n - t0);
+    stage(t0, len, true);
+    if (threadIdx.x == 0) {
+      for (int i = len - 1; i >= 0; --i) {
+        const int code = s_c[i];
+        float lv = __fadd_rn(lam, s_g[i]);
+        const bool sets = (code & 4) != 0;
+        lv = sets ? __fadd_rn(lv, lp) : lv;
+        lp = sets ? 0.0f : lp;
+        const int kind = code & 3;
+        const float gx = kind ? __fmul_rn(lv, kind == 1 ? k.tr : k.ta) : 0.0f;
+        const float p = __fmul_rn(lv, __fsub_rn(s_x[i], s_e[i]));
+        acc_tr = __fadd_rn(acc_tr, kind == 1 ? p : 0.0f);
+        acc_ta = __fadd_rn(acc_ta, kind == 2 ? p : 0.0f);
+        lam = kind ? __fsub_rn(lv, gx) : lv;
+        s_g[i] = gx;
+      }
+    }
+    __syncthreads();
+    for (int i = threadIdx.x; i < len; i += kBwdThreads) gxr[t0 + i] = s_g[i];
+    __syncthreads();
+  }
+  if (threadIdx.x == 0) {
+    ge_out[c] = lam;
+    gp_out[c] = lp;
+    partials[c] = acc_ta;
+    partials[c_n + c] = acc_tr;
+  }
+}
+
+// the taus' gradients: each one's per-row partials summed in row order
+__global__ void tau_sums_kernel(const float* __restrict__ partials,
+                                float* __restrict__ g_tau, int c_n) {
+  if (threadIdx.x < 2) {
+    float acc = 0.0f;
+    for (int r = 0; r < c_n; ++r)
+      acc = __fadd_rn(acc, partials[threadIdx.x * c_n + r]);
+    g_tau[threadIdx.x] = acc;
+  }
+}
+
 // coefficients under which an envelope with peak == e and no hold left
 // cannot hold: free_step's conditions
 bool allows_free_step(float ta, float tr, int nh) {
@@ -569,6 +833,39 @@ int lsp_gate_envelope(const float* x, const float* e_in, const float* p_in,
   kernel<<<c_n, kEnvThreads, 0, (cudaStream_t)stream>>>(
       x, e_in, p_in, h_in, cur_in, env, curves, e_out, p_out, h_out, cur_out,
       t_n, k);
+  return (int)cudaGetLastError();
+}
+
+int lsp_sliding_rms_bwd(const float* x, const float* level,
+                        const float* g_level, const float* g_wout,
+                        float* g_x, float* g_win, int c_n, int t_n,
+                        int n_win, float g, void* stream) {
+  if (c_n < 1 || t_n < 1 || n_win < 1) return (int)cudaErrorInvalidValue;
+  const int tiles = (t_n + n_win + kRmsTile - 1) / kRmsTile;
+  sliding_rms_bwd_kernel<<<c_n * tiles, kRmsThreads, 0,
+                           (cudaStream_t)stream>>>(
+      x, level, g_level, g_wout, g_x, g_win, t_n, n_win, tiles, g);
+  return (int)cudaGetLastError();
+}
+
+int lsp_peak_envelope_bwd(const float* x, const float* env,
+                          const float* e_in, const float* p_in,
+                          const int* h_in, const float* g_env,
+                          const float* g_e, const float* g_p, float* g_x,
+                          float* ge_out, float* gp_out, float* partials,
+                          float* g_tau, uint8_t* codes, int c_n, int t_n,
+                          float ta, float tr, float rt, int nh, int use_rt,
+                          void* stream) {
+  if (c_n < 1 || t_n < 1) return (int)cudaErrorInvalidValue;
+  const EnvCoef k{ta, tr, rt + 0.0f, nh, 0.0f, 0.0f};
+  auto kernel = use_rt ? peak_envelope_bwd_kernel<true>
+                       : peak_envelope_bwd_kernel<false>;
+  kernel<<<c_n, kBwdThreads, 0, (cudaStream_t)stream>>>(
+      x, env, e_in, p_in, h_in, g_env, g_e, g_p, g_x, ge_out, gp_out,
+      partials, codes, c_n, t_n, k);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  tau_sums_kernel<<<1, 32, 0, (cudaStream_t)stream>>>(partials, g_tau, c_n);
   return (int)cudaGetLastError();
 }
 

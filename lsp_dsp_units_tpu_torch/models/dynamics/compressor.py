@@ -6,6 +6,13 @@ through ``ops.dynamics.peak_envelope`` (the CUDA kernel of
 ops/env_units.py for CUDA tensors) and the two-knee gain as element-wise
 PyTorch.  ``step_ring`` runs the same math inside the fused kernel of
 ops/env.py.
+
+Every leaf of :class:`CompressorParams` may also be a 0-d float32 tensor
+(``convert.compressor_params_from_jax``, or ``utils.tree.tree_map`` over
+the built params): :meth:`Compressor.process` is then differentiable in
+the knees and the taus, as the JAX unit is under jax.grad; the release
+threshold and the hold (cast to int where used) only steer the envelope's
+branches, so their gradients are zero.
 """
 
 from __future__ import annotations
@@ -31,6 +38,7 @@ class CompressorMode(enum.Enum):
 
 
 class CompressorParams(NamedTuple):
+    """Host numbers, or 0-d float32 tensors."""
     knees: Tuple[dyn.CompKnee, dyn.CompKnee]
     tau_attack: float
     tau_release: float

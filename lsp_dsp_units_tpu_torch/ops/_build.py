@@ -113,6 +113,31 @@ def check(err: int, what: str) -> None:
         raise RuntimeError(f"{what}: CUDA error {err}")
 
 
+def _tensors(ts):
+    for t in ts:
+        if torch.is_tensor(t):
+            yield t
+        elif isinstance(t, (tuple, list)):
+            yield from _tensors(t)
+
+
+def needs_grad(*ts) -> bool:
+    """True where autograd records: grad mode on and some tensor among
+    ``ts`` (nested tuples, such as a state, included) requires grad."""
+    return torch.is_grad_enabled() and any(
+        t.requires_grad for t in _tensors(ts))
+
+
+def no_grad_route(name: str, *ts) -> None:
+    """Raise for a route that has no backward when autograd would record
+    it (:func:`needs_grad`): its output would be cut from the graph, and
+    every gradient through it silently wrong."""
+    if needs_grad(*ts):
+        raise RuntimeError(
+            f"{name} has no backward: call it under torch.no_grad() or on "
+            f"inputs that do not require grad")
+
+
 def is_cpu(*ts: torch.Tensor) -> bool:
     """True for CPU tensors, False for CUDA tensors; raises on a mix or
     any other device."""

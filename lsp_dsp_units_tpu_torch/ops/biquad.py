@@ -32,6 +32,12 @@ Two forms, as in the JAX package:
   hierarchy of tiles, every product and sum rounded once, so the two
   agree bit for bit.  The per-sample form
   :func:`dyn_biquad_cascade` stays plain PyTorch on both devices.
+  Under autograd :func:`biquad_cascade` runs as a
+  ``torch.autograd.Function`` whose backward (:func:`biquad_cascade_bwd`)
+  is the recursion's adjoint on the same route (the plain scan for CPU
+  tensors, the kernel for CUDA tensors, counted in
+  ``biquad_cascade.bwd_launches``); :func:`dyn_biquad_cascade`
+  differentiates through its plain operations.
 * **Sequential** (:func:`biquad_cascade_seq`,
   :func:`dyn_biquad_cascade_seq`): the exact per-sample DF2T order, the
   card's counterpart of the JAX package's ``lax.scan``.  For CPU tensors
@@ -41,6 +47,7 @@ Two forms, as in the JAX package:
   running stage k; up to 32 stages a launch), counting launches in
   ``biquad_cascade_seq.launches``.  The kernel rounds every product and
   sum once in the plain loop's order, so the two agree bit for bit.
+  They have no backward and raise under grad.
 """
 
 from __future__ import annotations
@@ -50,6 +57,7 @@ from typing import Callable, List, Sequence, Tuple
 
 import numpy as np
 import torch
+from torch.autograd.function import once_differentiable
 
 from lsp_dsp_units_tpu_torch.ops import _build
 
@@ -201,8 +209,8 @@ def _batch_rows(coeffs: torch.Tensor, state: torch.Tensor, x: torch.Tensor,
     return batch, xr, st, cr, int(np.prod(cr.shape[-c_tail:]))
 
 
-def _scan_cuda(coeffs: torch.Tensor, state: torch.Tensor, x: torch.Tensor,
-               ) -> Tuple[torch.Tensor, torch.Tensor]:
+def _scan_launch(coeffs: torch.Tensor, state: torch.Tensor, x: torch.Tensor,
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch ``csrc/biquad_scan.cu`` once for all K stages, with a
     scratch row for the tile roots of each depth of its tree."""
     t_n = x.shape[-1]
@@ -217,8 +225,17 @@ def _scan_cuda(coeffs: torch.Tensor, state: torch.Tensor, x: torch.Tensor,
         _build.ptr(xr), _build.ptr(cr), _build.ptr(st), _build.ptr(y),
         _build.ptr(st_out), _build.ptr(roots), rows, t_n, coeffs.shape[-2],
         row_stride, _build.stream_of(xr)), "biquad_scan kernel")
-    biquad_cascade.launches += 1
     return y, st_out
+
+
+def _cascade(coeffs, state, x):
+    """:func:`biquad_cascade` outside autograd on a non-empty cascade:
+    the plain scan for CPU tensors, the kernel for CUDA tensors."""
+    if _build.is_cpu(coeffs, state, x):
+        return biquad_cascade_plain(coeffs, state, x)
+    out = _scan_launch(coeffs, state, x)
+    biquad_cascade.launches += 1
+    return out
 
 
 def biquad_cascade(coeffs: torch.Tensor, state: torch.Tensor,
@@ -229,15 +246,122 @@ def biquad_cascade(coeffs: torch.Tensor, state: torch.Tensor,
     [..., T].  Returns ``(y [..., T], new_state [..., K, 2])``; stage k
     filters the whole block before stage k+1 (LTI, so the same result as
     per-sample ordering).  CPU tensors run :func:`biquad_cascade_plain`,
-    CUDA tensors the kernel, bit for bit the same."""
+    CUDA tensors the kernel, bit for bit the same.  Differentiable in
+    all three (:func:`biquad_cascade_bwd`)."""
     if _empty(coeffs, x):
         return x, state
-    if _build.is_cpu(coeffs, state, x):
-        return biquad_cascade_plain(coeffs, state, x)
-    return _scan_cuda(coeffs, state, x)
+    if _build.needs_grad(coeffs, state, x):
+        return _Cascade.apply(coeffs, state, x)
+    return _cascade(coeffs, state, x)
+
+
+def _scan_bwd_launch(coeffs, state, x):
+    """One scan of the backward on the card, counted in
+    ``biquad_cascade.bwd_launches``."""
+    out = _scan_launch(coeffs, state, x)
+    biquad_cascade.bwd_launches += 1
+    return out
+
+
+def _cascade_adjoint(scan, coeffs, state, x, y, g_y, g_state, want_coeffs):
+    """The adjoint of :func:`biquad_cascade` on the scans ``scan``.
+
+    Per stage (``y[n] = b0 u[n] + b1 u[n-1] + b2 u[n-2] + a1 y[n-1] + a2
+    y[n-2]``, the JAX convention of :func:`_split_coeffs`, feedback signs
+    pre-negated), the adjoint lam is the all-pole part run in reverse
+    time, ``lam[n] = g[n] + a1 lam[n+1] + a2 lam[n+2]``, started from the
+    final state's cotangent (lam[T] = g_s1, lam[T+1] = g_s2): the same
+    scan with b = (1, 0, 0) on the flipped cotangent, from the state
+    ``(a1 g_s1 + a2 g_s2, a2 g_s1)``.  Then ``g_b_k = sum lam[n] u[n-k]``,
+    ``g_a_k = sum lam[n+k] y[n]``, ``g_u[n] = b0 lam[n] + b1 lam[n+1] +
+    b2 lam[n+2]`` (the next stage back's cotangent) and the stage's
+    incoming state takes (lam[0], lam[1]).  The stages' inputs come from
+    running the scan one stage at a time (K - 1 scans, only when the
+    coefficients want a gradient); the sums over time are torch
+    reductions."""
+    k_n = coeffs.shape[-2]
+    g = g_y
+    ins = [x]
+    if want_coeffs:
+        for k in range(k_n - 1):
+            u, _ = scan(coeffs[..., k:k + 1, :], state[..., k:k + 1, :],
+                        ins[-1])
+            ins.append(u)
+    g_coef, g_st = [None] * k_n, [None] * k_n
+    c_batch = coeffs.shape[:-2]
+    for k in reversed(range(k_n)):
+        b0, b1, b2, a1, a2 = coeffs[..., k, :].unbind(-1)
+        gs1, gs2 = g_state[..., k, 0], g_state[..., k, 1]
+        one, zero = torch.ones_like(a1), torch.zeros_like(a1)
+        c_rev = torch.stack([one, zero, zero, a1, a2], dim=-1)[..., None, :]
+        s_rev = torch.stack([a1 * gs1 + a2 * gs2, a2 * gs1],
+                            dim=-1)[..., None, :]
+        r, _ = scan(c_rev, s_rev, torch.flip(g, dims=(-1,)))
+        lam = torch.cat([torch.flip(r, dims=(-1,)), gs1[..., None]
+                         .expand(r.shape[:-1] + (1,)), gs2[..., None]
+                         .expand(r.shape[:-1] + (1,))], dim=-1)  # [..., T + 2]
+        t_n = r.shape[-1]
+        lam0, lam1, lam2 = (lam[..., :t_n], lam[..., 1:t_n + 1],
+                            lam[..., 2:t_n + 2])
+        g_st[k] = torch.stack([lam0[..., 0], lam1[..., 0]], dim=-1)
+        if want_coeffs:
+            u, out = ins[k], (ins[k + 1] if k + 1 < k_n else y)
+
+            def total(v):
+                return torch.sum(v, dim=-1).sum_to_size(c_batch)
+            g_coef[k] = torch.stack(
+                [total(lam0 * u), total(lam1 * u), total(lam2 * u),
+                 total(lam1 * out), total(lam2 * out)], dim=-1)
+        g = b0[..., None] * lam0 + b1[..., None] * lam1 \
+            + b2[..., None] * lam2
+    g_state_in = torch.stack(g_st, dim=-2).sum_to_size(state.shape)
+    g_x = g.sum_to_size(x.shape)
+    g_c = torch.stack(g_coef, dim=-2) if want_coeffs else None
+    return g_c, g_state_in, g_x
+
+
+def biquad_cascade_bwd_plain(coeffs, state, x, y, g_y, g_state,
+                             want_coeffs=True):
+    """Plain PyTorch version of :func:`biquad_cascade_bwd`: the same
+    adjoint on :func:`biquad_cascade_plain`'s scans, on any device."""
+    return _cascade_adjoint(biquad_cascade_plain, coeffs, state, x, y, g_y,
+                            g_state, want_coeffs)
+
+
+def biquad_cascade_bwd(coeffs, state, x, y, g_y, g_state, want_coeffs=True):
+    """Backward of :func:`biquad_cascade`: the cotangents of (y, state')
+    -> those of (coeffs, state, x), ``y`` the forward's output
+    (``want_coeffs`` False skips the coefficients').  The plain version
+    for CPU tensors; for CUDA tensors the adjoint of
+    :func:`_cascade_adjoint` on the scan kernel: 2K - 1 launches (K
+    without the coefficients), each bit for bit its plain scan."""
+    if _build.is_cpu(coeffs, state, x, y, g_y, g_state):
+        return biquad_cascade_bwd_plain(coeffs, state, x, y, g_y, g_state,
+                                        want_coeffs)
+    return _cascade_adjoint(_scan_bwd_launch, coeffs, state, x, y, g_y,
+                            g_state, want_coeffs)
+
+
+class _Cascade(torch.autograd.Function):
+    """:func:`biquad_cascade` under autograd."""
+
+    @staticmethod
+    def forward(ctx, coeffs, state, x):
+        y, s_out = _cascade(coeffs, state, x)
+        ctx.save_for_backward(coeffs, state, x, y)
+        return y, s_out
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g_y, g_state):
+        coeffs, state, x, y = ctx.saved_tensors
+        g_c, g_s, g_x = biquad_cascade_bwd(coeffs, state, x, y, g_y, g_state,
+                                           ctx.needs_input_grad[0])
+        return g_c, g_s, g_x
 
 
 biquad_cascade.launches = 0
+biquad_cascade.bwd_launches = 0
 
 
 def dyn_biquad_cascade(coeffs: torch.Tensor, state: torch.Tensor,
@@ -341,6 +465,7 @@ def biquad_cascade_seq(coeffs: torch.Tensor, state: torch.Tensor,
     Shapes as :func:`biquad_cascade`."""
     if _empty(coeffs, x):
         return x, state
+    _build.no_grad_route("biquad_cascade_seq", coeffs, state, x)
     if _build.is_cpu(coeffs, state, x):
         return biquad_cascade_seq_plain(coeffs, state, x)
     return _seq_cuda(coeffs, state, x, dyn=False)
@@ -359,6 +484,7 @@ def dyn_biquad_cascade_seq(coeffs: torch.Tensor, state: torch.Tensor,
     there."""
     if _empty(coeffs, x):
         return x, state
+    _build.no_grad_route("dyn_biquad_cascade_seq", coeffs, state, x)
     if _build.is_cpu(coeffs, state, x):
         return dyn_biquad_cascade_seq_plain(coeffs, state, x)
     return _seq_cuda(coeffs, state, x, dyn=True)

@@ -92,6 +92,7 @@ def dynamic_delay(buffer, x, delay, fgain, fdelay, max_delay: int):
     ``fdelay`` (int32) and ``fgain`` (float32), each broadcast to x's
     shape; ``buffer`` [..., max_delay + 1] the ring in the JAX layout.
     Returns (buffer', y [..., T])."""
+    _build.no_grad_route("dynamic_delay", buffer, x, delay, fgain, fdelay)
     if _build.is_cpu(buffer, x, delay, fgain, fdelay):
         return dynamic_delay_plain(buffer, x, delay, fgain, fdelay,
                                    max_delay)

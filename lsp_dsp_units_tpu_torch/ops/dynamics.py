@@ -5,7 +5,8 @@ Expander.cpp:205-258, 375-406).
 :func:`peak_envelope` is the wrapper of ops/env_units.py: the CUDA
 kernel for CUDA tensors, :func:`peak_envelope_plain` (a Python loop over
 T) for CPU tensors.  The knees are element-wise PyTorch on host-float
-parameters, rounded to float32 once at build time.
+parameters, rounded to float32 once at build time, or on 0-d float32
+tensors (the compressor's knees differentiate in their parameters).
 """
 
 from __future__ import annotations
@@ -66,7 +67,7 @@ def onepole_lowpass(state: torch.Tensor, x: torch.Tensor, k
 class CompKnee(NamedTuple):
     """One log-domain knee: gain below start, tilt line above end,
     Hermite-quadratic blend between (log-log space).  Host floats,
-    rounded to float32."""
+    rounded to float32, or 0-d float32 tensors."""
     start: float
     end: float
     gain: float
@@ -77,12 +78,19 @@ class CompKnee(NamedTuple):
     herm2: float
 
 
+def _on(v, x: torch.Tensor):
+    """A knee parameter beside x: a host float as it is, a tensor moved
+    to x's device and type (in the graph)."""
+    return v.to(dtype=x.dtype, device=x.device) if torch.is_tensor(v) else v
+
+
 def comp_knee_gain(k: CompKnee, x: torch.Tensor,
                    lx: torch.Tensor) -> torch.Tensor:
     """Gain of one knee at |x| (log |x| precomputed)."""
+    k = CompKnee(*(_on(v, x) for v in k))
     line = torch.exp(lx * k.tilt0 + k.tilt1)
     herm = torch.exp((k.herm0 * lx + k.herm1) * lx + k.herm2)
-    return torch.where(x <= k.start, torch.full_like(x, k.gain),
+    return torch.where(x <= k.start, k.gain,
                        torch.where(x >= k.end, line, herm))
 
 

@@ -64,9 +64,12 @@ def chain_dyn(window, env_state: EnvState, x, n_win: int, sc_gain,
               tau_attack, tau_release, release_thresh, hold_samples,
               knees: Tuple[CompKnee, CompKnee]):
     """Dynamics tail of one block.  ``window`` [C, N] carried squared
-    detector samples, ``x`` [C, T] (T >= N), scalars as host numbers.
+    detector samples, ``x`` [C, T] (T >= N), scalars as host numbers (or
+    0-d tensors).
     Returns (window' [C, N], EnvState', y [C, T])."""
     tensors = (window, env_state.envelope, env_state.peak, x)
+    _build.no_grad_route("chain_dyn", *tensors, tau_attack, tau_release,
+                         release_thresh, knees)
     if _build.is_cpu(*tensors, env_state.hold):
         return chain_dyn_plain(window, env_state, x, n_win, sc_gain,
                                tau_attack, tau_release, release_thresh,
@@ -90,9 +93,11 @@ def chain_dyn(window, env_state: EnvState, x, n_win: int, sc_gain,
     e_out = torch.empty_like(env_state.envelope)
     p_out = torch.empty_like(env_state.peak)
     h_out = torch.empty_like(env_state.hold)
-    prm = _DynParams(g=sc_gain, ta=tau_attack, tr=tau_release,
-                     rt=release_thresh, inv_n=1.0 / n, nh=int(hold_samples),
-                     k0=_Knee(*knees[0]), k1=_Knee(*knees[1]))
+    prm = _DynParams(g=float(sc_gain), ta=float(tau_attack),
+                     tr=float(tau_release), rt=float(release_thresh),
+                     inv_n=1.0 / n, nh=int(hold_samples),
+                     k0=_Knee(*map(float, knees[0])),
+                     k1=_Knee(*map(float, knees[1])))
     lib = _build.load("env", _SIGS)
     _build.check(lib.lsp_chain_dyn(
         _build.ptr(x), _build.ptr(window), _build.ptr(env_state.envelope),

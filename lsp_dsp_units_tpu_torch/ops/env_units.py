@@ -27,6 +27,19 @@ Agreement between kernel and plain version:
   prefix sums (the JAX cumsum form, whose error grows with T), the kernel
   sums each time tile's window of history and scans the tile in float64.
   At [64, 16384] they agree to >= 110 dB.
+
+Gradients: :func:`sliding_rms` and :func:`peak_envelope` differentiate
+through ``torch.autograd.Function``s, used only when grad mode is on and
+an input requires grad (otherwise each wrapper runs what it ran before).
+Their forwards are the routes above; their backwards are
+:func:`sliding_rms_bwd` and :func:`peak_envelope_bwd`, each again a
+plain version for CPU tensors and a kernel of ``csrc/env_units.cu`` for
+CUDA tensors, counted in ``<wrapper>.launches``.  The plain backward of
+the envelope and its kernel agree bit for bit (both round every product
+and sum alone in one order, and sum the per-row tau partials row after
+row); the RMS's sums its window adjoints in float64 like its forward, in
+another order than its plain version (>= 120 dB).  :func:`gate_envelope`
+has no backward and raises under grad.
 """
 
 from __future__ import annotations
@@ -35,6 +48,7 @@ import ctypes
 from typing import Optional
 
 import torch
+from torch.autograd.function import once_differentiable
 
 from lsp_dsp_units_tpu_torch.ops import _build
 from lsp_dsp_units_tpu_torch.ops.sliding import sliding_sum
@@ -43,7 +57,10 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGS = {
     "lsp_sliding_rms": [_P] * 4 + [_I] * 3 + [_F, _P],
     "lsp_sliding_rms_shape": [_I, _I, _P],
+    "lsp_sliding_rms_bwd": [_P] * 6 + [_I] * 3 + [_F, _P],
     "lsp_peak_envelope": [_P] * 8 + [_I] * 2 + [_F] * 3 + [_I] * 2 + [_P],
+    "lsp_peak_envelope_bwd": [_P] * 14 + [_I] * 2 + [_F] * 3 + [_I] * 2
+    + [_P],
     "lsp_gate_envelope": [_P] * 11 + [_I] * 2 + [_F] * 2 + [_I]
     + [_F] * 2 + [_P],
 }
@@ -69,13 +86,9 @@ def sliding_rms_plain(window: torch.Tensor, x: torch.Tensor, n_win: int,
     return frame[..., -n_win:].contiguous(), level
 
 
-def sliding_rms(window: torch.Tensor, x: torch.Tensor, n_win: int, gain):
-    """Sliding-window RMS level detector (reference Sidechain.cpp:520-556
-    RMS mode): ``level[t] = sqrt(mean of the last N squares of
-    |x| * gain)`` over ``frame = [window || squares]``.
-
-    ``window`` [..., N] carried squared-detector history, ``x`` [..., T].
-    Any T >= 1 and N >= 1.  Returns (window' [..., N], level [..., T])."""
+def _sliding_rms(window, x, n_win, gain):
+    """:func:`sliding_rms` outside autograd: the plain version for CPU
+    tensors, the kernel for CUDA tensors."""
     if _build.is_cpu(window, x):
         return sliding_rms_plain(window, x, n_win, gain)
     n = int(n_win)
@@ -93,6 +106,105 @@ def sliding_rms(window: torch.Tensor, x: torch.Tensor, n_win: int, gain):
         "sliding_rms kernel")
     sliding_rms.launches += 1
     return w_out.reshape(window.shape), level.reshape(x.shape)
+
+
+def sliding_rms(window: torch.Tensor, x: torch.Tensor, n_win: int, gain):
+    """Sliding-window RMS level detector (reference Sidechain.cpp:520-556
+    RMS mode): ``level[t] = sqrt(mean of the last N squares of
+    |x| * gain)`` over ``frame = [window || squares]``.
+
+    ``window`` [..., N] carried squared-detector history, ``x`` [..., T].
+    Any T >= 1 and N >= 1.  Returns (window' [..., N], level [..., T]).
+    Differentiable in ``window`` and ``x`` (``gain`` is a constant)."""
+    if _build.needs_grad(window, x):
+        _build.no_grad_route("sliding_rms's gain", gain)
+        return _SlidingRms.apply(window, x, n_win, gain)
+    return _sliding_rms(window, x, n_win, gain)
+
+
+def _rms_adjoint(g, level, mask, n_win):
+    """The level's cotangent carried back through ``sqrt(max(S / N,
+    0))`` onto S: ``((g * (0.5 / level)) * mask) / N``, each operation
+    rounded alone, as jax.grad forms it (mask: jnp.maximum's 1 above 0,
+    the tie's 0.5 at 0, 0 below)."""
+    half = torch.full_like(level, 0.5)
+    n_t = torch.tensor(float(n_win), dtype=level.dtype, device=level.device)
+    return (g * (half / level)) * mask / n_t
+
+
+def sliding_rms_bwd_plain(window, x, level, g_level, g_window, n_win, gain):
+    """Plain PyTorch version of :func:`sliding_rms_bwd`.  The frame's
+    cotangent is a reversed sliding sum of the level's adjoint a:
+    ``gf[j] = a[j - N] + ... + a[j - 1]`` over the frame index j, summed
+    in float64 as differences of a prefix sum, plus the cotangent of
+    window' (the frame's last N); the window takes ``gf[:N]``, and x
+    ``2 (gf[N + t] v[t]) gain sign(x[t])`` with ``v = |x| gain``."""
+    n = int(n_win)
+    t = x.shape[-1]
+    v = torch.abs(x) * gain
+    frame = torch.cat([window, v * v], dim=-1)
+    s = sliding_sum(frame, n, t) / n_win       # the forward's S / N
+    mask = torch.where(s > 0, 1.0, torch.where(s == 0, 0.5, 0.0)).to(x.dtype)
+    a = _rms_adjoint(g_level, level, mask, n).double()
+    pre = torch.nn.functional.pad(torch.cumsum(a, dim=-1), (1, 0))
+    j = torch.arange(n + t, device=x.device)
+    gf = (pre[..., j.clamp(max=t)] - pre[..., (j - n).clamp(0, t)])
+    gf = torch.cat([gf[..., :t], gf[..., t:] + g_window.double()], dim=-1)
+    gf = gf.to(x.dtype)
+    q = gf[..., n:] * v
+    gx = (q + q) * gain
+    return gf[..., :n].contiguous(), torch.where(x < 0, -gx, gx)
+
+
+def sliding_rms_bwd(window, x, level, g_level, g_window, n_win, gain):
+    """Backward of :func:`sliding_rms`: the cotangents of (window', level)
+    -> those of (window, x).  ``level`` is the forward's output.  The
+    plain version for CPU tensors; for CUDA tensors the kernel
+    ``sliding_rms_bwd`` (independent time tiles over the frame index,
+    each from a halo of N adjoints before it, as the forward's), which
+    takes the mask at a zero level as the tie's 0.5 (the forward kernel's
+    S is a float64 sum of squares, so a zero level is S = 0)."""
+    if _build.is_cpu(window, x, level, g_level, g_window):
+        return sliding_rms_bwd_plain(window, x, level, g_level, g_window,
+                                     n_win, gain)
+    n = int(n_win)
+    t = x.shape[-1]
+    if level.shape != x.shape or g_level.shape != x.shape \
+            or g_window.shape != x.shape[:-1] + (n,):
+        raise ValueError("sliding_rms_bwd: level and its cotangent must be "
+                         "shaped as x, window' as the window")
+    g_level, g_window = g_level.contiguous(), g_window.contiguous()
+    _build.check_cuda(torch.float32, x.device, x=x, level=level,
+                      g_level=g_level, g_window=g_window)
+    xr = x.reshape(-1, t)
+    gx = torch.empty_like(xr)
+    gw = torch.empty((xr.shape[0], n), dtype=torch.float32, device=x.device)
+    _build.check(_lib().lsp_sliding_rms_bwd(
+        _build.ptr(xr), _build.ptr(level), _build.ptr(g_level),
+        _build.ptr(g_window), _build.ptr(gx), _build.ptr(gw), xr.shape[0], t,
+        n, float(gain), _build.stream_of(x)), "sliding_rms_bwd kernel")
+    sliding_rms_bwd.launches += 1
+    return gw.reshape(g_window.shape), gx.reshape(x.shape)
+
+
+class _SlidingRms(torch.autograd.Function):
+    """:func:`sliding_rms` under autograd: forward :func:`_sliding_rms`,
+    backward :func:`sliding_rms_bwd`."""
+
+    @staticmethod
+    def forward(ctx, window, x, n_win, gain):
+        w_out, level = _sliding_rms(window, x, n_win, gain)
+        ctx.save_for_backward(window, x, level)
+        ctx.n_win, ctx.gain = int(n_win), gain
+        return w_out, level
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g_window, g_level):
+        window, x, level = ctx.saved_tensors
+        gw, gx = sliding_rms_bwd(window, x, level, g_level, g_window,
+                                 ctx.n_win, ctx.gain)
+        return gw, gx, None, None
 
 
 def rms_launch_shape(channels: int, t: int) -> dict:
@@ -115,7 +227,10 @@ def _mul_add(tau, d, e):
     kernels' ``__fmaf_rn`` and XLA's contraction in the JAX package.
     The float32 product is exact in float64; the float64 sum is rounded
     to odd (its last bit set where TwoSum finds it inexact), which makes
-    the final rounding to float32 the correct one, ties included."""
+    the final rounding to float32 the correct one, ties included.  The
+    bit trick is no differentiable operation: under grad it raises."""
+    _build.no_grad_route("_mul_add (the float32 FMA of the plain loops)",
+                         tau, d, e)
     p, e64 = tau.double() * d.double(), e.double()
     s = e64 + p
     bb = s - p
@@ -143,7 +258,13 @@ def _env_step_plain(xt, e, peak, hold, ta, tr, nh, rt):
 
 
 def _coefs(x, tau_attack, tau_release, hold_samples, release_thresh):
+    """The envelope's coefficients as tensors on x's device: the taus and
+    the release threshold float32 (a tensor stays one, in the graph), the
+    hold int32 (a tensor is cast, as jnp.asarray(hold, jnp.int32) casts
+    it, so its gradient is zero)."""
     def f32(v):
+        if torch.is_tensor(v):
+            return v.to(dtype=torch.float32, device=x.device).reshape(())
         return torch.tensor(float(v), dtype=torch.float32, device=x.device)
     return (f32(tau_attack), f32(tau_release),
             torch.tensor(int(hold_samples), dtype=torch.int32,
@@ -151,11 +272,9 @@ def _coefs(x, tau_attack, tau_release, hold_samples, release_thresh):
             None if release_thresh is None else f32(release_thresh))
 
 
-def peak_envelope_plain(state, x: torch.Tensor, tau_attack, tau_release,
-                        hold_samples, release_thresh: Optional[float] = None):
-    """Plain PyTorch version of :func:`peak_envelope`: a Python loop over
-    T, one step of ~15 tensor ops per sample."""
-    e, peak, hold = state
+def _envelope_plain(x, e, peak, hold, tau_attack, tau_release, hold_samples,
+                    release_thresh):
+    """The recurrence over T on rows [...]: (e', peak', hold', env)."""
     ta, tr, nh, rt = _coefs(x, tau_attack, tau_release, hold_samples,
                             release_thresh)
     out = torch.empty_like(x)
@@ -163,6 +282,15 @@ def peak_envelope_plain(state, x: torch.Tensor, tau_attack, tau_release,
         e, peak, hold = _env_step_plain(x[..., t], e, peak, hold, ta, tr,
                                         nh, rt)
         out[..., t] = e
+    return e, peak, hold, out
+
+
+def peak_envelope_plain(state, x: torch.Tensor, tau_attack, tau_release,
+                        hold_samples, release_thresh: Optional[float] = None):
+    """Plain PyTorch version of :func:`peak_envelope`: a Python loop over
+    T, one step of ~15 tensor ops per sample."""
+    e, peak, hold, out = _envelope_plain(x, *state, tau_attack, tau_release,
+                                         hold_samples, release_thresh)
     return state._make((e, peak, hold)), out
 
 
@@ -183,17 +311,14 @@ def _check_env_state(x, *fields):
     _build.check_cuda(torch.int32, x.device, **named)
 
 
-def peak_envelope(state, x: torch.Tensor, tau_attack, tau_release,
-                  hold_samples, release_thresh: Optional[float] = None):
-    """Branchy attack/release follower with peak-hold (reference
-    Compressor.cpp:231-256) over the detector level x [..., T].
-    ``state`` is an EnvState (envelope, peak float32; hold int32, each
-    [...]); ``release_thresh=None`` releases with ``tau_release`` always
-    (the gate's form).  Returns (state', envelope [..., T])."""
-    e, peak, hold = state
+def _peak_envelope(x, e, peak, hold, tau_attack, tau_release, hold_samples,
+                   release_thresh):
+    """:func:`peak_envelope` outside autograd, on the state's fields:
+    the plain version for CPU tensors, the kernel for CUDA tensors.
+    Returns (e', peak', hold', env)."""
     if _build.is_cpu(x, e, peak, hold):
-        return peak_envelope_plain(state, x, tau_attack, tau_release,
-                                   hold_samples, release_thresh)
+        return _envelope_plain(x, e, peak, hold, tau_attack, tau_release,
+                               hold_samples, release_thresh)
     _check_env_state(x, e, peak, hold)
     t = x.shape[-1]
     xr = x.reshape(-1, t)
@@ -210,8 +335,187 @@ def peak_envelope(state, x: torch.Tensor, tau_attack, tau_release,
         int(use_rt), _build.stream_of(x)), "peak_envelope kernel")
     peak_envelope.launches += 1
     lead = x.shape[:-1]
-    return (state._make((e2.reshape(lead), p2.reshape(lead),
-                         h2.reshape(lead))), env.reshape(x.shape))
+    return (e2.reshape(lead), p2.reshape(lead), h2.reshape(lead),
+            env.reshape(x.shape))
+
+
+def peak_envelope(state, x: torch.Tensor, tau_attack, tau_release,
+                  hold_samples, release_thresh: Optional[float] = None):
+    """Branchy attack/release follower with peak-hold (reference
+    Compressor.cpp:231-256) over the detector level x [..., T].
+    ``state`` is an EnvState (envelope, peak float32; hold int32, each
+    [...]); ``release_thresh=None`` releases with ``tau_release`` always
+    (the gate's form).  Coefficients are host numbers or 0-d tensors.
+    Returns (state', envelope [..., T]).  Differentiable in x, the
+    envelope and peak, and the taus; the hold, the release threshold and
+    the hold time only steer the branches (zero gradient)."""
+    e, peak, hold = state
+    if _build.needs_grad(x, e, peak, tau_attack, tau_release,
+                         release_thresh):
+        env, e2, p2, h2 = _PeakEnvelope.apply(
+            x, e, peak, hold, tau_attack, tau_release, hold_samples,
+            release_thresh)
+    else:
+        e2, p2, h2, env = _peak_envelope(x, e, peak, hold, tau_attack,
+                                         tau_release, hold_samples,
+                                         release_thresh)
+    return state._make((e2, p2, h2)), env
+
+
+# The branch each step took, as the backward reads it: bits 0-1 the tau
+# of its update (0 none: falling and holding, the envelope passes; 1 the
+# release tau; 2 the attack tau), bit 2 set where the step set the peak
+# to the new envelope (every fall that does not hold, a rise that
+# reaches the peak).  csrc/env_units.cu uses the same codes.
+_HOLD, _RISE, _FALL_TR, _SET_TA = 0, 2, 5, 6
+
+
+def peak_envelope_codes(x, env, e0, p0, h0, hold_samples,
+                        release_thresh=None):
+    """The branch each step of a forward run took (the codes above), from
+    its level x, its envelope env [..., T] and its incoming state: the
+    step's new envelope is ``env[t]``, so the peak and hold recurrences
+    replay without the envelope's arithmetic.  int8 [..., T]."""
+    _, _, nh, rt = _coefs(x, 0.0, 0.0, hold_samples, release_thresh)
+    codes = torch.empty(x.shape, dtype=torch.int8, device=x.device)
+    e, peak, hold = e0, p0, h0
+    for t in range(x.shape[-1]):
+        en = env[..., t]
+        falling = (x[..., t] - e) < 0.0
+        holding = hold > 0
+        peaked = torch.logical_and(~falling, en >= peak)
+        fall = _FALL_TR if rt is None else torch.where(e > rt, _FALL_TR,
+                                                       _SET_TA)
+        codes[..., t] = torch.where(
+            falling, torch.where(holding, _HOLD, fall),
+            torch.where(peaked, _SET_TA, _RISE))
+        sets = torch.logical_or(torch.logical_and(falling, ~holding), peaked)
+        peak = torch.where(sets, en, peak)
+        hold = torch.where(falling, torch.where(holding, hold - 1, hold),
+                           torch.where(peaked, nh, hold))
+        e = en
+    return codes
+
+
+def _row_sum(v: torch.Tensor) -> torch.Tensor:
+    """Sum of v's entries in order, each sum rounded in v's type (the
+    kernel's reduction of its per-row partials)."""
+    acc = torch.zeros((), dtype=v.dtype, device=v.device)
+    for r in v.reshape(-1):
+        acc = acc + r
+    return acc
+
+
+def peak_envelope_bwd_plain(x, env, e0, p0, h0, g_env, g_e, g_p,
+                            tau_attack, tau_release, hold_samples,
+                            release_thresh=None):
+    """Plain PyTorch version of :func:`peak_envelope_bwd`: the adjoint of
+    the scan body (lsp_dsp_units_tpu/ops/dynamics.py:102-123) in reverse
+    time.  With lam the envelope's cotangent and lp the peak's: a step
+    that set the peak adds lp to lam and clears it; a step with tau
+    ``update = e + tau (x - e)`` gives x ``lam tau``, tau ``lam (x -
+    e)`` and leaves ``lam - lam tau``; a held step passes lam on.
+    Returns (g_x, g_envelope, g_peak, g_tau [2]: attack, release)."""
+    ta, tr, _, _ = _coefs(x, tau_attack, tau_release, hold_samples,
+                          release_thresh)
+    codes = peak_envelope_codes(x, env, e0, p0, h0, hold_samples,
+                                release_thresh)
+    d = x - torch.cat([e0[..., None], env[..., :-1]], dim=-1)
+    zero = torch.zeros_like(e0)
+    gx = torch.empty_like(x)
+    lam, lp, acc_ta, acc_tr = g_e, g_p, zero, zero
+    for t in reversed(range(x.shape[-1])):
+        c = codes[..., t]
+        lv = lam + g_env[..., t]
+        sets = (c & 4) != 0
+        lv = torch.where(sets, lv + lp, lv)
+        lp = torch.where(sets, zero, lp)
+        kind = c & 3
+        on = kind != 0
+        gxt = torch.where(on, lv * torch.where(kind == 1, tr, ta), zero)
+        p = lv * d[..., t]
+        acc_tr = acc_tr + torch.where(kind == 1, p, zero)
+        acc_ta = acc_ta + torch.where(kind == 2, p, zero)
+        lam = torch.where(on, lv - gxt, lv)
+        gx[..., t] = gxt
+    return gx, lam, lp, torch.stack([_row_sum(acc_ta), _row_sum(acc_tr)])
+
+
+def peak_envelope_bwd(x, env, e0, p0, h0, g_env, g_e, g_p, tau_attack,
+                      tau_release, hold_samples, release_thresh=None):
+    """Backward of :func:`peak_envelope`: ``x``, ``env`` the forward's
+    level and envelope [..., T], ``e0``, ``p0``, ``h0`` its incoming
+    state [...], ``g_*`` the cotangents of env, envelope' and peak'.
+    The plain version for CPU tensors; for CUDA tensors the kernel
+    ``peak_envelope_bwd``: one thread a row replays the branches forward
+    into a code a sample, then runs the adjoint backward; the per-row
+    tau partials are summed on the card.  Returns (g_x, g_envelope,
+    g_peak, g_tau [2])."""
+    if _build.is_cpu(x, env, e0, p0, h0, g_env, g_e, g_p):
+        return peak_envelope_bwd_plain(x, env, e0, p0, h0, g_env, g_e, g_p,
+                                       tau_attack, tau_release, hold_samples,
+                                       release_thresh)
+    g_env, g_e, g_p = g_env.contiguous(), g_e.contiguous(), g_p.contiguous()
+    _check_env_state(x, e0, p0, h0)
+    lead = x.shape[:-1]
+    if env.shape != x.shape or g_env.shape != x.shape \
+            or g_e.shape != lead or g_p.shape != lead:
+        raise ValueError("peak_envelope_bwd: env and its cotangent must be "
+                         "shaped as x, the state's cotangents as the state")
+    _build.check_cuda(torch.float32, x.device, env=env, g_env=g_env, g_e=g_e,
+                      g_p=g_p)
+    t = x.shape[-1]
+    xr = x.reshape(-1, t)
+    c = xr.shape[0]
+    gx = torch.empty_like(xr)
+    ge, gp = torch.empty(c, device=x.device), torch.empty(c, device=x.device)
+    partials = torch.empty(2 * c, device=x.device)
+    g_tau = torch.empty(2, device=x.device)
+    codes = torch.empty(xr.shape, dtype=torch.uint8, device=x.device)
+    use_rt = release_thresh is not None
+    _build.check(_lib().lsp_peak_envelope_bwd(
+        _build.ptr(xr), _build.ptr(env), _build.ptr(e0), _build.ptr(p0),
+        _build.ptr(h0), _build.ptr(g_env), _build.ptr(g_e), _build.ptr(g_p),
+        _build.ptr(gx), _build.ptr(ge), _build.ptr(gp), _build.ptr(partials),
+        _build.ptr(g_tau), _build.ptr(codes), c, t, float(tau_attack),
+        float(tau_release), float(release_thresh) if use_rt else 0.0,
+        int(hold_samples), int(use_rt), _build.stream_of(x)),
+        "peak_envelope_bwd kernel")
+    peak_envelope_bwd.launches += 1
+    return gx.reshape(x.shape), ge.reshape(lead), gp.reshape(lead), g_tau
+
+
+class _PeakEnvelope(torch.autograd.Function):
+    """:func:`peak_envelope` under autograd: forward
+    :func:`_peak_envelope`, backward :func:`peak_envelope_bwd`."""
+
+    @staticmethod
+    def forward(ctx, x, e, peak, hold, tau_attack, tau_release,
+                hold_samples, release_thresh):
+        e2, p2, h2, env = _peak_envelope(x, e, peak, hold, tau_attack,
+                                         tau_release, hold_samples,
+                                         release_thresh)
+        ctx.mark_non_differentiable(h2)
+        ctx.save_for_backward(x, env, e, peak, hold)
+        ctx.coefs = (tau_attack, tau_release, hold_samples, release_thresh)
+        return env, e2, p2, h2
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g_env, g_e, g_p, _g_hold):
+        x, env, e, peak, hold = ctx.saved_tensors
+        ta, tr, nh, rt = ctx.coefs
+        gx, ge, gp, g_tau = peak_envelope_bwd(x, env, e, peak, hold, g_env,
+                                              g_e, g_p, ta, tr, nh, rt)
+
+        def tau_grad(i, v):
+            if not ctx.needs_input_grad[i]:
+                return None
+            return g_tau[i - 4].to(dtype=v.dtype,
+                                   device=v.device).reshape(v.shape)
+        g_rt = torch.zeros_like(rt) if ctx.needs_input_grad[7] else None
+        return (gx, ge, gp, None, tau_grad(4, ta), tau_grad(5, tr), None,
+                g_rt)
 
 
 # ---------------------------------------------------------------------------
@@ -250,6 +554,7 @@ def gate_envelope(env_state, curve: torch.Tensor, x: torch.Tensor,
     it falls below ``k1_start``.  ``curve`` [...] int32.  Returns
     (EnvState', curve' [...], env [..., T], curves [..., T] int32)."""
     e, peak, hold = env_state
+    _build.no_grad_route("gate_envelope", x, e, peak, hold, curve)
     if _build.is_cpu(x, e, peak, hold, curve):
         return gate_envelope_plain(env_state, curve, x, tau_attack,
                                    tau_release, hold_samples, k0_end,
@@ -278,5 +583,7 @@ def gate_envelope(env_state, curve: torch.Tensor, x: torch.Tensor,
 
 
 sliding_rms.launches = 0
+sliding_rms_bwd.launches = 0
 peak_envelope.launches = 0
+peak_envelope_bwd.launches = 0
 gate_envelope.launches = 0

@@ -84,6 +84,7 @@ def eqfdl_fused(ring_re, ring_im, h_re, h_im, heq_re, heq_im, xs_re, xs_im,
     ``w_mat`` [2K, B].  Returns (y [C, B], u [C, B], sv' [C, 2K])."""
     args = (ring_re, ring_im, h_re, h_im, heq_re, heq_im, xs_re, xs_im, x,
             sv, g_t, m_mat, w_mat, hist)
+    _build.no_grad_route("eqfdl_fused", *args)
     if _build.is_cpu(*args):
         return eqfdl_fused_plain(*args, w)
     p_n, c_n, b = ring_re.shape
@@ -150,6 +151,7 @@ def fdl_fused(ring_re, ring_im, h_re, h_im, hist, x, w: int) -> torch.Tensor:
     [C, B], the overlap-save frame ``[hist || x]``.  Returns y [C, B],
     the last half of the frame's convolution."""
     args = (ring_re, ring_im, h_re, h_im, hist, x)
+    _build.no_grad_route("fdl_fused", *args)
     if _build.is_cpu(*args):
         return fdl_fused_plain(*args, w)
     p_n, c_n, b = ring_re.shape

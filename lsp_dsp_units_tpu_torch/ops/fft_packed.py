@@ -16,6 +16,27 @@ Each transform has a plain PyTorch version (``*_plain``, over
 and launches the CUDA kernel (``csrc/fft_packed.cu``: two blocks per
 row, several radix-2 stages per shared-memory pass) for CUDA tensors.
 Each wrapper counts its kernel launches in ``<wrapper>.launches``.
+
+Gradients: under autograd (grad mode on, an input that requires grad)
+each wrapper runs as a ``torch.autograd.Function`` whose backward is the
+adjoint transform, worked out from the packed layout; it is the other
+direction's packed transform, so the backward of each wrapper launches
+the same kernels (one launch, counted in ``<wrapper>.bwd_launches``):
+
+* ``rfft_packed``: the forward's outputs are Re X[k] and Im X[k] for the
+  interior bins and the real DC and Nyquist bins at position 0.  Their
+  cotangent, weighted N at position 0 (each real bin appears once in
+  the inverse's sum) and N / 2 elsewhere (the inverse counts an interior
+  bin twice and divides by N), is a packed spectrum whose inverse
+  (``irfft_packed``) is the gradient; ``rfft_packed_zeropad``'s is its
+  first half (``half="first"``).
+* ``irfft_packed``: the gradient of position p is the forward transform
+  of the output's cotangent (zero where ``half=`` dropped samples),
+  weighted 1 / N at position 0 and 2 / N elsewhere.  With ``half=`` the
+  cotangent fills one half of the frame: the first half is
+  ``rfft_packed_zeropad``'s input; the last half is too, shifted by N /
+  2, which multiplies natural bin k by (-1)^k, and bin k is odd exactly
+  at packed positions p >= N / 4.
 """
 
 from __future__ import annotations
@@ -26,6 +47,7 @@ from typing import Tuple, Union
 
 import numpy as np
 import torch
+from torch.autograd.function import once_differentiable
 
 from lsp_dsp_units_tpu_torch.ops import _build
 
@@ -210,8 +232,15 @@ def _rfft_launch(x: torch.Tensor, n: int, half_input: int):
     return out_re, out_im
 
 
-def rfft_packed(x: torch.Tensor):
-    """Real N-point FFT of x [..., N] -> packed (re, im) [..., N/2]."""
+def _rfft(x: torch.Tensor, half_input: int):
+    """Forward transform outside autograd: the plain version for CPU
+    tensors, the kernel for CUDA tensors (counted on its wrapper)."""
+    if half_input:
+        if _build.is_cpu(x):
+            return rfft_packed_zeropad_plain(x)
+        out = _rfft_launch(x, 2 * x.shape[-1], 1)
+        rfft_packed_zeropad.launches += 1
+        return out
     if _build.is_cpu(x):
         return rfft_packed_plain(x)
     out = _rfft_launch(x, x.shape[-1], 0)
@@ -219,25 +248,23 @@ def rfft_packed(x: torch.Tensor):
     return out
 
 
+def rfft_packed(x: torch.Tensor):
+    """Real N-point FFT of x [..., N] -> packed (re, im) [..., N/2]."""
+    if _build.needs_grad(x):
+        return _Rfft.apply(x, 0)
+    return _rfft(x, 0)
+
+
 def rfft_packed_zeropad(x: torch.Tensor):
     """rfft_packed of ``x || zeros`` (N = 2 * x.shape[-1]) without
     materializing the zero half."""
-    if _build.is_cpu(x):
-        return rfft_packed_zeropad_plain(x)
-    out = _rfft_launch(x, 2 * x.shape[-1], 1)
-    rfft_packed_zeropad.launches += 1
-    return out
+    if _build.needs_grad(x):
+        return _Rfft.apply(x, 1)
+    return _rfft(x, 1)
 
 
-def irfft_packed(re: torch.Tensor, im: torch.Tensor, n: int,
-                 half: Half = False) -> torch.Tensor:
-    """Inverse of :func:`rfft_packed`: packed [..., N/2] -> real
-    [..., N], or only its first (``half="first"``) or last
-    (``"last"`` / True) N/2 samples."""
-    if _build.is_cpu(re, im):
-        return irfft_packed_plain(re, im, n, half)
+def _irfft_launch(re, im, n: int, mode: int) -> torch.Tensor:
     _build.check_cuda_f32(re=re, im=im)
-    mode = half_mode(half)
     lm = log2_m(n)
     if re.shape[-1] != n // 2 or im.shape != re.shape:
         raise ValueError(f"packed spectra must be [..., {n // 2}], got "
@@ -250,10 +277,132 @@ def irfft_packed(re: torch.Tensor, im: torch.Tensor, n: int,
         _build.ptr(re), _build.ptr(im), _build.ptr(y), _build.ptr(wst),
         _build.ptr(wnb), rows, lm, mode, _build.stream_of(re)),
         "irfft_packed kernel")
+    return y
+
+
+def _irfft(re, im, n: int, half: Half) -> torch.Tensor:
+    """Inverse transform outside autograd (counted on its wrapper)."""
+    if _build.is_cpu(re, im):
+        return irfft_packed_plain(re, im, n, half)
+    y = _irfft_launch(re, im, n, half_mode(half))
     irfft_packed.launches += 1
     return y
+
+
+def irfft_packed(re: torch.Tensor, im: torch.Tensor, n: int,
+                 half: Half = False) -> torch.Tensor:
+    """Inverse of :func:`rfft_packed`: packed [..., N/2] -> real
+    [..., N], or only its first (``half="first"``) or last
+    (``"last"`` / True) N/2 samples."""
+    if _build.needs_grad(re, im):
+        return _Irfft.apply(re, im, n, half)
+    return _irfft(re, im, n, half)
+
+
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """A contiguous, 16-byte aligned tensor (the kernels read rows as
+    float4)."""
+    t = t.contiguous()
+    return t.clone() if t.data_ptr() % 16 else t
+
+
+def _weighted(re, im, w0: float, w: float, flip_upper: bool = False):
+    """A packed spectrum times w, position 0 times w0; with
+    ``flip_upper``, positions p >= M / 2 negated (the odd natural
+    bins).  The weights are powers of two, so exact."""
+    m = re.shape[-1]
+    scale = torch.full((m,), w, dtype=re.dtype, device=re.device)
+    if flip_upper:
+        scale[m // 2:] = -w
+    scale[0] = w0
+    return _aligned(re * scale), _aligned(im * scale)
+
+
+def _rfft_adjoint_in(g_re, g_im, n: int):
+    return _weighted(g_re, g_im, float(n), n / 2)
+
+
+def rfft_packed_bwd_plain(g_re, g_im, n: int, half_input: int = 0):
+    """Plain PyTorch version of :func:`rfft_packed_bwd`."""
+    sr, si = _rfft_adjoint_in(g_re, g_im, n)
+    return irfft_packed_plain(sr, si, n, "first" if half_input else False)
+
+
+def rfft_packed_bwd(g_re, g_im, n: int, half_input: int = 0):
+    """Backward of :func:`rfft_packed` (``half_input`` 0) and
+    :func:`rfft_packed_zeropad` (1) at frame size N: the packed
+    cotangent [..., N/2] weighted N at position 0 and N / 2 elsewhere,
+    through the inverse kernel (its whole frame, or its first half).
+    One launch, counted in the forward wrapper's ``bwd_launches``."""
+    if _build.is_cpu(g_re, g_im):
+        return rfft_packed_bwd_plain(g_re, g_im, n, half_input)
+    sr, si = _rfft_adjoint_in(g_re, g_im, n)
+    gx = _irfft_launch(sr, si, n, 1 if half_input else 0)
+    (rfft_packed_zeropad if half_input else rfft_packed).bwd_launches += 1
+    return gx
+
+
+def _irfft_adjoint_out(g_re, g_im, n: int, mode: int):
+    return _weighted(g_re, g_im, 1.0 / n, 2.0 / n, mode == 2)
+
+
+def irfft_packed_bwd_plain(g_y, n: int, half: Half = False):
+    """Plain PyTorch version of :func:`irfft_packed_bwd`."""
+    mode = half_mode(half)
+    g_re, g_im = (rfft_packed_plain(g_y) if mode == 0
+                  else rfft_packed_zeropad_plain(g_y))
+    return _irfft_adjoint_out(g_re, g_im, n, mode)
+
+
+def irfft_packed_bwd(g_y, n: int, half: Half = False):
+    """Backward of :func:`irfft_packed`: the forward kernel on the
+    output's cotangent (the whole frame, or the half given, through the
+    zero-pad form), weighted 1 / N at position 0 and 2 / N elsewhere,
+    the odd bins negated for the last half.  One launch, counted in
+    ``irfft_packed.bwd_launches``."""
+    mode = half_mode(half)
+    g_y = _aligned(g_y)
+    if _build.is_cpu(g_y):
+        return irfft_packed_bwd_plain(g_y, n, half)
+    g_re, g_im = _rfft_launch(g_y, n, 0 if mode == 0 else 1)
+    irfft_packed.bwd_launches += 1
+    return _irfft_adjoint_out(g_re, g_im, n, mode)
+
+
+class _Rfft(torch.autograd.Function):
+    """:func:`rfft_packed` (``half_input`` 0) and
+    :func:`rfft_packed_zeropad` (1) under autograd."""
+
+    @staticmethod
+    def forward(ctx, x, half_input):
+        ctx.half_input = half_input
+        ctx.n = x.shape[-1] * (2 if half_input else 1)
+        return _rfft(x, half_input)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g_re, g_im):
+        return rfft_packed_bwd(g_re, g_im, ctx.n, ctx.half_input), None
+
+
+class _Irfft(torch.autograd.Function):
+    """:func:`irfft_packed` under autograd."""
+
+    @staticmethod
+    def forward(ctx, re, im, n, half):
+        ctx.n, ctx.half = n, half
+        return _irfft(re, im, n, half)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g_y):
+        g_re, g_im = irfft_packed_bwd(g_y, ctx.n, ctx.half)
+        return g_re, g_im, None, None
 
 
 rfft_packed.launches = 0
 rfft_packed_zeropad.launches = 0
 irfft_packed.launches = 0
+rfft_packed.bwd_launches = 0
+rfft_packed_zeropad.bwd_launches = 0
+irfft_packed.bwd_launches = 0

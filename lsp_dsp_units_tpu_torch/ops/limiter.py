@@ -151,6 +151,7 @@ def limiter(params, gcarry: torch.Tensor, alr_env: torch.Tensor,
     gain [..., T], passes [...] int32: the patch passes each row ran).
     Rows whose buffers do not fit in shared memory (:func:`smem_bytes`)
     run from a scratch row in global memory."""
+    _build.no_grad_route("limiter", params, gcarry, alr_env, sc)
     if _build.is_cpu(gcarry, alr_env, sc, params.patch):
         return limiter_plain(params, gcarry, alr_env, sc, lookahead, alr)
     sc = sc.contiguous()

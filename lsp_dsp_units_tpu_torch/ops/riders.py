@@ -219,6 +219,7 @@ def autogain(unit, state, l_long, l_short, l_exp):
     short and expected loudness [..., T] (``l_exp`` broadcast to
     ``l_long``'s shape); ``state`` an AutoGainState (gain, out_gain
     float32; surge_up, surge_down bool).  Returns (state', vca gain)."""
+    _build.no_grad_route("autogain", l_long, l_short, l_exp, *state)
     if _build.is_cpu(l_long, l_short, l_exp, *state):
         return autogain_plain(unit, state, l_long, l_short, l_exp)
     floats, ints = _autogain_consts(unit)
@@ -261,6 +262,7 @@ def simple_autogain(unit, state, level, target):
     """SimpleAutoGain's rider (reference SimpleAutoGain.cpp) toward
     ``target`` (broadcast to ``level``'s shape).  Returns (state', gain
     [..., T])."""
+    _build.no_grad_route("simple_autogain", level, target, *state)
     if _build.is_cpu(level, target, *state):
         return simple_autogain_plain(unit, state, level, target)
     fields, out = _launch("simple_autogain", (
@@ -311,6 +313,7 @@ def surge_protector(unit, state, x):
     """SurgeProtector's on/off machine (reference SurgeProtector.cpp) on
     the detector x [..., T]; ``state`` (on bool, shutdown_time,
     transition_time int32).  Returns (state', gain [..., T])."""
+    _build.no_grad_route("surge_protector", x, *state)
     if _build.is_cpu(x, *state):
         return surge_protector_plain(unit, state, x)
     floats, ints = _surge_consts(unit)
@@ -344,6 +347,7 @@ def peak_meter(unit, state, x):
     """PeakMeter's held peak with release decay (reference
     PeakMeter.cpp:130-149) over x [..., T]; ``state`` (peak float32,
     counter int32).  Returns (state', peak [..., T])."""
+    _build.no_grad_route("peak_meter", x, *state)
     if _build.is_cpu(x, *state):
         return peak_meter_plain(unit, state, x)
     fields, out = _launch("peak_meter", (x,), state, [_f32(unit.tau)],
@@ -408,6 +412,7 @@ def dynproc_envelope(params, state, x):
     shared follower) over the detector x [..., T]; ``params`` a
     DynProcParams (its levels and taus float tuples, ``hold`` an int),
     ``state`` an EnvState.  Returns (state', envelope [..., T])."""
+    _build.no_grad_route("dynproc_envelope", x, *state)
     if _build.is_cpu(x, *state):
         return dynproc_envelope_plain(params, state, x)
     floats, ints = _dynproc_consts(params)
@@ -500,6 +505,7 @@ def trigger(unit, state, x):
     hysteresis, hold); ``state`` a TriggerState (prev float32, state and
     hold counter int32, disarm and locked bool, each [...]).  Returns
     (state', int32 state a sample: 0 waiting, 1 armed, 2 fired)."""
+    _build.no_grad_route("trigger", x, *state)
     if _build.is_cpu(x, *state):
         return trigger_plain(unit, state, x)
     floats, ints, kind = _trigger_consts(unit)
@@ -606,6 +612,7 @@ def depopper_forward(unit, state, env):
     models.util.depopper.Depopper); ``state`` (st, counter, delay), int32
     [...] each.  Returns ((st, counter, delay)', (raw fade-in gain
     float32, fall bool, the fall's patch length int32), each [..., T])."""
+    _build.no_grad_route("depopper_forward", env, *state)
     if _build.is_cpu(env, *state):
         return depopper_forward_plain(unit, state, env)
     floats, ints = _depopper_consts(unit)

@@ -65,6 +65,7 @@ def ring_mac(ring_re, ring_im, h_re, h_im, s_re, s_im, w: int,
     [C, F] the newest block's spectrum.  Returns (acc_re, acc_im)
     [C, F]."""
     args = (ring_re, ring_im, h_re, h_im, s_re, s_im)
+    _build.no_grad_route("ring_mac", *args)
     if _build.is_cpu(*args):
         return ring_mac_plain(*args, w, packed_dc)
     p_n, c_n, f_n = ring_re.shape

@@ -62,6 +62,7 @@ def batched_slice(bank: torch.Tensor, starts: torch.Tensor,
 
     ``bank`` [N] float32; ``starts`` [V] int32 (any alignment, clamped as
     the module says); returns [V, size] float32."""
+    _build.no_grad_route("batched_slice", bank, starts)
     if _build.is_cpu(bank, starts):
         return batched_slice_plain(bank, starts, size)
     lim = _limit(bank, starts, size)

@@ -6,7 +6,10 @@ A tree is built of NamedTuples (children by field name), tuples and lists
 leaf, as in ``jax.tree_util``; everything else (a tensor, a numpy array, a
 Python number) is a leaf.  Paths are the JAX package's strings
 (``utils/state._path_str``): the parts joined by ``/``, e.g.
-``fdl/spec_re`` or ``comp/knees/0/start``.
+``fdl/spec_re`` or ``comp/knees/0/start``.  :func:`tree_flatten` and
+:func:`tree_unflatten` walk the leaves in that order, which is
+``jax.tree_util.tree_flatten``'s, so a JAX tree's flat leaves rebuild the
+port's tree of the same shape.
 """
 
 from __future__ import annotations
@@ -53,3 +56,33 @@ def tree_map(fn: Callable[[Any], Any], tree):
     if isinstance(tree, (tuple, list)):
         return type(tree)(tree_map(fn, v) for v in tree)
     return {k: tree_map(fn, tree[k]) for k in sorted(tree)}
+
+
+class _Leaf:
+    """The place of a leaf in a tree's skeleton."""
+
+    def __repr__(self):
+        return "*"
+
+
+_LEAF = _Leaf()
+
+
+def tree_flatten(tree) -> Tuple[List[Any], Any]:
+    """(leaves in :func:`leaves_with_path`'s order, the tree's skeleton),
+    as ``jax.tree_util.tree_flatten`` returns them."""
+    return ([v for _, v in leaves_with_path(tree)],
+            tree_map(lambda _: _LEAF, tree))
+
+
+def tree_unflatten(skeleton, leaves) -> Any:
+    """The tree of ``skeleton`` (from :func:`tree_flatten`) with
+    ``leaves`` in its places, in order."""
+    it = iter(leaves)
+    try:
+        tree = tree_map(lambda _: next(it), skeleton)
+    except StopIteration:
+        raise ValueError("fewer leaves than the tree has places") from None
+    if next(it, _LEAF) is not _LEAF:
+        raise ValueError("more leaves than the tree has places")
+    return tree

@@ -440,6 +440,15 @@ def test_new_modules_import_no_jax():
             "import lsp_dsp_units_tpu_torch.shared\n"
             "import lsp_dsp_units_tpu_torch.tools.serve\n"
             "import lsp_dsp_units_tpu_torch.tools.room_demo\n"
+            "import lsp_dsp_units_tpu_torch.ops.env_units\n"
+            "import lsp_dsp_units_tpu_torch.ops.fft_packed\n"
+            "import lsp_dsp_units_tpu_torch.ops.biquad\n"
+            "import lsp_dsp_units_tpu_torch.ops.dynamics\n"
+            "import lsp_dsp_units_tpu_torch.models.dynamics.compressor\n"
+            "import lsp_dsp_units_tpu_torch.models.util.sidechain\n"
+            "import lsp_dsp_units_tpu_torch.pipeline\n"
+            "import lsp_dsp_units_tpu_torch.convert\n"
+            "import lsp_dsp_units_tpu_torch.utils.tree\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'lsp_dsp_units_tpu')]\n"
             "print(bad)\n"

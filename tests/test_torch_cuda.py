@@ -42,6 +42,7 @@ from lsp_dsp_units_tpu_torch.models.util import (
     Trigger, TriggerMode, TriggerType, dither_device)
 from lsp_dsp_units_tpu_torch.models.noise import (NoiseColor, NoiseCore,
                                                   NoiseGenerator)
+from lsp_dsp_units_tpu_torch.utils import tree
 
 pytestmark = pytest.mark.cuda
 
@@ -1484,3 +1485,132 @@ def test_serve_on_card(cuda_device):
     ref = torch.cat(ys, -1).numpy()
     for i, o in enumerate(out["outputs"]):
         np.testing.assert_array_equal(o, ref[4 * i:4 * i + 4])
+
+
+# ---------------------------------------------------------------------------
+# gradients: the backward kernels and step's gradient on the card
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("c", [3, 64])
+@pytest.mark.parametrize("t", [1, 300, 479, 480, 481, 2049, 16383, 16384])
+def test_sliding_rms_bwd_kernel_matches_plain(cuda_device, t, c):
+    """The RMS's adjoint: the kernel's time tiles over the frame index
+    (T below, at and above N = 480, ragged tiles) against the plain
+    version on the same card, >= 120 dB (both sum in float64, in other
+    orders)."""
+    gen = torch.Generator().manual_seed(t + c)
+    n = 480
+    win = _randn(gen, c, n, scale=0.5, device=cuda_device) ** 2
+    x = _randn(gen, c, t, scale=2.0, device=cuda_device)
+    _, level = eu.sliding_rms(win, x, n, 1.0)
+    args = (win, x, level, _randn(gen, c, t, device=cuda_device),
+            _randn(gen, c, n, device=cuda_device), n, 1.0)
+    before = eu.sliding_rms_bwd.launches
+    gw_k, gx_k = eu.sliding_rms_bwd(*args)
+    assert eu.sliding_rms_bwd.launches == before + 1
+    gw_p, gx_p = eu.sliding_rms_bwd_plain(*args)
+    assert _snr(gx_p, gx_k) >= 120.0
+    assert _snr(gw_p, gw_k) >= 120.0
+
+
+@pytest.mark.parametrize("hold", [0, 24])
+@pytest.mark.parametrize("t", [1, 2047, 2049, 5000])
+@pytest.mark.parametrize("rt", [None, 0.2])
+def test_peak_envelope_bwd_kernel_matches_plain(cuda_device, rt, t, hold):
+    """The envelope's adjoint: the kernel's branch codes and reverse
+    chain against the plain loop bit for bit (g_x, the state's
+    cotangents, both taus), from a random state, across chunk ends."""
+    gen = torch.Generator().manual_seed(t + hold)
+    c = 5
+    x = (torch.randn(c, t, generator=gen).abs() * 0.6).to(cuda_device)
+    st = tdyn.EnvState(torch.rand(c, generator=gen).to(cuda_device),
+                       torch.rand(c, generator=gen).to(cuda_device),
+                       torch.randint(0, 25, (c,), generator=gen,
+                                     dtype=torch.int32).to(cuda_device))
+    _, env = eu.peak_envelope(st, x, 0.05, 0.01, hold, rt)
+    args = (x, env, *st, _randn(gen, c, t, device=cuda_device),
+            _randn(gen, c, device=cuda_device),
+            _randn(gen, c, device=cuda_device), 0.05, 0.01, hold, rt)
+    before = eu.peak_envelope_bwd.launches
+    k_out = eu.peak_envelope_bwd(*args)
+    assert eu.peak_envelope_bwd.launches == before + 1
+    p_out = eu.peak_envelope_bwd_plain(*[a.cpu() if torch.is_tensor(a)
+                                         else a for a in args])
+    for a, b in zip(k_out, p_out):
+        assert torch.equal(a.cpu(), b)
+
+
+@pytest.mark.parametrize("case", ["rfft", "rfft_zeropad", "irfft",
+                                  "irfft_first", "irfft_last"])
+def test_fft_adjoints_on_card_match_plain(cuda_device, case):
+    """Gradients through each packed transform on the card (its backward
+    launching the other direction's kernel) against the plain route's on
+    the CPU, >= 120 dB."""
+    gen = torch.Generator().manual_seed(len(case))
+    n, rows = 2048, 6
+    half = {"irfft": False, "irfft_first": "first",
+            "irfft_last": "last"}.get(case)
+    if case.startswith("rfft"):
+        ins = [_randn(gen, rows, n // 2 if case == "rfft_zeropad" else n)]
+        fn = (tfft.rfft_packed_zeropad if case == "rfft_zeropad"
+              else tfft.rfft_packed)
+    else:
+        ins = [_randn(gen, rows, n // 2), _randn(gen, rows, n // 2)]
+
+        def fn(a, b):
+            return tfft.irfft_packed(a, b, n, half)
+    w = _randn(gen, rows, n)
+    grads = []
+    for dev in ("cpu", cuda_device):
+        leaves = [v.detach().to(dev).requires_grad_(True) for v in ins]
+        out = fn(*leaves)
+        out = out if isinstance(out, tuple) else (out,)
+        loss = sum(torch.sum(o * w.to(dev)[..., :o.shape[-1]]) for o in out)
+        loss.backward()
+        grads.append([v.grad.cpu() for v in leaves])
+    for a, b in zip(*grads):
+        assert _snr(a, b) >= 120.0
+
+
+def test_biquad_cascade_bwd_on_card_matches_plain(cuda_device):
+    """The scan's adjoint on the kernel (2K - 1 launches) against the
+    same adjoint on the plain scan on the card: bit for bit, as the scan
+    kernel is its plain version's."""
+    gen = torch.Generator().manual_seed(9)
+    coeffs = _randn(gen, 9, 5, scale=0.3, device=cuda_device)
+    coeffs[:, 3:] *= 0.5
+    s0 = _randn(gen, 4, 9, 2, scale=0.1, device=cuda_device)
+    x = _randn(gen, 4, 3001, device=cuda_device)
+    y, _ = tbq.biquad_cascade(coeffs, s0, x)
+    args = (coeffs, s0, x, y, _randn(gen, 4, 3001, device=cuda_device),
+            _randn(gen, 4, 9, 2, device=cuda_device))
+    before = tbq.biquad_cascade.bwd_launches
+    k_out = tbq.biquad_cascade_bwd(*args)
+    assert tbq.biquad_cascade.bwd_launches == before + 17
+    p_out = tbq.biquad_cascade_bwd_plain(*args)
+    for a, b in zip(k_out, p_out):
+        assert torch.equal(a, b)
+
+
+def test_step_gradient_on_card_matches_cpu(cuda_device):
+    """d/dx of two calls of step with the state carried, the compressor
+    engaged, on the card against the CPU: >= 100 dB."""
+    chains = [tpipe.FilterConvChain(48000, 8, rank=10, ir_seconds=0.05,
+                                    device=d) for d in ("cpu", cuda_device)]
+    params = chains[0].build()
+    rng = np.random.default_rng(8)
+    xs = [(rng.standard_normal((8, 2 * chains[0].block)) * 2.0)
+          .astype(np.float32) for _ in range(2)]
+    grads = []
+    for chain, dev in zip(chains, ("cpu", cuda_device)):
+        p = tree.tree_map(lambda v: v.to(dev) if torch.is_tensor(v) else v,
+                          params)
+        x0, x1 = (torch.from_numpy(x).to(dev).requires_grad_(True)
+                  for x in xs)
+        st, y0 = chain.step(p, chain.init_state(p), x0)
+        _, y1 = chain.step(p, st, x1)
+        (torch.sum(y0 * y0) + torch.sum(y1 * y1)).backward()
+        grads.append([x0.grad.cpu(), x1.grad.cpu()])
+    for a, b in zip(*grads):
+        assert _snr(a, b) >= 100.0

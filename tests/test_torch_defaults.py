@@ -55,6 +55,7 @@ ALLOCATING = [
     biquad_block.init_state, biquad_block.precompute_fused,
     dynamics.env_init, delivery.tpdf_i16_table, blocks.BlockStream.__init__,
     resample.upsample_history, convert.params_from_jax,
+    convert.compressor_params_from_jax,
     convert.state_from_jax, convert.bulk_state_from_jax,
     convert.ring_from_natural, convert.ring_fdl_from_jax,
     convert.ring_state_from_jax, convert.voices_from_jax,
