@@ -275,6 +275,30 @@ Phases (any failure exits non-zero; nothing is caught):
             scan), >= 120 dB, its scan launches a call; #1's four
             adjoints as step runs them, against the same adjoints on
             torch.fft (>= 95 dB).  Each timed, with its bound.
+17b. grad_ring — gradients through step_ring at full width: 8 blocks
+            of [64, 8192] from init_ring_state (inputs at amplitude 2.0,
+            seeded), loss the sum of every output squared, d/d each
+            block's x and the IR spectra, the EQ spectrum, g_mat, m_mat
+            and w_mat (new leaves that require grad, packed in the
+            graph), the loss over the channels whose envelope branches
+            (from kernel #3's level and envelope as chain_dyn_bwd
+            replays them) agree with the CPU run's (the others printed).
+            The launch counters of eqfdl_fused_bwd and chain_dyn_bwd,
+            zeroed just before and read just after, each >= 8.  Card
+            against the port's CPU run: >= 100 dB each; again with TF32
+            on: identical.  8 blocks of the packed
+            fdl_ring_step under grad (x and the IR spectra): fdl_bwd
+            launched >= 8 times, card vs CPU >= 100 dB.  On block 3's
+            saved inputs with random cotangents: eqfdl_fused_bwd and
+            fdl_fused_bwd against their plain backwards >= 110 dB per
+            output; chain_dyn_bwd's replayed y identical to kernel #3's,
+            its replayed envelope identical to the plain envelope on its
+            level, its envelope adjoint identical to
+            peak_envelope_bwd_plain on the replayed values, and the whole
+            >= 120 dB from chain_dyn_bwd_plain.  Each timed, with its
+            bound; step_ring's ms a block forward and forward + backward
+            (CUDA events behind the spin kernel) and torch.profiler's
+            kernels of one forward + backward.
 18. timing — CUDA events behind a spin kernel: step_ring ms per block,
             step ms per call and per block, bulk_step ms per super-block;
             each kernel against its plain version at the same shapes, its
@@ -294,7 +318,9 @@ The last three lines of standard output are the kernel table (JSON:
 the nine TPU kernels' ports, biquad_seq, limiter_kernel,
 rider_kernel, biquad_scan, delay_kernel, rider_kernel<TriggerStep>,
 rider_kernel<DepopperStep>, and the backward kernels sliding_rms_bwd
-and peak_envelope_bwd, whose launches are the grad phase's), the card's
+and peak_envelope_bwd, whose launches are the grad phase's, and
+eqfdl_bwd, fdl_bwd and chain_dyn_bwd, whose launches are the grad_ring
+phase's), the card's
 name and power limit, and the
 contract line
 {"ok": true, "device": {...}}.
@@ -371,6 +397,8 @@ from lsp_dsp_units_tpu_torch.ops import limiter as lim_ops  # noqa: E402
 from lsp_dsp_units_tpu_torch.ops import resample  # noqa: E402
 from lsp_dsp_units_tpu_torch.ops import riders  # noqa: E402
 from lsp_dsp_units_tpu_torch.ops import slicedma  # noqa: E402
+from lsp_dsp_units_tpu_torch.ops import env as env_ops  # noqa: E402
+from lsp_dsp_units_tpu_torch.ops import fdl_fused as ff  # noqa: E402
 from lsp_dsp_units_tpu_torch.ops.env import (  # noqa: E402
     chain_dyn, chain_dyn_plain)
 from lsp_dsp_units_tpu_torch.ops.fdl_fused import (  # noqa: E402
@@ -507,6 +535,12 @@ KERNELS = (
     ("rms_bwd", "sliding_rms_bwd", "env_units.cu",
      "models/util/sidechain.py:121"),
     ("peak_bwd", "peak_envelope_bwd", "env_units.cu", "ops/dynamics.py:102"),
+    # the backwards of step_ring's kernels and of the packed ring's: the
+    # adjoints of the TPU kernels' contracts (JAX differentiates their
+    # XLA forms, pipeline.py:194 on its CPU route)
+    ("eqfdl_bwd", "eqfdl_bwd", "fdl_fused.cu", "ops/pallas_fdl_fused.py:222"),
+    ("fdl_bwd", "fdl_bwd", "fdl_fused.cu", "ops/pallas_fdl_fused.py:80"),
+    ("dyn_bwd", "chain_dyn_bwd", "env.cu", "ops/pallas_env.py:523"),
 )
 
 
@@ -540,6 +574,9 @@ EXTRA_KEYS = {
               "launches_per_call", "modes"),
     "rms_bwd": ("db", "identical_share"),
     "peak_bwd": ("chain_ms", "cycles_per_step"),
+    "eqfdl_bwd": ("db", "fft_launches_per_call"),
+    "fdl_bwd": ("db", "card_vs_cpu_db"),
+    "dyn_bwd": ("db", "envelope_identical", "chain_ms", "cycles_per_sample"),
     "peak": ("chain_ms", "cycles_per_step", "hold24_ms",
              "hold24_cycles_per_step", "sass_free_cycles_per_step",
              "sass_ref_cycles_per_step", "sm_clock_hz"),
@@ -582,6 +619,17 @@ def time_ms(fn, reps: int, warmup: int = 2) -> float:
     stop.record()
     stop.synchronize()
     return start.elapsed_time(stop) / reps
+
+
+def warm_cpu_pool() -> None:
+    """One multi-threaded pass of PyTorch's vectorised transcendental
+    kernels on the host before any CPU reference runs: in some processes
+    the first such call on a tensor split over the intra-op pool comes
+    out ~1.5e-4 off on one worker's share (ROADMAP.md §3, `lcg_device`),
+    which would move a CPU reference run of the phases below."""
+    v = torch.rand(1 << 20)
+    for fn in (torch.exp, torch.log, torch.sin, torch.tanh, torch.sqrt):
+        fn(v)
 
 
 def card_line() -> str:
@@ -686,12 +734,13 @@ def parity_eqfdl(chain, params, dev, res):
                   *xs, x)
         mats = (eqp.g_t, eqp.m_mat, eqp.w_mat)
         ring_f = (ring_k.spec_re.clone(), ring_k.spec_im.clone())
-        yk, uk, sv_k = eqfdl_fused(ring_k.spec_re, ring_k.spec_im, *common,
-                                   sv_k, *mats, ring_k.history, w)
+        yk, uk, sv_k, _, _ = eqfdl_fused(ring_k.spec_re, ring_k.spec_im,
+                                         *common, sv_k, *mats,
+                                         ring_k.history, w)
         # the cluster schedule's frame, MAC and inverse are fdl_fused's
         # one-block ones: same y and ring slot, bit for bit
         yf = fdl_fused(*ring_f, params.h_re, params.h_im, ring_k.history,
-                       uk, w)
+                       uk, w)[0]
         same = (same and torch.equal(yf, yk)
                 and torch.equal(ring_f[0], ring_k.spec_re)
                 and torch.equal(ring_f[1], ring_k.spec_im))
@@ -1338,7 +1387,7 @@ def ring_phase(chain, params, dev, res):
     for k in range(p_n + 2):
         x = randn(gen, C, B, scale=0.25, dev=dev)
         w = (ring_k.pos + 1) % p_n
-        yk = fdl_fused(*ring_k[:2], *hp, ring_k.history, x, w)
+        yk = fdl_fused(*ring_k[:2], *hp, ring_k.history, x, w)[0]
         yp = fdl_fused_plain(*ring_p[:2], *hp, ring_p.history, x, w)
         ring_k = ring_k._replace(history=x, pos=w)
         ring_p = ring_p._replace(history=x, pos=w)
@@ -1448,7 +1497,7 @@ def ring_phase(chain, params, dev, res):
     for k in range(p_n + 2):
         x = randn(gen, C, B, scale=0.25, dev=dev)
         w = (ring_a.pos + 1) % p_n
-        ya = fdl_fused(*ring_a[:2], *hp, ring_a.history, x, w)
+        ya = fdl_fused(*ring_a[:2], *hp, ring_a.history, x, w)[0]
         s_re, s_im = fp.rfft_packed(torch.cat([ring_b.history, x], dim=-1))
         acc = ring_mac(*ring_b[:2], *hp, s_re, s_im, w, packed_dc=True)
         yb = fp.irfft_packed(*acc, N, "last")
@@ -4167,6 +4216,364 @@ def grad_phase(chain, params, dev, res):
     print(f"grad phase: {time.perf_counter() - t_start:.1f} s")
 
 
+# --- the grad_ring phase: gradients through step_ring and the ring ------
+
+RING_GRAD_BLOCKS = 8  # step_ring blocks carried under one loss
+FDL_BWD_DB = 110.0    # eqfdl_bwd's and fdl_bwd's routes vs their plain
+#                       backwards (kernel #1 against torch.fft, channel
+#                       sums in another order)
+DYN_BWD_DB = 120.0    # chain_dyn_bwd vs its plain backward (the float64
+#                       level against the plain float32 prefix sums)
+RING_COUNTERS = (ff.eqfdl_fused_bwd, ff.fdl_fused_bwd, env_ops.chain_dyn_bwd)
+
+
+def dbs_of(names, refs, outs) -> dict:
+    """snr_db of each output against its reference; an output that is
+    zero wherever its reference is (a cotangent that vanishes, such as
+    the peak's at a hold of 0) must be identical to it and is left
+    out."""
+    out = {}
+    for name, a, b in zip(names, refs, outs):
+        if not bool(torch.any(a != 0)):
+            check(torch.equal(a.cpu(), b.cpu()), f"{name}: zero against "
+                  f"non-zero")
+            continue
+        out[name] = snr_db(a.cpu(), b.cpu())
+    return out
+
+
+def ring_params(params, device):
+    """``params`` on ``device`` with the IR spectra, the EQ spectrum and
+    g_mat, m_mat, w_mat as new leaves that require grad (step_ring packs
+    them in its graph), and those leaves."""
+    eqb = params.eq_block
+    leaf = [v.detach().to(device).clone().requires_grad_(True) for v in (
+        params.h_spectra.re, params.h_spectra.im, eqb.h_re, eqb.h_im,
+        eqb.g_mat, eqb.m_mat, eqb.w_mat)]
+    p = tree.tree_map(lambda v: v.to(device) if torch.is_tensor(v) else v,
+                      params)
+    p = p._replace(h_spectra=fftconv.Spectra(leaf[0], leaf[1]),
+                   eq_block=p.eq_block._replace(
+                       h_re=leaf[2], h_im=leaf[3], g_mat=leaf[4],
+                       m_mat=leaf[5], w_mat=leaf[6]))
+    return p, leaf
+
+
+def ring_grad_run(chain, params, xs, device, keep):
+    """RING_GRAD_BLOCKS blocks of step_ring from init_ring_state, loss
+    the sum of the outputs squared over the channels ``keep`` (a
+    channel's output depends on the shared parameters and its own input
+    alone, so the parameters' gradients are then the sum of those
+    channels' shares): the gradients of each block's x and of the IR
+    spectra, the EQ spectrum, g_mat, m_mat and w_mat."""
+    p, leaf = ring_params(params, device)
+    xt = [torch.from_numpy(x).to(device).requires_grad_(True) for x in xs]
+    wc = torch.zeros(C, 1, device=device)
+    wc[keep.to(device)] = 1.0
+    st = chain.init_ring_state(p)
+    total = 0.0
+    for x in xt:
+        st, y = chain.step_ring(p, st, x)
+        total = total + torch.sum(y * y * wc)
+    total.backward()
+    return [x.grad for x in xt] + [v.grad for v in leaf]
+
+
+def ring_codes(chain, params, xs, device):
+    """step_ring's stages run block by block (no grad): each block's
+    envelope branch codes (on the CPU), from kernel #3's level and
+    envelope as chain_dyn_bwd replays them on the card, from
+    chain_dyn_plain's on the CPU; and the share of envelope samples above
+    the first knee."""
+    cp = params.comp
+    st = chain.init_ring_state(params)
+    eqp = params.eq_block
+    codes, above = [], 0.0
+    with torch.no_grad():
+        for x in xs:
+            x = torch.from_numpy(x).to(device)
+            w = (st.fdl.pos + 1) % params.h_re.shape[0]
+            y, u, sv2, rr, ri = ff.eqfdl_fused(
+                st.fdl.spec_re, st.fdl.spec_im, params.h_re, params.h_im,
+                params.heq_re, params.heq_im, *fp.rfft_packed_zeropad(x), x,
+                st.eq.reshape(C, -1), eqp.g_t, eqp.m_mat, eqp.w_mat,
+                st.fdl.history, w)
+            args = (chain.sidechain.reactivity, chain.sidechain.gain,
+                    cp.tau_attack, cp.tau_release, cp.release_thresh,
+                    cp.hold, cp.knees)
+            if device == "cpu":
+                win, env_st, _, level, env = env_ops._chain_dyn_plain(
+                    st.sc.window, st.env, y, *args)
+            else:
+                z = torch.zeros_like
+                level, env = env_ops.chain_dyn_bwd(
+                    st.sc.window, st.env, y, z(st.sc.window),
+                    z(st.env.envelope), z(st.env.peak), z(y), *args,
+                    replay=True)[6:8]
+                win, env_st, _ = chain_dyn(st.sc.window, st.env, y, *args)
+            codes.append(eu.peak_envelope_codes(
+                level.cpu(), env.cpu(), *(v.cpu() for v in st.env), cp.hold,
+                cp.release_thresh))
+            above += float(torch.mean((env > cp.knees[0].start).float()))
+            st = pipeline.ChainRingState(
+                eq=sv2.reshape(st.eq.shape),
+                fdl=fftconv.RingFDLState(rr, ri, u, w),
+                sc=st.sc._replace(window=win), env=env_st)
+    return torch.stack(codes), above / len(xs)
+
+
+def grad_ring_phase(chain, params, dev, res):
+    """Gradients through RING_GRAD_BLOCKS blocks of step_ring and P + 2
+    blocks of the packed fdl_ring_step at full width on the card, against
+    the port's CPU run; the three backward kernels against their plain
+    backwards on the same saved inputs; TF32; device times."""
+    t_start = time.perf_counter()
+    rng = np.random.default_rng(15)
+    xs = [(rng.standard_normal((C, B)) * GRAD_AMP).astype(np.float32)
+          for _ in range(RING_GRAD_BLOCKS)]
+    # the envelope's gradient jumps where a step's branch changes, and
+    # the two devices' roundings can put a level on either side of the
+    # release threshold: the channels whose branches agree carry the loss
+    # (the others are printed)
+    cpu_chain = pipeline.FilterConvChain(SR, C, rank=RANK, ir_seconds=IR_S,
+                                         device="cpu")
+    cpu_params = tree.tree_map(
+        lambda v: v.cpu() if torch.is_tensor(v) else v, params)
+    codes_card, share = ring_codes(chain, params, xs, dev)
+    codes_cpu = ring_codes(cpu_chain, cpu_params, xs, "cpu")[0]
+    flips = (codes_card != codes_cpu).sum(dim=(0, 2))
+    agree = torch.nonzero(flips == 0)[:, 0]
+    torch.cuda.synchronize()
+    for f in RING_COUNTERS:
+        f.launches = 0
+    g_card = ring_grad_run(chain, params, xs, dev, agree)
+    torch.cuda.synchronize()
+    launched = {f.__name__: f.launches for f in RING_COUNTERS}
+    check(launched["eqfdl_fused_bwd"] >= RING_GRAD_BLOCKS
+          and launched["chain_dyn_bwd"] >= RING_GRAD_BLOCKS,
+          f"grad_ring: backward launches {launched}")
+    prev = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = True
+    torch.backends.cudnn.allow_tf32 = True
+    g_tf32 = ring_grad_run(chain, params, xs, dev, agree)
+    torch.backends.cuda.matmul.allow_tf32, \
+        torch.backends.cudnn.allow_tf32 = prev
+    tf32_same = all(torch.equal(a, b) for a, b in zip(g_card, g_tf32))
+    check(tf32_same, "grad_ring: gradients changed with TF32 switched on")
+
+    t0 = time.perf_counter()
+    g_cpu = ring_grad_run(cpu_chain, cpu_params, xs, "cpu", agree)
+    cpu_s = time.perf_counter() - t0
+    names = [f"x{k}" for k in range(RING_GRAD_BLOCKS)] + [
+        "h_re", "h_im", "heq_re", "heq_im", "g_mat", "m_mat", "w_mat"]
+    dbs = dbs_of(names, g_cpu, g_card)
+    worst = min(dbs.values())
+    print(f"grad_ring: {RING_GRAD_BLOCKS} blocks of step_ring on [{C}, {B}] "
+          f"at amplitude {GRAD_AMP} ({100 * share:.1f} % of the envelope "
+          f"above the first knee); backward launches {launched}; card vs "
+          f"the port's CPU run ({cpu_s:.1f} s): {len(agree)} of {C} "
+          f"channels took the same envelope branches on both ("
+          f"{int(flips.sum())} samples of the other {C - len(agree)}, "
+          f"channels {torch.nonzero(flips)[:, 0].tolist()}), which carry "
+          f"the loss: "
+          + ", ".join(f"{k} {v:.2f}" for k, v in dbs.items())
+          + f" dB; TF32 on: identical = {tf32_same}")
+    check(worst >= GRAD_DB, f"grad_ring: {worst:.2f} dB < {GRAD_DB}")
+
+    # the packed fdl_ring_step (#4) under grad: x and the IR spectra
+    p_n = params.h_re.shape[0]
+    fx = [torch.from_numpy(x) for x in xs[:2]] * ((p_n + 3) // 2)
+
+    def fdl_run(device):
+        h = [v.detach().to(device).clone().requires_grad_(True)
+             for v in params.h_spectra]
+        st = fftconv.init_ring_fdl(fftconv.Spectra(*h), (C,), packed=True,
+                                   device=device)
+        xt = [torch.roll(x, shifts=k, dims=-1).to(device).requires_grad_(True)
+              for k, x in enumerate(fx[:p_n + 2])]
+        total = 0.0
+        for x in xt:
+            st, y = fftconv.fdl_ring_step(fftconv.Spectra(*h), st, x)
+            total = total + torch.sum(y * y)
+        total.backward()
+        return [x.grad for x in xt] + [v.grad for v in h]
+
+    ff.fdl_fused_bwd.launches = 0
+    gf_card = fdl_run(dev)
+    torch.cuda.synchronize()
+    fdl_launches = ff.fdl_fused_bwd.launches
+    check(fdl_launches >= p_n + 2, f"fdl_bwd launches {fdl_launches}")
+    gf_cpu = fdl_run("cpu")
+    fdl_db = min(dbs_of([f"x{k}" for k in range(p_n + 2)] + ["h_re", "h_im"],
+                        gf_cpu, gf_card).values())
+    check(fdl_db >= GRAD_DB, f"fdl_ring_step grad {fdl_db:.2f} dB")
+    print(f"grad_ring: {p_n + 2} blocks of the packed fdl_ring_step under "
+          f"grad: {fdl_launches} fdl_bwd launches, card vs CPU >= "
+          f"{fdl_db:.2f} dB (x and the IR spectra)")
+
+    # each backward against its plain backward on the same saved inputs:
+    # block 3 of the drive (the ring partly filled), random cotangents
+    gen = torch.Generator().manual_seed(16)
+    cp, eqp = params.comp, params.eq_block
+    st = chain.init_ring_state(params)
+    with torch.no_grad():
+        for x in xs[:3]:
+            st, _ = chain.step_ring(params, st, torch.from_numpy(x).to(dev))
+        x = torch.from_numpy(xs[3]).to(dev)
+        w = (st.fdl.pos + 1) % p_n
+        xs_re, xs_im = fp.rfft_packed_zeropad(x)
+        sv = st.eq.reshape(C, -1).contiguous()
+        rr, ri = st.fdl.spec_re.clone(), st.fdl.spec_im.clone()
+        y_lin, u, _, rr, ri = ff.eqfdl_fused(
+            rr, ri, params.h_re, params.h_im, params.heq_re, params.heq_im,
+            xs_re, xs_im, x, sv, eqp.g_t, eqp.m_mat, eqp.w_mat,
+            st.fdl.history, w)
+    k2 = sv.shape[1]
+    cot = [randn(gen, C, B, dev=dev), randn(gen, C, B, dev=dev),
+           randn(gen, C, k2, dev=dev), randn(gen, p_n, C, B, dev=dev),
+           randn(gen, p_n, C, B, dev=dev)]
+    eq_args = (rr, ri, params.h_re, params.h_im, params.heq_re,
+               params.heq_im, xs_re, xs_im, x, sv, eqp.g_t, eqp.m_mat,
+               eqp.w_mat, w, *cot)
+    before = ff.eqfdl_fused_bwd.fft_launches
+    k_out = ff.eqfdl_fused_bwd(*eq_args)
+    fft_per_call = ff.eqfdl_fused_bwd.fft_launches - before
+    p_ms, p_out = time_once_ms(lambda: ff.eqfdl_fused_bwd_plain(*eq_args))
+    eq_dbs = dbs_of(("ring_re", "ring_im", "h_re", "h_im", "heq_re",
+                     "heq_im", "xs_re", "xs_im", "x", "sv", "g_t", "m_mat",
+                     "w_mat", "hist"), p_out, k_out)
+    check(min(eq_dbs.values()) >= FDL_BWD_DB,
+          f"eqfdl_bwd {eq_dbs} < {FDL_BWD_DB}")
+    plane = C * B * F32
+    k2b = k2 * B * F32
+    res["eqfdl_bwd"] = dict(
+        db=min(eq_dbs.values()), fft_launches_per_call=fft_per_call,
+        max_abs_err=max(max_abs(a, b) for a, b in zip(p_out, k_out)),
+        ms=time_ms(lambda: ff.eqfdl_fused_bwd(*eq_args), 20),
+        plain_ms=time_ms(lambda: ff.eqfdl_fused_bwd_plain(*eq_args), 5),
+        library_ms=None, launches=launched["eqfdl_fused_bwd"],
+        **bound(6 * p_n * plane + 4 * p_n * B * F32 + 10 * plane + 4 * k2b,
+                C * (3 * fft_flops(N) + 16 * p_n * B + 8 * k2 * B)))
+    fdl_args = (rr, ri, params.h_re, params.h_im, w, cot[0], cot[3], cot[4])
+    k_out = ff.fdl_fused_bwd(*fdl_args)
+    p_out = ff.fdl_fused_bwd_plain(*fdl_args)
+    fdl_dbs = dbs_of(("ring_re", "ring_im", "h_re", "h_im", "hist", "x"),
+                     p_out, k_out)
+    check(min(fdl_dbs.values()) >= FDL_BWD_DB,
+          f"fdl_bwd {fdl_dbs} < {FDL_BWD_DB}")
+    res["fdl_bwd"] = dict(
+        db=min(fdl_dbs.values()), card_vs_cpu_db=fdl_db,
+        max_abs_err=max(max_abs(a, b) for a, b in zip(p_out, k_out)),
+        ms=time_ms(lambda: ff.fdl_fused_bwd(*fdl_args), 20),
+        plain_ms=time_ms(lambda: ff.fdl_fused_bwd_plain(*fdl_args), 5),
+        library_ms=None, launches=fdl_launches,
+        **bound(6 * p_n * plane + 4 * p_n * B * F32 + 3 * plane,
+                C * (2 * fft_flops(N) + 16 * p_n * B)))
+
+    # chain_dyn_bwd on the block's y and state: the replay against kernel
+    # #3, the envelope's adjoint bit for bit against the plain one on the
+    # replayed values, the whole against the plain backward
+    n_sc = chain.sidechain.reactivity
+    dargs = (n_sc, chain.sidechain.gain, cp.tau_attack, cp.tau_release,
+             cp.release_thresh, cp.hold, cp.knees)
+    dcot = [randn(gen, C, n_sc, dev=dev), randn(gen, C, dev=dev),
+            randn(gen, C, dev=dev), randn(gen, C, B, dev=dev)]
+    k_out = env_ops.chain_dyn_bwd(st.sc.window, st.env, y_lin, *dcot, *dargs,
+                                  replay=True)
+    level_k, env_k, genv_k, glev_k, y_k = k_out[6:]
+    _, _, y_fwd = chain_dyn(st.sc.window, st.env, y_lin, *dargs)
+    check(torch.equal(y_k, y_fwd), "chain_dyn_bwd's replayed y is not "
+          "kernel #3's")
+    env_ms, (_, _, _, env_p) = time_once_ms(lambda: eu._envelope_plain(
+        level_k, *st.env, cp.tau_attack, cp.tau_release, cp.hold,
+        cp.release_thresh))
+    check(torch.equal(env_p, env_k), "chain_dyn_bwd's replayed envelope "
+          "differs from the plain envelope on its level")
+    pe = eu.peak_envelope_bwd_plain(level_k, env_k, *st.env, genv_k, dcot[1],
+                                    dcot[2], cp.tau_attack, cp.tau_release,
+                                    cp.hold, cp.release_thresh)
+    env_same = (torch.equal(pe[0], glev_k) and torch.equal(pe[1], k_out[1])
+                and torch.equal(pe[2], k_out[2])
+                and torch.equal(pe[3], k_out[4]))
+    check(env_same, "chain_dyn_bwd's envelope adjoint differs from "
+          "peak_envelope_bwd_plain on the replayed values")
+    # on the same saved inputs: the plain backward fed the level and
+    # envelope the forward kernel computed (its own float32 prefix sums
+    # round the level otherwise, which the taus' sums over x - e feel)
+    d_ms, d_out = time_once_ms(lambda: env_ops.chain_dyn_bwd_plain(
+        st.sc.window, st.env, y_lin, *dcot, *dargs, saved=(level_k, env_k)))
+    dyn_names = ("window", "envelope", "peak", "x", "taus", "knees")
+    dyn_dbs = dbs_of(dyn_names, d_out, k_out)
+    own_dbs = dbs_of(dyn_names, env_ops.chain_dyn_bwd_plain(
+        st.sc.window, st.env, y_lin, *dcot, *dargs), k_out)
+    check(min(dyn_dbs.values()) >= DYN_BWD_DB,
+          f"chain_dyn_bwd {dyn_dbs} < {DYN_BWD_DB}")
+    sm_hz = res.get("peak", {}).get("sm_clock_hz", SM_HZ)
+    ms = time_ms(lambda: env_ops.chain_dyn_bwd(st.sc.window, st.env, y_lin,
+                                               *dcot, *dargs), 20)
+    res["dyn_bwd"] = dict(
+        db=min(dyn_dbs.values()), dbs=dyn_dbs, own_level_dbs=own_dbs,
+        envelope_identical=env_same,
+        max_abs_err=max(max_abs(a, b) for a, b in zip(d_out, k_out[:6])),
+        ms=ms, plain_ms=d_ms, library_ms=None,
+        launches=launched["chain_dyn_bwd"], chain_ms=chain_ms(2 * B),
+        cycles_per_sample=ms * 1e-3 * sm_hz / B,
+        **bound(F32 * (3 * C * B + 2 * C * n_sc + 4 * C), 60 * C * B))
+
+    # step_ring per block: forward alone, forward + backward
+    xg = [torch.from_numpy(x).to(dev) for x in xs]
+    pg, _ = ring_params(params, dev)
+
+    def fwd():
+        with torch.no_grad():
+            s = chain.init_ring_state(params)
+            for x in xg:
+                s, _ = chain.step_ring(params, s, x)
+
+    def fwd_bwd():
+        s = chain.init_ring_state(pg)
+        total = 0.0
+        for x in xg:
+            s, y = chain.step_ring(pg, s, x.detach().requires_grad_(True))
+            total = total + torch.sum(y * y)
+        total.backward()
+
+    fwd_ms = time_ms(fwd, 1, warmup=2) / RING_GRAD_BLOCKS
+    fwd_bwd_ms = time_ms(fwd_bwd, 1, warmup=2) / RING_GRAD_BLOCKS
+    busy, top = device_kernels(fwd_bwd)
+    res["grad_ring"] = dict(
+        launches=launched, db=dbs, same_branch_channels=len(agree),
+        flipped_channels=torch.nonzero(flips)[:, 0].tolist(),
+        flipped_samples=int(flips.sum()),
+        knee_share=share, tf32_identical=tf32_same, cpu_s=cpu_s,
+        fdl_ring_step_db=fdl_db, fwd_ms_per_block=fwd_ms,
+        fwd_bwd_ms_per_block=fwd_bwd_ms, fwd_bwd_kernels_ms=busy,
+        fwd_bwd_top_kernels=top)
+    for key, name in (("eqfdl_bwd", "eqfdl_fused_bwd"),
+                      ("fdl_bwd", "fdl_fused_bwd"),
+                      ("dyn_bwd", "chain_dyn_bwd")):
+        r = res[key]
+        print(f"{name}: {r['ms']:.4f} ms, plain {r['plain_ms']:.4f}, bound "
+              f"{r['bound_ms']:.4f} ({r['bound_by']}); vs plain "
+              f"{r['db']:.1f} dB")
+    print(f"chain_dyn_bwd [{C}, {B}]: {res['dyn_bwd']['cycles_per_sample']:.1f}"
+          f" cycles a sample, chain bound {res['dyn_bwd']['chain_ms']:.4f} "
+          f"ms; replayed y identical to kernel #3's, envelope identical to "
+          f"the plain one on its level ({env_ms:.0f} ms), its adjoint "
+          f"identical to peak_envelope_bwd_plain; dB {dyn_dbs} (the plain "
+          f"backward on its own plain level: {own_dbs}); eqfdl_bwd "
+          f"{fft_per_call} FFT launches a call; dB {eq_dbs}")
+    print(f"grad_ring: step_ring {fwd_ms:.4f} ms a block forward, "
+          f"{fwd_bwd_ms:.4f} ms forward + backward (CUDA events behind the "
+          f"spin kernel, {RING_GRAD_BLOCKS} blocks); kernels of one forward "
+          f"+ backward " + ("not measured" if busy is None else
+                           f"{busy:.4f} ms, the most: " + "; ".join(
+                               f"{name[:50]} {ms:.4f} ms x {n}"
+                               for name, ms, n in top))
+          + f"; phase {time.perf_counter() - t_start:.1f} s")
+
+
 def timing_phase(chain, params, dev, res):
     """Device time of ``step`` per call and of ``bulk_step`` per
     super-block (CUDA events behind the spin kernel), and the host's
@@ -4221,6 +4628,7 @@ def main(argv=None) -> int:
     dev = torch.device("cuda")
     card = card_line()
     print(f"card: {card}")
+    warm_cpu_pool()
     res = {"card": card, "torch": torch.__version__,
            "cuda": torch.version.cuda}
 
@@ -4258,6 +4666,7 @@ def main(argv=None) -> int:
     threed_phase(dev, res)
     serve_phase(dev, res)
     grad_phase(chain, params, dev, res)
+    grad_ring_phase(chain, params, dev, res)
     timing_phase(chain, params, dev, res)
 
     res["fft"]["launches"] = res["launches"]["fft"]

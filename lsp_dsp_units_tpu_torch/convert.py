@@ -81,20 +81,32 @@ def _fused_from_jax(f, device) -> biquad_block.FusedCascadeParams:
         g_t=_t(np.ascontiguousarray(g.T), device))
 
 
-def params_from_jax(p, device="cuda") -> ChainParams:
-    """JAX ``ChainParams`` (numpy leaves) -> port ``ChainParams``."""
+def params_from_jax(p, device="cuda", requires_grad=False) -> ChainParams:
+    """JAX ``ChainParams`` (numpy leaves) -> port ``ChainParams``.  With
+    ``requires_grad`` the IR spectra, every tensor of the EQ block but
+    ``g_t`` (``step_ring`` forms it from ``g_mat`` in the graph) and the
+    Compressor's 20 leaves (:func:`compressor_params_from_jax`) require
+    grad, in the JAX package's natural order: ``step_ring`` packs them in
+    its graph, so their gradients are those of the JAX leaves."""
     eq_block = _fused_from_jax(p.eq_block, device)
-    comp = CompressorParams(
-        knees=tuple(dyn.CompKnee(*(_f32(v) for v in k))
-                    for k in p.comp.knees),
-        tau_attack=_f32(p.comp.tau_attack),
-        tau_release=_f32(p.comp.tau_release),
-        release_thresh=_f32(p.comp.release_thresh),
-        hold=int(np.asarray(p.comp.hold)))
+    if requires_grad:
+        eq_block = eq_block._replace(**{
+            f: getattr(eq_block, f).requires_grad_(True)
+            for f in eq_block._fields if f != "g_t"})
+        comp = compressor_params_from_jax(p.comp, device, True)
+    else:
+        comp = CompressorParams(
+            knees=tuple(dyn.CompKnee(*(_f32(v) for v in k))
+                        for k in p.comp.knees),
+            tau_attack=_f32(p.comp.tau_attack),
+            tau_release=_f32(p.comp.tau_release),
+            release_thresh=_f32(p.comp.release_thresh),
+            hold=int(np.asarray(p.comp.hold)))
     return chain_params(
         eq_coeffs=np.asarray(p.eq_coeffs, np.float32), eq_block=eq_block,
-        h_spectra=fftconv.Spectra(_t(p.h_spectra.re, device),
-                                  _t(p.h_spectra.im, device)),
+        h_spectra=fftconv.Spectra(
+            _t(p.h_spectra.re, device).requires_grad_(requires_grad),
+            _t(p.h_spectra.im, device).requires_grad_(requires_grad)),
         comp=comp)
 
 
@@ -190,6 +202,31 @@ def ring_state_from_jax(s, device="cuda") -> ChainRingState:
     return ChainRingState(eq=_t(s.eq, device),
                           fdl=ring_fdl_from_jax(s.fdl, True, device),
                           sc=sc, env=env)
+
+
+def ring_state_leaves_from_jax(s, device="cuda"):
+    """A JAX ``ChainRingState`` (numpy leaves, natural-order ring) ->
+    (port ``ChainRingState``, its float leaves).  The leaves are new
+    tensors that require grad, in the order of the JAX state's float
+    leaves (``jax.tree_util.tree_flatten``: eq, the natural ring's re and
+    im [P, C, B + 1], history, the sidechain's window and rms, envelope,
+    peak); the state's packed ring is formed from the natural one in the
+    graph (fft_packed.pack_spectra), so after a backward each leaf's
+    ``grad`` is the gradient of the JAX leaf beside it."""
+    leaves = [_t(v, device).requires_grad_(True) for v in (
+        s.eq, s.fdl.spec_re, s.fdl.spec_im, s.fdl.history, s.sc.window,
+        s.sc.rms, s.env.envelope, s.env.peak)]
+    eq, nat_re, nat_im, hist, win, rms, env, peak = leaves
+    spec_re, spec_im = fp.pack_spectra(nat_re, nat_im,
+                                       2 * (nat_re.shape[-1] - 1))
+    state = ChainRingState(
+        eq=eq, fdl=fftconv.RingFDLState(spec_re=spec_re, spec_im=spec_im,
+                                        history=hist,
+                                        pos=int(np.asarray(s.fdl.pos))),
+        sc=SidechainState(window=win, rms=rms),
+        env=dyn.EnvState(envelope=env, peak=peak,
+                         hold=_t(s.env.hold, device, torch.int32)))
+    return state, leaves
 
 
 def voices_from_jax(voices, state, device="cuda"):

@@ -58,6 +58,10 @@
 // the MAC; eqfdl_kernel's W x and g_t), each with several loads in flight
 // per thread, and the register passes' shared-memory rounds.
 
+// The backward passes of both (fdl_bwd, and eqfdl_bwd with its three
+// companions) are below the forward kernels and share nothing with them;
+// see the note there.
+
 #include <cooperative_groups.h>
 
 #include "fft_packed.cuh"
@@ -494,9 +498,263 @@ int launch_shape(Kernel kernel, int log_m, int c_n, int* out) {
   return 0;
 }
 
+// ---------------------------------------------------------------------------
+// Backward (the adjoints of the contracts of ops/fdl_fused.py; the JAX
+// package differentiates its XLA forms with jax.grad, the Pallas kernels
+// have no backward of their own).
+//
+// A backward runs as a few launches (ops/fdl_fused.py): kernel #1's
+// zero-pad forward transform of y's cotangent, then fdl_bwd (the MAC's
+// adjoint), then kernel #1's inverse of S's cotangent (the frame's
+// cotangent: hist's first half, u's or x's second); for eqfdl, kernel
+// #1's zero-pad forward transform of u's whole cotangent, then eqfdl_bwd
+// (the product with Heq's adjoint) and eqfdl_bwd_mats, eqfdl_bwd_x,
+// eqfdl_bwd_sv, eqfdl_bwd_m (the G/M/W products' adjoints).
+//
+// fdl_bwd: one thread per (packed position j, partition p).  With g the
+// cotangent of acc (the transform of y's cotangent weighted 1/N at
+// position 0 and 2/N elsewhere, negated at the odd natural bins, j >=
+// M/2), slot p's cotangent is g conj(H[(w - p) % P]) plus that of the
+// ring written; slot w's is S's, written weighted (N at position 0, N/2
+// elsewhere) for the inverse, and the incoming slot w gets 0; and
+// H[(w - p) % P] takes the sum over channels of g conj(ring'[p]).  The
+// channel loop runs in order, with no atomics, so the gradients are the
+// same from run to run.  Position 0's two real bins multiply slot-wise.
+// What bounds it: bytes, ~3.5 ring planes (ring' read, the ring's
+// cotangent read and written, H, g and S) at 64 channels, N = 16384, P = 6:
+// ~76 MB, ~23 us at 3.35 TB/s; the design is the simplest one that reads
+// every plane coalesced (consecutive threads, consecutive positions).
+//
+// The G/M/W adjoints (u = first half of irfft(xs Heq) + sv g_t, sv' = sv
+// m^T + x w^T): g_t's is sum_c sv[c, k] gu[c, b], w_mat's sum_c gsv'[c, k]
+// x[c, b], m_mat's sum_c gsv'[c, k] sv[c, j], each over the channels in
+// order; sv's sum_b gu[c, b] g_t[k, b] (a warp a row, lanes strided over
+// b, a fixed shuffle tree) + sum_j gsv'[c, j] m[j, k]; x's sum_k gsv'[c,
+// k] w_mat[k, b].  All in FP32 FMA in code, so no library matmul (and no
+// TF32 setting) touches them.
+// ---------------------------------------------------------------------------
+
+constexpr int kBwdThreads = 256;
+constexpr int kMatRows = 6;           // eqfdl_bwd_mats: rows of g_t, w a block
+
+// g conj(h) at packed position j (slot-wise at 0)
+__device__ __forceinline__ float2 pmulc(float2 g, float2 h, int j) {
+  return j == 0 ? make_float2(g.x * h.x, g.y * h.y) : cmulc(g, h);
+}
+
+__global__ void __launch_bounds__(kBwdThreads)
+fdl_bwd(const float* __restrict__ ring_re, const float* __restrict__ ring_im,
+        const float* __restrict__ h_re, const float* __restrict__ h_im,
+        const float* __restrict__ ga_re, const float* __restrict__ ga_im,
+        const float* __restrict__ go_re, const float* __restrict__ go_im,
+        float* __restrict__ gi_re, float* __restrict__ gi_im,
+        float* __restrict__ gh_re, float* __restrict__ gh_im,
+        float* __restrict__ gs_re, float* __restrict__ gs_im, int log_m,
+        int p_n, int w, int c_n) {
+  const int m = 1 << log_m;
+  const int j = blockIdx.x * blockDim.x + threadIdx.x;
+  if (j >= m) return;
+  const int p = blockIdx.y;
+  const int q = (w - p + p_n) % p_n;
+  const float n_f = (float)(2 * m);
+  float wa = j == 0 ? 1.0f / n_f : 2.0f / n_f;     // powers of two: exact
+  if (j >= (m >> 1)) wa = -wa;
+  const float ws = j == 0 ? n_f : 0.5f * n_f;
+  const float2 hv = make_float2(h_re[(size_t)q * m + j],
+                                h_im[(size_t)q * m + j]);
+  const size_t plane = (size_t)c_n * m;
+  float2 acc = make_float2(0.0f, 0.0f);
+#pragma unroll 4
+  for (int c = 0; c < c_n; ++c) {
+    const size_t rc = (size_t)c * m + j;
+    const size_t off = p * plane + rc;
+    const float2 g = make_float2(ga_re[rc] * wa, ga_im[rc] * wa);
+    const float2 gv = pmulc(g, hv, j);
+    const float2 go = make_float2(go_re[off], go_im[off]);
+    if (p == w) {
+      gs_re[rc] = (go.x + gv.x) * ws;
+      gs_im[rc] = (go.y + gv.y) * ws;
+      gi_re[off] = 0.0f;
+      gi_im[off] = 0.0f;
+    } else {
+      gi_re[off] = go.x + gv.x;
+      gi_im[off] = go.y + gv.y;
+    }
+    const float2 gh = pmulc(g, make_float2(ring_re[off], ring_im[off]), j);
+    acc.x += gh.x;
+    acc.y += gh.y;
+  }
+  gh_re[(size_t)q * m + j] = acc.x;
+  gh_im[(size_t)q * m + j] = acc.y;
+}
+
+// xs's and Heq's cotangents: g (u's first-half inverse's adjoint: the
+// transform of gu weighted 1/N at position 0, 2/N elsewhere) times
+// conj(Heq), and the sum over channels of g conj(xs).
+__global__ void __launch_bounds__(kBwdThreads)
+eqfdl_bwd(const float* __restrict__ gp_re, const float* __restrict__ gp_im,
+          const float* __restrict__ heq_re, const float* __restrict__ heq_im,
+          const float* __restrict__ xs_re, const float* __restrict__ xs_im,
+          float* __restrict__ gxs_re, float* __restrict__ gxs_im,
+          float* __restrict__ gheq_re, float* __restrict__ gheq_im,
+          int log_m, int c_n) {
+  const int m = 1 << log_m;
+  const int j = blockIdx.x * blockDim.x + threadIdx.x;
+  if (j >= m) return;
+  const float n_f = (float)(2 * m);
+  const float wp = j == 0 ? 1.0f / n_f : 2.0f / n_f;
+  const float2 hv = make_float2(heq_re[j], heq_im[j]);
+  float2 acc = make_float2(0.0f, 0.0f);
+#pragma unroll 4
+  for (int c = 0; c < c_n; ++c) {
+    const size_t rc = (size_t)c * m + j;
+    const float2 g = make_float2(gp_re[rc] * wp, gp_im[rc] * wp);
+    const float2 gx = pmulc(g, hv, j);
+    gxs_re[rc] = gx.x;
+    gxs_im[rc] = gx.y;
+    const float2 gh = pmulc(g, make_float2(xs_re[rc], xs_im[rc]), j);
+    acc.x += gh.x;
+    acc.y += gh.y;
+  }
+  gheq_re[j] = acc.x;
+  gheq_im[j] = acc.y;
+}
+
+// g_t's and w_mat's cotangents: thread b, rows k0 .. k0 + kMatRows - 1
+// (blockIdx.y), the channels in order.
+__global__ void __launch_bounds__(kBwdThreads)
+eqfdl_bwd_mats(const float* __restrict__ gu, const float* __restrict__ x,
+               const float* __restrict__ sv, const float* __restrict__ gsv2,
+               float* __restrict__ g_gt, float* __restrict__ g_w, int b_n,
+               int c_n, int k2) {
+  const int b = blockIdx.x * blockDim.x + threadIdx.x;
+  if (b >= b_n) return;
+  const int k0 = blockIdx.y * kMatRows;
+  float ag[kMatRows], aw[kMatRows];
+#pragma unroll
+  for (int r = 0; r < kMatRows; ++r) ag[r] = aw[r] = 0.0f;
+  for (int c = 0; c < c_n; ++c) {
+    const float g = gu[(size_t)c * b_n + b];
+    const float xv = x[(size_t)c * b_n + b];
+#pragma unroll
+    for (int r = 0; r < kMatRows; ++r) {
+      if (k0 + r < k2) {
+        ag[r] = fmaf(__ldg(&sv[(size_t)c * k2 + k0 + r]), g, ag[r]);
+        aw[r] = fmaf(__ldg(&gsv2[(size_t)c * k2 + k0 + r]), xv, aw[r]);
+      }
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < kMatRows; ++r) {
+    if (k0 + r < k2) {
+      g_gt[(size_t)(k0 + r) * b_n + b] = ag[r];
+      g_w[(size_t)(k0 + r) * b_n + b] = aw[r];
+    }
+  }
+}
+
+// x's cotangent: thread (c, b), the rows k in order.
+__global__ void __launch_bounds__(kBwdThreads)
+eqfdl_bwd_x(const float* __restrict__ gsv2, const float* __restrict__ w_mat,
+            float* __restrict__ g_x, int b_n, int k2) {
+  const int b = blockIdx.x * blockDim.x + threadIdx.x;
+  if (b >= b_n) return;
+  const int c = blockIdx.y;
+  float acc = 0.0f;
+  for (int k = 0; k < k2; ++k)
+    acc = fmaf(__ldg(&gsv2[(size_t)c * k2 + k]),
+               w_mat[(size_t)k * b_n + b], acc);
+  g_x[(size_t)c * b_n + b] = acc;
+}
+
+// sv's cotangent: a warp per (c, k).
+__global__ void __launch_bounds__(kBwdThreads)
+eqfdl_bwd_sv(const float* __restrict__ gu, const float* __restrict__ g_t,
+             const float* __restrict__ gsv2, const float* __restrict__ m_mat,
+             float* __restrict__ g_sv, int b_n, int c_n, int k2) {
+  const int gw = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
+  const int lane = threadIdx.x & 31;
+  if (gw >= c_n * k2) return;
+  const int c = gw / k2;
+  const int k = gw % k2;
+  const float* gr = gu + (size_t)c * b_n;
+  const float* tr = g_t + (size_t)k * b_n;
+  float acc = 0.0f;
+  for (int b = lane; b < b_n; b += 32) acc = fmaf(gr[b], tr[b], acc);
+  for (int o = 16; o > 0; o >>= 1)
+    acc += __shfl_xor_sync(0xffffffffu, acc, o);
+  if (lane == 0) {
+    for (int jj = 0; jj < k2; ++jj)
+      acc = fmaf(gsv2[(size_t)c * k2 + jj], m_mat[(size_t)jj * k2 + k], acc);
+    g_sv[(size_t)c * k2 + k] = acc;
+  }
+}
+
+// m_mat's cotangent: thread (k, j), the channels in order.
+__global__ void eqfdl_bwd_m(const float* __restrict__ gsv2,
+                            const float* __restrict__ sv,
+                            float* __restrict__ g_m, int c_n, int k2) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= k2 * k2) return;
+  const int k = i / k2;
+  const int jj = i % k2;
+  float acc = 0.0f;
+  for (int c = 0; c < c_n; ++c)
+    acc = fmaf(gsv2[(size_t)c * k2 + k], sv[(size_t)c * k2 + jj], acc);
+  g_m[i] = acc;
+}
+
+int blocks_of(int n) { return (n + kBwdThreads - 1) / kBwdThreads; }
+
 }  // namespace
 
 extern "C" {
+
+int lsp_fdl_bwd(const float* ring_re, const float* ring_im, const float* h_re,
+                const float* h_im, const float* ga_re, const float* ga_im,
+                const float* go_re, const float* go_im, float* gi_re,
+                float* gi_im, float* gh_re, float* gh_im, float* gs_re,
+                float* gs_im, int log_m, int p_n, int w, int c_n,
+                void* stream) {
+  if (bad_size(log_m) || p_n < 1 || c_n < 1 || w < 0 || w >= p_n)
+    return (int)cudaErrorInvalidValue;
+  fdl_bwd<<<dim3(blocks_of(1 << log_m), p_n), kBwdThreads, 0,
+            (cudaStream_t)stream>>>(ring_re, ring_im, h_re, h_im, ga_re,
+                                    ga_im, go_re, go_im, gi_re, gi_im, gh_re,
+                                    gh_im, gs_re, gs_im, log_m, p_n, w, c_n);
+  return (int)cudaGetLastError();
+}
+
+int lsp_eqfdl_bwd(const float* gp_re, const float* gp_im, const float* gu,
+                  const float* heq_re, const float* heq_im,
+                  const float* xs_re, const float* xs_im, const float* x,
+                  const float* sv, const float* g_t, const float* m_mat,
+                  const float* w_mat, const float* gsv2, float* gxs_re,
+                  float* gxs_im, float* gheq_re, float* gheq_im, float* g_gt,
+                  float* g_m, float* g_w, float* g_sv, float* g_x, int log_m,
+                  int c_n, int k2, void* stream) {
+  if (bad_size(log_m) || c_n < 1 || k2 < 1) return (int)cudaErrorInvalidValue;
+  const int m = 1 << log_m;
+  cudaStream_t st = (cudaStream_t)stream;
+  eqfdl_bwd<<<blocks_of(m), kBwdThreads, 0, st>>>(
+      gp_re, gp_im, heq_re, heq_im, xs_re, xs_im, gxs_re, gxs_im, gheq_re,
+      gheq_im, log_m, c_n);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  eqfdl_bwd_mats<<<dim3(blocks_of(m), (k2 + kMatRows - 1) / kMatRows),
+                   kBwdThreads, 0, st>>>(gu, x, sv, gsv2, g_gt, g_w, m, c_n,
+                                         k2);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  eqfdl_bwd_x<<<dim3(blocks_of(m), c_n), kBwdThreads, 0, st>>>(
+      gsv2, w_mat, g_x, m, k2);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  eqfdl_bwd_sv<<<blocks_of(32 * c_n * k2), kBwdThreads, 0, st>>>(
+      gu, g_t, gsv2, m_mat, g_sv, m, c_n, k2);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  eqfdl_bwd_m<<<blocks_of(k2 * k2), kBwdThreads, 0, st>>>(gsv2, sv, g_m, c_n,
+                                                          k2);
+  return (int)cudaGetLastError();
+}
 
 int lsp_eqfdl_fused(float* ring_re, float* ring_im, const float* h_re,
                     const float* h_im, const float* heq_re,

@@ -228,9 +228,13 @@ def _mul_add(tau, d, e):
     The float32 product is exact in float64; the float64 sum is rounded
     to odd (its last bit set where TwoSum finds it inexact), which makes
     the final rounding to float32 the correct one, ties included.  The
-    bit trick is no differentiable operation: under grad it raises."""
+    bit trick is no differentiable operation: under grad it raises.
+    float64 operands (the float64 gradient checks) take ``e + tau * d``
+    as it is."""
     _build.no_grad_route("_mul_add (the float32 FMA of the plain loops)",
                          tau, d, e)
+    if e.dtype == torch.float64:
+        return e + tau * d
     p, e64 = tau.double() * d.double(), e.double()
     s = e64 + p
     bb = s - p
@@ -259,13 +263,13 @@ def _env_step_plain(xt, e, peak, hold, ta, tr, nh, rt):
 
 def _coefs(x, tau_attack, tau_release, hold_samples, release_thresh):
     """The envelope's coefficients as tensors on x's device: the taus and
-    the release threshold float32 (a tensor stays one, in the graph), the
-    hold int32 (a tensor is cast, as jnp.asarray(hold, jnp.int32) casts
-    it, so its gradient is zero)."""
+    the release threshold in x's type, float32 on the main path (a tensor
+    stays one, in the graph), the hold int32 (a tensor is cast, as
+    jnp.asarray(hold, jnp.int32) casts it, so its gradient is zero)."""
     def f32(v):
         if torch.is_tensor(v):
-            return v.to(dtype=torch.float32, device=x.device).reshape(())
-        return torch.tensor(float(v), dtype=torch.float32, device=x.device)
+            return v.to(dtype=x.dtype, device=x.device).reshape(())
+        return torch.tensor(float(v), dtype=x.dtype, device=x.device)
     return (f32(tau_attack), f32(tau_release),
             torch.tensor(int(hold_samples), dtype=torch.int32,
                          device=x.device),

@@ -18,13 +18,34 @@ block (ops/fft_packed.rfft_packed_zeropad) and the EQ's balanced state
 ``[hist || x]``.  All spectra are packed (ops/fft_packed.py).  Each
 wrapper runs its plain version (``*_plain``) for CPU tensors and its CUDA
 kernel (``csrc/fdl_fused.cu``) for CUDA tensors, counting launches in
-``<wrapper>.launches``.  Both kernels run two blocks per channel as a
-cluster (:func:`eqfdl_launch_shape`, :func:`fdl_launch_shape`) and take
-frame sizes 128 <= N <= 32768.  Unlike the JAX functions, the IR spectra come
+``<wrapper>.launches``, and returns the ring it wrote beside its
+outputs.  Both kernels run two blocks per channel as a cluster
+(:func:`eqfdl_launch_shape`, :func:`fdl_launch_shape`) and take frame
+sizes 128 <= N <= 32768.  Unlike the JAX functions, the IR spectra come
 unrotated with the slot index ``w`` (the kernels index ``H[(w - p) % P]``
 themselves), and the G/M/W products are part of :func:`eqfdl_fused`, so
 that on the card no library matmul (and no global TF32 setting) touches
 them.
+
+Gradients: under autograd (grad mode on, an input that requires grad)
+each wrapper runs as a ``torch.autograd.Function`` that writes a new
+ring instead of the caller's: a ring saved for one block's backward must
+not be overwritten by the next block's slot write (at full width that is
+a copy of ~25 MB a block; without grad the ring stays in place).  The
+backward is the contract's adjoint in reverse order: the last-half
+inverse's (the zero-pad forward transform of the output's cotangent,
+weighted, odd bins negated), the MAC's (ops/ring_mac.py::
+ring_mac_bwd_plain), the frame transform's (the inverse, weighted N and
+N / 2: its first half is the history's cotangent, its second the
+frame input's), and for :func:`eqfdl_fused` the EQ's (the first-half
+inverse's adjoint, the products with Heq, g_mat, m_mat and w_mat).  For
+CPU tensors the plain backwards (``*_bwd_plain``); for CUDA tensors
+:func:`fdl_fused_bwd` and :func:`eqfdl_fused_bwd`: the transforms on the
+packed FFT kernels (csrc/fft_packed.cu) and the products on
+``csrc/fdl_fused.cu``'s ``fdl_bwd`` (the MAC's adjoint) and ``eqfdl_bwd``
+(the EQ's) kernels, which reduce the products shared by all channels
+(H, Heq, g_mat, m_mat, w_mat) over the channels in a fixed order, so a
+gradient is the same from run to run, and with no library matmul.
 """
 
 from __future__ import annotations
@@ -33,14 +54,20 @@ import ctypes
 from typing import Tuple
 
 import torch
+from torch.autograd.function import once_differentiable
 
 from lsp_dsp_units_tpu_torch.ops import _build
 from lsp_dsp_units_tpu_torch.ops import fft_packed as fp
-from lsp_dsp_units_tpu_torch.ops.ring_mac import ring_mac_plain
+from lsp_dsp_units_tpu_torch.ops.ring_mac import (ring_mac_bwd_plain,
+                                                  ring_mac_plain)
 
 _SIGS = {"lsp_eqfdl_fused": [ctypes.c_void_p] * 19 + [ctypes.c_int] * 5
          + [ctypes.c_void_p],
          "lsp_fdl_fused": [ctypes.c_void_p] * 9 + [ctypes.c_int] * 4
+         + [ctypes.c_void_p],
+         "lsp_fdl_bwd": [ctypes.c_void_p] * 14 + [ctypes.c_int] * 4
+         + [ctypes.c_void_p],
+         "lsp_eqfdl_bwd": [ctypes.c_void_p] * 22 + [ctypes.c_int] * 3
          + [ctypes.c_void_p],
          "lsp_eqfdl_shape": [ctypes.c_int, ctypes.c_int,
                              ctypes.POINTER(ctypes.c_int)],
@@ -77,14 +104,26 @@ def eqfdl_fused(ring_re, ring_im, h_re, h_im, heq_re, heq_im, xs_re, xs_im,
                 x, sv, g_t, m_mat, w_mat, hist, w: int):
     """One block of the chain's linear path.
 
-    ``ring_*`` [P, C, B] packed ring, updated in place at slot ``w``;
-    ``h_*`` [P, B] packed IR partitions; ``heq_*`` [B] packed EQ
-    spectrum; ``xs_*`` [C, B] packed spectrum of ``x || 0``; ``x``,
-    ``hist`` [C, B]; ``sv`` [C, 2K]; ``g_t`` [2K, B], ``m_mat`` [2K, 2K],
-    ``w_mat`` [2K, B].  Returns (y [C, B], u [C, B], sv' [C, 2K])."""
+    ``ring_*`` [P, C, B] packed ring, written at slot ``w``; ``h_*`` [P,
+    B] packed IR partitions; ``heq_*`` [B] packed EQ spectrum; ``xs_*``
+    [C, B] packed spectrum of ``x || 0``; ``x``, ``hist`` [C, B]; ``sv``
+    [C, 2K]; ``g_t`` [2K, B], ``m_mat`` [2K, 2K], ``w_mat`` [2K, B].
+    Returns (y [C, B], u [C, B], sv' [C, 2K], ring_re', ring_im'): the
+    ring given, updated in place, or under autograd a new one.
+    Differentiable in every tensor argument."""
     args = (ring_re, ring_im, h_re, h_im, heq_re, heq_im, xs_re, xs_im, x,
             sv, g_t, m_mat, w_mat, hist)
-    _build.no_grad_route("eqfdl_fused", *args)
+    if _build.needs_grad(*args):
+        return _EqFdlFused.apply(*args, w)
+    return _eqfdl_fused(*args, w) + (ring_re, ring_im)
+
+
+def _eqfdl_fused(ring_re, ring_im, h_re, h_im, heq_re, heq_im, xs_re, xs_im,
+                 x, sv, g_t, m_mat, w_mat, hist, w: int):
+    """:func:`eqfdl_fused` outside autograd, the ring in place: the plain
+    version for CPU tensors, the kernel for CUDA tensors."""
+    args = (ring_re, ring_im, h_re, h_im, heq_re, heq_im, xs_re, xs_im, x,
+            sv, g_t, m_mat, w_mat, hist)
     if _build.is_cpu(*args):
         return eqfdl_fused_plain(*args, w)
     p_n, c_n, b = ring_re.shape
@@ -143,15 +182,24 @@ def fdl_fused_plain(ring_re, ring_im, h_re, h_im, hist, x, w: int
     return fp.irfft_packed_plain(acc_re, acc_im, n, "last")
 
 
-def fdl_fused(ring_re, ring_im, h_re, h_im, hist, x, w: int) -> torch.Tensor:
+def fdl_fused(ring_re, ring_im, h_re, h_im, hist, x, w: int):
     """One convolver block over a packed ring.
 
-    ``ring_*`` [P, C, B] packed ring, updated in place at slot ``w``;
-    ``h_*`` [P, B] packed IR partitions (unrotated); ``hist``, ``x``
-    [C, B], the overlap-save frame ``[hist || x]``.  Returns y [C, B],
-    the last half of the frame's convolution."""
+    ``ring_*`` [P, C, B] packed ring, written at slot ``w``; ``h_*`` [P,
+    B] packed IR partitions (unrotated); ``hist``, ``x`` [C, B], the
+    overlap-save frame ``[hist || x]``.  Returns (y [C, B], the last half
+    of the frame's convolution, ring_re', ring_im'): the ring given,
+    updated in place, or under autograd a new one.  Differentiable in
+    every tensor argument."""
     args = (ring_re, ring_im, h_re, h_im, hist, x)
-    _build.no_grad_route("fdl_fused", *args)
+    if _build.needs_grad(*args):
+        return _FdlFused.apply(*args, w)
+    return _fdl_fused(*args, w), ring_re, ring_im
+
+
+def _fdl_fused(ring_re, ring_im, h_re, h_im, hist, x, w: int) -> torch.Tensor:
+    """:func:`fdl_fused` outside autograd, the ring in place."""
+    args = (ring_re, ring_im, h_re, h_im, hist, x)
     if _build.is_cpu(*args):
         return fdl_fused_plain(*args, w)
     p_n, c_n, b = ring_re.shape
@@ -171,3 +219,191 @@ def fdl_fused(ring_re, ring_im, h_re, h_im, hist, x, w: int) -> torch.Tensor:
 
 
 fdl_fused.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# backward
+# ---------------------------------------------------------------------------
+
+
+def fdl_fused_bwd_plain(ring_re, ring_im, h_re, h_im, w: int, g_y, g_ring_re,
+                        g_ring_im):
+    """Plain PyTorch version of :func:`fdl_fused_bwd`."""
+    n = 2 * g_y.shape[-1]
+    g_re, g_im = fp.irfft_packed_bwd_plain(g_y, n, "last")
+    gr, gi, gh_re, gh_im, gs_re, gs_im = ring_mac_bwd_plain(
+        ring_re, ring_im, h_re, h_im, g_re, g_im, g_ring_re, g_ring_im, w,
+        packed_dc=True)
+    g_frame = fp.rfft_packed_bwd_plain(gs_re, gs_im, n, 0)
+    b = n // 2
+    return (gr, gi, gh_re, gh_im, g_frame[..., :b].contiguous(),
+            g_frame[..., b:].contiguous())
+
+
+def _fdl_bwd_launch(ring_re, ring_im, h_re, h_im, w: int, g_y, g_ring_re,
+                    g_ring_im, counter):
+    """The MAC's adjoint on the card: the zero-pad forward transform of
+    g_y (kernel #1), ``fdl_bwd`` and the frame's inverse (kernel #1).
+    Returns (g_ring_re, g_ring_im, g_h_re, g_h_im, g_frame [C, N])."""
+    p_n, c_n, b = ring_re.shape
+    n = 2 * b
+    g_y = fp._aligned(g_y)
+    g_ring_re, g_ring_im = fp._aligned(g_ring_re), fp._aligned(g_ring_im)
+    _check((ring_re, ring_im, h_re, h_im, g_y, g_ring_re, g_ring_im),
+           dict(ring_re=(p_n, c_n, b), ring_im=(p_n, c_n, b), h_re=(p_n, b),
+                h_im=(p_n, b), g_y=(c_n, b), g_ring_re=(p_n, c_n, b),
+                g_ring_im=(p_n, c_n, b)), w)
+    ga_re, ga_im = fp._rfft_launch(g_y, n, 1)
+    gr, gi = torch.empty_like(ring_re), torch.empty_like(ring_im)
+    gh_re, gh_im = torch.empty_like(h_re), torch.empty_like(h_im)
+    gs_re, gs_im = torch.empty_like(g_y), torch.empty_like(g_y)
+    _build.check(_lib().lsp_fdl_bwd(
+        *(_build.ptr(t) for t in (ring_re, ring_im, h_re, h_im, ga_re, ga_im,
+                                  g_ring_re, g_ring_im, gr, gi, gh_re, gh_im,
+                                  gs_re, gs_im)),
+        fp.log2_m(n), p_n, int(w), c_n, _build.stream_of(g_y)),
+        "fdl_bwd kernel")
+    g_frame = fp._irfft_launch(gs_re, gs_im, n, 0)
+    counter.fft_launches += 2
+    return gr, gi, gh_re, gh_im, g_frame
+
+
+def fdl_fused_bwd(ring_re, ring_im, h_re, h_im, w: int, g_y, g_ring_re,
+                  g_ring_im):
+    """Backward of :func:`fdl_fused`: ``ring_*`` the ring it wrote (slot
+    w holding S), ``g_y`` and ``g_ring_*`` the cotangents of y and of
+    that ring.  Returns the cotangents (g_ring_re, g_ring_im of the
+    incoming ring, g_h_re, g_h_im, g_hist, g_x).  The plain version for
+    CPU tensors; for CUDA tensors three launches: kernel #1's zero-pad
+    forward transform, ``fdl_bwd`` and kernel #1's inverse, counted once
+    in ``fdl_fused_bwd.launches`` (the transforms also in
+    ``fdl_fused_bwd.fft_launches``)."""
+    if _build.is_cpu(ring_re, ring_im, h_re, h_im, g_y, g_ring_re,
+                     g_ring_im):
+        return fdl_fused_bwd_plain(ring_re, ring_im, h_re, h_im, w, g_y,
+                                   g_ring_re, g_ring_im)
+    gr, gi, gh_re, gh_im, g_frame = _fdl_bwd_launch(
+        ring_re, ring_im, h_re, h_im, w, g_y, g_ring_re, g_ring_im,
+        fdl_fused_bwd)
+    fdl_fused_bwd.launches += 1
+    b = g_y.shape[-1]
+    return (gr, gi, gh_re, gh_im, g_frame[:, :b].contiguous(),
+            g_frame[:, b:].contiguous())
+
+
+def eqfdl_fused_bwd_plain(ring_re, ring_im, h_re, h_im, heq_re, heq_im,
+                          xs_re, xs_im, x, sv, g_t, m_mat, w_mat, w: int, g_y,
+                          g_u, g_sv2, g_ring_re, g_ring_im):
+    """Plain PyTorch version of :func:`eqfdl_fused_bwd`."""
+    n = 2 * x.shape[-1]
+    gr, gi, gh_re, gh_im, g_hist, g_frame_u = fdl_fused_bwd_plain(
+        ring_re, ring_im, h_re, h_im, w, g_y, g_ring_re, g_ring_im)
+    g_ut = g_frame_u + g_u
+    g_pr, g_pi = fp.irfft_packed_bwd_plain(g_ut, n, "first")
+    g_xs_re, g_xs_im = fp.mul_conj_packed(g_pr, g_pi, heq_re, heq_im)
+    g_heq_re, g_heq_im = fp.mul_conj_packed(g_pr, g_pi, xs_re, xs_im)
+    g_sv = g_ut @ g_t.T + g_sv2 @ m_mat
+    return (gr, gi, gh_re, gh_im, g_heq_re.sum(dim=0), g_heq_im.sum(dim=0),
+            g_xs_re, g_xs_im, g_sv2 @ w_mat, g_sv, sv.T @ g_ut,
+            g_sv2.T @ sv, g_sv2.T @ x, g_hist)
+
+
+def eqfdl_fused_bwd(ring_re, ring_im, h_re, h_im, heq_re, heq_im, xs_re,
+                    xs_im, x, sv, g_t, m_mat, w_mat, w: int, g_y, g_u, g_sv2,
+                    g_ring_re, g_ring_im):
+    """Backward of :func:`eqfdl_fused`: ``ring_*`` the ring it wrote,
+    the other tensors its inputs, ``g_*`` the cotangents of y, u, sv'
+    and the ring.  Returns the cotangents of (ring_re, ring_im, h_re,
+    h_im, heq_re, heq_im, xs_re, xs_im, x, sv, g_t, m_mat, w_mat, hist).
+    The plain version for CPU tensors; for CUDA tensors
+    :func:`fdl_fused_bwd`'s three launches, an element-wise sum of the
+    frame's cotangent with u's, kernel #1's zero-pad forward transform
+    and ``eqfdl_bwd`` (four kernels of one C call: the spectra's, the
+    g_mat and w_mat products', x's, and sv's with m_mat's), counted once
+    in ``eqfdl_fused_bwd.launches``."""
+    ins = (ring_re, ring_im, h_re, h_im, heq_re, heq_im, xs_re, xs_im, x,
+           sv, g_t, m_mat, w_mat, g_y, g_u, g_sv2, g_ring_re, g_ring_im)
+    if _build.is_cpu(*ins):
+        return eqfdl_fused_bwd_plain(*ins[:13], w, *ins[13:])
+    p_n, c_n, b = ring_re.shape
+    k2 = m_mat.shape[0]
+    n = 2 * b
+    gr, gi, gh_re, gh_im, g_frame = _fdl_bwd_launch(
+        ring_re, ring_im, h_re, h_im, w, g_y, g_ring_re, g_ring_im,
+        eqfdl_fused_bwd)
+    g_ut = fp._aligned(g_frame[:, b:] + g_u)
+    g_sv2 = g_sv2.contiguous()
+    _build.check_cuda_f32(**_build.check_shapes(
+        (heq_re, heq_im, xs_re, xs_im, x, sv, g_t, m_mat, w_mat, g_sv2),
+        dict(heq_re=(b,), heq_im=(b,), xs_re=(c_n, b), xs_im=(c_n, b),
+             x=(c_n, b), sv=(c_n, k2), g_t=(k2, b), m_mat=(k2, k2),
+             w_mat=(k2, b), g_sv2=(c_n, k2))))
+    gp_re, gp_im = fp._rfft_launch(g_ut, n, 1)
+    eqfdl_fused_bwd.fft_launches += 1
+    g_xs_re, g_xs_im = torch.empty_like(xs_re), torch.empty_like(xs_im)
+    g_heq_re, g_heq_im = torch.empty_like(heq_re), torch.empty_like(heq_im)
+    g_gt, g_m, g_w = (torch.empty_like(g_t), torch.empty_like(m_mat),
+                      torch.empty_like(w_mat))
+    g_sv, g_x = torch.empty_like(sv), torch.empty_like(x)
+    _build.check(_lib().lsp_eqfdl_bwd(
+        *(_build.ptr(t) for t in (gp_re, gp_im, g_ut, heq_re, heq_im, xs_re,
+                                  xs_im, x, sv, g_t, m_mat, w_mat, g_sv2,
+                                  g_xs_re, g_xs_im, g_heq_re, g_heq_im, g_gt,
+                                  g_m, g_w, g_sv, g_x)),
+        fp.log2_m(n), c_n, k2, _build.stream_of(x)), "eqfdl_bwd kernel")
+    eqfdl_fused_bwd.launches += 1
+    return (gr, gi, gh_re, gh_im, g_heq_re, g_heq_im, g_xs_re, g_xs_im, g_x,
+            g_sv, g_gt, g_m, g_w, g_frame[:, :b].contiguous())
+
+
+fdl_fused_bwd.launches = 0
+fdl_fused_bwd.fft_launches = 0
+eqfdl_fused_bwd.launches = 0
+eqfdl_fused_bwd.fft_launches = 0
+
+
+def _new_ring(ring_re, ring_im):
+    """The ring a Function writes: a copy of the caller's."""
+    return ring_re.clone(), ring_im.clone()
+
+
+class _EqFdlFused(torch.autograd.Function):
+    """:func:`eqfdl_fused` under autograd: the forward writes a new ring,
+    the backward is :func:`eqfdl_fused_bwd`."""
+
+    @staticmethod
+    def forward(ctx, ring_re, ring_im, h_re, h_im, heq_re, heq_im, xs_re,
+                xs_im, x, sv, g_t, m_mat, w_mat, hist, w):
+        r_re, r_im = _new_ring(ring_re, ring_im)
+        y, u, sv2 = _eqfdl_fused(r_re, r_im, h_re, h_im, heq_re, heq_im,
+                                 xs_re, xs_im, x, sv, g_t, m_mat, w_mat,
+                                 hist, w)
+        ctx.save_for_backward(r_re, r_im, h_re, h_im, heq_re, heq_im, xs_re,
+                              xs_im, x, sv, g_t, m_mat, w_mat)
+        ctx.w = w
+        return y, u, sv2, r_re, r_im
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g_y, g_u, g_sv2, g_ring_re, g_ring_im):
+        return eqfdl_fused_bwd(*ctx.saved_tensors, ctx.w, g_y, g_u, g_sv2,
+                               g_ring_re, g_ring_im) + (None,)
+
+
+class _FdlFused(torch.autograd.Function):
+    """:func:`fdl_fused` under autograd: the forward writes a new ring,
+    the backward is :func:`fdl_fused_bwd`."""
+
+    @staticmethod
+    def forward(ctx, ring_re, ring_im, h_re, h_im, hist, x, w):
+        r_re, r_im = _new_ring(ring_re, ring_im)
+        y = _fdl_fused(r_re, r_im, h_re, h_im, hist, x, w)
+        ctx.save_for_backward(r_re, r_im, h_re, h_im)
+        ctx.w = w
+        return y, r_re, r_im
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g_y, g_ring_re, g_ring_im):
+        return fdl_fused_bwd(*ctx.saved_tensors, ctx.w, g_y, g_ring_re,
+                             g_ring_im) + (None,)

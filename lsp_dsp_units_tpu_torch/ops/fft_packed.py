@@ -159,6 +159,17 @@ def mul_packed(ar, ai, br, bi):
     return pr, pi
 
 
+def mul_conj_packed(ar, ai, br, bi):
+    """``a * conj(b)`` of two packed spectra, position 0 slot-wise: the
+    adjoint of :func:`mul_packed` (the cotangent of one factor is that of
+    the product times the other's conjugate)."""
+    pr = ar * br + ai * bi
+    pi = ai * br - ar * bi
+    pr[..., 0] = ar[..., 0] * br[..., 0]
+    pi[..., 0] = ai[..., 0] * bi[..., 0]
+    return pr, pi
+
+
 # ---------------------------------------------------------------------------
 # plain versions (torch.fft on any device)
 # ---------------------------------------------------------------------------

@@ -33,6 +33,7 @@ from typing import Dict, NamedTuple, Tuple
 import numpy as np
 import torch
 
+from lsp_dsp_units_tpu_torch.ops import _build
 from lsp_dsp_units_tpu_torch.ops import fft_packed as fp
 from lsp_dsp_units_tpu_torch.ops.cplx import irfft_sc, rfft_sc, sc_mul, sc_sum
 from lsp_dsp_units_tpu_torch.ops.fdl_fused import fdl_fused
@@ -206,7 +207,9 @@ def fdl_ring_step(h_spectra: Spectra, state: RingFDLState,
     the output is the last half of ``irfft(sum_p ring[p] * H[(w - p) %
     P])``.  A natural-order ring runs the plain staged form and returns a
     new ring; a packed ring [P, C, B] (with IR spectra [P, B + 1]) runs
-    :func:`fdl_fused` and is updated in place."""
+    :func:`fdl_fused` and is updated in place, or under autograd written
+    anew (its IR spectra then packed in the graph where they require
+    grad)."""
     p = h_spectra.re.shape[-2]
     b = x_block.shape[-1]
     w = (state.pos + 1) % p
@@ -214,11 +217,15 @@ def fdl_ring_step(h_spectra: Spectra, state: RingFDLState,
         if state.spec_re.ndim != 3 or h_spectra.re.ndim != 2:
             raise ValueError("a packed ring is [P, C, B] and its IR "
                              "spectra [P, B + 1]")
-        h_re, h_im = packed_ir(h_spectra)
+        if _build.needs_grad(h_spectra.re, h_spectra.im):
+            h_re, h_im = fp.pack_spectra(h_spectra.re, h_spectra.im, 2 * b)
+        else:
+            h_re, h_im = packed_ir(h_spectra)
         x = x_block.to(torch.float32).contiguous()
-        y = fdl_fused(state.spec_re, state.spec_im, h_re, h_im,
-                      state.history, x, w)
-        return state._replace(history=x, pos=w), y.to(x_block.dtype)
+        y, ring_re, ring_im = fdl_fused(state.spec_re, state.spec_im, h_re,
+                                        h_im, state.history, x, w)
+        return state._replace(spec_re=ring_re, spec_im=ring_im, history=x,
+                              pos=w), y.to(x_block.dtype)
     frame = torch.cat([state.history, x_block], dim=-1)
     sr, si = rfft_sc(frame)
     buf_re = state.spec_re.clone()

@@ -18,6 +18,14 @@ the JAX function, the IR spectra come unrotated with the slot index
 the CUDA kernel (``csrc/ring_mac.cu``) for CUDA tensors, counting
 launches in ``ring_mac.launches``; both round every product and sum
 once, so they agree bit for bit.
+
+:func:`ring_mac_bwd_plain` is the MAC's adjoint, which the backwards of
+ops/fdl_fused.py run: with g the cotangent of acc, partition p's slot
+gets ``g * conj(H[(w - p) % P])`` (plus the cotangent of the ring
+carried out), each IR partition ``sum over channels of g *
+conj(ring'[p])``, S the slot w's share, and the incoming slot w nothing
+(it is overwritten).  :func:`ring_mac` itself has no backward and
+raises under grad.
 """
 
 from __future__ import annotations
@@ -54,6 +62,46 @@ def ring_mac_plain(ring_re, ring_im, h_re, h_im, s_re, s_im, w: int,
     ring_re[w] = s_re
     ring_im[w] = s_im
     return acc_re, acc_im
+
+
+def _mul_conj(ar, ai, br, bi):
+    """``a * conj(b)`` of natural-order split-complex spectra."""
+    return ar * br + ai * bi, ai * br - ar * bi
+
+
+def _channel_sum(v: torch.Tensor) -> torch.Tensor:
+    """Sum over every axis but the last (the channels)."""
+    return v.reshape(-1, v.shape[-1]).sum(dim=0)
+
+
+def ring_mac_bwd_plain(ring_re, ring_im, h_re, h_im, g_re, g_im, g_ring_re,
+                       g_ring_im, w: int, packed_dc: bool = False):
+    """Adjoint of :func:`ring_mac`: ``ring_*`` [P, C, F] the ring after
+    the step (ring', slot w holding S), ``h_*`` [P, F] the IR spectra,
+    ``g_*`` [C, F] the cotangent of acc, ``g_ring_*`` that of the ring
+    carried out (None: zero).  Returns the cotangents of the incoming
+    ring (zero at slot w), of H and of S:
+    (g_ring_re, g_ring_im, g_h_re, g_h_im, g_s_re, g_s_im)."""
+    p_n = ring_re.shape[0]
+    mul = fp.mul_conj_packed if packed_dc else _mul_conj
+    gr = (torch.zeros_like(ring_re) if g_ring_re is None
+          else g_ring_re.clone())
+    gi = (torch.zeros_like(ring_im) if g_ring_im is None
+          else g_ring_im.clone())
+    gh_re = torch.empty_like(h_re)
+    gh_im = torch.empty_like(h_im)
+    for p in range(p_n):
+        q = (w - p) % p_n
+        ar, ai = mul(g_re, g_im, h_re[q], h_im[q])
+        gr[p] = gr[p] + ar
+        gi[p] = gi[p] + ai
+        hr, hi = mul(g_re, g_im, ring_re[p], ring_im[p])
+        gh_re[q] = _channel_sum(hr)
+        gh_im[q] = _channel_sum(hi)
+    gs_re, gs_im = gr[w].clone(), gi[w].clone()
+    gr[w] = 0.0
+    gi[w] = 0.0
+    return gr, gi, gh_re, gh_im, gs_re, gs_im
 
 
 def ring_mac(ring_re, ring_im, h_re, h_im, s_re, s_im, w: int,

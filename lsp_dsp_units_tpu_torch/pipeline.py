@@ -42,7 +42,7 @@ from lsp_dsp_units_tpu_torch.models.filters.design import (
     FilterParams, FilterType, design_filter)
 from lsp_dsp_units_tpu_torch.models.util.sidechain import (
     Sidechain, SidechainMode, SidechainState)
-from lsp_dsp_units_tpu_torch.ops import biquad_block, fftconv
+from lsp_dsp_units_tpu_torch.ops import _build, biquad_block, fftconv
 from lsp_dsp_units_tpu_torch.ops import dynamics as dyn
 from lsp_dsp_units_tpu_torch.ops import fft_packed as fp
 from lsp_dsp_units_tpu_torch.ops.env import chain_dyn
@@ -85,10 +85,12 @@ def chain_params(eq_coeffs: np.ndarray,
                  h_spectra: fftconv.Spectra,
                  comp: CompressorParams) -> ChainParams:
     """Assemble ChainParams, packing the EQ and IR spectra once (the
-    step reuses them every block)."""
+    step reuses them every block), outside any graph: ``step_ring``
+    packs again, in its graph, those that require grad."""
     n = 2 * (h_spectra.re.shape[-1] - 1)
-    heq_re, heq_im = fp.pack_spectra(eq_block.h_re, eq_block.h_im, n)
-    h_re, h_im = fp.pack_spectra(h_spectra.re, h_spectra.im, n)
+    with torch.no_grad():
+        heq_re, heq_im = fp.pack_spectra(eq_block.h_re, eq_block.h_im, n)
+        h_re, h_im = fp.pack_spectra(h_spectra.re, h_spectra.im, n)
     return ChainParams(eq_coeffs=np.asarray(eq_coeffs, np.float32),
                        eq_block=eq_block, h_spectra=h_spectra, comp=comp,
                        heq_re=heq_re, heq_im=heq_im, h_re=h_re, h_im=h_im)
@@ -225,7 +227,15 @@ class FilterConvChain:
                   x: torch.Tensor) -> Tuple[ChainRingState, torch.Tensor]:
         """One block x [C, B] float32 through the chain.  The ring planes
         of ``state`` are updated in place (one slot per block) and
-        carried into the returned state."""
+        carried into the returned state.
+
+        Differentiable (PyTorch autograd) in x, every float leaf of the
+        state and the parameters' tensors: under autograd the ring is
+        written anew each block instead of in place, and the packed
+        spectra and ``g_t`` are formed again, in the graph, from those
+        of ``params.h_spectra``, ``params.eq_block.h_re``/``h_im`` and
+        ``g_mat`` that require grad (otherwise ``chain_params``' packed
+        copies serve, as without grad)."""
         if x.ndim != 2 or x.shape[-1] != self.block:
             raise ValueError(f"x must be [C, {self.block}], got "
                              f"{tuple(x.shape)}")
@@ -234,14 +244,22 @@ class FilterConvChain:
         k2 = eqp.m_mat.shape[0]
         p_n = params.h_re.shape[0]
         w = (state.fdl.pos + 1) % p_n
+        n = 2 * self.block
+        heq = (params.heq_re, params.heq_im)
+        if _build.needs_grad(eqp.h_re, eqp.h_im):
+            heq = fp.pack_spectra(eqp.h_re, eqp.h_im, n)
+        h = (params.h_re, params.h_im)
+        if _build.needs_grad(params.h_spectra):
+            h = fp.pack_spectra(*params.h_spectra, n)
+        g_t = eqp.g_t
+        if _build.needs_grad(eqp.g_mat):
+            g_t = eqp.g_mat.t().contiguous()
         xs_re, xs_im = fp.rfft_packed_zeropad(x)
-        y, u, sv2 = eqfdl_fused(
-            state.fdl.spec_re, state.fdl.spec_im, params.h_re, params.h_im,
-            params.heq_re, params.heq_im, xs_re, xs_im, x,
-            state.eq.reshape(c, k2), eqp.g_t, eqp.m_mat, eqp.w_mat,
+        y, u, sv2, ring_re, ring_im = eqfdl_fused(
+            state.fdl.spec_re, state.fdl.spec_im, *h, *heq, xs_re, xs_im, x,
+            state.eq.reshape(c, k2), g_t, eqp.m_mat, eqp.w_mat,
             state.fdl.history, w)
-        fdl_st = fftconv.RingFDLState(spec_re=state.fdl.spec_re,
-                                      spec_im=state.fdl.spec_im,
+        fdl_st = fftconv.RingFDLState(spec_re=ring_re, spec_im=ring_im,
                                       history=u, pos=w)
         comp = params.comp
         win, env_st, y = chain_dyn(

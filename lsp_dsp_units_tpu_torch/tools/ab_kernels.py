@@ -1,13 +1,15 @@
-"""Hold this checkout's EQ + convolver, envelope, sliding RMS, slice,
+"""Hold this checkout's EQ + convolver, dynamics tail, envelope, sliding
+RMS, slice,
 biquad cascade, limiter, rider, biquad scan and delay kernels against
 another checkout's on the card: outputs bit for bit, device times in
 turns.
 
     python3 -m lsp_dsp_units_tpu_torch.tools.ab_kernels OTHER [--out F]
+        [--cases NAME ...]
 
 OTHER is the root of another checkout (for a redesign, its parent commit
 unpacked with ``git archive``).  Its ``csrc/fdl_fused.cu``,
-``csrc/env_units.cu``, ``csrc/slicedma.cu``, ``csrc/biquad.cu``,
+``csrc/env.cu``, ``csrc/env_units.cu``, ``csrc/slicedma.cu``, ``csrc/biquad.cu``,
 ``csrc/limiter.cu``, ``csrc/riders.cu``, ``csrc/biquad_scan.cu`` and
 ``csrc/delay.cu`` (those it has; the cases of a missing one, or of a step
 functor its riders.cu lacks, are skipped) are built with this
@@ -20,6 +22,9 @@ compressor):
 
 * eqfdl_fused over P + 2 blocks: y, u, EQ state and ring;
 * fdl_fused over P + 2 blocks: y and ring;
+* chain_dyn (kernel #3) at [64, 8192], N = 480, the chain's compressor,
+  over P + 2 blocks from env_init with the window and state carried: y,
+  window', envelope, peak and hold;
 * peak_envelope at [64, 16384], threshold on, in step's configuration
   (hold 0 from env_init) and with a hold of 24 samples from a random
   state: envelope, peak and hold;
@@ -90,6 +95,7 @@ from lsp_dsp_units_tpu_torch.ops import _build
 from lsp_dsp_units_tpu_torch.ops import biquad as bq
 from lsp_dsp_units_tpu_torch.ops import delay as delay_ops
 from lsp_dsp_units_tpu_torch.ops import dynamics as dyn
+from lsp_dsp_units_tpu_torch.ops import env as env_ops
 from lsp_dsp_units_tpu_torch.ops import env_units as eu
 from lsp_dsp_units_tpu_torch.ops import fdl_fused as ff
 from lsp_dsp_units_tpu_torch.ops import fft_packed as fp
@@ -101,7 +107,7 @@ from lsp_dsp_units_tpu_torch.ops import slicedma
 C, RANK, SR = 64, 14, 48000
 B = 1 << (RANK - 1)
 T_ENV = 2 * B                        # step's envelope call: [64, 16384]
-SIGS = {"fdl_fused": ff._SIGS, "env_units": eu._SIGS,
+SIGS = {"fdl_fused": ff._SIGS, "env": env_ops._SIGS, "env_units": eu._SIGS,
         "slicedma": slicedma._SIGS, "biquad": bq._SIGS,
         "limiter": lim_ops._SIGS, "riders": riders._SIGS,
         "biquad_scan": bq._SCAN_SIGS, "delay": delay_ops._SIGS}
@@ -189,13 +195,28 @@ def eqfdl_run(params, blocks):
     outs = []
     for x, xs in blocks:
         w = (ring.pos + 1) % params.h_re.shape[0]
-        y, u, sv = ff.eqfdl_fused(
+        y, u, sv, _, _ = ff.eqfdl_fused(
             ring.spec_re, ring.spec_im, params.h_re, params.h_im,
             params.heq_re, params.heq_im, *xs, x, sv, eqp.g_t, eqp.m_mat,
             eqp.w_mat, ring.history, w)
         ring = ring._replace(history=u, pos=w)
         outs += [y, u, sv]
     return outs + [ring.spec_re, ring.spec_im]
+
+
+def dyn_run(chain, cp, blocks):
+    """P + 2 blocks of chain_dyn from env_init and a zero window, window
+    and state carried: every output."""
+    n = chain.sidechain.reactivity
+    win = torch.zeros(C, n, device="cuda")
+    st = dyn.env_init((C,))
+    outs = []
+    for x, _ in blocks:
+        win, st, y = env_ops.chain_dyn(
+            win, st, x * 8.0, n, chain.sidechain.gain, cp.tau_attack,
+            cp.tau_release, cp.release_thresh, cp.hold, cp.knees)
+        outs += [y, win, *st]
+    return outs
 
 
 def fdl_run(params, blocks):
@@ -205,7 +226,7 @@ def fdl_run(params, blocks):
     for x, _ in blocks:
         w = (ring.pos + 1) % hp[0].shape[0]
         outs.append(ff.fdl_fused(ring.spec_re, ring.spec_im, *hp,
-                                 ring.history, x, w))
+                                 ring.history, x, w)[0])
         ring = ring._replace(history=x, pos=w)
     return outs + [ring.spec_re, ring.spec_im]
 
@@ -214,6 +235,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("other", help="root of the other checkout")
     ap.add_argument("--out", default=None, help="also write the JSON here")
+    ap.add_argument("--cases", nargs="*", default=None,
+                    help="run only these cases (default: all)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("ab_kernels: no CUDA device", file=sys.stderr)
@@ -249,6 +272,7 @@ def main(argv=None) -> int:
     x0, xs0 = blocks[0]
     n_sc, g_sc = chain.sidechain.reactivity, float(chain.sidechain.gain)
     win = ((torch.randn(C, n_sc, generator=gen) * 0.25) ** 2).cuda()
+    win_d = torch.zeros(C, n_sc, device="cuda")
     xr = (torch.randn(C, T_ENV, generator=gen) * 0.25).cuda()
     sample = (torch.randn(SR, generator=gen) * 0.25).numpy()
     bank_p, _, _ = dm.build_bank_padded([sample], VBLOCK)
@@ -342,6 +366,10 @@ def main(argv=None) -> int:
                            params.h_im, params.heq_re, params.heq_im, *xs0,
                            x0, sv0, eqp.g_t, eqp.m_mat, eqp.w_mat,
                            ring_t.history, 1)), 50),
+        "chain_dyn": (lambda: dyn_run(chain, cp, blocks), lambda: (
+            env_ops.chain_dyn(win_d, dyn.env_init((C,)), x0 * 8.0, n_sc,
+                              g_sc, cp.tau_attack, cp.tau_release,
+                              cp.release_thresh, cp.hold, cp.knees)), 20),
         "fdl_fused": (lambda: fdl_run(params, blocks), lambda: ff.fdl_fused(
             ring_t.spec_re, ring_t.spec_im, params.h_re, params.h_im,
             ring_t.history, x0, 1), 50),
@@ -393,6 +421,7 @@ def main(argv=None) -> int:
             dpop, dst, glev), 10),
     }
     lib_of = {"eqfdl_fused": "fdl_fused", "fdl_fused": "fdl_fused",
+              "chain_dyn": "env",
               "sliding_rms": "env_units", "batched_slice": "slicedma",
               "biquad_seq": "biquad", "biquad_seq_dyn": "biquad",
               "limiter": "limiter", "limiter_alr": "limiter",
@@ -406,6 +435,8 @@ def main(argv=None) -> int:
                "rider_depopper": riders.KIND["depopper"]}
     res, ok = {}, True
     for name, (run, call, reps) in cases.items():
+        if args.cases is not None and name not in args.cases:
+            continue
         if lib_of.get(name, "env_units") not in other:
             print(f"{name}: skipped (the other checkout has no "
                   f"{lib_of.get(name, 'env_units')}.cu)", flush=True)

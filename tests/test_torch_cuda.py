@@ -28,6 +28,8 @@ from lsp_dsp_units_tpu_torch.ops import dynamics as tdyn
 from lsp_dsp_units_tpu_torch.ops import env_units as eu
 from lsp_dsp_units_tpu_torch.ops import fft_packed as tfft
 from lsp_dsp_units_tpu_torch.ops import fftconv as tfc
+from lsp_dsp_units_tpu_torch.ops import env as tenv
+from lsp_dsp_units_tpu_torch.ops import fdl_fused as tfdl
 from lsp_dsp_units_tpu_torch.ops.env import chain_dyn, chain_dyn_plain
 from lsp_dsp_units_tpu_torch.models.sampling import device_mix as tdm
 from lsp_dsp_units_tpu_torch.ops import slicedma
@@ -125,10 +127,10 @@ def test_eqfdl_kernel_matches_plain(cuda_device, c, b, parts):
         w = (ring_k.pos + 1) % p_n
         mats = (teq.g_t, teq.m_mat, teq.w_mat)
         ring_f = (ring_k.spec_re.clone(), ring_k.spec_im.clone())
-        yk, uk, sv_k = eqfdl_fused(ring_k.spec_re, ring_k.spec_im, hp[0],
-                                   hp[1], heq[0], heq[1], *xs, x, sv_k,
-                                   *mats, ring_k.history, w)
-        yf = fdl_fused(*ring_f, hp[0], hp[1], ring_k.history, uk, w)
+        yk, uk, sv_k, _, _ = eqfdl_fused(
+            ring_k.spec_re, ring_k.spec_im, hp[0], hp[1], heq[0], heq[1],
+            *xs, x, sv_k, *mats, ring_k.history, w)
+        yf = fdl_fused(*ring_f, hp[0], hp[1], ring_k.history, uk, w)[0]
         yp, up, sv_p = eqfdl_fused_plain(ring_p.spec_re, ring_p.spec_im,
                                          hp[0], hp[1], heq[0], heq[1], *xs,
                                          x, sv_p, *mats, ring_p.history, w)
@@ -428,7 +430,7 @@ def test_fdl_fused_kernel_matches_plain(cuda_device, c, b, parts):
         x = _randn(gen, c, b, scale=0.25, device=cuda_device)
         w = (ring_k.pos + 1) % p_n
         yk = fdl_fused(ring_k.spec_re, ring_k.spec_im, hp[0], hp[1],
-                       ring_k.history, x, w)
+                       ring_k.history, x, w)[0]
         yp = fdl_fused_plain(ring_p.spec_re, ring_p.spec_im, hp[0], hp[1],
                              ring_p.history, x, w)
         ring_k = ring_k._replace(history=x, pos=w)
@@ -1613,4 +1615,164 @@ def test_step_gradient_on_card_matches_cpu(cuda_device):
         (torch.sum(y0 * y0) + torch.sum(y1 * y1)).backward()
         grads.append([x0.grad.cpu(), x1.grad.cpu()])
     for a, b in zip(*grads):
+        assert _snr(a, b) >= 100.0
+
+
+# ---------------------------------------------------------------------------
+# gradients through step_ring and the packed ring: #2, #3 and #4's
+# backward kernels
+# ---------------------------------------------------------------------------
+
+
+def _ring_case(gen, dev, c, b, p_n, k2):
+    """A written ring (ring', slot w), IR and EQ spectra, the EQ's
+    matrices and random cotangents, for the convolver backwards."""
+    def r(*s, scale=1.0):
+        return _randn(gen, *s, scale=scale, device=dev)
+    return dict(ring=(r(p_n, c, b), r(p_n, c, b)), h=(r(p_n, b), r(p_n, b)),
+                heq=(r(b), r(b)), xs=(r(c, b), r(c, b)), x=r(c, b),
+                sv=r(c, k2), mats=(r(k2, b, scale=0.1), r(k2, k2, scale=0.3),
+                                   r(k2, b, scale=0.1)),
+                cot=(r(c, b), r(c, b), r(c, k2), r(p_n, c, b),
+                     r(p_n, c, b)))
+
+
+@pytest.mark.parametrize("c,b,p_n,w", [(3, 64, 2, 1), (5, 1024, 6, 0),
+                                       (64, 8192, 6, 4)])
+def test_fdl_bwd_kernel_matches_plain(cuda_device, c, b, p_n, w):
+    """#4's backward (kernel #1's two transforms around fdl_bwd) against
+    its plain version on the card, >= 110 dB per output; one launch
+    counted, two transforms."""
+    gen = torch.Generator().manual_seed(b + w)
+    d = _ring_case(gen, cuda_device, c, b, p_n, 4)
+    args = (*d["ring"], *d["h"], w, d["cot"][0], *d["cot"][3:])
+    before = (tfdl.fdl_fused_bwd.launches, tfdl.fdl_fused_bwd.fft_launches)
+    k_out = tfdl.fdl_fused_bwd(*args)
+    assert (tfdl.fdl_fused_bwd.launches,
+            tfdl.fdl_fused_bwd.fft_launches) == (before[0] + 1,
+                                                 before[1] + 2)
+    p_out = tfdl.fdl_fused_bwd_plain(*args)
+    assert not torch.any(k_out[0][w]) and not torch.any(k_out[1][w])
+    for a, bb in zip(p_out, k_out):
+        assert _snr(a, bb) >= 110.0
+
+
+@pytest.mark.parametrize("c,b,p_n,w,k2", [(3, 64, 2, 1, 4),
+                                          (64, 8192, 6, 4, 18)])
+def test_eqfdl_bwd_kernel_matches_plain(cuda_device, c, b, p_n, w, k2):
+    """#2's backward (fdl_bwd, then the EQ's adjoints on eqfdl_bwd)
+    against its plain version on the card, >= 110 dB per output, and
+    the same bits from run to run (the channel sums in a fixed order)."""
+    gen = torch.Generator().manual_seed(b + k2)
+    d = _ring_case(gen, cuda_device, c, b, p_n, k2)
+    args = (*d["ring"], *d["h"], *d["heq"], *d["xs"], d["x"], d["sv"],
+            *d["mats"], w, *d["cot"])
+    before = tfdl.eqfdl_fused_bwd.launches
+    k_out = tfdl.eqfdl_fused_bwd(*args)
+    assert tfdl.eqfdl_fused_bwd.launches == before + 1
+    again = tfdl.eqfdl_fused_bwd(*args)
+    p_out = tfdl.eqfdl_fused_bwd_plain(*args)
+    for a, bb, cc in zip(p_out, k_out, again):
+        assert torch.equal(bb, cc)
+        assert _snr(a, bb) >= 110.0
+
+
+@pytest.mark.parametrize("t,hold", [(480, 0), (2049, 0), (8192, 0),
+                                    (3000, 3), (8192, 24)])
+def test_chain_dyn_bwd_kernel_matches_plain(cuda_device, t, hold):
+    """#3's backward: its replay is kernel #3's (y bit for bit), its
+    envelope adjoint is peak_envelope_bwd_plain's on the replayed level,
+    envelope and cotangent (bit for bit), the envelope's cotangent (the
+    knee gain's hand-written adjoint) >= 120 dB from autograd's, and the
+    whole against the plain backward on the same saved level and
+    envelope >= 120 dB, knee fields included; at a hold of 0 (the main
+    path's), 3 and 24 from a state with holds left.  With holds the
+    taus' gradients sum cotangents carried through held steps, where the
+    two envelope cotangents' roundings add up (116.9 dB at a hold of 24
+    on the H100): there the taus are held by the two checks before."""
+    gen = torch.Generator().manual_seed(t + hold)
+    c, n = 6, 480
+    cp = Compressor(48000, attack_thresh=0.25, release_thresh=0.125,
+                    attack_ms=10.0, release_ms=80.0, knee=0.7071,
+                    ratio=4.0).build()
+    swell = torch.sin(torch.linspace(0.0, torch.pi, t)) * 2.0
+    x = (torch.randn(c, t, generator=gen) * swell).to(cuda_device)
+    win = (_randn(gen, c, n, scale=0.5) ** 2).to(cuda_device)
+    st = tdyn.EnvState(torch.rand(c, generator=gen).to(cuda_device),
+                       torch.rand(c, generator=gen).to(cuda_device),
+                       torch.randint(0, hold + 1, (c,), generator=gen,
+                                     dtype=torch.int32).to(cuda_device))
+    args = (n, 1.0, cp.tau_attack, cp.tau_release, cp.release_thresh, hold,
+            cp.knees)
+    cot = (_randn(gen, c, n, device=cuda_device),
+           _randn(gen, c, device=cuda_device),
+           _randn(gen, c, device=cuda_device),
+           _randn(gen, c, t, device=cuda_device))
+    before = tenv.chain_dyn_bwd.launches
+    k_out = tenv.chain_dyn_bwd(win, st, x, *cot, *args, replay=True)
+    assert tenv.chain_dyn_bwd.launches == before + 1
+    level, env, genv, glev, y = k_out[6:]
+    assert torch.equal(y, chain_dyn(win, st, x, *args)[2])
+    pe = eu.peak_envelope_bwd_plain(level, env, *st, genv, cot[1], cot[2],
+                                    cp.tau_attack, cp.tau_release, hold,
+                                    cp.release_thresh)
+    for a, bb in zip(pe, (glev, k_out[1], k_out[2], k_out[4])):
+        assert torch.equal(a, bb)
+    assert _snr(tenv.gain_adjoint_plain(env, x, cot[3], cp.knees)[1],
+                genv) >= 120.0
+    p_out = tenv.chain_dyn_bwd_plain(win, st, x, *cot, *args,
+                                     saved=(level, env))
+    for i, (a, bb) in enumerate(zip(p_out, k_out[:6])):
+        if i == 4 and hold:
+            continue
+        if torch.any(a != 0):
+            assert _snr(a, bb) >= 120.0
+        else:                   # the peak's cotangent where nothing holds
+            assert torch.equal(a, bb)
+
+
+def test_step_ring_gradient_on_card_matches_cpu(cuda_device):
+    """d/dx and d/d(IR, EQ spectra, g_mat, m_mat, w_mat) of P + 2 blocks of
+    step_ring, the compressor engaged, on the card against the CPU:
+    >= 100 dB, through eqfdl_bwd and chain_dyn_bwd once a block; TF32 on
+    gives the same bits."""
+    chains = [tpipe.FilterConvChain(48000, 8, rank=10, ir_seconds=0.05,
+                                    device=d) for d in ("cpu", cuda_device)]
+    params = chains[0].build()
+    p_n = params.h_re.shape[0]
+    rng = np.random.default_rng(9)
+    xs = [(rng.standard_normal((8, chains[0].block)) * 2.0)
+          .astype(np.float32) for _ in range(p_n + 2)]
+
+    def run(chain, dev):
+        p = tree.tree_map(lambda v: v.to(dev) if torch.is_tensor(v) else v,
+                          params)
+        eqb = p.eq_block
+        leaves = [v.detach().clone().requires_grad_(True) for v in (
+            *p.h_spectra, eqb.h_re, eqb.h_im, eqb.g_mat, eqb.m_mat,
+            eqb.w_mat)]
+        p = p._replace(h_spectra=tfc.Spectra(*leaves[:2]),
+                       eq_block=eqb._replace(
+                           h_re=leaves[2], h_im=leaves[3], g_mat=leaves[4],
+                           m_mat=leaves[5], w_mat=leaves[6]))
+        xt = [torch.from_numpy(x).to(dev).requires_grad_(True) for x in xs]
+        st, total = chain.init_ring_state(p), 0.0
+        for x in xt:
+            st, y = chain.step_ring(p, st, x)
+            total = total + torch.sum(y * y)
+        total.backward()
+        return [v.grad.cpu() for v in xt + leaves]
+
+    before = (tfdl.eqfdl_fused_bwd.launches, tenv.chain_dyn_bwd.launches)
+    g_card = run(chains[1], cuda_device)
+    assert tfdl.eqfdl_fused_bwd.launches - before[0] == p_n + 2
+    assert tenv.chain_dyn_bwd.launches - before[1] == p_n + 2
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        g_tf32 = run(chains[1], cuda_device)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    g_cpu = run(chains[0], "cpu")
+    for a, b, cc in zip(g_cpu, g_card, g_tf32):
+        assert torch.equal(b, cc)
         assert _snr(a, b) >= 100.0

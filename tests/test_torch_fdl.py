@@ -82,7 +82,7 @@ def test_eqfdl_plain_matches_jax_pallas():
         xt = torch.from_numpy(x)
         xs = tfft.rfft_packed_zeropad(xt)
         assert tst.pos == (w - 1) % p_n
-        ty, tu, tsv = eqfdl_fused(
+        ty, tu, tsv, _, _ = eqfdl_fused(
             tst.spec_re, tst.spec_im, thp[0], thp[1], theq[0], theq[1],
             xs[0], xs[1], xt, tsv, teq.g_t, teq.m_mat, teq.w_mat,
             tst.history, w)

@@ -231,6 +231,39 @@ def test_lcg_device_distribution(dist):
     _moments_ok(v, mean, var)
 
 
+_DRAW = ("import hashlib, torch\n"
+         "from lsp_dsp_units_tpu_torch.models.noise import lcg\n"
+         "g = torch.Generator().manual_seed(5)\n"
+         "v = lcg.lcg_device(g, (1 << 18,), lcg.LCGDistribution.{}, 0.7, "
+         "0.1, device='cpu')\n"
+         "print(hashlib.sha256(v.numpy().tobytes()).hexdigest())\n")
+
+
+@pytest.mark.parametrize("dist", list(TLCG.LCGDistribution),
+                         ids=lambda d: d.name)
+def test_lcg_device_draw_reproducible_in_fresh_processes(dist):
+    """A draw is the same in every process: each of six fresh processes
+    makes the draw above as its first work (where PyTorch's first
+    multi-threaded transcendental call could round one thread's share
+    ~1.5e-4 off), and each gets this process's bytes."""
+    import hashlib
+    import os
+    import subprocess
+    import sys
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, PYTHONPATH=root)
+    procs = [subprocess.Popen([sys.executable, "-c", _DRAW.format(dist.name)],
+                              cwd=root, env=env, stdout=subprocess.PIPE,
+                              text=True) for _ in range(6)]
+    outs = [p.communicate(timeout=300)[0].strip() for p in procs]
+    g = torch.Generator().manual_seed(5)
+    want = hashlib.sha256(TLCG.lcg_device(
+        g, (1 << 18,), dist, 0.7, 0.1, device="cpu").numpy().tobytes()
+    ).hexdigest()
+    assert all(p.returncode == 0 for p in procs)
+    assert outs == [want] * 6, outs
+
+
 @pytest.mark.parametrize("bits", [8, 16, 24])
 def test_dither_device_distribution(bits):
     """TPDF: (u1 + u2 - 1) * delta / 2 with delta = 2^(1 - bits), in

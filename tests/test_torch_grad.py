@@ -43,6 +43,8 @@ from lsp_dsp_units_tpu_torch.ops import env_units as eu
 from lsp_dsp_units_tpu_torch.ops import fft_packed as tfp
 from lsp_dsp_units_tpu_torch.ops import limiter as tlim
 from lsp_dsp_units_tpu_torch.ops import riders as trd
+from lsp_dsp_units_tpu_torch.ops import env as tenv
+from lsp_dsp_units_tpu_torch.ops import fdl_fused as tfdl
 from lsp_dsp_units_tpu_torch.ops.env import chain_dyn
 from lsp_dsp_units_tpu_torch.ops.fdl_fused import eqfdl_fused, fdl_fused
 from lsp_dsp_units_tpu_torch.ops.ring_mac import ring_mac
@@ -425,11 +427,6 @@ def _env():
 
 
 RAISING = {
-    "chain_dyn": lambda: chain_dyn(
-        torch.zeros(2, 4), _env(), _req(2, 8), 4, 1.0, 0.1, 0.1, 0.0, 0,
-        TComp(SR).build().knees),
-    "eqfdl_fused": lambda: eqfdl_fused(*[_req(2)] * 14, 0),
-    "fdl_fused": lambda: fdl_fused(*[_req(2)] * 6, 0),
     "ring_mac": lambda: ring_mac(*[_req(2)] * 6, 0),
     "batched_slice": lambda: batched_slice(
         _req(64), torch.zeros(2, dtype=torch.int32), 8),
@@ -522,3 +519,86 @@ def test_forward_unchanged_without_grad():
     _, y = tc.step(tp, tc.init_state(tp), xs)
     _, yg = tc.step(tp, tc.init_state(tp), xs.clone().requires_grad_(True))
     assert torch.equal(y, yg.detach())
+
+    # the ring convolvers and the dynamics tail (#2, #4, #3): without grad
+    # the ring is written in place and the outputs are the plain versions'
+    # bit for bit; with grad a new ring, the caller's untouched, the same
+    # bits
+    gen = torch.Generator().manual_seed(62)
+
+    def r(*shape):
+        return torch.randn(*shape, generator=gen)
+    p_n, c, b, k2 = 3, 2, 64, 4
+    ring = (r(p_n, c, b), r(p_n, c, b))
+    eq_in = (r(p_n, b), r(p_n, b), r(b), r(b), r(c, b), r(c, b), r(c, b),
+             r(c, k2), r(k2, b), r(k2, k2), r(k2, b), r(c, b))
+    fdl_in = eq_in[:2] + (eq_in[-1], eq_in[6])
+    cp = TComp(SR, attack_thresh=0.25, release_thresh=0.125).build()
+    dyn_in = (r(c, 16).abs(), tdyn.EnvState(r(c).abs(), r(c).abs(),
+                                            torch.tensor([0, 2],
+                                                         dtype=torch.int32)))
+    dyn_args = (16, 1.0, cp.tau_attack, cp.tau_release, cp.release_thresh,
+                3, cp.knees)
+    cases = {
+        "eqfdl_fused": (lambda rr, g: eqfdl_fused(
+            *rr, *eq_in[:6], eq_in[6].clone().requires_grad_(g),
+            *eq_in[7:], 1),
+            lambda rr: tfdl.eqfdl_fused_plain(*rr, *eq_in, 1), 3),
+        "fdl_fused": (lambda rr, g: fdl_fused(
+            *rr, *fdl_in[:3], fdl_in[3].clone().requires_grad_(g), 2),
+            lambda rr: (tfdl.fdl_fused_plain(*rr, *fdl_in, 2),), 1),
+    }
+    counters = [eqfdl_fused, fdl_fused, chain_dyn, tfdl.eqfdl_fused_bwd,
+                tfdl.fdl_fused_bwd, tenv.chain_dyn_bwd]
+    before = [f.launches for f in counters]
+    for name, (call, plain, n_out) in cases.items():
+        want_ring = [v.clone() for v in ring]
+        want = plain(want_ring)
+        rr = [v.clone() for v in ring]
+        got = call(rr, False)
+        assert got[n_out] is rr[0] and got[n_out + 1] is rr[1], name
+        assert all(torch.equal(a, b_) for a, b_ in zip(want, got[:n_out]))
+        assert torch.equal(rr[0], want_ring[0]), name
+        assert torch.equal(rr[1], want_ring[1]), name
+        rg = [v.clone() for v in ring]
+        got_g = call(rg, True)
+        assert got_g[0].grad_fn is not None, name
+        assert torch.equal(rg[0], ring[0]) and torch.equal(rg[1], ring[1])
+        for a, b_ in zip(got[:n_out + 2], got_g[:n_out + 2]):
+            assert torch.equal(a, b_.detach()), name
+    xd = r(c, 64) * 2.0
+    want = tenv.chain_dyn_plain(*dyn_in, xd, *dyn_args)
+    got = chain_dyn(*dyn_in, xd, *dyn_args)
+    got_g = chain_dyn(*dyn_in, xd.clone().requires_grad_(True), *dyn_args)
+    assert got_g[2].grad_fn is not None
+    for a, b_, g_ in zip(tree.tree_flatten(want)[0], tree.tree_flatten(got)[0],
+                         tree.tree_flatten(got_g)[0]):
+        assert torch.equal(a, b_) and torch.equal(a, g_.detach())
+
+    # step_ring: without grad the plain stages' bits, the ring in place;
+    # with grad the same bits and the caller's ring untouched
+    st0 = convert.ring_state_from_jax(_np_tree(jc.init_ring_state(jp)),
+                                      device="cpu")
+    xr = _t(rng.standard_normal((4, jc.block)) * 2.0)
+    ring0 = st0.fdl.spec_re.clone()
+    st1, y1 = tc.step_ring(tp, st0, xr)
+    assert st1.fdl.spec_re is st0.fdl.spec_re
+    assert not torch.equal(st0.fdl.spec_re, ring0)
+    eqp, cpp = tp.eq_block, tp.comp
+    ring_p = (ring0.clone(), torch.zeros_like(ring0))
+    yp, _, _ = tfdl.eqfdl_fused_plain(
+        *ring_p, tp.h_re, tp.h_im, tp.heq_re, tp.heq_im,
+        *tfp.rfft_packed_zeropad_plain(xr), xr, st0.eq.reshape(4, -1),
+        eqp.g_t, eqp.m_mat, eqp.w_mat, st0.fdl.history, st1.fdl.pos)
+    _, _, yp = tenv.chain_dyn_plain(
+        st0.sc.window, st0.env, yp, tc.sidechain.reactivity,
+        tc.sidechain.gain, cpp.tau_attack, cpp.tau_release,
+        cpp.release_thresh, cpp.hold, cpp.knees)
+    assert torch.equal(y1, yp)
+    assert torch.equal(st1.fdl.spec_re, ring_p[0])
+    st0 = convert.ring_state_from_jax(_np_tree(jc.init_ring_state(jp)),
+                                      device="cpu")
+    st2, y2 = tc.step_ring(tp, st0, xr.clone().requires_grad_(True))
+    assert torch.equal(y1, y2.detach()) and not torch.any(st0.fdl.spec_re)
+    assert torch.equal(st2.fdl.spec_re.detach(), st1.fdl.spec_re)
+    assert [f.launches for f in counters] == before
