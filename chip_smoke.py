@@ -299,6 +299,25 @@ Phases (any failure exits non-zero; nothing is caught):
             bound; step_ring's ms a block forward and forward + backward
             (CUDA events behind the spin kernel) and torch.profiler's
             kernels of one forward + backward.
+17c. demo  — every mode of tools/demo.py (filter, chain, loudness,
+            sampler, stretch) through its main(), on the card (its
+            default) and with --cpu, on WAVs written from fixed seeds:
+            10 s of stereo at 48 kHz (three tones and noise, peaks at -12
+            dBFS) and, for chain, 4 s of 64 channels.  The CPU runs go on
+            in three spawned worker processes beside the card's.  Bars,
+            card vs CPU: filter and chain >= 95 dB, the integrated
+            loudness within 0.01 dB, sampler and stretch identical.  The
+            counters of each mode's kernels, zeroed just before its card
+            run, must advance: filter biquad_scan; chain #1's three
+            wrappers, #5 and #6; loudness biquad_seq.  Seconds per mode
+            and device printed.
+17d. tour  — every block of lsp_dsp_units_tpu_torch/docs/API_TOUR.md on
+            the card (tools/tour.run), every launch counter zeroed just
+            before and read just after: #1 (any of its three wrappers),
+            #5, #6, #8, biquad_scan, biquad_seq, limiter_kernel,
+            delay_kernel, TriggerStep, and the backwards sliding_rms_bwd,
+            peak_envelope_bwd (the sharded chain's gradient) and the
+            scan's (the biquad fit) must advance; the counts printed.
 18. timing — CUDA events behind a spin kernel: step_ring ms per block,
             step ms per call and per block, bulk_step ms per super-block;
             each kernel against its plain version at the same shapes, its
@@ -4574,6 +4593,188 @@ def grad_ring_phase(chain, params, dev, res):
           + f"; phase {time.perf_counter() - t_start:.1f} s")
 
 
+# --- the demo and the tour: the port's user-facing entry points ------------
+
+DEMO_S, DEMO_CHAIN_S = 10, 4  # the demo's WAVs: 10 s stereo, 4 s of C ch
+DEMO_DB = 95.0        # filter (the scan's bar) and chain (the FFT's)
+LUFS_DB = 0.01        # the integrated loudness, card vs CPU
+# the kernels each demo mode must launch on the card (tools/demo.py)
+DEMO_KERNELS = {
+    "filter": (bq.biquad_cascade,),
+    "chain": (fp.rfft_packed_zeropad, fp.rfft_packed, fp.irfft_packed,
+              eu.sliding_rms, eu.peak_envelope),
+    "loudness": (bq.biquad_cascade_seq,),
+    "sampler": (), "stretch": ()}
+# every launch counter the tour could advance: (name, wrapper, attribute)
+TOUR_COUNTERS = (
+    ("#1 rfft_packed", fp.rfft_packed, "launches"),
+    ("#1 rfft_packed_zeropad", fp.rfft_packed_zeropad, "launches"),
+    ("#1 irfft_packed", fp.irfft_packed, "launches"),
+    ("#2 eqfdl_fused", eqfdl_fused, "launches"),
+    ("#3 chain_dyn", chain_dyn, "launches"),
+    ("#4 fdl_fused", fdl_fused, "launches"),
+    ("#5 sliding_rms", eu.sliding_rms, "launches"),
+    ("#6 peak_envelope", eu.peak_envelope, "launches"),
+    ("#7 gate_envelope", eu.gate_envelope, "launches"),
+    ("#8 batched_slice", slicedma.batched_slice, "launches"),
+    ("#9 ring_mac", ring_mac, "launches"),
+    ("biquad_scan", bq.biquad_cascade, "launches"),
+    ("biquad_seq", bq.biquad_cascade_seq, "launches"),
+    ("biquad_seq dyn", bq.dyn_biquad_cascade_seq, "launches"),
+    ("limiter_kernel", lim_ops.limiter, "launches"),
+    ("delay_kernel", delay_ops.dynamic_delay, "launches"),
+    ("TriggerStep", riders.trigger, "launches"),
+    ("DepopperStep", riders.depopper_forward, "launches"),
+    ("#1 rfft_packed bwd", fp.rfft_packed, "bwd_launches"),
+    ("#1 rfft_packed_zeropad bwd", fp.rfft_packed_zeropad, "bwd_launches"),
+    ("#1 irfft_packed bwd", fp.irfft_packed, "bwd_launches"),
+    ("sliding_rms_bwd", eu.sliding_rms_bwd, "launches"),
+    ("peak_envelope_bwd", eu.peak_envelope_bwd, "launches"),
+    ("biquad_scan bwd", bq.biquad_cascade, "bwd_launches"))
+# what the tour's units route to on the card: each must advance (#1 as
+# the sum of its three wrappers)
+TOUR_EXPECTED = ("#5 sliding_rms", "#6 peak_envelope", "#8 batched_slice",
+                 "biquad_scan", "biquad_seq", "limiter_kernel",
+                 "delay_kernel", "TriggerStep", "sliding_rms_bwd",
+                 "peak_envelope_bwd", "biquad_scan bwd")
+
+
+def demo_wavs(folder: str) -> dict:
+    """The demo's inputs, from fixed seeds: 10 s of stereo at 48 kHz
+    (three tones and noise, peaks at -12 dBFS) and, for ``chain``, 4 s
+    of C channels (the bench's channel count) of tones and noise."""
+    from lsp_dsp_units_tpu_torch.utils.wavio import write_wav
+
+    def program(seed, c, secs):
+        rng = np.random.default_rng(seed)
+        t = np.arange(secs * SR) / SR
+        f = rng.uniform(60.0, 8000.0, (c, 3))
+        x = sum(np.sin(2 * np.pi * f[:, k:k + 1] * t) for k in range(3))
+        x = x + 0.5 * rng.standard_normal(x.shape)
+        return (x * 10 ** (-12 / 20) / np.abs(x).max()).astype(np.float32)
+
+    paths = dict(stereo=os.path.join(folder, "stereo.wav"),
+                 wide=os.path.join(folder, "wide.wav"))
+    write_wav(paths["stereo"], program(31, 2, DEMO_S), SR)
+    write_wav(paths["wide"], program(32, C, DEMO_CHAIN_S), SR)
+    return paths
+
+
+def run_demo(argv) -> tuple:
+    """``tools/demo.main(argv)``: (its stdout, its seconds; the demo
+    reads its output back to the host before it returns)."""
+    import io
+    from lsp_dsp_units_tpu_torch.tools import demo
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        demo.main(argv)
+    return out.getvalue(), time.perf_counter() - t0
+
+
+def demo_reference(src: str, dst: str, mode: str) -> tuple:
+    """One mode's CPU run (``--cpu``) in a worker process, so that the
+    CPU runs' per-sample loops (the envelope's, the K-weighting's) go on
+    beside the card's runs; its pool warmed first, as the main process's
+    is."""
+    warm_cpu_pool()
+    return run_demo([src, dst, mode, "--cpu"])
+
+
+def demo_phase(dev, res):
+    """Every mode of ``tools/demo.py`` through its ``main``, on the card
+    (its default) and with ``--cpu``: the outputs card vs CPU at the
+    modes' bars, and the kernels each mode must launch on the card (the
+    counters zeroed just before each card run)."""
+    import tempfile
+    from lsp_dsp_units_tpu_torch.tools import demo
+    from lsp_dsp_units_tpu_torch.utils.wavio import read_wav
+    t_start = time.perf_counter()
+    r = res["demo"] = {}
+    # the longest CPU runs first
+    modes = sorted(demo.MODES, key=("chain", "loudness").__contains__,
+                   reverse=True)
+    with tempfile.TemporaryDirectory() as tmp, \
+            concurrent.futures.ProcessPoolExecutor(
+                3, mp_context=multiprocessing.get_context("spawn")) as pool:
+        wavs = demo_wavs(tmp)
+        srcs = {m: wavs["wide" if m == "chain" else "stereo"] for m in modes}
+        outs = {m: {k: os.path.join(tmp, f"{m}_{k}.wav")
+                    for k in ("card", "cpu")} for m in modes}
+        refs = {m: pool.submit(demo_reference, srcs[m], outs[m]["cpu"], m)
+                for m in modes}
+        for mode in demo.MODES:
+            src = srcs[mode]
+            torch.cuda.synchronize()
+            for f in DEMO_KERNELS[mode]:
+                f.launches = 0
+            text, card_s = run_demo([src, outs[mode]["card"], mode])
+            launched = {f.__name__: f.launches for f in DEMO_KERNELS[mode]}
+            cpu_text, cpu_s = refs[mode].result()
+            outs_m = outs[mode]
+            (yc, _), (yh, _) = (read_wav(outs_m["card"]),
+                                read_wav(outs_m["cpu"]))
+            check(yc.shape == yh.shape and bool(np.isfinite(yc).all()),
+                  f"demo {mode}: card output {yc.shape}, CPU {yh.shape}")
+            for name, n in launched.items():
+                check(n > 0, f"demo {mode}: {name} not launched on the card")
+            m = r[mode] = dict(card_s=card_s, cpu_s=cpu_s,
+                               launches=launched, shape=list(yc.shape))
+            if mode in ("filter", "chain"):
+                m["db"] = snr_db(torch.from_numpy(yh), torch.from_numpy(yc))
+                check(m["db"] >= DEMO_DB, f"demo {mode}: card {m['db']:.2f}"
+                      f" dB from the CPU < {DEMO_DB}")
+                what = f"{m['db']:.2f} dB from the CPU"
+            elif mode == "loudness":
+                lufs = [float(re.search(r"integrated loudness: (\S+) LUFS",
+                                        t).group(1)) for t in (text,
+                                                               cpu_text)]
+                m.update(lufs_card=lufs[0], lufs_cpu=lufs[1])
+                check(abs(lufs[0] - lufs[1]) <= LUFS_DB,
+                      f"demo loudness: {lufs[0]} LUFS on the card, "
+                      f"{lufs[1]} on the CPU")
+                what = f"{lufs[0]:.4f} LUFS, CPU {lufs[1]:.4f}"
+            else:
+                m["identical"] = bool(np.array_equal(yc, yh))
+                check(m["identical"], f"demo {mode}: card run differs from "
+                      f"the CPU run")
+                what = "identical to the CPU run"
+            print(f"demo {mode}: {yc.shape[0]} x {yc.shape[1]}, {what}; "
+                  f"card {card_s:.2f} s, CPU {cpu_s:.2f} s; launches "
+                  f"{launched}")
+    r["seconds"] = time.perf_counter() - t_start
+    print(f"demo: phase {r['seconds']:.1f} s")
+
+
+def tour_phase(dev, res):
+    """Every block of the port's API tour on the card (tools/tour.run),
+    the launch counters zeroed just before and read just after: each
+    kernel the tour's units route to on the card must have advanced."""
+    from lsp_dsp_units_tpu_torch.tools import tour
+    t_start = time.perf_counter()
+    torch.cuda.synchronize()
+    for _, f, attr in TOUR_COUNTERS:
+        setattr(f, attr, 0)
+    ns = tour.run(dev)
+    torch.cuda.synchronize()
+    launched = {name: getattr(f, attr) for name, f, attr in TOUR_COUNTERS}
+    check(ns["device"] == dev and ns["wet"].device.type == "cuda",
+          f"tour: ran on {ns['device']}")
+    fft = sum(launched[k] for k in launched
+              if k.startswith("#1") and not k.endswith("bwd"))
+    check(fft > 0, "tour: kernel #1 not launched")
+    for name in TOUR_EXPECTED:
+        check(launched[name] > 0, f"tour: {name} not launched")
+    seconds = time.perf_counter() - t_start
+    res["tour"] = dict(blocks=len(tour.blocks()), launches=launched,
+                       seconds=seconds)
+    print(f"tour: {len(tour.blocks())} blocks on the card in "
+          f"{seconds:.1f} s; kernels launched: "
+          + ", ".join(f"{k} {v}" for k, v in launched.items() if v)
+          + "; not launched: "
+          + ", ".join(k for k, v in launched.items() if not v))
+
+
 def timing_phase(chain, params, dev, res):
     """Device time of ``step`` per call and of ``bulk_step`` per
     super-block (CUDA events behind the spin kernel), and the host's
@@ -4667,6 +4868,8 @@ def main(argv=None) -> int:
     serve_phase(dev, res)
     grad_phase(chain, params, dev, res)
     grad_ring_phase(chain, params, dev, res)
+    demo_phase(dev, res)
+    tour_phase(dev, res)
     timing_phase(chain, params, dev, res)
 
     res["fft"]["launches"] = res["launches"]["fft"]

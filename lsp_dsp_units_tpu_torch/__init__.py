@@ -55,4 +55,25 @@ streaming server ``tools.serve`` and ``tools.room_demo``.  Entry points allocate
 (``device="cuda"``) unless the caller passes another device.
 """
 
+import torch as _torch
+
 __version__ = "0.1.0"
+
+
+def _warm_cpu_math() -> None:
+    """One call of each vectorised transcendental the port uses, in
+    float32 and float64, on a tensor small enough to run on the calling
+    thread alone, before any call large enough to be split across
+    PyTorch's intra-op thread pool.  Without it the first split call of a
+    process can round one thread's whole share off (~1e-5 to 1.5e-4
+    relative; ``tools/cpu_probe.py`` found it in fresh processes of the
+    Oversampler's tanh, the oscillator's sin and step_ring's knee gain),
+    so that a CPU run would not repeat from one process to the next."""
+    for dtype in (_torch.float32, _torch.float64):
+        v = _torch.linspace(0.1, 0.9, 64, dtype=dtype)
+        for fn in (_torch.exp, _torch.log, _torch.log10, _torch.sin,
+                   _torch.cos, _torch.tanh, _torch.atan, _torch.sqrt):
+            fn(v)
+
+
+_warm_cpu_math()

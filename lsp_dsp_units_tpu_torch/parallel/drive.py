@@ -130,8 +130,34 @@ def chain(mesh, xs, channels: int, rank: int, ir_seconds: float):
     return dict(y=ys, state=st)
 
 
+def chain_grad(mesh, x, channels: int, rank: int, ir_seconds: float):
+    """One call of ``FilterConvChain(48000, channels, rank,
+    ir_seconds).sharded_step`` on x [C, T] from its initial state, each
+    rank's loss the sum of its output shard squared: d/dx gathered [C,
+    T], and d/d the compressor's 20 leaves (0-d tensors that require
+    grad), this rank's part, whose sum over the ranks is the gradient of
+    the whole output's energy."""
+    from lsp_dsp_units_tpu_torch import convert
+    from lsp_dsp_units_tpu_torch.pipeline import FilterConvChain
+    from lsp_dsp_units_tpu_torch.utils.tree import tree_flatten
+    dev = pm.mesh_device(mesh)
+    ch = FilterConvChain(48000, channels, rank=rank, ir_seconds=ir_seconds,
+                         device=dev)
+    params = ch.build()
+    params = params._replace(comp=convert.compressor_params_from_jax(
+        params.comp, dev, requires_grad=True))
+    xl = pm.chan_time_sharding(mesh, x).requires_grad_(True)
+    _, y = ch.sharded_step(mesh, params)(
+        pm.chan_sharding(mesh, ch.init_state(params)), xl)
+    torch.sum(y * y).backward()
+    return dict(x=pm.gather_chan_time(mesh, xl.grad),
+                comp=[torch.zeros(()) if v.grad is None else v.grad
+                      for v in tree_flatten(params.comp)[0]])
+
+
 KINDS = dict(left_halo=left_halo, fir=fir, biquad_time=biquad_time,
-             fused_time=fused_time, meters=meters, ilufs=ilufs, chain=chain)
+             fused_time=fused_time, meters=meters, ilufs=ilufs, chain=chain,
+             chain_grad=chain_grad)
 
 
 def run_cases(chan: int, time: int,

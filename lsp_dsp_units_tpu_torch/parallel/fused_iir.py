@@ -80,13 +80,13 @@ def fused_cascade_time_sharded(params: bb.FusedCascadeParams,
     # 2. exchange summaries; every rank's transition is M^m
     m_shard, gm = powers or host_m_powers(params, m_blocks)
     d_all = all_gather(d_dev, group)                   # [n, ..., 2K]
-    idx = axis_index(group)
-    s_in = s_fin = state.reshape(state.shape[:-2] + (k2,))
-    for i in range(d_all.shape[0]):
-        nxt = bb._matvec(m_shard, s_fin) + d_all[i]
-        if i == idx:
-            s_in = s_fin
-        s_fin = nxt
+    # the state entering each shard, composed serially (the rank count is
+    # small); this rank's is taken by index, so that every rank's graph
+    # holds the gathered summaries and reaches the gather's backward
+    s_ins = [state.reshape(state.shape[:-2] + (k2,))]
+    for i in range(d_all.shape[0] - 1):
+        s_ins.append(bb._matvec(m_shard, s_ins[-1]) + d_all[i])
+    s_in = torch.stack(s_ins)[axis_index(group)]
 
     # 3. closed-form correction y[j] += G M^j s_in, gm [m, B, 2K]
     lead = s_in.shape[:-1]

@@ -17,6 +17,18 @@ of a group), ``all_gather``, ``psum``/``pmax`` (an all-reduce, over one
 group or, for a tuple, over each in turn), ``ppermute_right`` (``perm=[(i,
 i + 1)]``, zeros where no source exists) and ``replicate_last`` (the
 masked ``psum`` that makes the last rank's value every rank's).
+
+Under autograd (``ops._build.needs_grad``) ``all_gather``, ``psum`` and
+``ppermute_right`` run as ``torch.autograd.Function``s whose backwards are
+their transposes, as ``jax.grad`` takes them inside ``shard_map``: a
+gather's cotangent summed over the group, this rank's part of it; a sum's
+cotangent summed; a shift's cotangent shifted back.  Each rank's loss is
+its own, and the gradient is that of their sum.  A backward is itself a
+collective, so every rank of the group must reach it, in the same order:
+the sharded layer keeps one graph shape on every rank (no rank cuts a
+collective out of its graph by a branch on its index).  ``pmax`` has no
+backward (nor has JAX's) and raises under grad.  Without grad every
+collective runs as before.
 """
 
 from __future__ import annotations
@@ -29,6 +41,7 @@ import torch
 import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
 
+from lsp_dsp_units_tpu_torch.ops import _build
 from lsp_dsp_units_tpu_torch.utils.tree import tree_map
 
 CHAN_AXIS = "chan"
@@ -181,10 +194,8 @@ def axis_size(group: Group) -> int:
     return dist.get_world_size(group)
 
 
-def all_gather(x: torch.Tensor, group: Group, dim: int = 0,
-               tiled: bool = False) -> torch.Tensor:
-    """Every rank's ``x`` in rank order: stacked on a new axis ``dim``, or
-    (``tiled``) concatenated along ``dim``."""
+def _gather(x: torch.Tensor, group: Group, dim: int,
+            tiled: bool) -> torch.Tensor:
     x = x.contiguous()
     parts = [torch.empty_like(x) for _ in range(axis_size(group))]
     dist.all_gather(parts, x, group=group)
@@ -195,21 +206,98 @@ def _groups(groups: Groups) -> Sequence[Group]:
     return groups if isinstance(groups, (tuple, list)) else (groups,)
 
 
+def _reduce(x: torch.Tensor, groups: Groups, op) -> torch.Tensor:
+    x = x.clone(memory_format=torch.contiguous_format)
+    for g in _groups(groups):
+        dist.all_reduce(x, op=op, group=g)
+    return x
+
+
+def _shift(x: torch.Tensor, group: Group, step: int,
+           cyclic: bool) -> torch.Tensor:
+    """Rank i's ``x`` arrives at rank i + step (step = +-1); a rank with no
+    source receives zeros, unless ``cyclic``."""
+    n, i = axis_size(group), axis_index(group)
+    if cyclic and n == 1:
+        return x.clone()
+    out = torch.zeros_like(x)
+    ops = []
+    if cyclic or 0 <= i + step < n:
+        ops.append(dist.P2POp(dist.isend, x.contiguous(),
+                              dist.get_global_rank(group, (i + step) % n),
+                              group))
+    if cyclic or 0 <= i - step < n:
+        ops.append(dist.P2POp(dist.irecv, out,
+                              dist.get_global_rank(group, (i - step) % n),
+                              group))
+    if ops:
+        for req in dist.batch_isend_irecv(ops):
+            req.wait()
+    return out
+
+
+class _AllGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, dim, tiled):
+        ctx.group, ctx.dim, ctx.tiled = group, dim, tiled
+        ctx.size = x.shape[dim] if tiled else None
+        return _gather(x, group, dim, tiled)
+
+    @staticmethod
+    def backward(ctx, g):
+        # the transpose of a gather is a reduce-scatter: every rank's
+        # cotangent of the gathered tensor summed, this rank's part of it
+        g = _reduce(g, ctx.group, dist.ReduceOp.SUM)
+        i = axis_index(ctx.group)
+        part = (g.narrow(ctx.dim, i * ctx.size, ctx.size) if ctx.tiled
+                else g.select(ctx.dim, i))
+        return part, None, None, None
+
+
+class _Psum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, groups):
+        ctx.groups = groups
+        return _reduce(x, groups, dist.ReduceOp.SUM)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _reduce(g, ctx.groups, dist.ReduceOp.SUM), None
+
+
+class _ShiftRight(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, cyclic):
+        ctx.group, ctx.cyclic = group, cyclic
+        return _shift(x, group, 1, cyclic)
+
+    @staticmethod
+    def backward(ctx, g):
+        # the reverse permutation: rank i + 1's cotangent back to rank i
+        return _shift(g, ctx.group, -1, ctx.cyclic), None, None
+
+
+def all_gather(x: torch.Tensor, group: Group, dim: int = 0,
+               tiled: bool = False) -> torch.Tensor:
+    """Every rank's ``x`` in rank order: stacked on a new axis ``dim``, or
+    (``tiled``) concatenated along ``dim``."""
+    if _build.needs_grad(x):
+        return _AllGather.apply(x, group, dim, tiled)
+    return _gather(x, group, dim, tiled)
+
+
 def psum(x: torch.Tensor, groups: Groups) -> torch.Tensor:
     """Sum over the ranks of ``groups`` (a group, or a tuple of groups:
     over both mesh dimensions).  Returns a new tensor."""
-    x = x.clone()
-    for g in _groups(groups):
-        dist.all_reduce(x, op=dist.ReduceOp.SUM, group=g)
-    return x
+    if _build.needs_grad(x):
+        return _Psum.apply(x, groups)
+    return _reduce(x, groups, dist.ReduceOp.SUM)
 
 
 def pmax(x: torch.Tensor, groups: Groups) -> torch.Tensor:
     """Maximum over the ranks of ``groups``.  Returns a new tensor."""
-    x = x.clone()
-    for g in _groups(groups):
-        dist.all_reduce(x, op=dist.ReduceOp.MAX, group=g)
-    return x
+    _build.no_grad_route("pmax", x)
+    return _reduce(x, groups, dist.ReduceOp.MAX)
 
 
 def groups_size(groups: Groups) -> int:
@@ -224,23 +312,9 @@ def ppermute_right(x: torch.Tensor, group: Group,
     """Rank i's ``x`` arrives at rank i + 1 (``jax.lax.ppermute`` with
     ``perm=[(i, i + 1)]``): rank 0 receives zeros, or (``cyclic``) the
     last rank's ``x``.  Peers are named by their global ranks."""
-    n, i = axis_size(group), axis_index(group)
-    if cyclic and n == 1:
-        return x.clone()
-    out = torch.zeros_like(x)
-    ops = []
-    if cyclic or i + 1 < n:
-        ops.append(dist.P2POp(dist.isend, x.contiguous(),
-                              dist.get_global_rank(group, (i + 1) % n),
-                              group))
-    if cyclic or i > 0:
-        ops.append(dist.P2POp(dist.irecv, out,
-                              dist.get_global_rank(group, (i - 1) % n),
-                              group))
-    if ops:
-        for req in dist.batch_isend_irecv(ops):
-            req.wait()
-    return out
+    if _build.needs_grad(x):
+        return _ShiftRight.apply(x, group, cyclic)
+    return _shift(x, group, 1, cyclic)
 
 
 def replicate_last(x: torch.Tensor, group: Group) -> torch.Tensor:
@@ -248,4 +322,16 @@ def replicate_last(x: torch.Tensor, group: Group) -> torch.Tensor:
     ``psum`` makes it: a sum of the last rank's value and zeros, which is
     exact, so the result is bitwise the same everywhere."""
     last = axis_index(group) == axis_size(group) - 1
-    return psum(x if last else torch.zeros_like(x), group)
+    return psum(x if last else zeros_in_graph(x), group)
+
+
+def zeros_in_graph(x: torch.Tensor) -> torch.Tensor:
+    """Zeros of ``x``'s shape; under grad they stay in ``x``'s graph (a
+    select of nothing from ``x``), so that a rank which contributes zeros
+    to a collective still reaches the collective's backward.  The mask is
+    made on the device (no copy from the host, which would wait for the
+    stream)."""
+    if _build.needs_grad(x):
+        return torch.where(torch.zeros((), dtype=torch.bool,
+                                       device=x.device), x, 0.0)
+    return torch.zeros_like(x)

@@ -9,7 +9,8 @@ from __future__ import annotations
 import torch
 
 from lsp_dsp_units_tpu_torch.parallel.mesh import (
-    Group, Groups, axis_index, groups_size, pmax, ppermute_right, psum)
+    Group, Groups, axis_index, groups_size, pmax, ppermute_right, psum,
+    zeros_in_graph)
 
 
 def global_mean_square(x: torch.Tensor, groups: Groups) -> torch.Tensor:
@@ -110,7 +111,7 @@ def ilufs_integrated_time_sharded(meter, fparams, x_local: torch.Tensor,
     halo = ppermute_right(q[-3:], group, cyclic=True)
     idx = axis_index(group)
     if idx == 0:
-        halo = torch.zeros_like(halo)
+        halo = zeros_in_graph(halo)
     qh = torch.cat([halo, q], dim=0)                   # [m + 3]
     blocks = qh[3:] + qh[2:-1] + qh[1:-2] + qh[:-3]    # [m]
     gidx = idx * m + torch.arange(m, device=q.device)

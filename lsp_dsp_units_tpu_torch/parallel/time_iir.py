@@ -30,19 +30,18 @@ def _stage_sharded(x: torch.Tensor, b0, b1, b2, a1, a2,
     # local summary s_out = A_loc s_in + v_loc: [..., 6] = A (4) || v (2)
     summary = torch.stack([p[..., -1] for p in a_scan + v_scan], dim=-1)
     every = all_gather(summary, group)                 # [n, ..., 6]
-    idx = axis_index(group)
-    s_in = s_fin = s_global
-    # compose the predecessors serially (n is the rank count: small)
+    # compose the predecessors serially (n is the rank count: small); this
+    # rank's incoming state is taken by index, so that every rank's graph
+    # holds every summary and reaches the gather's backward
+    s = [s_global]
     for i in range(every.shape[0]):
         a00, a01, a10, a11, v0, v1 = every[i].unbind(-1)
-        nxt = torch.stack([a00 * s_fin[..., 0] + a01 * s_fin[..., 1] + v0,
-                           a10 * s_fin[..., 0] + a11 * s_fin[..., 1] + v1],
-                          dim=-1)
-        if i == idx:
-            s_in = s_fin
-        s_fin = nxt
+        s.append(torch.stack([a00 * s[i][..., 0] + a01 * s[i][..., 1] + v0,
+                              a10 * s[i][..., 0] + a11 * s[i][..., 1] + v1],
+                             dim=-1))
+    s_in = torch.stack(s[:-1])[axis_index(group)]
     y, _ = biquad_ops.stage_apply(x, b0, a_scan, v_scan, s_in)
-    return y, replicate_last(s_fin, group)
+    return y, replicate_last(s[-1], group)
 
 
 def biquad_cascade_time_sharded(coeffs: torch.Tensor, state: torch.Tensor,

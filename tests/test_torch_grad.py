@@ -49,6 +49,7 @@ from lsp_dsp_units_tpu_torch.ops.env import chain_dyn
 from lsp_dsp_units_tpu_torch.ops.fdl_fused import eqfdl_fused, fdl_fused
 from lsp_dsp_units_tpu_torch.ops.ring_mac import ring_mac
 from lsp_dsp_units_tpu_torch.ops.slicedma import batched_slice
+from lsp_dsp_units_tpu_torch.parallel import mesh as pmesh
 from lsp_dsp_units_tpu_torch.utils import tree
 
 SR = 48000
@@ -203,6 +204,95 @@ def test_chain_two_calls_gradient_matches_jax():
             assert _snr(jg, tg) >= BAR_DB, paths[i]
         else:
             assert not np.any(tg), paths[i]
+
+
+def _loud_input(jc, blocks, seed):
+    rng = np.random.default_rng(seed)
+    return (rng.standard_normal((4, blocks * jc.block)) * 2.0).astype(
+        np.float32)
+
+
+def _leaf_grads(comp):
+    return [float(_grad(v)) for v in tree.tree_flatten(comp)[0]]
+
+
+def test_bulk_step_gradient_matches_jax_and_step():
+    """d sum(y^2) / dx and d / d the compressor's 20 leaves through one
+    super-block of ``bulk_step`` (4 blocks, amplitude 2.0, the compressor
+    engaged): against jax.grad of the JAX package's ``bulk_step`` and
+    against the port's own ``step`` on the same input, >= 100 dB each."""
+    jc, jp, tc, tp = _chains()
+    x = _loud_input(jc, 4, 13)
+    t = x.shape[-1]
+    jh = jc.build_bulk(t)
+    js = jc.init_bulk_state(jp, t)
+
+    def energy(xin):
+        _, y = jc.bulk_step(jp, jh, js, xin)
+        return jnp.sum(y * y)
+
+    jg = np.asarray(jax.jit(jax.grad(energy))(jnp.asarray(x)))
+    grads = {}
+    for route in ("bulk", "step"):
+        p = tp._replace(comp=convert.compressor_params_from_jax(
+            tp.comp, device="cpu", requires_grad=True))
+        xt = _t(x, grad=True)
+        if route == "bulk":
+            _, y = tc.bulk_step(p, tc.build_bulk(t),
+                                tc.init_bulk_state(p, t), xt)
+        else:
+            _, y = tc.step(p, tc.init_state(p), xt)
+        torch.sum(y * y).backward()
+        grads[route] = (_grad(xt), _leaf_grads(p.comp))
+    (bx, bl), (sx, sl) = grads["bulk"], grads["step"]
+    assert np.all(np.isfinite(bx)) and np.any(bl)
+    assert _snr(jg, bx) >= BAR_DB
+    assert _snr(sx, bx) >= BAR_DB
+    for i, (a, b) in enumerate(zip(sl, bl)):
+        assert (a == 0.0) == (b == 0.0), i
+        if a:
+            assert _snr(a, b) >= BAR_DB, (i, a, b)
+
+
+def test_sharded_step_gradient_matches_step():
+    """``sharded_step`` on a world of one (gloo, an in-process store, a
+    (1, 1) mesh) at amplitude 2.0, where the compressor engages: d sum(y^2)
+    / dx and d / d the compressor's 20 leaves against ``step``'s on the
+    same input, >= 100 dB (the time axis's gather once cut the level's
+    dependence on x: 78 % off in relative L2, with nothing raised).
+    Without grad the sharded forward is bit for bit the one under grad."""
+    jc, _, tc, tp = _chains()
+    x = _loud_input(jc, 2, 17)
+    grads, ys = {}, {}
+    pmesh.init_distributed(num_processes=1, process_id=0, platform="cpu")
+    try:
+        mesh = pmesh.make_mesh(1, 1, "cpu")
+        for route in ("sharded", "step"):
+            p = tp._replace(comp=convert.compressor_params_from_jax(
+                tp.comp, device="cpu", requires_grad=True))
+            xt = _t(x, grad=True)
+            if route == "sharded":
+                fn = tc.sharded_step(mesh, p)
+                st = pmesh.chan_sharding(mesh, tc.init_state(p))
+                _, y = fn(st, xt)
+                with torch.no_grad():
+                    _, y_plain = fn(st, _t(x))
+                assert torch.equal(y.detach(), y_plain)
+            else:
+                _, y = tc.step(p, tc.init_state(p), xt)
+            torch.sum(y * y).backward()
+            grads[route] = (_grad(xt), _leaf_grads(p.comp))
+            ys[route] = y.detach().numpy()
+    finally:
+        torch.distributed.destroy_process_group()
+    (hx, hl), (sx, sl) = grads["sharded"], grads["step"]
+    assert _snr(ys["step"], ys["sharded"]) >= BAR_DB
+    assert np.any(sl)
+    assert _snr(sx, hx) >= BAR_DB
+    for i, (a, b) in enumerate(zip(sl, hl)):
+        assert (a == 0.0) == (b == 0.0), i
+        if a:
+            assert _snr(a, b) >= BAR_DB, (i, a, b)
 
 
 @pytest.mark.parametrize("cfg", ["jax_test", "loud", "hold"])
@@ -450,6 +540,7 @@ RAISING = {
     "depopper_forward": lambda: trd.depopper_forward(None, (), _req(2, 8)),
     "dynamic_delay": lambda: tdelay.dynamic_delay(
         torch.zeros(2, 9), _req(2, 8), *[torch.zeros(2, 8)] * 3, 8),
+    "pmax": lambda: pmesh.pmax(_req(2), None),
     "_mul_add": lambda: eu.peak_envelope_plain(
         _env(), _req(2, 8), 0.1, 0.1, 0),
     "gate_envelope_plain": lambda: eu.gate_envelope_plain(

@@ -9,9 +9,10 @@ are float32 arrays from fixed seeds.  Bars: the time-sharded primitives
 >= 120 dB from JAX's sharded result (the JAX package's own bar for its
 halo FIR against the sequential FDL), ``sharded_step`` >= 100 dB from
 JAX's over 3 calls (the port's ``step`` bar) and >= 95 dB from the port's
-own ``step`` (the JAX package's bar for its sharded chain), the meters
-within 1e-5 relative; the halo is exact, and every carried state is
-bitwise the same on every rank that holds it.
+own ``step`` (the JAX package's bar for its sharded chain), its gradient
+under one call the same bars against ``step``'s and ``jax.grad``'s, the
+meters within 1e-5 relative; the halo is exact, and every carried state
+is bitwise the same on every rank that holds it.
 """
 
 import jax
@@ -38,10 +39,11 @@ from lsp_dsp_units_tpu.parallel.meters import (
 from lsp_dsp_units_tpu.parallel.time_iir import (
     biquad_cascade_time_sharded as jbq_time)
 
+from lsp_dsp_units_tpu_torch import convert
 from lsp_dsp_units_tpu_torch import pipeline as tpipe
 from lsp_dsp_units_tpu_torch.models.meters.loudness import ILUFSMeter
 from lsp_dsp_units_tpu_torch.parallel import drive, launch
-from lsp_dsp_units_tpu_torch.utils.tree import leaves_with_path
+from lsp_dsp_units_tpu_torch.utils.tree import leaves_with_path, tree_flatten
 
 SPAWN_S = 120.0
 PRIM_DB = 120.0
@@ -116,6 +118,11 @@ CHAINS = {
                                scale=0.25) for k in range(3)]),
     (4, 2): (8, 8, 0.02, [np.full((8, 512), 0.1, np.float32)] * 3),
 }
+# one call of each mesh's chain under grad, at amplitude 2.0 (the
+# compressor engaged), 2 blocks a time rank
+GRAD_X = {shape: _f32(np.random.default_rng(21 + channels), channels,
+                      shape[1] * 2 * (1 << (rank - 1)), scale=2.0)
+          for shape, (channels, rank, _, _) in CHAINS.items()}
 
 
 def _spawn(chan, time, cases):
@@ -151,6 +158,9 @@ def chain_ranks():
         out[(chan, time)] = _spawn(chan, time, {
             "chain": ("chain", dict(xs=xs, channels=channels, rank=rank,
                                     ir_seconds=ir_s)),
+            "chain_grad": ("chain_grad", dict(
+                x=GRAD_X[(chan, time)], channels=channels, rank=rank,
+                ir_seconds=ir_s)),
             "meters": ("meters", dict(x=TIN["mx"], y=TIN["my"],
                                       both_axes=True))})
     return out
@@ -346,3 +356,52 @@ def test_sharded_step_matches_own_step(chain_ranks, shape):
         st, y = chain.step(params, st, torch.from_numpy(x))
         got = chain_ranks[shape][0]["chain"]["y"][k]
         assert _snr(y.numpy(), got) >= CHAIN_STEP_DB, k
+
+
+@pytest.mark.parametrize("shape", sorted(CHAINS))
+def test_sharded_step_gradient(chain_ranks, shape):
+    """d sum(y^2) / dx through one call of the sharded chain, each rank's
+    loss its own shard's, the gradient gathered: against the port's own
+    ``step`` on the whole input (>= 95 dB, the sharded forward's bar) and
+    against jax.grad through the JAX package's ``shard_map`` chain on the
+    same mesh (>= 100 dB); the compressor's leaves' gradients, summed over
+    the ranks, against ``step``'s (>= 95 dB, zeros at the same leaves)."""
+    channels, rank, ir_s, _ = CHAINS[shape]
+    x = GRAD_X[shape]
+    ranks = chain_ranks[shape]
+    got = ranks[0]["chain_grad"]["x"]
+    for r in ranks[1:]:
+        np.testing.assert_array_equal(r["chain_grad"]["x"], got)
+    leaves = np.sum([r["chain_grad"]["comp"] for r in ranks], axis=0)
+
+    chain = tpipe.FilterConvChain(48000, channels, rank=rank,
+                                  ir_seconds=ir_s, device="cpu")
+    params = chain.build()
+    params = params._replace(comp=convert.compressor_params_from_jax(
+        params.comp, device="cpu", requires_grad=True))
+    xt = torch.tensor(x, requires_grad=True)
+    _, y = chain.step(params, chain.init_state(params), xt)
+    torch.sum(y * y).backward()
+    assert _snr(xt.grad.numpy(), got) >= CHAIN_STEP_DB
+    want = [0.0 if v.grad is None else float(v.grad)
+            for v in tree_flatten(params.comp)[0]]
+    assert any(want)
+    for i, (a, b) in enumerate(zip(want, leaves)):
+        assert (a == 0.0) == (b == 0.0), i
+        if a:
+            assert _snr(a, b) >= CHAIN_STEP_DB, (i, a, b)
+
+    jchain = jpipe.FilterConvChain(48000, channels=channels, rank=rank,
+                                   ir_seconds=ir_s)
+    jparams = jchain.build()
+    mesh = _jax_mesh(*shape)
+    step = jchain.sharded_step(mesh, jparams)
+    st = jchain.init_state(jparams)
+    spec = NamedSharding(mesh, P(C_AX, T_AX))
+
+    def energy(v):
+        _, yj = step(st, v)
+        return jnp.sum(yj * yj)
+
+    jg = jax.grad(energy)(jax.device_put(jnp.asarray(x), spec))
+    assert _snr(np.asarray(jg), got) >= CHAIN_JAX_DB
