@@ -4673,11 +4673,7 @@ def run_demo(argv) -> tuple:
 
 
 def demo_reference(src: str, dst: str, mode: str) -> tuple:
-    """One mode's CPU run (``--cpu``) in a worker process, so that the
-    CPU runs' per-sample loops (the envelope's, the K-weighting's) go on
-    beside the card's runs; its pool warmed first, as the main process's
-    is."""
-    warm_cpu_pool()
+    """One mode's CPU run (``--cpu``) in a worker process."""
     return run_demo([src, dst, mode, "--cpu"])
 
 
@@ -4685,32 +4681,39 @@ def demo_phase(dev, res):
     """Every mode of ``tools/demo.py`` through its ``main``, on the card
     (its default) and with ``--cpu``: the outputs card vs CPU at the
     modes' bars, and the kernels each mode must launch on the card (the
-    counters zeroed just before each card run)."""
+    counters zeroed just before each card run).  The card runs go first,
+    on a quiet host (a demo run on the card is paced by the host), then
+    the CPU runs in 3 spawned workers."""
     import tempfile
     from lsp_dsp_units_tpu_torch.tools import demo
     from lsp_dsp_units_tpu_torch.utils.wavio import read_wav
     t_start = time.perf_counter()
     r = res["demo"] = {}
-    # the longest CPU runs first
-    modes = sorted(demo.MODES, key=("chain", "loudness").__contains__,
-                   reverse=True)
-    with tempfile.TemporaryDirectory() as tmp, \
-            concurrent.futures.ProcessPoolExecutor(
-                3, mp_context=multiprocessing.get_context("spawn")) as pool:
+    with tempfile.TemporaryDirectory() as tmp:
         wavs = demo_wavs(tmp)
-        srcs = {m: wavs["wide" if m == "chain" else "stereo"] for m in modes}
+        srcs = {m: wavs["wide" if m == "chain" else "stereo"]
+                for m in demo.MODES}
         outs = {m: {k: os.path.join(tmp, f"{m}_{k}.wav")
-                    for k in ("card", "cpu")} for m in modes}
-        refs = {m: pool.submit(demo_reference, srcs[m], outs[m]["cpu"], m)
-                for m in modes}
+                    for k in ("card", "cpu")} for m in demo.MODES}
+        card = {}
         for mode in demo.MODES:
-            src = srcs[mode]
             torch.cuda.synchronize()
             for f in DEMO_KERNELS[mode]:
                 f.launches = 0
-            text, card_s = run_demo([src, outs[mode]["card"], mode])
-            launched = {f.__name__: f.launches for f in DEMO_KERNELS[mode]}
-            cpu_text, cpu_s = refs[mode].result()
+            text, card_s = run_demo([srcs[mode], outs[mode]["card"], mode])
+            card[mode] = (text, card_s, {f.__name__: f.launches
+                                         for f in DEMO_KERNELS[mode]})
+        # the longest CPU runs first
+        order = sorted(demo.MODES, key=("chain", "loudness").__contains__,
+                       reverse=True)
+        with concurrent.futures.ProcessPoolExecutor(
+                3, mp_context=multiprocessing.get_context("spawn")) as pool:
+            refs = {m: pool.submit(demo_reference, srcs[m],
+                                   outs[m]["cpu"], m) for m in order}
+            cpu = {m: refs[m].result() for m in demo.MODES}
+        for mode in demo.MODES:
+            text, card_s, launched = card[mode]
+            cpu_text, cpu_s = cpu[mode]
             outs_m = outs[mode]
             (yc, _), (yh, _) = (read_wav(outs_m["card"]),
                                 read_wav(outs_m["cpu"]))

@@ -67,7 +67,7 @@ def _warm_cpu_math() -> None:
     PyTorch's intra-op thread pool.  Without it the first split call of a
     process can round one thread's whole share off (~1e-5 to 1.5e-4
     relative; ``tools/cpu_probe.py`` found it in fresh processes of the
-    Oversampler's tanh, the oscillator's sin and step_ring's knee gain),
+    Oversampler's tanh, the oscillator's sin and ``step``),
     so that a CPU run would not repeat from one process to the next."""
     for dtype in (_torch.float32, _torch.float64):
         v = _torch.linspace(0.1, 0.9, 64, dtype=dtype)

@@ -61,18 +61,6 @@ class LCG:
                           - 0.5) + o
 
 
-def _exp(t: torch.Tensor) -> torch.Tensor:
-    """exp of a float32 tensor: numpy's on the host, torch's on the card.
-    PyTorch's CPU kernels split a tensor of more than 32768 elements
-    across their thread pool, and on the first transcendental call of a
-    process one worker's share can come out ~1.5e-4 off (seen in ~5 % of
-    fresh processes here, for exp, sin, log and tanh alike), so two draws
-    from one seed could differ; numpy's single-threaded exp does not."""
-    if t.device.type == "cpu":
-        return torch.from_numpy(np.exp(t.numpy()))
-    return torch.exp(t)
-
-
 def lcg_device(generator: torch.Generator, shape,
                distribution: LCGDistribution = LCGDistribution.UNIFORM,
                amplitude: float = 1.0, offset: float = 0.0,
@@ -85,7 +73,7 @@ def lcg_device(generator: torch.Generator, shape,
 
     if distribution == LCGDistribution.EXPONENTIAL:
         sign = torch.where(uniform() >= 0.5, 1.0, -1.0)
-        mag = (_exp(RAND_LAMBDA * uniform()) - 1.0) / (
+        mag = (torch.exp(RAND_LAMBDA * uniform()) - 1.0) / (
             np.exp(RAND_LAMBDA) - 1.0)
         return sign * amplitude * mag + offset
     if distribution == LCGDistribution.TRIANGULAR:

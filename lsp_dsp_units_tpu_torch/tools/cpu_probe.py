@@ -2,16 +2,15 @@
 fresh process to the next.
 
     python3 -m lsp_dsp_units_tpu_torch.tools.cpu_probe [--procs 64]
-        [--jobs 1] [--paths step,step_ring,oversampler,oscillator,noise]
+        [--paths step,step_ring,oversampler,oscillator,noise]
 
 PyTorch's CPU kernels split a tensor of more than 32768 elements over the
 intra-op thread pool, and in some fresh processes the first
 transcendental call (exp, sin, log, tanh) came out ~1.5e-4 off on one
 worker's share.  Each path below runs at full width as the first work of
-``--procs`` fresh processes, each with PyTorch's default thread count,
-``--jobs`` at a time (one by default: several full thread pools on one
-machine's cores slow each other many times over), and each process's
-output is held bit for bit against the first process's.  Printed: for each path, the processes that
+``--procs`` fresh processes, one after another, each with PyTorch's
+default thread count, and each process's output is held bit for bit
+against the first process's.  Printed: for each path, the processes that
 differ and the largest relative difference of any element; the last line
 is the same as one JSON object.  Exit code 1 if any path differed.
 """
@@ -95,35 +94,26 @@ def _child(path: str, out: str) -> None:
     np.save(out, y.detach().numpy())
 
 
-def probe(path: str, procs: int, jobs: int, tmp: str) -> dict:
-    """``procs`` fresh processes of ``path``; the first one's output is
-    the reference."""
+def probe(path: str, procs: int, tmp: str) -> dict:
+    """``procs`` fresh processes of ``path``, one at a time; the first
+    one's output is the reference."""
     root = os.path.dirname(os.path.dirname(os.path.dirname(
         os.path.abspath(__file__))))
     env = dict(os.environ, PYTHONPATH=root)
+    out = os.path.join(tmp, f"{path}.npy")
     ref = None
     differ, worst = [], 0.0
     t0 = time.perf_counter()
-    for start in range(0, procs, jobs):
-        ids = range(start, min(start + jobs, procs))
-        outs = [os.path.join(tmp, f"{path}_{i}.npy") for i in ids]
-        running = [subprocess.Popen(
-            [sys.executable, "-m", MODULE, "--child", path, out],
-            cwd=root, env=env) for out in outs]
-        for p in running:
-            if p.wait(timeout=900) != 0:
-                raise RuntimeError(f"{path}: a probe process exited with "
-                                   f"{p.returncode}")
-        for i, out in zip(ids, outs):
-            y = np.load(out).astype(np.float64)
-            os.remove(out)
-            if ref is None:
-                ref = y
-                continue
-            if not np.array_equal(y, ref, equal_nan=True):
-                differ.append(i)
-                scale = max(float(np.max(np.abs(ref))), 1e-30)
-                worst = max(worst, float(np.max(np.abs(y - ref))) / scale)
+    for i in range(procs):
+        subprocess.run([sys.executable, "-m", MODULE, "--child", path, out],
+                       cwd=root, env=env, check=True, timeout=900)
+        y = np.load(out).astype(np.float64)
+        if ref is None:
+            ref = y
+        elif not np.array_equal(y, ref, equal_nan=True):
+            differ.append(i)
+            scale = max(float(np.max(np.abs(ref))), 1e-30)
+            worst = max(worst, float(np.max(np.abs(y - ref))) / scale)
     return dict(procs=procs, differ=len(differ), which=differ,
                 max_rel=worst, seconds=time.perf_counter() - t0)
 
@@ -131,7 +121,6 @@ def probe(path: str, procs: int, jobs: int, tmp: str) -> dict:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--procs", type=int, default=64)
-    ap.add_argument("--jobs", type=int, default=1)
     ap.add_argument("--paths", default=",".join(PATHS))
     ap.add_argument("--child", nargs=2, metavar=("PATH", "OUT"),
                     help=argparse.SUPPRESS)
@@ -142,7 +131,7 @@ def main(argv=None) -> int:
     res = {}
     with tempfile.TemporaryDirectory() as tmp:
         for path in args.paths.split(","):
-            r = res[path] = probe(path, args.procs, args.jobs, tmp)
+            r = res[path] = probe(path, args.procs, tmp)
             print(f"{path}: {r['differ']} of {r['procs'] - 1} processes "
                   f"differ from the first (largest relative difference "
                   f"{r['max_rel']:.3g}), {r['seconds']:.0f} s", flush=True)
