@@ -291,7 +291,10 @@ Phases (any failure exits non-zero; nothing is caught):
             launched >= 8 times, card vs CPU >= 100 dB.  On block 3's
             saved inputs with random cotangents: eqfdl_fused_bwd and
             fdl_fused_bwd against their plain backwards >= 110 dB per
-            output; chain_dyn_bwd's replayed y identical to kernel #3's,
+            output, identical from run to run, each launch of one call
+            of each (torch.profiler: name, ms, bytes bound; the EQ
+            adjoint's eqfdl_bwd and eqfdl_bwd_sums and fdl_bwd must be
+            among them); chain_dyn_bwd's replayed y identical to kernel #3's,
             its replayed envelope identical to the plain envelope on its
             level, its envelope adjoint identical to
             peak_envelope_bwd_plain on the replayed values, and the whole
@@ -403,6 +406,8 @@ from lsp_dsp_units_tpu_torch.models.threed import (  # noqa: E402
     Capture, Material, Object3D, RayTrace3D, Scene3D, SourceSettings,
     SourceShape)
 from lsp_dsp_units_tpu_torch.tools import room_demo, serve  # noqa: E402
+from lsp_dsp_units_tpu_torch.tools.launch_profile import (  # noqa: E402
+    launch_profile)
 from lsp_dsp_units_tpu_torch.ops import _build  # noqa: E402
 from lsp_dsp_units_tpu_torch.ops import biquad_block  # noqa: E402
 from lsp_dsp_units_tpu_torch.ops import cplx  # noqa: E402
@@ -593,8 +598,8 @@ EXTRA_KEYS = {
               "launches_per_call", "modes"),
     "rms_bwd": ("db", "identical_share"),
     "peak_bwd": ("chain_ms", "cycles_per_step"),
-    "eqfdl_bwd": ("db", "fft_launches_per_call"),
-    "fdl_bwd": ("db", "card_vs_cpu_db"),
+    "eqfdl_bwd": ("db", "fft_launches_per_call", "launch_profile"),
+    "fdl_bwd": ("db", "card_vs_cpu_db", "launch_profile"),
     "dyn_bwd": ("db", "envelope_identical", "chain_ms", "cycles_per_sample"),
     "peak": ("chain_ms", "cycles_per_step", "hold24_ms",
              "hold24_cycles_per_step", "sass_free_cycles_per_step",
@@ -4458,12 +4463,28 @@ def grad_ring_phase(chain, params, dev, res):
     before = ff.eqfdl_fused_bwd.fft_launches
     k_out = ff.eqfdl_fused_bwd(*eq_args)
     fft_per_call = ff.eqfdl_fused_bwd.fft_launches - before
+    check(all(torch.equal(a, b) for a, b in zip(
+        k_out, ff.eqfdl_fused_bwd(*eq_args))),
+        "eqfdl_fused_bwd differs from run to run")
     p_ms, p_out = time_once_ms(lambda: ff.eqfdl_fused_bwd_plain(*eq_args))
     eq_dbs = dbs_of(("ring_re", "ring_im", "h_re", "h_im", "heq_re",
                      "heq_im", "xs_re", "xs_im", "x", "sv", "g_t", "m_mat",
                      "w_mat", "hist"), p_out, k_out)
     check(min(eq_dbs.values()) >= FDL_BWD_DB,
           f"eqfdl_bwd {eq_dbs} < {FDL_BWD_DB}")
+    # each launch of one call of either route: name, ms, bytes bound
+    profiles = {
+        "eqfdl_bwd": launch_profile(lambda: ff.eqfdl_fused_bwd(*eq_args),
+                                    C, B, p_n, k2),
+        "fdl_bwd": launch_profile(lambda: ff.fdl_fused_bwd(
+            rr, ri, params.h_re, params.h_im, w, cot[0], cot[3], cot[4]),
+            C, B, p_n, k2)}
+    names = {k: [r["name"] for r in v] for k, v in profiles.items()}
+    check(sum(n.startswith("eqfdl_bwd<") for n in names["eqfdl_bwd"]) == 1
+          and "eqfdl_bwd_sums" in names["eqfdl_bwd"]
+          and "fdl_bwd" in names["eqfdl_bwd"]
+          and "fdl_bwd" in names["fdl_bwd"],
+          f"grad_ring: the backwards' launches {names}")
     plane = C * B * F32
     k2b = k2 * B * F32
     res["eqfdl_bwd"] = dict(
@@ -4472,10 +4493,14 @@ def grad_ring_phase(chain, params, dev, res):
         ms=time_ms(lambda: ff.eqfdl_fused_bwd(*eq_args), 20),
         plain_ms=time_ms(lambda: ff.eqfdl_fused_bwd_plain(*eq_args), 5),
         library_ms=None, launches=launched["eqfdl_fused_bwd"],
+        launch_profile=profiles["eqfdl_bwd"],
         **bound(6 * p_n * plane + 4 * p_n * B * F32 + 10 * plane + 4 * k2b,
                 C * (3 * fft_flops(N) + 16 * p_n * B + 8 * k2 * B)))
     fdl_args = (rr, ri, params.h_re, params.h_im, w, cot[0], cot[3], cot[4])
     k_out = ff.fdl_fused_bwd(*fdl_args)
+    check(all(torch.equal(a, b) for a, b in zip(
+        k_out, ff.fdl_fused_bwd(*fdl_args))),
+        "fdl_fused_bwd differs from run to run")
     p_out = ff.fdl_fused_bwd_plain(*fdl_args)
     fdl_dbs = dbs_of(("ring_re", "ring_im", "h_re", "h_im", "hist", "x"),
                      p_out, k_out)
@@ -4487,6 +4512,7 @@ def grad_ring_phase(chain, params, dev, res):
         ms=time_ms(lambda: ff.fdl_fused_bwd(*fdl_args), 20),
         plain_ms=time_ms(lambda: ff.fdl_fused_bwd_plain(*fdl_args), 5),
         library_ms=None, launches=fdl_launches,
+        launch_profile=profiles["fdl_bwd"],
         **bound(6 * p_n * plane + 4 * p_n * B * F32 + 3 * plane,
                 C * (2 * fft_flops(N) + 16 * p_n * B)))
 
@@ -4575,7 +4601,13 @@ def grad_ring_phase(chain, params, dev, res):
         r = res[key]
         print(f"{name}: {r['ms']:.4f} ms, plain {r['plain_ms']:.4f}, bound "
               f"{r['bound_ms']:.4f} ({r['bound_by']}); vs plain "
-              f"{r['db']:.1f} dB")
+              f"{r['db']:.1f} dB" + ("" if key not in profiles else
+                                     "; launches of a call (ms a launch, "
+                                     "bytes bound): " + "; ".join(
+                f"{x['name']} {x['ms']:.4f} x {x['launches']}"
+                + ("" if x["bound_ms"] is None
+                   else f" ({x['bound_ms']:.4f})")
+                for x in profiles[key])))
     print(f"chain_dyn_bwd [{C}, {B}]: {res['dyn_bwd']['cycles_per_sample']:.1f}"
           f" cycles a sample, chain bound {res['dyn_bwd']['chain_ms']:.4f} "
           f"ms; replayed y identical to kernel #3's, envelope identical to "

@@ -58,11 +58,13 @@
 // the MAC; eqfdl_kernel's W x and g_t), each with several loads in flight
 // per thread, and the register passes' shared-memory rounds.
 
-// The backward passes of both (fdl_bwd, and eqfdl_bwd with its three
-// companions) are below the forward kernels and share nothing with them;
-// see the note there.
+// The backward passes of both (fdl_bwd, and eqfdl_bwd with
+// eqfdl_bwd_sums) are below the forward kernels and share nothing with
+// them; see the note there.
 
 #include <cooperative_groups.h>
+
+#include <utility>
 
 #include "fft_packed.cuh"
 
@@ -508,40 +510,123 @@ int launch_shape(Kernel kernel, int log_m, int c_n, int* out) {
 // adjoint), then kernel #1's inverse of S's cotangent (the frame's
 // cotangent: hist's first half, u's or x's second); for eqfdl, kernel
 // #1's zero-pad forward transform of u's whole cotangent, then eqfdl_bwd
-// (the product with Heq's adjoint) and eqfdl_bwd_mats, eqfdl_bwd_x,
-// eqfdl_bwd_sv, eqfdl_bwd_m (the G/M/W products' adjoints).
+// (the EQ's adjoint but for sv's and m_mat's sums) and eqfdl_bwd_sums.
 //
-// fdl_bwd: one thread per (packed position j, partition p).  With g the
-// cotangent of acc (the transform of y's cotangent weighted 1/N at
-// position 0 and 2/N elsewhere, negated at the odd natural bins, j >=
-// M/2), slot p's cotangent is g conj(H[(w - p) % P]) plus that of the
-// ring written; slot w's is S's, written weighted (N at position 0, N/2
-// elsewhere) for the inverse, and the incoming slot w gets 0; and
-// H[(w - p) % P] takes the sum over channels of g conj(ring'[p]).  The
-// channel loop runs in order, with no atomics, so the gradients are the
-// same from run to run.  Position 0's two real bins multiply slot-wise.
-// What bounds it: bytes, ~3.5 ring planes (ring' read, the ring's
-// cotangent read and written, H, g and S) at 64 channels, N = 16384, P = 6:
-// ~76 MB, ~23 us at 3.35 TB/s; the design is the simplest one that reads
-// every plane coalesced (consecutive threads, consecutive positions).
+// The channel split.  Both wide kernels cut the C channels into G =
+// min(4, C) contiguous groups (group r: channels [r C / G, (r + 1) C / G), in
+// order), one block each, and launch the G blocks of a position tile as
+// one thread block cluster.  A block sums its own group's channels in
+// order; after cluster.sync() each rank sums its 1/G share of the tile's
+// sums over ranks 0 .. G - 1 in rank order, reading the others' shared
+// memory, and writes it.  The order depends on C and G alone, so a
+// gradient is the same from run to run; the cluster's sums take no
+// atomics and no scratch.  So a thread's channel loop is C / G long, and
+// G times as many blocks carry the loads (fdl_bwd: 192 blocks at 64
+// channels, N = 16384, P = 6; eqfdl_bwd: 256).  Of G = 2, 4 and 8, four
+// ran both kernels fastest at 64 channels on the H100: more groups give
+// more blocks, but each block pays its tile's fixed costs (the staged
+// tiles, the cluster's syncs and sums) for fewer channels.
 //
-// The G/M/W adjoints (u = first half of irfft(xs Heq) + sv g_t, sv' = sv
-// m^T + x w^T): g_t's is sum_c sv[c, k] gu[c, b], w_mat's sum_c gsv'[c, k]
-// x[c, b], m_mat's sum_c gsv'[c, k] sv[c, j], each over the channels in
-// order; sv's sum_b gu[c, b] g_t[k, b] (a warp a row, lanes strided over
-// b, a fixed shuffle tree) + sum_j gsv'[c, j] m[j, k]; x's sum_k gsv'[c,
-// k] w_mat[k, b].  All in FP32 FMA in code, so no library matmul (and no
-// TF32 setting) touches them.
+// fdl_bwd: blocks (tile of kFdlTile packed positions, partition p, group
+// r), a thread four positions (float4 loads).  With g the cotangent of
+// acc (the transform of y's cotangent weighted 1/N at position 0 and 2/N
+// elsewhere, negated at the odd natural bins, j >= M/2), slot p's
+// cotangent is g conj(H[(w - p) % P]) plus that of the ring written; slot
+// w's is S's, written weighted (N at position 0, N/2 elsewhere) for the
+// inverse, and the incoming slot w gets 0; H[(w - p) % P] takes the sum
+// over channels of g conj(ring'[p]).  Position 0's two real bins multiply
+// slot-wise.  What bounds it: bytes, ring' read and the ring's cotangent
+// read and written (3 x 2P planes), g read and S's cotangent written (4
+// planes), H: at 64 channels, N = 16384, P = 6 ~80 MB, ~24 us at 3.35
+// TB/s.  Each partition's blocks read g again, from L2.
+//
+// eqfdl_bwd: blocks (tile of kEqTile positions, group r), a thread a
+// position (packed position j of the spectra, sample b of the [C, B]
+// rows).  u = first half of irfft(xs Heq) + sv g_t, sv' = sv m^T + x
+// w^T; g is the transform of u's cotangent gu weighted 1/N at position 0,
+// 2/N elsewhere.  Elementwise: xs's cotangent g conj(Heq) and x's sum_k
+// gsv'[c, k] w_mat[k, b] (k in order); over the cluster: Heq's sum_c g
+// conj(xs), g_t's sum_c sv[c, k] gu[c, b] and w_mat's sum_c gsv'[c, k]
+// x[c, b] (2K + 2K + 2 rows of the tile in shared memory, the 2K x 2
+// products in registers); over the tile: each (c, k) partial of sum_b
+// gu[c, b] g_t[k, b], the positions in order, a thread a channel and
+// two rows, from gu and g_t staged in shared memory, into a scratch
+// [tiles, C, 2K].  A thread first loads all of a chunk of kEqSub
+// channels' values, so that they are in flight together.
+// eqfdl_bwd_sums, a warp an output, then sums those partials with the
+// terms gsv'[c, j] m[j, k] (sv's cotangent), and m_mat's terms gsv'[c,
+// k] sv[c, j] over the channels (lane l terms l, l + 32, ... in order,
+// the lanes by a fixed shuffle tree).  What
+// bounds the two: bytes, g, xs and xs's cotangent (6 planes), gu, x and
+// x's cotangent (3), g_t, w_mat and their cotangents (4 x 2K rows): ~21
+// MB at 64 channels, N = 16384, 2K = 18, ~6 us.  All in FP32 FMA in
+// code, so no library matmul (and no TF32 setting) touches them.
 // ---------------------------------------------------------------------------
 
-constexpr int kBwdThreads = 256;
-constexpr int kMatRows = 6;           // eqfdl_bwd_mats: rows of g_t, w a block
+constexpr int kBwdThreads = 256;      // fdl_bwd, eqfdl_bwd_sums
+constexpr int kMaxGroups = 4;         // channel groups: a cluster's blocks
+constexpr int kFdlTile = 1024;        // fdl_bwd: packed positions a block
+constexpr int kFdlVec = kFdlTile / kBwdThreads;  // a thread's: one float4
+constexpr int kEqTile = 128;          // eqfdl_bwd: positions a block
+constexpr int kEqSub = 8;             // eqfdl_bwd: channels staged at once
+static_assert(kFdlVec == 4, "fdl_bwd reads a float4 of each plane");
 
 // g conj(h) at packed position j (slot-wise at 0)
 __device__ __forceinline__ float2 pmulc(float2 g, float2 h, int j) {
   return j == 0 ? make_float2(g.x * h.x, g.y * h.y) : cmulc(g, h);
 }
 
+// the first channel of group r of `groups` over c_n channels
+__host__ __device__ __forceinline__ int group_start(int r, int groups,
+                                                    int c_n) {
+  return (int)((long long)r * c_n / groups);
+}
+
+__device__ __forceinline__ float4 ld4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+__device__ __forceinline__ void st4(float* p, float4 v) {
+  *reinterpret_cast<float4*>(p) = v;
+}
+__device__ __forceinline__ float& elem(float4& v, int e) {
+  return (&v.x)[e];
+}
+
+// Each rank of the cluster sums its share of the n values of `part` (at
+// the same place in every rank's shared memory, 16-byte aligned; n a
+// multiple of 4) over ranks 0 .. groups - 1 in order, four values a
+// thread, and put(v, sums) writes values v .. v + 3.  The caller
+// synchronises the cluster before (the sums are written) and after (the
+// others have read them).
+template <class Put>
+__device__ __forceinline__ void cluster_sum(cg::cluster_group& cluster,
+                                            float* part, int n, int groups,
+                                            Put put) {
+  const int r = (int)cluster.block_rank();
+  const int n4 = n >> 2;
+  const int v1 = group_start(r + 1, groups, n4);
+  for (int v = group_start(r, groups, n4) + threadIdx.x; v < v1;
+       v += blockDim.x) {
+    float4 acc =
+        reinterpret_cast<const float4*>(cluster.map_shared_rank(part, 0))[v];
+#pragma unroll
+    for (int k = 1; k < kMaxGroups; ++k) {
+      if (k < groups) {
+        const float4 o = reinterpret_cast<const float4*>(
+            cluster.map_shared_rank(part, k))[v];
+        acc.x += o.x;
+        acc.y += o.y;
+        acc.z += o.z;
+        acc.w += o.w;
+      }
+    }
+    put(4 * v, acc);
+  }
+}
+
+// blockIdx.x the tile of kFdlTile packed positions, blockIdx.y the
+// partition p, blockIdx.z the channel group: the block's rank in its
+// cluster (1, 1, groups).
 __global__ void __launch_bounds__(kBwdThreads)
 fdl_bwd(const float* __restrict__ ring_re, const float* __restrict__ ring_im,
         const float* __restrict__ h_re, const float* __restrict__ h_im,
@@ -550,165 +635,330 @@ fdl_bwd(const float* __restrict__ ring_re, const float* __restrict__ ring_im,
         float* __restrict__ gi_re, float* __restrict__ gi_im,
         float* __restrict__ gh_re, float* __restrict__ gh_im,
         float* __restrict__ gs_re, float* __restrict__ gs_im, int log_m,
-        int p_n, int w, int c_n) {
+        int p_n, int w, int c_n, int groups) {
+  __shared__ __align__(16) float part[2 * kFdlTile];  // H's sums: re, im
+  cg::cluster_group cluster = cg::this_cluster();
   const int m = 1 << log_m;
-  const int j = blockIdx.x * blockDim.x + threadIdx.x;
-  if (j >= m) return;
   const int p = blockIdx.y;
   const int q = (w - p + p_n) % p_n;
-  const float n_f = (float)(2 * m);
-  float wa = j == 0 ? 1.0f / n_f : 2.0f / n_f;     // powers of two: exact
-  if (j >= (m >> 1)) wa = -wa;
-  const float ws = j == 0 ? n_f : 0.5f * n_f;
-  const float2 hv = make_float2(h_re[(size_t)q * m + j],
-                                h_im[(size_t)q * m + j]);
-  const size_t plane = (size_t)c_n * m;
-  float2 acc = make_float2(0.0f, 0.0f);
-#pragma unroll 4
-  for (int c = 0; c < c_n; ++c) {
-    const size_t rc = (size_t)c * m + j;
-    const size_t off = p * plane + rc;
-    const float2 g = make_float2(ga_re[rc] * wa, ga_im[rc] * wa);
-    const float2 gv = pmulc(g, hv, j);
-    const float2 go = make_float2(go_re[off], go_im[off]);
-    if (p == w) {
-      gs_re[rc] = (go.x + gv.x) * ws;
-      gs_im[rc] = (go.y + gv.y) * ws;
-      gi_re[off] = 0.0f;
-      gi_im[off] = 0.0f;
-    } else {
-      gi_re[off] = go.x + gv.x;
-      gi_im[off] = go.y + gv.y;
+  const int r = (int)cluster.block_rank();
+  const int j0 = blockIdx.x * kFdlTile + threadIdx.x * kFdlVec;
+  float4 ar = make_float4(0.0f, 0.0f, 0.0f, 0.0f), ai = ar;
+  if (j0 < m) {
+    const float n_f = (float)(2 * m);
+    float wa[kFdlVec], ws[kFdlVec];
+#pragma unroll
+    for (int e = 0; e < kFdlVec; ++e) {
+      const int j = j0 + e;
+      wa[e] = j == 0 ? 1.0f / n_f : 2.0f / n_f;    // powers of two: exact
+      if (j >= (m >> 1)) wa[e] = -wa[e];
+      ws[e] = j == 0 ? n_f : 0.5f * n_f;
     }
-    const float2 gh = pmulc(g, make_float2(ring_re[off], ring_im[off]), j);
-    acc.x += gh.x;
-    acc.y += gh.y;
-  }
-  gh_re[(size_t)q * m + j] = acc.x;
-  gh_im[(size_t)q * m + j] = acc.y;
-}
-
-// xs's and Heq's cotangents: g (u's first-half inverse's adjoint: the
-// transform of gu weighted 1/N at position 0, 2/N elsewhere) times
-// conj(Heq), and the sum over channels of g conj(xs).
-__global__ void __launch_bounds__(kBwdThreads)
-eqfdl_bwd(const float* __restrict__ gp_re, const float* __restrict__ gp_im,
-          const float* __restrict__ heq_re, const float* __restrict__ heq_im,
-          const float* __restrict__ xs_re, const float* __restrict__ xs_im,
-          float* __restrict__ gxs_re, float* __restrict__ gxs_im,
-          float* __restrict__ gheq_re, float* __restrict__ gheq_im,
-          int log_m, int c_n) {
-  const int m = 1 << log_m;
-  const int j = blockIdx.x * blockDim.x + threadIdx.x;
-  if (j >= m) return;
-  const float n_f = (float)(2 * m);
-  const float wp = j == 0 ? 1.0f / n_f : 2.0f / n_f;
-  const float2 hv = make_float2(heq_re[j], heq_im[j]);
-  float2 acc = make_float2(0.0f, 0.0f);
-#pragma unroll 4
-  for (int c = 0; c < c_n; ++c) {
-    const size_t rc = (size_t)c * m + j;
-    const float2 g = make_float2(gp_re[rc] * wp, gp_im[rc] * wp);
-    const float2 gx = pmulc(g, hv, j);
-    gxs_re[rc] = gx.x;
-    gxs_im[rc] = gx.y;
-    const float2 gh = pmulc(g, make_float2(xs_re[rc], xs_im[rc]), j);
-    acc.x += gh.x;
-    acc.y += gh.y;
-  }
-  gheq_re[j] = acc.x;
-  gheq_im[j] = acc.y;
-}
-
-// g_t's and w_mat's cotangents: thread b, rows k0 .. k0 + kMatRows - 1
-// (blockIdx.y), the channels in order.
-__global__ void __launch_bounds__(kBwdThreads)
-eqfdl_bwd_mats(const float* __restrict__ gu, const float* __restrict__ x,
-               const float* __restrict__ sv, const float* __restrict__ gsv2,
-               float* __restrict__ g_gt, float* __restrict__ g_w, int b_n,
-               int c_n, int k2) {
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= b_n) return;
-  const int k0 = blockIdx.y * kMatRows;
-  float ag[kMatRows], aw[kMatRows];
+    float4 hr = ld4(h_re + (size_t)q * m + j0);
+    float4 hi = ld4(h_im + (size_t)q * m + j0);
+    const size_t plane = (size_t)c_n * m;
+    const float4 zero = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    const int c1 = group_start(r + 1, groups, c_n);
+#pragma unroll 2
+    for (int c = group_start(r, groups, c_n); c < c1; ++c) {
+      const size_t rc = (size_t)c * m + j0;
+      const size_t off = p * plane + rc;
+      float4 gar = ld4(ga_re + rc), gai = ld4(ga_im + rc);
+      float4 gor = ld4(go_re + off), goi = ld4(go_im + off);
+      float4 rr = ld4(ring_re + off), ri = ld4(ring_im + off);
+      float4 outr, outi;
 #pragma unroll
-  for (int r = 0; r < kMatRows; ++r) ag[r] = aw[r] = 0.0f;
-  for (int c = 0; c < c_n; ++c) {
-    const float g = gu[(size_t)c * b_n + b];
-    const float xv = x[(size_t)c * b_n + b];
-#pragma unroll
-    for (int r = 0; r < kMatRows; ++r) {
-      if (k0 + r < k2) {
-        ag[r] = fmaf(__ldg(&sv[(size_t)c * k2 + k0 + r]), g, ag[r]);
-        aw[r] = fmaf(__ldg(&gsv2[(size_t)c * k2 + k0 + r]), xv, aw[r]);
+      for (int e = 0; e < kFdlVec; ++e) {
+        const int j = j0 + e;
+        const float2 g = make_float2(elem(gar, e) * wa[e],
+                                     elem(gai, e) * wa[e]);
+        const float2 gv = pmulc(g, make_float2(elem(hr, e), elem(hi, e)), j);
+        const float ox = elem(gor, e) + gv.x;
+        const float oy = elem(goi, e) + gv.y;
+        elem(outr, e) = p == w ? ox * ws[e] : ox;
+        elem(outi, e) = p == w ? oy * ws[e] : oy;
+        const float2 gh = pmulc(g, make_float2(elem(rr, e), elem(ri, e)), j);
+        elem(ar, e) += gh.x;
+        elem(ai, e) += gh.y;
+      }
+      if (p == w) {
+        st4(gs_re + rc, outr);
+        st4(gs_im + rc, outi);
+        st4(gi_re + off, zero);
+        st4(gi_im + off, zero);
+      } else {
+        st4(gi_re + off, outr);
+        st4(gi_im + off, outi);
       }
     }
   }
+  reinterpret_cast<float4*>(part)[threadIdx.x] = ar;
+  reinterpret_cast<float4*>(part + kFdlTile)[threadIdx.x] = ai;
+  cluster.sync();
+  const int base = blockIdx.x * kFdlTile;
+  cluster_sum(cluster, part, 2 * kFdlTile, groups, [&](int v, float4 s) {
+    const int j = base + (v & (kFdlTile - 1));
+    if (j < m) st4((v < kFdlTile ? gh_re : gh_im) + (size_t)q * m + j, s);
+  });
+  cluster.sync();
+}
+
+// eqfdl_bwd's dynamic shared memory at 2K = k2 (floats): sv's and
+// gsv''s rows of kEqSub channels, interleaved [kEqSub][k2] float2; the
+// cluster's sums [2 + 2 k2][kEqTile] (Heq's re and im, g_t's rows,
+// w_mat's rows); g_t's and w_mat's tiles [k2][kEqTile + 1] and gu's of
+// the kEqSub channels [kEqSub][kEqTile + 1] (rows padded by one against
+// bank conflicts).  k2 is even, so the sums start 16-byte aligned.
+__host__ __device__ constexpr int eq_smem_floats(int k2) {
+  return 2 * kEqSub * k2 + (2 + 2 * k2) * kEqTile +
+         (2 * k2 + kEqSub) * (kEqTile + 1);
+}
+
+// blockIdx.x the tile of kEqTile positions, blockIdx.z the channel group:
+// the block's rank in its cluster (1, 1, groups).  kR >= k2: the rows of
+// the sums over the channels a thread holds in registers.
+template <int kR>
+__global__ void __launch_bounds__(kEqTile)
+eqfdl_bwd(const float* __restrict__ gp_re, const float* __restrict__ gp_im,
+          const float* __restrict__ gu, const float* __restrict__ heq_re,
+          const float* __restrict__ heq_im, const float* __restrict__ xs_re,
+          const float* __restrict__ xs_im, const float* __restrict__ x,
+          const float* __restrict__ sv, const float* __restrict__ g_t,
+          const float* __restrict__ w_mat, const float* __restrict__ gsv2,
+          float* __restrict__ gxs_re, float* __restrict__ gxs_im,
+          float* __restrict__ gheq_re, float* __restrict__ gheq_im,
+          float* __restrict__ g_gt, float* __restrict__ g_w,
+          float* __restrict__ g_x, float* __restrict__ part_sv, int log_m,
+          int c_n, int k2, int groups) {
+  constexpr int kLd = kEqTile + 1;
+  constexpr int kQuads = kEqTile / 4;
+  extern __shared__ __align__(16) float smem[];
+  float2* s_sg = reinterpret_cast<float2*>(smem);
+  float* sums = smem + 2 * kEqSub * k2;
+  float* s_gt = sums + (2 + 2 * k2) * kEqTile;
+  float* s_wm = s_gt + k2 * kLd;
+  float* s_gu = s_wm + k2 * kLd;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int m = 1 << log_m;
+  const int r = (int)cluster.block_rank();
+  const int t = threadIdx.x;
+  const int tile = blockIdx.x;
+  const int j0 = tile * kEqTile;
+  const int j = j0 + t;               // packed position j, and sample b = j
+  const bool live = j < m;
+  const float n_f = (float)(2 * m);
+  const float wp = j == 0 ? 1.0f / n_f : 2.0f / n_f;
+  const float2 hv = live ? make_float2(heq_re[j], heq_im[j])
+                         : make_float2(0.0f, 0.0f);
+  // g_t's and w_mat's tiles, a float4 a thread and row at a time
+  for (int i = t; i < k2 * kQuads; i += kEqTile) {
+    const int k = i / kQuads;
+    const int b = 4 * (i - k * kQuads);
+    const bool on = j0 + b < m;
+    const float4 zero = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    float4 gv = on ? ld4(g_t + (size_t)k * m + j0 + b) : zero;
+    float4 wv = on ? ld4(w_mat + (size_t)k * m + j0 + b) : zero;
 #pragma unroll
-  for (int r = 0; r < kMatRows; ++r) {
-    if (k0 + r < k2) {
-      g_gt[(size_t)(k0 + r) * b_n + b] = ag[r];
-      g_w[(size_t)(k0 + r) * b_n + b] = aw[r];
+    for (int e = 0; e < 4; ++e) {
+      s_gt[k * kLd + b + e] = elem(gv, e);
+      s_wm[k * kLd + b + e] = elem(wv, e);
     }
   }
+  float agt[kR], aw[kR];
+#pragma unroll
+  for (int k = 0; k < kR; ++k) agt[k] = aw[k] = 0.0f;
+  float2 aheq = make_float2(0.0f, 0.0f);
+  const float* wmt = s_wm + t;
+  const int c1 = group_start(r + 1, groups, c_n);
+  for (int cs = group_start(r, groups, c_n); cs < c1; cs += kEqSub) {
+    const int cn = min(kEqSub, c1 - cs);
+    // the chunk's loads first, all in flight together
+    float lpr[kEqSub], lpi[kEqSub], lxr[kEqSub], lxi[kEqSub], lu[kEqSub],
+        lx[kEqSub];
+#pragma unroll
+    for (int cl = 0; cl < kEqSub; ++cl) {
+      const bool on = live && cl < cn;
+      const size_t rc = (size_t)(cs + cl) * m + j;
+      lpr[cl] = on ? gp_re[rc] : 0.0f;
+      lpi[cl] = on ? gp_im[rc] : 0.0f;
+      lxr[cl] = on ? xs_re[rc] : 0.0f;
+      lxi[cl] = on ? xs_im[rc] : 0.0f;
+      lu[cl] = on ? gu[rc] : 0.0f;
+      lx[cl] = on ? x[rc] : 0.0f;
+    }
+    __syncthreads();     // the tiles written; the last chunk is done
+    for (int i = t; i < cn * k2; i += kEqTile)
+      s_sg[i] = make_float2(sv[(size_t)cs * k2 + i],
+                            gsv2[(size_t)cs * k2 + i]);
+#pragma unroll
+    for (int cl = 0; cl < kEqSub; ++cl)
+      if (cl < cn) s_gu[cl * kLd + t] = lu[cl];
+    __syncthreads();
+#pragma unroll
+    for (int cl = 0; cl < kEqSub; ++cl) {
+      if (!live || cl >= cn) continue;
+      const size_t rc = (size_t)(cs + cl) * m + j;
+      const float2 g = make_float2(lpr[cl] * wp, lpi[cl] * wp);
+      const float2 gx = pmulc(g, hv, j);
+      gxs_re[rc] = gx.x;
+      gxs_im[rc] = gx.y;
+      const float2 gh = pmulc(g, make_float2(lxr[cl], lxi[cl]), j);
+      aheq.x += gh.x;
+      aheq.y += gh.y;
+      const float2* sg = s_sg + cl * k2;
+      float gxx = 0.0f;
+#pragma unroll
+      for (int k = 0; k < kR; ++k) {
+        if (k < k2) {
+          const float2 v = sg[k];          // (sv[c, k], gsv'[c, k])
+          agt[k] = fmaf(v.x, lu[cl], agt[k]);
+          aw[k] = fmaf(v.y, lx[cl], aw[k]);
+          gxx = fmaf(v.y, wmt[k * kLd], gxx);
+        }
+      }
+      g_x[rc] = gxx;
+    }
+    // sv's partials over this tile: a thread a channel and two rows (k,
+    // k + 1), the tile's positions in order, even and odd positions
+    // summed apart, then added
+    const int kp = (k2 + 1) >> 1;
+    for (int task = t; task < cn * kp; task += kEqTile) {
+      const int cl = task / kp;
+      const int k = 2 * (task - cl * kp);
+      const bool two = k + 1 < k2;
+      const float* a = s_gu + cl * kLd;
+      const float* b0 = s_gt + k * kLd;
+      const float* b1 = two ? b0 + kLd : b0;
+      float s0 = 0.0f, s1 = 0.0f, s2 = 0.0f, s3 = 0.0f;
+#pragma unroll 8
+      for (int i = 0; i < kEqTile; i += 2) {
+        const float a0 = a[i], a1 = a[i + 1];
+        s0 = fmaf(a0, b0[i], s0);
+        s1 = fmaf(a1, b0[i + 1], s1);
+        s2 = fmaf(a0, b1[i], s2);
+        s3 = fmaf(a1, b1[i + 1], s3);
+      }
+      float* out = part_sv + ((size_t)tile * c_n + cs + cl) * k2 + k;
+      out[0] = s0 + s1;
+      if (two) out[1] = s2 + s3;
+    }
+  }
+  sums[t] = aheq.x;
+  sums[kEqTile + t] = aheq.y;
+#pragma unroll
+  for (int k = 0; k < kR; ++k) {
+    if (k < k2) {
+      sums[(2 + k) * kEqTile + t] = agt[k];
+      sums[(2 + k2 + k) * kEqTile + t] = aw[k];
+    }
+  }
+  cluster.sync();
+  cluster_sum(cluster, sums, (2 + 2 * k2) * kEqTile, groups,
+              [&](int v, float4 s) {
+    const int row = v / kEqTile;
+    const int b = j0 + (v - row * kEqTile);
+    if (b >= m) return;
+    float* dst = row == 0 ? gheq_re + b
+                 : row == 1 ? gheq_im + b
+                 : row < 2 + k2 ? g_gt + (size_t)(row - 2) * m + b
+                                : g_w + (size_t)(row - 2 - k2) * m + b;
+    st4(dst, s);
+  });
+  cluster.sync();
 }
 
-// x's cotangent: thread (c, b), the rows k in order.
+// A warp an output, lane l taking terms l, l + 32, ... in order and the
+// lanes summed by a fixed shuffle tree (lane 0's sum): sv's cotangent
+// (warps i < C 2K: (c, k)), the tiles' partials and the terms gsv'[c, j]
+// m[j, k]; m_mat's (warps C 2K + (k, j)), the terms gsv'[c, k] sv[c, j].
 __global__ void __launch_bounds__(kBwdThreads)
-eqfdl_bwd_x(const float* __restrict__ gsv2, const float* __restrict__ w_mat,
-            float* __restrict__ g_x, int b_n, int k2) {
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= b_n) return;
-  const int c = blockIdx.y;
-  float acc = 0.0f;
-  for (int k = 0; k < k2; ++k)
-    acc = fmaf(__ldg(&gsv2[(size_t)c * k2 + k]),
-               w_mat[(size_t)k * b_n + b], acc);
-  g_x[(size_t)c * b_n + b] = acc;
-}
-
-// sv's cotangent: a warp per (c, k).
-__global__ void __launch_bounds__(kBwdThreads)
-eqfdl_bwd_sv(const float* __restrict__ gu, const float* __restrict__ g_t,
-             const float* __restrict__ gsv2, const float* __restrict__ m_mat,
-             float* __restrict__ g_sv, int b_n, int c_n, int k2) {
-  const int gw = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
+eqfdl_bwd_sums(const float* __restrict__ part_sv,
+               const float* __restrict__ gsv2,
+               const float* __restrict__ m_mat,
+               const float* __restrict__ sv, float* __restrict__ g_sv,
+               float* __restrict__ g_m, int tiles, int c_n, int k2) {
+  const int i = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
   const int lane = threadIdx.x & 31;
-  if (gw >= c_n * k2) return;
-  const int c = gw / k2;
-  const int k = gw % k2;
-  const float* gr = gu + (size_t)c * b_n;
-  const float* tr = g_t + (size_t)k * b_n;
+  const int n_sv = c_n * k2;
+  if (i >= n_sv + k2 * k2) return;
   float acc = 0.0f;
-  for (int b = lane; b < b_n; b += 32) acc = fmaf(gr[b], tr[b], acc);
+  if (i < n_sv) {
+    const int c = i / k2;
+    const int k = i - c * k2;
+    for (int tl = lane; tl < tiles; tl += 32)
+      acc += part_sv[(size_t)tl * n_sv + i];
+    for (int jj = lane; jj < k2; jj += 32)
+      acc = fmaf(gsv2[(size_t)c * k2 + jj], m_mat[(size_t)jj * k2 + k], acc);
+  } else {
+    const int k = (i - n_sv) / k2;
+    const int jj = (i - n_sv) - k * k2;
+    for (int c = lane; c < c_n; c += 32)
+      acc = fmaf(gsv2[(size_t)c * k2 + k], sv[(size_t)c * k2 + jj], acc);
+  }
   for (int o = 16; o > 0; o >>= 1)
     acc += __shfl_xor_sync(0xffffffffu, acc, o);
   if (lane == 0) {
-    for (int jj = 0; jj < k2; ++jj)
-      acc = fmaf(gsv2[(size_t)c * k2 + jj], m_mat[(size_t)jj * k2 + k], acc);
-    g_sv[(size_t)c * k2 + k] = acc;
+    if (i < n_sv) g_sv[i] = acc;
+    else g_m[i - n_sv] = acc;
   }
 }
 
-// m_mat's cotangent: thread (k, j), the channels in order.
-__global__ void eqfdl_bwd_m(const float* __restrict__ gsv2,
-                            const float* __restrict__ sv,
-                            float* __restrict__ g_m, int c_n, int k2) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= k2 * k2) return;
-  const int k = i / k2;
-  const int jj = i % k2;
-  float acc = 0.0f;
-  for (int c = 0; c < c_n; ++c)
-    acc = fmaf(gsv2[(size_t)c * k2 + k], sv[(size_t)c * k2 + jj], acc);
-  g_m[i] = acc;
+// a launch of `kernel` as clusters of `groups` blocks along the grid's z
+template <class... Exp, class... Act>
+cudaError_t cluster_launch(void (*kernel)(Exp...), dim3 grid, int threads,
+                           int smem, int groups, cudaStream_t st,
+                           Act&&... args) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = 1;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = groups;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, kernel, std::forward<Act>(args)...);
 }
 
-int blocks_of(int n) { return (n + kBwdThreads - 1) / kBwdThreads; }
+template <int kR>
+cudaError_t launch_eqfdl_bwd(dim3 grid, int groups, cudaStream_t st,
+                             const float* gp_re, const float* gp_im,
+                             const float* gu, const float* heq_re,
+                             const float* heq_im, const float* xs_re,
+                             const float* xs_im, const float* x,
+                             const float* sv, const float* g_t,
+                             const float* w_mat, const float* gsv2,
+                             float* gxs_re, float* gxs_im, float* gheq_re,
+                             float* gheq_im, float* g_gt, float* g_w,
+                             float* g_x, float* part_sv, int log_m, int c_n,
+                             int k2) {
+  const int smem = eq_smem_floats(k2) * (int)sizeof(float);
+  cudaError_t err = cudaFuncSetAttribute(
+      eqfdl_bwd<kR>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  return cluster_launch(eqfdl_bwd<kR>, grid, kEqTile, smem, groups, st,
+                        gp_re, gp_im, gu, heq_re, heq_im, xs_re, xs_im, x,
+                        sv, g_t, w_mat, gsv2, gxs_re, gxs_im, gheq_re,
+                        gheq_im, g_gt, g_w, g_x, part_sv, log_m, c_n, k2,
+                        groups);
+}
+
+// the channel groups of c_n channels: a cluster's blocks
+int groups_of(int c_n) { return c_n < kMaxGroups ? c_n : kMaxGroups; }
+
+int tiles_of(int m, int tile) { return (m + tile - 1) / tile; }
 
 }  // namespace
 
 extern "C" {
+
+// eqfdl_bwd's position tiles at M = 2^log_m: part_sv is [tiles, C, 2K]
+int lsp_eqfdl_bwd_tiles(int log_m) {
+  return bad_size(log_m) ? -1 : tiles_of(1 << log_m, kEqTile);
+}
 
 int lsp_fdl_bwd(const float* ring_re, const float* ring_im, const float* h_re,
                 const float* h_im, const float* ga_re, const float* ga_im,
@@ -716,13 +966,15 @@ int lsp_fdl_bwd(const float* ring_re, const float* ring_im, const float* h_re,
                 float* gi_im, float* gh_re, float* gh_im, float* gs_re,
                 float* gs_im, int log_m, int p_n, int w, int c_n,
                 void* stream) {
-  if (bad_size(log_m) || p_n < 1 || c_n < 1 || w < 0 || w >= p_n)
+  if (bad_size(log_m) || p_n < 1 || p_n > 65535 || c_n < 1 || w < 0 ||
+      w >= p_n)
     return (int)cudaErrorInvalidValue;
-  fdl_bwd<<<dim3(blocks_of(1 << log_m), p_n), kBwdThreads, 0,
-            (cudaStream_t)stream>>>(ring_re, ring_im, h_re, h_im, ga_re,
-                                    ga_im, go_re, go_im, gi_re, gi_im, gh_re,
-                                    gh_im, gs_re, gs_im, log_m, p_n, w, c_n);
-  return (int)cudaGetLastError();
+  const int groups = groups_of(c_n);
+  return (int)cluster_launch(
+      fdl_bwd, dim3(tiles_of(1 << log_m, kFdlTile), p_n, groups),
+      kBwdThreads, 0, groups, (cudaStream_t)stream, ring_re, ring_im,
+      h_re, h_im, ga_re, ga_im, go_re, go_im, gi_re, gi_im, gh_re, gh_im,
+      gs_re, gs_im, log_m, p_n, w, c_n, groups);
 }
 
 int lsp_eqfdl_bwd(const float* gp_re, const float* gp_im, const float* gu,
@@ -731,28 +983,26 @@ int lsp_eqfdl_bwd(const float* gp_re, const float* gp_im, const float* gu,
                   const float* sv, const float* g_t, const float* m_mat,
                   const float* w_mat, const float* gsv2, float* gxs_re,
                   float* gxs_im, float* gheq_re, float* gheq_im, float* g_gt,
-                  float* g_m, float* g_w, float* g_sv, float* g_x, int log_m,
-                  int c_n, int k2, void* stream) {
-  if (bad_size(log_m) || c_n < 1 || k2 < 1) return (int)cudaErrorInvalidValue;
-  const int m = 1 << log_m;
+                  float* g_m, float* g_w, float* g_sv, float* g_x,
+                  float* part_sv, int log_m, int c_n, int k2, void* stream) {
+  if (bad_size(log_m) || c_n < 1 || k2 < 2 || k2 > kMaxK2 || k2 % 2)
+    return (int)cudaErrorInvalidValue;
+  const int groups = groups_of(c_n);
+  const int tiles = lsp_eqfdl_bwd_tiles(log_m);
+  const dim3 grid(tiles, 1, groups);
   cudaStream_t st = (cudaStream_t)stream;
-  eqfdl_bwd<<<blocks_of(m), kBwdThreads, 0, st>>>(
-      gp_re, gp_im, heq_re, heq_im, xs_re, xs_im, gxs_re, gxs_im, gheq_re,
-      gheq_im, log_m, c_n);
-  cudaError_t err = cudaGetLastError();
+  // the chain's 2K = 18 (and less) in its own build: the one with room
+  // for kMaxK2 holds 2 x 64 row sums a thread, and took 2.6x its time at
+  // 2K = 18 on the H100 (0.0535 against 0.0206 ms)
+  cudaError_t err =
+      (k2 <= 18 ? launch_eqfdl_bwd<18> : launch_eqfdl_bwd<kMaxK2>)(
+          grid, groups, st, gp_re, gp_im, gu, heq_re, heq_im, xs_re, xs_im,
+          x, sv, g_t, w_mat, gsv2, gxs_re, gxs_im, gheq_re, gheq_im, g_gt,
+          g_w, g_x, part_sv, log_m, c_n, k2);
   if (err != cudaSuccess) return (int)err;
-  eqfdl_bwd_mats<<<dim3(blocks_of(m), (k2 + kMatRows - 1) / kMatRows),
-                   kBwdThreads, 0, st>>>(gu, x, sv, gsv2, g_gt, g_w, m, c_n,
-                                         k2);
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  eqfdl_bwd_x<<<dim3(blocks_of(m), c_n), kBwdThreads, 0, st>>>(
-      gsv2, w_mat, g_x, m, k2);
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  eqfdl_bwd_sv<<<blocks_of(32 * c_n * k2), kBwdThreads, 0, st>>>(
-      gu, g_t, gsv2, m_mat, g_sv, m, c_n, k2);
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  eqfdl_bwd_m<<<blocks_of(k2 * k2), kBwdThreads, 0, st>>>(gsv2, sv, g_m, c_n,
-                                                          k2);
+  const int n = c_n * k2 + k2 * k2;      // outputs, a warp each
+  eqfdl_bwd_sums<<<tiles_of(32 * n, kBwdThreads), kBwdThreads, 0, st>>>(
+      part_sv, gsv2, m_mat, sv, g_sv, g_m, tiles, c_n, k2);
   return (int)cudaGetLastError();
 }
 

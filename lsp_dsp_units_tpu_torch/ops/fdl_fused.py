@@ -43,9 +43,13 @@ CPU tensors the plain backwards (``*_bwd_plain``); for CUDA tensors
 :func:`fdl_fused_bwd` and :func:`eqfdl_fused_bwd`: the transforms on the
 packed FFT kernels (csrc/fft_packed.cu) and the products on
 ``csrc/fdl_fused.cu``'s ``fdl_bwd`` (the MAC's adjoint) and ``eqfdl_bwd``
-(the EQ's) kernels, which reduce the products shared by all channels
-(H, Heq, g_mat, m_mat, w_mat) over the channels in a fixed order, so a
-gradient is the same from run to run, and with no library matmul.
++ ``eqfdl_bwd_sums`` (the EQ's) kernels.  The two wide kernels split the
+channels into at most four groups, a block each, the groups of a
+position tile one thread block cluster: the products shared by all
+channels (H, Heq, g_t, w_mat) are summed within a group in channel
+order, then across the cluster in group order, and sv's cotangent from
+each tile's partial sums in a fixed order, so a gradient is the same
+from run to run, with no atomics and no library matmul.
 """
 
 from __future__ import annotations
@@ -67,8 +71,9 @@ _SIGS = {"lsp_eqfdl_fused": [ctypes.c_void_p] * 19 + [ctypes.c_int] * 5
          + [ctypes.c_void_p],
          "lsp_fdl_bwd": [ctypes.c_void_p] * 14 + [ctypes.c_int] * 4
          + [ctypes.c_void_p],
-         "lsp_eqfdl_bwd": [ctypes.c_void_p] * 22 + [ctypes.c_int] * 3
+         "lsp_eqfdl_bwd": [ctypes.c_void_p] * 23 + [ctypes.c_int] * 3
          + [ctypes.c_void_p],
+         "lsp_eqfdl_bwd_tiles": [ctypes.c_int],
          "lsp_eqfdl_shape": [ctypes.c_int, ctypes.c_int,
                              ctypes.POINTER(ctypes.c_int)],
          "lsp_fdl_shape": [ctypes.c_int, ctypes.c_int,
@@ -275,7 +280,8 @@ def fdl_fused_bwd(ring_re, ring_im, h_re, h_im, w: int, g_y, g_ring_re,
     that ring.  Returns the cotangents (g_ring_re, g_ring_im of the
     incoming ring, g_h_re, g_h_im, g_hist, g_x).  The plain version for
     CPU tensors; for CUDA tensors three launches: kernel #1's zero-pad
-    forward transform, ``fdl_bwd`` and kernel #1's inverse, counted once
+    forward transform, ``fdl_bwd`` (a cluster of channel groups a
+    position tile and partition) and kernel #1's inverse, counted once
     in ``fdl_fused_bwd.launches`` (the transforms also in
     ``fdl_fused_bwd.fft_launches``)."""
     if _build.is_cpu(ring_re, ring_im, h_re, h_im, g_y, g_ring_re,
@@ -318,9 +324,11 @@ def eqfdl_fused_bwd(ring_re, ring_im, h_re, h_im, heq_re, heq_im, xs_re,
     The plain version for CPU tensors; for CUDA tensors
     :func:`fdl_fused_bwd`'s three launches, an element-wise sum of the
     frame's cotangent with u's, kernel #1's zero-pad forward transform
-    and ``eqfdl_bwd`` (four kernels of one C call: the spectra's, the
-    g_mat and w_mat products', x's, and sv's with m_mat's), counted once
-    in ``eqfdl_fused_bwd.launches``."""
+    and the EQ's adjoint, two kernels of one C call: ``eqfdl_bwd`` (a
+    cluster of channel groups a position tile: every cotangent but sv's
+    and m_mat's, and sv's partial sums over each tile into a scratch)
+    and ``eqfdl_bwd_sums`` (sv's and m_mat's), counted once in
+    ``eqfdl_fused_bwd.launches``."""
     ins = (ring_re, ring_im, h_re, h_im, heq_re, heq_im, xs_re, xs_im, x,
            sv, g_t, m_mat, w_mat, g_y, g_u, g_sv2, g_ring_re, g_ring_im)
     if _build.is_cpu(*ins):
@@ -345,12 +353,15 @@ def eqfdl_fused_bwd(ring_re, ring_im, h_re, h_im, heq_re, heq_im, xs_re,
     g_gt, g_m, g_w = (torch.empty_like(g_t), torch.empty_like(m_mat),
                       torch.empty_like(w_mat))
     g_sv, g_x = torch.empty_like(sv), torch.empty_like(x)
+    tiles = _lib().lsp_eqfdl_bwd_tiles(fp.log2_m(n))
+    part_sv = torch.empty((tiles, c_n, k2), dtype=x.dtype, device=x.device)
     _build.check(_lib().lsp_eqfdl_bwd(
         *(_build.ptr(t) for t in (gp_re, gp_im, g_ut, heq_re, heq_im, xs_re,
                                   xs_im, x, sv, g_t, m_mat, w_mat, g_sv2,
                                   g_xs_re, g_xs_im, g_heq_re, g_heq_im, g_gt,
-                                  g_m, g_w, g_sv, g_x)),
-        fp.log2_m(n), c_n, k2, _build.stream_of(x)), "eqfdl_bwd kernel")
+                                  g_m, g_w, g_sv, g_x, part_sv)),
+        fp.log2_m(n), c_n, k2, _build.stream_of(x)),
+        "eqfdl_bwd kernel")
     eqfdl_fused_bwd.launches += 1
     return (gr, gi, gh_re, gh_im, g_heq_re, g_heq_im, g_xs_re, g_xs_im, g_x,
             g_sv, g_gt, g_m, g_w, g_frame[:, :b].contiguous())

@@ -16,7 +16,8 @@ functor its riders.cu lacks, are skipped) are built with this
 checkout's nvcc flags into
 ``build/lsp_dsp_units_tpu_torch/ab/`` and stand in for this checkout's
 libraries during its runs; wrappers, inputs and checks are this
-checkout's, so the two builds' C interfaces must match.  At the main
+checkout's, so the two builds' C interfaces must match (but for the
+backwards' cases, last below).  At the main
 paths' shapes (64 channels, N = 16384, P = 6, the chain's EQ and
 compressor):
 
@@ -54,6 +55,17 @@ compressor):
   0.5): y and ring; the trigger (advanced rising edge, hold 24) and the
   depopper's forward machine (CUBIC, on gated levels) of rider_kernel:
   output and state.
+* the convolver's backwards, eqfdl_fused_bwd and fdl_fused_bwd, on a
+  seeded ring, the chain's IR and EQ spectra and matrices and seeded
+  cotangents: each build's route through its own wrapper (the other
+  checkout's ops/fdl_fused.py, loaded beside this one's, so that the two
+  C interfaces may differ).  Their channel sums may round otherwise, so
+  each output of this build must be >= 110 dB from the plain backward
+  (identical where that is zero); which outputs equal the other build's
+  is listed.  Beside the route times, each build's launches of one call
+  (torch.profiler): short name, ms a launch, launches a call and the
+  bytes bound of the launches (tools/launch_profile.py; none for
+  the other build's launches that this tree lacks).
 
 Each case's outputs must be identical between the builds (the indices
 of those that differ are listed: eqfdl_fused's are y, u, EQ state per
@@ -71,6 +83,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import ctypes
+import importlib.util
 import json
 import os
 import subprocess
@@ -103,6 +116,7 @@ from lsp_dsp_units_tpu_torch.ops import fftconv
 from lsp_dsp_units_tpu_torch.ops import limiter as lim_ops
 from lsp_dsp_units_tpu_torch.ops import riders
 from lsp_dsp_units_tpu_torch.ops import slicedma
+from lsp_dsp_units_tpu_torch.tools.launch_profile import launch_profile
 
 C, RANK, SR = 64, 14, 48000
 B = 1 << (RANK - 1)
@@ -114,11 +128,13 @@ SIGS = {"fdl_fused": ff._SIGS, "env": env_ops._SIGS, "env_units": eu._SIGS,
 DELAY_MAX = 4800                     # the synth phase's delay bank
 VOICES, VBLOCK = 4096, 1024          # the sampler's configuration
 SPIN_CYCLES = 200_000_000
+BWD_DB = 110.0                       # the backwards against their plain ones
 
 
-def build_other(root: str, name: str) -> ctypes.CDLL:
+def build_other(root: str, name: str, sigs=None) -> ctypes.CDLL:
     """Compile ``<root>/lsp_dsp_units_tpu_torch/csrc/<name>.cu`` and load
-    it with this checkout's signatures (those it has)."""
+    it with ``sigs`` (by default this checkout's signatures; those it
+    has)."""
     csrc = os.path.join(root, "lsp_dsp_units_tpu_torch", "csrc")
     out = os.path.join(_build.BUILD_DIR, "ab", f"{name}.so")
     os.makedirs(os.path.dirname(out), exist_ok=True)
@@ -129,7 +145,7 @@ def build_other(root: str, name: str) -> ctypes.CDLL:
         raise RuntimeError(f"nvcc failed on the other {name}.cu:\n"
                            f"{proc.stderr}")
     lib = ctypes.CDLL(out)
-    for fn, argtypes in SIGS[name].items():
+    for fn, argtypes in (sigs or SIGS[name]).items():
         if hasattr(lib, fn):
             getattr(lib, fn).argtypes = argtypes
             getattr(lib, fn).restype = ctypes.c_int
@@ -160,6 +176,46 @@ def time_ms(fn, reps: int) -> float:
     stop.record()
     stop.synchronize()
     return start.elapsed_time(stop) / reps
+
+
+def other_fdl_fused(root: str):
+    """The other checkout's ops/fdl_fused.py as a module of its own (its
+    wrappers, its C signatures), or None where it has none."""
+    path = os.path.join(root, "lsp_dsp_units_tpu_torch", "ops",
+                        "fdl_fused.py")
+    if not os.path.exists(path):
+        return None
+    spec = importlib.util.spec_from_file_location("ab_other_fdl_fused", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def snr_or_same(ref: torch.Tensor, out: torch.Tensor) -> float:
+    """snr_db of ``out`` against ``ref``; where ``ref`` is zero
+    throughout, inf if ``out`` is too, else -inf."""
+    if not bool(torch.any(ref != 0)):
+        return float("inf") if torch.equal(ref, out) else float("-inf")
+    return snr_db(ref.double(), out)
+
+
+def bwd_inputs(params, gen):
+    """The convolver backwards' arguments at the main path's shapes: a
+    seeded written ring and cotangents, the chain's IR and EQ spectra
+    and matrices, seeded EQ inputs (``eqfdl_fused_bwd``'s, then
+    ``fdl_fused_bwd``'s)."""
+    def r(*shape):
+        return torch.randn(*shape, generator=gen).cuda()
+    eqp = params.eq_block
+    p_n, k2 = params.h_re.shape[0], eqp.m_mat.shape[0]
+    ring = (r(p_n, C, B), r(p_n, C, B))
+    cot = (r(C, B), r(C, B), r(C, k2), r(p_n, C, B), r(p_n, C, B))
+    w = 4 % p_n
+    eq = (*ring, params.h_re, params.h_im, params.heq_re, params.heq_im,
+          r(C, B), r(C, B), r(C, B), r(C, k2), eqp.g_t, eqp.m_mat,
+          eqp.w_mat, w, *cot)
+    fdl = (*ring, params.h_re, params.h_im, w, cot[0], *cot[3:])
+    return eq, fdl
 
 
 def ulps(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -243,8 +299,10 @@ def main(argv=None) -> int:
         return 1
     this = {n: _build.load(n, s) for n, s in SIGS.items()}
     csrc = os.path.join(args.other, "lsp_dsp_units_tpu_torch", "csrc")
-    other = {n: build_other(args.other, n) for n in SIGS
-             if os.path.exists(os.path.join(csrc, f"{n}.cu"))}
+    other_ff = other_fdl_fused(args.other)
+    other = {n: build_other(args.other, n, other_ff._SIGS
+                            if n == "fdl_fused" and other_ff else None)
+             for n in SIGS if os.path.exists(os.path.join(csrc, f"{n}.cu"))}
 
     chain = pipeline.FilterConvChain(SR, C, rank=RANK, ir_seconds=1.0)
     params = chain.build()
@@ -479,6 +537,50 @@ def main(argv=None) -> int:
               + f"); other {res[name]['other_ms']:.4f}"
               f" ms, this {res[name]['this_ms']:.4f} ms (runs: "
               + ", ".join(f"{t:.4f}" for t in times) + ")", flush=True)
+    eq_args, fdl_args = bwd_inputs(params, torch.Generator().manual_seed(33))
+    k2 = params.eq_block.m_mat.shape[0]
+    for name, a in (("eqfdl_fused_bwd", eq_args), ("fdl_fused_bwd", fdl_args)):
+        if args.cases is not None and name not in args.cases:
+            continue
+        if other_ff is None or "fdl_fused" not in other:
+            print(f"{name}: skipped (the other checkout has no "
+                  f"fdl_fused)", flush=True)
+            continue
+        fns = {"other": (other, (lambda f, a: lambda: f(*a))(
+                   getattr(other_ff, name), a)),
+               "this": (this, (lambda f, a: lambda: f(*a))(
+                   getattr(ff, name), a))}
+        outs, times, prof = {}, [], {}
+        for who, (libs, fn) in fns.items():
+            with using(libs):
+                outs[who] = fn()
+                prof[who] = launch_profile(fn, C, B, params.h_re.shape[0],
+                                           k2)
+        plain = getattr(ff, f"{name}_plain")(*a)
+        dbs = [snr_or_same(p, t) for p, t in zip(plain, outs["this"])]
+        other_dbs = [snr_or_same(p, o) for p, o in zip(plain, outs["other"])]
+        same = [i for i, (t, o) in enumerate(zip(outs["this"], outs["other"]))
+                if torch.equal(t, o)]
+        ok = ok and min(dbs) >= BWD_DB
+        for who in ("other", "this", "this", "other"):
+            with using(fns[who][0]):
+                times.append(time_ms(fns[who][1], 20))
+        res[name] = dict(db_vs_plain=min(dbs), other_db_vs_plain=min(
+            other_dbs), identical_outputs=same,
+            other_ms=(times[0] + times[3]) / 2,
+            this_ms=(times[1] + times[2]) / 2, runs_ms=times,
+            other_launches=prof["other"], this_launches=prof["this"])
+        print(f"{name}: vs plain >= {min(dbs):.1f} dB (other build "
+              f"{min(other_dbs):.1f}), outputs identical to the other "
+              f"build's: {same}; other {res[name]['other_ms']:.4f} ms, this "
+              f"{res[name]['this_ms']:.4f} ms (runs: "
+              + ", ".join(f"{t:.4f}" for t in times) + ")", flush=True)
+        for who in ("other", "this"):
+            print(f"  {who}: " + "; ".join(
+                f"{r['name']} {r['ms']:.4f} ms x {r['launches']}"
+                + ("" if r["bound_ms"] is None else
+                   f" (bound {r['bound_ms']:.4f})") for r in prof[who]),
+                flush=True)
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
                           text=True, timeout=60).stdout.strip()

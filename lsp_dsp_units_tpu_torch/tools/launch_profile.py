@@ -1,0 +1,84 @@
+"""The kernels of one call of the convolver's backwards on the card, by
+torch.profiler: each launch's short name, ms a launch, launches a call
+and the bytes bound of those launches (each input of the function read
+once, each output written once, over the H100's memory rate).  Used by
+``chip_smoke.py``'s grad_ring phase and by ``tools/ab_kernels.py``'s
+backward cases; a launch it has no byte count for (another build's) has
+no bound."""
+
+from __future__ import annotations
+
+import re
+
+import torch
+
+HBM_BYTES_PER_S = 3.35e12            # the H100's memory rate (the bounds)
+
+
+def launch_name(name: str) -> str:
+    """A kernel's short name from the profiler's: the function's, with
+    its template argument, or torch's element-wise add and copy."""
+    if "CUDAFunctor_add" in name:
+        return "torch add"
+    if "copy" in name:
+        return "torch copy"
+    m = re.search(r"::(\w+(?:<\d+>)?)\(", name)
+    return m.group(1) if m else name[:60]
+
+
+def launch_bytes(name: str, c: int, b: int, p_n: int, k2: int):
+    """The bytes one launch of the convolver backwards must move at C
+    channels, B = N / 2 packed positions, P partitions and 2K = k2, by
+    short name; None for any other.  The EQ adjoint's two launches
+    together count its inputs and outputs once, not the scratch of sv's
+    partial sums that passes between them."""
+    f = 4
+    plane, rows = c * b * f, k2 * b * f
+    if name.startswith("eqfdl_bwd<"):
+        # g (2 planes), xs (2), gu and x in, xs's (2) and x's cotangents
+        # out; Heq in, its cotangent out; g_t and w_mat in, their
+        # cotangents out; sv and gsv' in
+        return 9 * plane + 4 * rows + 4 * b * f + 2 * c * k2 * f
+    table = {
+        # ring' and the ring's cotangent in, the incoming ring's out; g in,
+        # S's cotangent out; H in, its cotangent out
+        "fdl_bwd": (6 * p_n + 4) * plane + 4 * p_n * b * f,
+        # m_mat in; sv's and m_mat's cotangents out
+        "eqfdl_bwd_sums": (c * k2 + 2 * k2 * k2) * f,
+        "rfft_packed_kernel": 3 * plane,      # half a frame in, spectra out
+        "irfft_packed_kernel": 4 * plane,     # spectra in, the frame out
+        "torch add": 3 * plane,
+        "torch copy": 2 * plane,
+    }
+    return table.get(name)
+
+
+def launch_profile(fn, c: int, b: int, p_n: int, k2: int, calls: int = 10):
+    """The kernels of ``fn()`` (one backward call) by torch.profiler over
+    ``calls`` calls: short name, ms a launch, launches a call, and the
+    bytes bound of those launches (ms a call, None where launch_bytes
+    has no count), the most time first."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    rows = {}
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA or e.self_device_time_total <= 0:
+            continue
+        name = launch_name(e.key)
+        ms, n = rows.get(name, (0.0, 0))
+        rows[name] = (ms + e.self_device_time_total / 1e3, n + e.count)
+    out = []
+    for name, (ms, n) in sorted(rows.items(), key=lambda r: -r[1][0]):
+        nbytes = launch_bytes(name, c, b, p_n, k2)
+        per_call = round(n / calls)
+        out.append(dict(name=name, ms=ms / n, launches=per_call,
+                        bound_ms=None if nbytes is None
+                        else per_call * nbytes / HBM_BYTES_PER_S * 1e3))
+    return out

@@ -1637,12 +1637,41 @@ def _ring_case(gen, dev, c, b, p_n, k2):
                      r(p_n, c, b)))
 
 
+def _assert_matches(ref, out):
+    """``out`` >= 110 dB from ``ref``; where ``ref`` is zero throughout
+    (the ring's cotangent at P = 1: its only slot is w), identical."""
+    if torch.any(ref != 0):
+        assert _snr(ref, out) >= 110.0
+    else:
+        assert torch.equal(ref, out)
+
+
+def _same_with_tf32(fn, out):
+    """fn() again with TF32 switched on gives ``out`` bit for bit."""
+    prev = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = True
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        return all(torch.equal(a, b) for a, b in zip(out, fn()))
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, \
+            torch.backends.cudnn.allow_tf32 = prev
+
+
+# (channels, B, P, w): channel counts that the backward kernels' groups
+# (at most 4 a cluster) split unevenly (13, 65), P = 1, w = 0 and P - 1
 @pytest.mark.parametrize("c,b,p_n,w", [(3, 64, 2, 1), (5, 1024, 6, 0),
-                                       (64, 8192, 6, 4)])
+                                       (64, 8192, 6, 4), (13, 1024, 1, 0),
+                                       (13, 256, 4, 3), (65, 2048, 3, 2),
+                                       (65, 128, 2, 0)])
 def test_fdl_bwd_kernel_matches_plain(cuda_device, c, b, p_n, w):
     """#4's backward (kernel #1's two transforms around fdl_bwd) against
-    its plain version on the card, >= 110 dB per output; one launch
-    counted, two transforms."""
+    its plain version on the card, >= 110 dB per output (the ring's and
+    the frame's cotangents, elementwise, as H's, a sum over the
+    channels); one launch counted, two transforms; the same bits from
+    run to run (the channel groups summed in a fixed order) and with
+    TF32 on."""
     gen = torch.Generator().manual_seed(b + w)
     d = _ring_case(gen, cuda_device, c, b, p_n, 4)
     args = (*d["ring"], *d["h"], w, d["cot"][0], *d["cot"][3:])
@@ -1651,18 +1680,29 @@ def test_fdl_bwd_kernel_matches_plain(cuda_device, c, b, p_n, w):
     assert (tfdl.fdl_fused_bwd.launches,
             tfdl.fdl_fused_bwd.fft_launches) == (before[0] + 1,
                                                  before[1] + 2)
+    again = tfdl.fdl_fused_bwd(*args)
     p_out = tfdl.fdl_fused_bwd_plain(*args)
     assert not torch.any(k_out[0][w]) and not torch.any(k_out[1][w])
-    for a, bb in zip(p_out, k_out):
-        assert _snr(a, bb) >= 110.0
+    for a, bb, cc in zip(p_out, k_out, again):
+        assert torch.equal(bb, cc)
+        _assert_matches(a, bb)
+    assert _same_with_tf32(lambda: tfdl.fdl_fused_bwd(*args), k_out)
 
 
+# (channels, B, P, w, 2K): as above, and 2K in both of eqfdl_bwd's
+# builds (<= 18, <= 64)
 @pytest.mark.parametrize("c,b,p_n,w,k2", [(3, 64, 2, 1, 4),
-                                          (64, 8192, 6, 4, 18)])
+                                          (64, 8192, 6, 4, 18),
+                                          (13, 1024, 1, 0, 18),
+                                          (65, 2048, 3, 2, 18),
+                                          (13, 128, 4, 3, 24),
+                                          (65, 512, 2, 0, 40)])
 def test_eqfdl_bwd_kernel_matches_plain(cuda_device, c, b, p_n, w, k2):
-    """#2's backward (fdl_bwd, then the EQ's adjoints on eqfdl_bwd)
-    against its plain version on the card, >= 110 dB per output, and
-    the same bits from run to run (the channel sums in a fixed order)."""
+    """#2's backward (fdl_bwd, then the EQ's adjoints on eqfdl_bwd and
+    eqfdl_bwd_sums) against its plain version on the card, >= 110 dB
+    per output (xs's and x's cotangents, elementwise, as the rest), and
+    the same bits from run to run (the channel groups, the tiles, summed
+    in a fixed order) and with TF32 on."""
     gen = torch.Generator().manual_seed(b + k2)
     d = _ring_case(gen, cuda_device, c, b, p_n, k2)
     args = (*d["ring"], *d["h"], *d["heq"], *d["xs"], d["x"], d["sv"],
@@ -1674,7 +1714,8 @@ def test_eqfdl_bwd_kernel_matches_plain(cuda_device, c, b, p_n, w, k2):
     p_out = tfdl.eqfdl_fused_bwd_plain(*args)
     for a, bb, cc in zip(p_out, k_out, again):
         assert torch.equal(bb, cc)
-        assert _snr(a, bb) >= 110.0
+        _assert_matches(a, bb)
+    assert _same_with_tf32(lambda: tfdl.eqfdl_fused_bwd(*args), k_out)
 
 
 @pytest.mark.parametrize("t,hold", [(480, 0), (2049, 0), (8192, 0),

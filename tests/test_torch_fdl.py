@@ -4,7 +4,9 @@ blocks against ``eqfdl_fused_pallas`` in interpret mode, and the staged
 plain units (cascade_block_fused, fdl_ring_step, parse_ir) against their
 JAX counterparts.  Bars: y and u >= 95 dB (the packed FFT's contract);
 the rings agree to the same bar after each is unpacked to natural order
-(the CUDA kernel against the plain version: tests/test_torch_cuda.py)."""
+(the CUDA kernel against the plain version: tests/test_torch_cuda.py).
+The backward kernels' bytes bounds (``tools/launch_profile.py``) count
+each input and output of the function once."""
 
 import numpy as np
 import jax.numpy as jnp
@@ -23,6 +25,7 @@ from lsp_dsp_units_tpu_torch.ops import fft_packed as tfft
 from lsp_dsp_units_tpu_torch.ops import fftconv as tfc
 from lsp_dsp_units_tpu_torch.ops.fdl_fused import (eqfdl_fused,
                                                    eqfdl_fused_plain)
+from lsp_dsp_units_tpu_torch.tools.launch_profile import launch_bytes
 
 
 def _snr(ref, out):
@@ -163,3 +166,30 @@ def test_fdl_ring_step_natural_matches_jax():
         assert int(jst.pos) == tst.pos
         assert _snr(jy, ty) >= 110.0, k
     assert _snr(jst.spec_re, tst.spec_re) >= 110.0
+
+
+# the EQ adjoint's arguments at C channels, M = B packed positions and
+# 2K = k2: inputs, then outputs
+def _eq_adjoint_shapes(c, b, k2):
+    ins = [(c, b)] * 6 + [(b,)] * 2 + [(c, k2), (k2, b), (k2, k2), (k2, b),
+                                       (c, k2)]
+    outs = [(c, b)] * 3 + [(b,)] * 2 + [(k2, b), (k2, k2), (k2, b), (c, k2)]
+    return ins + outs
+
+
+@pytest.mark.parametrize("c,b,p_n,k2", [(64, 8192, 6, 18), (13, 128, 1, 4),
+                                        (65, 2048, 3, 40)])
+def test_launch_bytes_count_each_input_and_output_once(c, b, p_n, k2):
+    """The backward launches' bytes bounds: the EQ adjoint's two launches
+    together move its 13 inputs and 9 outputs once (not the scratch
+    between them), fdl_bwd its 7 inputs and 7 outputs; another build's
+    launch has no count."""
+    def nbytes(shapes):
+        return 4 * sum(int(np.prod(s)) for s in shapes)
+    assert (launch_bytes(f"eqfdl_bwd<{max(k2, 18)}>", c, b, p_n, k2)
+            + launch_bytes("eqfdl_bwd_sums", c, b, p_n, k2)
+            == nbytes(_eq_adjoint_shapes(c, b, k2)))
+    ring, s, h = (p_n, c, b), (c, b), (p_n, b)
+    assert launch_bytes("fdl_bwd", c, b, p_n, k2) == nbytes(
+        [ring] * 4 + [s] * 2 + [h] * 2 + [ring] * 2 + [h] * 2 + [s] * 2)
+    assert launch_bytes("eqfdl_bwd_mats", c, b, p_n, k2) is None
