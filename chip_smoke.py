@@ -269,7 +269,10 @@ Phases (any failure exits non-zero; nothing is caught):
             frame; peak_envelope_bwd against its plain loop, bit for bit,
             in step's configuration at [64, 16384] (the plain loop on the
             card, timed once) and with a hold of 24 from a random state,
-            threshold on and off, at [64, 4096] (the plain loop's time);
+            threshold on and off, at [64, 4096] (the plain loop's time),
+            its ms and cycles a step at [64, 16384] in both
+            configurations beside the one serial pass's bound (3
+            dependent operations, 12 cycles a step) and its bytes bound;
             biquad_cascade_bwd at [64, 16384], K = 9 (the chain's 8 bands)
             against its plain backward (the same adjoint on the plain
             scan), >= 120 dB, its scan launches a call; #1's four
@@ -281,8 +284,8 @@ Phases (any failure exits non-zero; nothing is caught):
             block's x and the IR spectra, the EQ spectrum, g_mat, m_mat
             and w_mat (new leaves that require grad, packed in the
             graph), the loss over the channels whose envelope branches
-            (from kernel #3's level and envelope as chain_dyn_bwd
-            replays them) agree with the CPU run's (the others printed).
+            (from the level and envelope kernel #3 saves for
+            chain_dyn_bwd) agree with the CPU run's (the others printed).
             The launch counters of eqfdl_fused_bwd and chain_dyn_bwd,
             zeroed just before and read just after, each >= 8.  Card
             against the port's CPU run: >= 100 dB each; again with TF32
@@ -294,11 +297,17 @@ Phases (any failure exits non-zero; nothing is caught):
             output, identical from run to run, each launch of one call
             of each (torch.profiler: name, ms, bytes bound; the EQ
             adjoint's eqfdl_bwd and eqfdl_bwd_sums and fdl_bwd must be
-            among them); chain_dyn_bwd's replayed y identical to kernel #3's,
-            its replayed envelope identical to the plain envelope on its
-            level, its envelope adjoint identical to
-            peak_envelope_bwd_plain on the replayed values, and the whole
-            >= 120 dB from chain_dyn_bwd_plain.  Each timed, with its
+            among them); chain_dyn_bwd from the level and envelope that
+            kernel #3's saving form wrote: its y identical to kernel
+            #3's, the saved envelope identical to the plain envelope on
+            its level, its envelope adjoint identical to
+            peak_envelope_bwd_plain on the saved values, and the whole
+            >= 120 dB from chain_dyn_bwd_plain; its launches of a call
+            (torch.profiler, printed as whole where it shows one
+            chain_dyn_bwd and one chain_dyn_sums; a call counts one
+            launch), its ms and cycles a sample beside the one
+            serial pass's bound (12 cycles a sample), and the forward's
+            ms with and without saving.  Each timed, with its
             bound; step_ring's ms a block forward and forward + backward
             (CUDA events behind the spin kernel) and torch.profiler's
             kernels of one forward + backward.
@@ -528,6 +537,13 @@ def chain_ms(t: int) -> float:
     return t * 4 / SM_HZ * 1e3
 
 
+# dependent operations a step of the envelope backwards' one serial pass,
+# the cotangent in reverse time, once the peak's cotangent is 0 (from the
+# first step that sets the peak on; its + 0 is then taken into g off the
+# chain, csrc/env_bwd.cuh): lam + g, * tau, lv - gx
+REV_CHAIN_OPS = 3
+
+
 # the nine TPU kernels of the JAX package and their ports: result key,
 # name, CUDA source, the JAX function that reaches pl.pallas_call (under
 # lsp_dsp_units_tpu/)
@@ -597,10 +613,13 @@ EXTRA_KEYS = {
     "depop": ("chain_ms", "chain_ops", "cycles_per_step", "sm_clock_hz",
               "launches_per_call", "modes"),
     "rms_bwd": ("db", "identical_share"),
-    "peak_bwd": ("chain_ms", "cycles_per_step"),
+    "peak_bwd": ("chain_ms", "cycles_per_step", "hold24_ms",
+                 "hold24_cycles_per_step"),
     "eqfdl_bwd": ("db", "fft_launches_per_call", "launch_profile"),
     "fdl_bwd": ("db", "card_vs_cpu_db", "launch_profile"),
-    "dyn_bwd": ("db", "envelope_identical", "chain_ms", "cycles_per_sample"),
+    "dyn_bwd": ("db", "envelope_identical", "chain_ms", "cycles_per_sample",
+                "fwd_ms", "fwd_save_ms", "launch_profile",
+                "profile_whole"),
     "peak": ("chain_ms", "cycles_per_step", "hold24_ms",
              "hold24_cycles_per_step", "sass_free_cycles_per_step",
              "sass_ref_cycles_per_step", "sm_clock_hz"),
@@ -4157,15 +4176,24 @@ def grad_phase(chain, params, dev, res):
         if name == "step":
             peak_args, peak_plain_ms = args, p_ms
     ms = time_ms(lambda: eu.peak_envelope_bwd(*peak_args), 20)
+    # a hold of 24 from the random state at step's shape: the kernel alone
+    _, env24 = eu.peak_envelope(sth, level, cp.tau_attack, cp.tau_release,
+                                24, cp.release_thresh)
+    args24 = (level, env24, *sth, *peak_args[5:8], cp.tau_attack,
+              cp.tau_release, 24, cp.release_thresh)
+    ms24 = time_ms(lambda: eu.peak_envelope_bwd(*args24), 20)
     res["peak_bwd"] = dict(
         max_abs_err=err, ms=ms, plain_ms=peak_plain_ms, library_ms=None,
-        chain_ms=chain_ms(2 * t), cycles_per_step=ms * 1e-3 * sm_hz / (2 * t),
+        chain_ms=chain_ms(REV_CHAIN_OPS * t),
+        cycles_per_step=ms * 1e-3 * sm_hz / t, hold24_ms=ms24,
+        hold24_cycles_per_step=ms24 * 1e-3 * sm_hz / t,
         **bound(F32 * (4 * C * t + 8 * C), 8 * C * t))
     r = res["peak_bwd"]
     print(f"peak_envelope_bwd [{C}, {t}] (step's configuration): "
-          f"{ms:.4f} ms ({r['cycles_per_step']:.1f} cycles a step of its "
-          f"two passes), plain {peak_plain_ms:.1f} ms (one call, "
-          f"host-paced), bound {r['bound_ms']:.4f} ({r['bound_by']}), chain "
+          f"{ms:.4f} ms ({r['cycles_per_step']:.1f} cycles a step), with a "
+          f"hold of 24 {ms24:.4f} ms ({r['hold24_cycles_per_step']:.1f}), "
+          f"plain {peak_plain_ms:.1f} ms (one call, host-paced), bound "
+          f"{r['bound_ms']:.4f} ({r['bound_by']}), the reverse pass's chain "
           f"{r['chain_ms']:.4f}; identical to plain in step's case and with "
           f"a hold of 24 at [{C}, {ENV_BWD_T}], threshold on and off")
 
@@ -4516,9 +4544,10 @@ def grad_ring_phase(chain, params, dev, res):
         **bound(6 * p_n * plane + 4 * p_n * B * F32 + 3 * plane,
                 C * (2 * fft_flops(N) + 16 * p_n * B)))
 
-    # chain_dyn_bwd on the block's y and state: the replay against kernel
-    # #3, the envelope's adjoint bit for bit against the plain one on the
-    # replayed values, the whole against the plain backward
+    # chain_dyn_bwd on the block's y and state, from the level and
+    # envelope of kernel #3's saving form: y against kernel #3, the
+    # envelope's adjoint bit for bit against the plain one on the saved
+    # values, the whole against the plain backward
     n_sc = chain.sidechain.reactivity
     dargs = (n_sc, chain.sidechain.gain, cp.tau_attack, cp.tau_release,
              cp.release_thresh, cp.hold, cp.knees)
@@ -4528,13 +4557,12 @@ def grad_ring_phase(chain, params, dev, res):
                                   replay=True)
     level_k, env_k, genv_k, glev_k, y_k = k_out[6:]
     _, _, y_fwd = chain_dyn(st.sc.window, st.env, y_lin, *dargs)
-    check(torch.equal(y_k, y_fwd), "chain_dyn_bwd's replayed y is not "
-          "kernel #3's")
+    check(torch.equal(y_k, y_fwd), "chain_dyn_bwd's y is not kernel #3's")
     env_ms, (_, _, _, env_p) = time_once_ms(lambda: eu._envelope_plain(
         level_k, *st.env, cp.tau_attack, cp.tau_release, cp.hold,
         cp.release_thresh))
-    check(torch.equal(env_p, env_k), "chain_dyn_bwd's replayed envelope "
-          "differs from the plain envelope on its level")
+    check(torch.equal(env_p, env_k), "kernel #3's saved envelope differs "
+          "from the plain envelope on its level")
     pe = eu.peak_envelope_bwd_plain(level_k, env_k, *st.env, genv_k, dcot[1],
                                     dcot[2], cp.tau_attack, cp.tau_release,
                                     cp.hold, cp.release_thresh)
@@ -4542,7 +4570,7 @@ def grad_ring_phase(chain, params, dev, res):
                 and torch.equal(pe[2], k_out[2])
                 and torch.equal(pe[3], k_out[4]))
     check(env_same, "chain_dyn_bwd's envelope adjoint differs from "
-          "peak_envelope_bwd_plain on the replayed values")
+          "peak_envelope_bwd_plain on the saved values")
     # on the same saved inputs: the plain backward fed the level and
     # envelope the forward kernel computed (its own float32 prefix sums
     # round the level otherwise, which the taus' sums over x - e feel)
@@ -4555,16 +4583,47 @@ def grad_ring_phase(chain, params, dev, res):
     check(min(dyn_dbs.values()) >= DYN_BWD_DB,
           f"chain_dyn_bwd {dyn_dbs} < {DYN_BWD_DB}")
     sm_hz = res.get("peak", {}).get("sm_clock_hz", SM_HZ)
-    ms = time_ms(lambda: env_ops.chain_dyn_bwd(st.sc.window, st.env, y_lin,
-                                               *dcot, *dargs), 20)
+    saved = (level_k, env_k)
+
+    def dyn_bwd():
+        return env_ops.chain_dyn_bwd(st.sc.window, st.env, y_lin, *dcot,
+                                     *dargs, saved=saved)
+    check(all(torch.equal(a, b) for a, b in zip(dyn_bwd(), dyn_bwd())),
+          "chain_dyn_bwd differs from run to run")
+    ms = time_ms(dyn_bwd, 20)
+    fwd_args = (st.sc.window, st.env, y_lin, *dargs)
+    dyn_fwd_ms = time_ms(lambda: env_ops._chain_dyn(*fwd_args), 20)
+    dyn_save_ms = time_ms(lambda: env_ops._chain_dyn(*fwd_args, save=True),
+                          20)
+    # x, the saved level and envelope, g_y in, g_x out; the window's and
+    # the state's cotangents; the knee partials (float64) out
+    knee_b = 8 * env_ops.N_KNEE * C
+    dyn_b = F32 * (5 * C * B + 2 * C * n_sc + 8 * C) + knee_b
+    dyn_bytes = {"chain_dyn_bwd<": dyn_b,
+                 "chain_dyn_sums": F32 * (2 * C + 2 + env_ops.N_KNEE)
+                 + knee_b}
+    profiles["dyn_bwd"] = launch_profile(
+        dyn_bwd, C, B, p_n, k2, bytes_of=lambda name: dyn_bytes.get(
+            name if name in dyn_bytes else name.split("<")[0] + "<"))
+    before = env_ops.chain_dyn_bwd.launches
+    dyn_bwd()
+    check(env_ops.chain_dyn_bwd.launches - before == 1,
+          "grad_ring: a chain_dyn_bwd call from the saved level and "
+          "envelope did not count one launch")
+    dyn_whole = sorted((x["name"].split("<")[0], x["launches"])
+                       for x in profiles["dyn_bwd"]) == [
+        ("chain_dyn_bwd", 1), ("chain_dyn_sums", 1)]
     res["dyn_bwd"] = dict(
         db=min(dyn_dbs.values()), dbs=dyn_dbs, own_level_dbs=own_dbs,
         envelope_identical=env_same,
         max_abs_err=max(max_abs(a, b) for a, b in zip(d_out, k_out[:6])),
         ms=ms, plain_ms=d_ms, library_ms=None,
-        launches=launched["chain_dyn_bwd"], chain_ms=chain_ms(2 * B),
-        cycles_per_sample=ms * 1e-3 * sm_hz / B,
-        **bound(F32 * (3 * C * B + 2 * C * n_sc + 4 * C), 60 * C * B))
+        launches=launched["chain_dyn_bwd"],
+        chain_ms=chain_ms(REV_CHAIN_OPS * B),
+        cycles_per_sample=ms * 1e-3 * sm_hz / B, fwd_ms=dyn_fwd_ms,
+        fwd_save_ms=dyn_save_ms, launch_profile=profiles["dyn_bwd"],
+        profile_whole=dyn_whole,
+        **bound(dyn_b, 60 * C * B))
 
     # step_ring per block: forward alone, forward + backward
     xg = [torch.from_numpy(x).to(dev) for x in xs]
@@ -4609,8 +4668,12 @@ def grad_ring_phase(chain, params, dev, res):
                    else f" ({x['bound_ms']:.4f})")
                 for x in profiles[key])))
     print(f"chain_dyn_bwd [{C}, {B}]: {res['dyn_bwd']['cycles_per_sample']:.1f}"
-          f" cycles a sample, chain bound {res['dyn_bwd']['chain_ms']:.4f} "
-          f"ms; replayed y identical to kernel #3's, envelope identical to "
+          f" cycles a sample, the reverse pass's chain bound "
+          f"{res['dyn_bwd']['chain_ms']:.4f} ms; kernel #3 {dyn_fwd_ms:.4f} "
+          f"ms, saving the level and envelope {dyn_save_ms:.4f}; its "
+          f"profile {'whole' if dyn_whole else 'NOT whole'} (one launch "
+          f"of each kernel a call); y identical to "
+          f"kernel #3's, the saved envelope identical to "
           f"the plain one on its level ({env_ms:.0f} ms), its adjoint "
           f"identical to peak_envelope_bwd_plain; dB {dyn_dbs} (the plain "
           f"backward on its own plain level: {own_dbs}); eqfdl_bwd "

@@ -39,12 +39,15 @@
 // Against the plain version's float32 two-level prefix differences it is
 // a rounding difference only (see ops/env.py).
 //
-// chain_dyn_bwd, below the inference kernel and sharing its device
-// functions (it adds no branch to chain_dyn_kernel), is the backward.
+// Under autograd chain_dyn_save_kernel runs the same body and also writes
+// the level and the envelope (chain_dyn_kernel's instantiation is
+// unchanged); chain_dyn_bwd, below, is the backward, from those.
 
 #include <cuda_runtime.h>
 
 #include <cstdint>
+
+#include "env_bwd.cuh"
 
 // Passed by value from ops/env.py (ctypes structures of the same layout).
 struct LspKnee {
@@ -182,11 +185,12 @@ __device__ __forceinline__ float free_step(float x, float& e,
 // One barrier per chunk: iteration k scans chunk k (its squares stored in
 // iteration k-1), stores chunk k+1's squares from x loaded at the start
 // of the iteration, and syncs once before combining the warp totals.
+template <bool kSave>
 __device__ __forceinline__ void produce(
     const float* __restrict__ xr, const float* __restrict__ wr,
     float* __restrict__ wo, float* lev, float* sq, uint64_t* full,
     double (*s_tot)[kProdWarps], double* s_win, int t_n, int n_win,
-    const LspDynParams& p, int q) {
+    const LspDynParams& p, int q, float* __restrict__ lev_save) {
   const int lane = q & 31;
   const int pw = q >> 5;
   const int n_chunks = (t_n + kChunk - 1) / kChunk;
@@ -259,8 +263,10 @@ __device__ __forceinline__ void produce(
 #pragma unroll
     for (int j = 0; j < kItems; ++j) {
       const int t = t0 + q * kItems + j;
-      if (t < t0 + len)
+      if (t < t0 + len) {
         lev[t] = sqrtf(fmaxf((float)(base + pre[j]) * p.inv_n, 0.0f));
+        if (kSave) lev_save[t] = lev[t];
+      }
     }
     carry += tot;
     __syncwarp();
@@ -319,12 +325,13 @@ __device__ __forceinline__ void run_chain(float* lev, uint64_t* full,
 }
 
 // Consumers: y = x * gain(envelope) for each chunk once its envelopes are
-// in.
+// in (and, kSave, the envelope to env_save).
+template <bool kSave>
 __device__ __forceinline__ void consume(const float* __restrict__ xr,
                                         float* __restrict__ yr,
                                         const float* lev, uint64_t* done,
                                         int t_n, const LspDynParams& p,
-                                        int q) {
+                                        int q, float* __restrict__ env_save) {
   const int n_chunks = (t_n + kChunk - 1) / kChunk;
   for (int k = 0; k < n_chunks; ++k) {
     const int t0 = k * kChunk;
@@ -332,6 +339,7 @@ __device__ __forceinline__ void consume(const float* __restrict__ xr,
     mbar_wait<kConsumerSleepNs>(&done[k]);
     for (int i = q; i < len; i += kConsumers) {
       const int t = t0 + i;
+      if (kSave) env_save[t] = lev[t];
       const float ax = fabsf(lev[t]);
       const float lx = logf(fmaxf(ax, 1e-36f));
       yr[t] = xr[t] * (knee_gain(p.k0, ax, lx) * knee_gain(p.k1, ax, lx));
@@ -339,14 +347,18 @@ __device__ __forceinline__ void consume(const float* __restrict__ xr,
   }
 }
 
-__global__ void __launch_bounds__(kThreads)
-chain_dyn_kernel(const float* __restrict__ x, const float* __restrict__ win,
-                 const float* __restrict__ env_in,
-                 const float* __restrict__ peak_in,
-                 const int* __restrict__ hold_in, float* __restrict__ y,
-                 float* __restrict__ win_out, float* __restrict__ env_out,
-                 float* __restrict__ peak_out, int* __restrict__ hold_out,
-                 int t_n, int n_win, LspDynParams p) {
+// The forward's body; kSave: the level and the envelope also go to
+// level_save and env_save (producers and consumers write them, off the
+// chain), for the backward under autograd.
+template <bool kSave>
+__device__ __forceinline__ void chain_dyn_body(
+    const float* __restrict__ x, const float* __restrict__ win,
+    const float* __restrict__ env_in, const float* __restrict__ peak_in,
+    const int* __restrict__ hold_in, float* __restrict__ y,
+    float* __restrict__ win_out, float* __restrict__ env_out,
+    float* __restrict__ peak_out, int* __restrict__ hold_out,
+    float* __restrict__ level_save, float* __restrict__ env_save, int t_n,
+    int n_win, const LspDynParams& p) {
   extern __shared__ __align__(16) float smem[];
   float* lev = smem;                   // [t_n]: level -> envelope
   float* sq = smem + t_n;              // [t_n]: squared detector samples
@@ -377,56 +389,89 @@ chain_dyn_kernel(const float* __restrict__ x, const float* __restrict__ win,
   } else if (warp % 4 == 0) {
     return;
   } else if (role < kProducers) {
-    produce(xr, win + (size_t)c * n_win, win_out + (size_t)c * n_win, lev,
-            sq, full, s_tot, s_win, t_n, n_win, p, role);
+    produce<kSave>(xr, win + (size_t)c * n_win, win_out + (size_t)c * n_win,
+                   lev, sq, full, s_tot, s_win, t_n, n_win, p, role,
+                   kSave ? level_save + (size_t)c * t_n : nullptr);
   } else {
-    consume(xr, y + (size_t)c * t_n, lev, done, t_n, p, role - kProducers);
+    consume<kSave>(xr, y + (size_t)c * t_n, lev, done, t_n, p,
+                   role - kProducers,
+                   kSave ? env_save + (size_t)c * t_n : nullptr);
   }
 }
 
+__global__ void __launch_bounds__(kThreads)
+chain_dyn_kernel(const float* __restrict__ x, const float* __restrict__ win,
+                 const float* __restrict__ env_in,
+                 const float* __restrict__ peak_in,
+                 const int* __restrict__ hold_in, float* __restrict__ y,
+                 float* __restrict__ win_out, float* __restrict__ env_out,
+                 float* __restrict__ peak_out, int* __restrict__ hold_out,
+                 int t_n, int n_win, LspDynParams p) {
+  chain_dyn_body<false>(x, win, env_in, peak_in, hold_in, y, win_out,
+                        env_out, peak_out, hold_out, nullptr, nullptr, t_n,
+                        n_win, p);
+}
+
+// kernel #3 under autograd: the same, saving the level and the envelope
+__global__ void __launch_bounds__(kThreads)
+chain_dyn_save_kernel(const float* __restrict__ x,
+                      const float* __restrict__ win,
+                      const float* __restrict__ env_in,
+                      const float* __restrict__ peak_in,
+                      const int* __restrict__ hold_in, float* __restrict__ y,
+                      float* __restrict__ win_out,
+                      float* __restrict__ env_out,
+                      float* __restrict__ peak_out, int* __restrict__ hold_out,
+                      float* __restrict__ level_save,
+                      float* __restrict__ env_save, int t_n, int n_win,
+                      LspDynParams p) {
+  chain_dyn_body<true>(x, win, env_in, peak_in, hold_in, y, win_out, env_out,
+                       peak_out, hold_out, level_save, env_save, t_n, n_win,
+                       p);
+}
+
 // ---------------------------------------------------------------------------
-// Backward: chain_dyn_bwd, one block a channel.  The forward kernel keeps
-// neither the level nor the envelope, and both are needed (each step's
-// branch, x - e, the knees' arguments), so the block first replays them
-// as chain_dyn_kernel computes them: warps 1-4 run produce() unchanged
-// (the float64 rolling sum, chunk by chunk), and thread 0 runs env_step
-// over each chunk as its levels arrive, writing the envelope and the
-// step's branch code (the codes of ops/env_units.py: bits 0-1 the tau,
-// 0 none / 1 release / 2 attack, bit 2 set where the step set the peak).
-// env_step is the reference step; where the forward ran free_step the
-// two agree bit for bit for finite levels (see free_step).  Then:
+// Backward: chain_dyn_bwd, one block a channel, from the level and the
+// envelope that chain_dyn_save_kernel saved in the forward (the same
+// values kernel #3 computes, so nothing is replayed here).
+//   0. the level and the envelope staged in shared memory (cp.async);
+//      the envelope's branch codes (csrc/env_bwd.cuh: by the block where
+//      the hold time is 0, thread 0 alone before the envelope is free and
+//      after a break; by thread 0 in batches otherwise), beside
 //   1. all threads: the knee gain and its adjoint per sample, y's
 //      cotangent into the gain (g_y x) and x (g_y gain), the envelope's
 //      cotangent, and the knee fields' partial sums (float64, reduced in
-//      a fixed order);
+//      a fixed order: each thread's samples in time order, then the
+//      warps' in warp order);
 //   2. thread 0: the envelope's adjoint in reverse time, each product and
 //      sum rounded alone in peak_envelope_bwd_kernel's order (so against
-//      ops/env_units.peak_envelope_bwd_plain on the replayed level,
-//      envelope and cotangent it is bit for bit), giving the level's
-//      cotangent, the carried envelope's and peak's, and the taus'
-//      partials;
-//   3. all threads: the RMS's adjoint, a[t] = ((g (0.5 / level)) mask) / N,
-//      and the frame's cotangent gf[j] = a[j - N] + ... + a[j - 1] as a
-//      float64 scan of a[j - 1] - a[j - 1 - N] in tiles of the block,
-//      plus window''s cotangent for j >= T; the window takes gf[j < N],
-//      x takes 2 (gf v) g sign(x) beside its part from 1.
+//      ops/env_units.peak_envelope_bwd_plain on the saved level, envelope
+//      and cotangent it is bit for bit), giving each step's lv and the
+//      carried envelope's and peak's cotangents; thread 32 behind it the
+//      taus' partials;
+//   3. all threads: the level's cotangent kind ? lv tau : 0, the RMS's
+//      adjoint a[t] = ((g (0.5 / level)) mask) / N, and the frame's
+//      cotangent gf[j] = a[j - N] + ... + a[j - 1] as a float64 scan of
+//      a[j - 1] - a[j - 1 - N] in tiles of the block, plus window''s
+//      cotangent for j >= T; the window takes gf[j < N], x takes
+//      2 (gf v) g sign(x) beside its part from 1.
 // chain_dyn_sums then adds the channels' partials in channel order (the
 // taus in float32 as tau_sums_kernel does, the knee fields in float64).
-// What bounds it: the two serial chains of thread 0 (the replayed
-// envelope and the reverse pass), T dependent steps each, as in the
-// forward; both take kBatch steps at a time from registers (16-byte
-// shared-memory loads and stores), as run_chain does.  The rest is a
-// few passes over shared memory.  Shared memory: level, squares (then
-// the cotangents), envelope and codes, 13 T bytes (T rounded up to 4).
+// What bounds it: the reverse pass of thread 0, T steps of 3-4 dependent
+// operations; the parallel phases (1, 3) come before and after it.  The
+// block's 160 threads fix the order in which the knee fields' float64
+// sums and the RMS's scan add (another count rounds them otherwise).
+// Shared memory: level, envelope, cotangent (then lv) and codes, 13 T
+// bytes (T rounded up to 4).
 // ---------------------------------------------------------------------------
 
-constexpr int kBwdWarps = 1 + kProdWarps;       // the chain thread's + 4
+constexpr int kBwdWarps = 1 + kProdWarps;       // 5: the sums' order
 constexpr int kBwdThreads = 32 * kBwdWarps;
 constexpr int kBwdItems = 4;                    // scan items per thread
 constexpr int kKneeFields = 8;                  // LspKnee's
 constexpr int kMaxBwdT = 16384;                 // 13 T bytes of smem
-constexpr uint8_t kHoldCode = 0, kRiseCode = 2, kFallTrCode = 5,
-                  kSetTaCode = 6;
+constexpr int kBwdBrkWords = kMaxBwdT / envbwd::kTile / 32;
+constexpr int kKneeAhead = 4;                   // samples loaded ahead
 
 // One knee's gain at |e| and its adjoint: with cg the cotangent of the
 // gain, adds the log's cotangent to *glx and each field's to f[8] (the
@@ -452,169 +497,94 @@ __device__ __forceinline__ void knee_adjoint(const LspKnee& k, float ax,
   }
 }
 
-// One replayed step: env_step, and the step's branch code.
-__device__ __forceinline__ float replay_step(float xv, EnvRegs& s,
-                                            const LspDynParams& p,
-                                            uint32_t& code) {
-  const float e = s.e;
-  const float peak = s.peak;
-  const bool holding = s.hold > 0;
-  const float en = env_step(xv, s, p);
-  const bool falling = __fsub_rn(xv, e) < 0.0f;
-  const bool peaked = !falling && en >= peak;
-  const uint32_t fall = e > p.rt ? kFallTrCode : kSetTaCode;
-  code = falling ? (holding ? kHoldCode : fall)
-                 : (peaked ? kSetTaCode : kRiseCode);
-  return en;
-}
-
-// One step of the envelope's adjoint in reverse time (lam the
-// envelope's cotangent, lp the peak's), peak_envelope_bwd_kernel's
-// arithmetic: returns the level's cotangent.
-__device__ __forceinline__ float reverse_step(uint32_t code, float g,
-                                             float xv, float ep, float& lam,
-                                             float& lp, float& acc_ta,
-                                             float& acc_tr,
-                                             const LspDynParams& p) {
-  float lv = __fadd_rn(lam, g);
-  const bool sets = (code & 4) != 0;
-  lv = sets ? __fadd_rn(lv, lp) : lv;
-  lp = sets ? 0.0f : lp;
-  const uint32_t kind = code & 3;
-  const float gx = kind ? __fmul_rn(lv, kind == 1 ? p.tr : p.ta) : 0.0f;
-  const float pp = __fmul_rn(lv, __fsub_rn(xv, ep));
-  acc_tr = __fadd_rn(acc_tr, kind == 1 ? pp : 0.0f);
-  acc_ta = __fadd_rn(acc_ta, kind == 2 ? pp : 0.0f);
-  lam = kind ? __fsub_rn(lv, gx) : lv;
-  return gx;
-}
-
-// kBatch floats from shared memory at a 16-byte aligned address
-__device__ __forceinline__ void load_batch(const float* src, float* v) {
-  const float4* s4 = reinterpret_cast<const float4*>(src);
-#pragma unroll
-  for (int j = 0; j < kBatch / 4; ++j) {
-    const float4 a = s4[j];
-    v[4 * j] = a.x;
-    v[4 * j + 1] = a.y;
-    v[4 * j + 2] = a.z;
-    v[4 * j + 3] = a.w;
-  }
-}
-
-__device__ __forceinline__ void store_batch(float* dst, const float* v) {
-  float4* d4 = reinterpret_cast<float4*>(dst);
-#pragma unroll
-  for (int j = 0; j < kBatch / 4; ++j)
-    d4[j] = make_float4(v[4 * j], v[4 * j + 1], v[4 * j + 2], v[4 * j + 3]);
-}
-
+template <bool kFree>
 __global__ void __launch_bounds__(kBwdThreads)
-chain_dyn_bwd(const float* __restrict__ x, const float* __restrict__ win,
-              const float* __restrict__ env_in,
+chain_dyn_bwd(const float* __restrict__ x, const float* __restrict__ env_in,
               const float* __restrict__ peak_in,
-              const int* __restrict__ hold_in, const float* __restrict__ g_y,
+              const int* __restrict__ hold_in,
+              const float* __restrict__ level,
+              const float* __restrict__ envl, const float* __restrict__ g_y,
               const float* __restrict__ g_wout,
               const float* __restrict__ g_e, const float* __restrict__ g_p,
               float* __restrict__ g_x, float* __restrict__ g_win,
               float* __restrict__ ge_out, float* __restrict__ gp_out,
               float* __restrict__ tau_part, double* __restrict__ knee_part,
-              float* __restrict__ level_out, float* __restrict__ env_out,
               float* __restrict__ genv_out, float* __restrict__ glev_out,
               float* __restrict__ y_out, int c_n, int t_n, int n_win,
               LspDynParams p) {
   extern __shared__ __align__(16) float smem[];
   const int t_pad = (t_n + 3) & ~3;       // each array 16-byte aligned
-  float* lev = smem;                      // level, then the RMS adjoint a
-  float* sq = smem + t_pad;               // squares, then the cotangents
-  float* env = smem + 2 * t_pad;          // envelope
-  uint8_t* codes = reinterpret_cast<uint8_t*>(smem + 3 * t_pad);
-  __shared__ __align__(8) uint64_t full[kMaxChunks];
-  __shared__ double s_tot[2][kProdWarps];
-  __shared__ double s_win[kProdWarps];
+  __shared__ uint32_t s_brk[kBwdBrkWords];
   __shared__ double s_red[kBwdWarps][2 * kKneeFields];
   __shared__ double s_scan[kBwdWarps];
+  __shared__ int s_done;
   const int c = blockIdx.x;
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
-  const int n_chunks = (t_n + kChunk - 1) / kChunk;
-  const float* xr = x + (size_t)c * t_n;
-  const float e0 = env_in[c];
-  if (tid == 0) {
-    for (int k = 0; k < n_chunks; ++k) mbar_init(&full[k], kProdWarps);
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-  }
+  const size_t row = (size_t)c * t_n;
+  const float* xr = x + row;
+  envbwd::Seg s{smem, smem + t_pad, smem + 2 * t_pad,
+                reinterpret_cast<uint8_t*>(smem + 3 * t_pad), s_brk, t_n,
+                env_in[c], 0, 0};
+  float* lev = s.x;                       // the level, then the RMS adjoint
+
+  // 0. the level and the envelope
+  if (tid < kBwdBrkWords) s_brk[tid] = 0;
+  if (tid == 0) s_done = t_n;
+  envbwd::stage(s.x, level + row, t_n);
+  envbwd::stage(s.env, envl + row, t_n);
+  envbwd::stage_wait();
   __syncthreads();
 
-  // the replay: level (producers), envelope and codes (thread 0, kBatch
-  // levels at a time in registers, the codes stored four to a word)
-  if (tid == 0) {
-    EnvRegs s{e0, peak_in[c], hold_in[c]};
-    for (int k = 0; k < n_chunks; ++k) {
-      mbar_wait(&full[k]);
-      const int t0 = k * kChunk;
-      const int t1 = min(t_n, t0 + kChunk);
-      const int whole = t0 + (t1 - t0) / kBatch * kBatch;
-      for (int b = t0; b < whole; b += kBatch) {
-        float v[kBatch];
-        uint32_t cw[kBatch / 4];
-        load_batch(lev + b, v);
-#pragma unroll
-        for (int i = 0; i < kBatch; ++i) {
-          uint32_t code;
-          v[i] = replay_step(v[i], s, p, code);
-          cw[i / 4] = (i & 3) ? cw[i / 4] | code << (8 * (i & 3)) : code;
-        }
-        store_batch(env + b, v);
-        uint32_t* c4 = reinterpret_cast<uint32_t*>(codes + b);
-#pragma unroll
-        for (int j = 0; j < kBatch / 4; ++j) c4[j] = cw[j];
-      }
-      for (int t = whole; t < t1; ++t) {
-        uint32_t code;
-        env[t] = replay_step(lev[t], s, p, code);
-        codes[t] = (uint8_t)code;
-      }
-    }
-  } else if (warp >= 1) {
-    // window' goes to g_win's row, overwritten below
-    produce(xr, win + (size_t)c * n_win, g_win + (size_t)c * n_win, lev, sq,
-            full, s_tot, s_win, t_n, n_win, p, tid - 32);
-  }
-  __syncthreads();
-
-  // 1. the gain and the apply
-  const float* gyr = g_y + (size_t)c * t_n;
-  float* gxr = g_x + (size_t)c * t_n;
+  // the codes, beside 1. the gain and the apply (thread 0 takes its share
+  // of 1 after its part of the codes)
+  const float* gyr = g_y + row;
+  float* gxr = g_x + row;
   double f[2 * kKneeFields];
 #pragma unroll
   for (int i = 0; i < 2 * kKneeFields; ++i) f[i] = 0.0;
-  for (int t = tid; t < t_n; t += kBwdThreads) {
-    const float e = env[t];
-    const float ax = fabsf(e);
-    const float lx = logf(fmaxf(ax, 1e-36f));
-    const float g0 = knee_gain(p.k0, ax, lx);
-    const float g1 = knee_gain(p.k1, ax, lx);
-    const float xv = xr[t];
-    const float gy = gyr[t];
-    const float gain = g0 * g1;
-    gxr[t] = gy * gain;
-    const float gg = gy * xv;
-    float glx = 0.0f;
-    knee_adjoint(p.k0, ax, lx, gg * g1, &glx, f);
-    knee_adjoint(p.k1, ax, lx, gg * g0, &glx, f + kKneeFields);
-    const float gax = ax > 1e-36f ? glx / ax : 0.0f;
-    const float ge = e > 0.0f ? gax : (e < 0.0f ? -gax : 0.0f);
-    sq[t] = ge;
-    if (level_out) {
-      const size_t o = (size_t)c * t_n + t;
-      level_out[o] = lev[t];
-      env_out[o] = e;
-      genv_out[o] = ge;
-      y_out[o] = xv * (knee_gain(p.k0, ax, lx) * knee_gain(p.k1, ax, lx));
+  auto gain_adjoint = [&] {
+    for (int t0 = tid; t0 < t_n; t0 += kKneeAhead * kBwdThreads) {
+      float xa[kKneeAhead], ga[kKneeAhead];
+#pragma unroll
+      for (int u = 0; u < kKneeAhead; ++u) {
+        const int t = t0 + u * kBwdThreads;
+        xa[u] = t < t_n ? xr[t] : 0.0f;
+        ga[u] = t < t_n ? gyr[t] : 0.0f;
+      }
+#pragma unroll
+      for (int u = 0; u < kKneeAhead; ++u) {
+        const int t = t0 + u * kBwdThreads;
+        if (t >= t_n) break;
+        const float e = s.env[t];
+        const float ax = fabsf(e);
+        const float lx = logf(fmaxf(ax, 1e-36f));
+        const float g0 = knee_gain(p.k0, ax, lx);
+        const float g1 = knee_gain(p.k1, ax, lx);
+        const float xv = xa[u];
+        const float gy = ga[u];
+        const float gain = g0 * g1;
+        gxr[t] = gy * gain;
+        const float gg = gy * xv;
+        float glx = 0.0f;
+        knee_adjoint(p.k0, ax, lx, gg * g1, &glx, f);
+        knee_adjoint(p.k1, ax, lx, gg * g0, &glx, f + kKneeFields);
+        const float gax = ax > 1e-36f ? glx / ax : 0.0f;
+        const float ge = e > 0.0f ? gax : (e < 0.0f ? -gax : 0.0f);
+        s.lv[t] = ge;
+        if (genv_out) {
+          genv_out[row + t] = ge;
+          y_out[row + t] =
+              xv * (knee_gain(p.k0, ax, lx) * knee_gain(p.k1, ax, lx));
+        }
+      }
     }
-  }
+  };
+  float peak = peak_in[c];
+  int hold = hold_in[c];
+  envbwd::segment_codes<true, kFree>(s, p.rt, p.nh, peak, hold,
+                                     gain_adjoint);
 #pragma unroll
   for (int i = 0; i < 2 * kKneeFields; ++i) {
     double v = f[i];
@@ -628,34 +598,16 @@ chain_dyn_bwd(const float* __restrict__ x, const float* __restrict__ win,
     knee_part[(size_t)tid * c_n + c] = v;
   }
 
-  // 2. the envelope, in reverse time (thread 0): the ragged end first,
-  // then batches of kBatch steps from registers
+  // 2. the envelope, in reverse time (thread 0 lam's chain, thread 32 the
+  // taus' sums behind it)
   if (tid == 0) {
-    float lam = g_e[c], lp = g_p[c], acc_ta = 0.0f, acc_tr = 0.0f;
-    const int whole = t_n / kBatch * kBatch;
-    for (int t = t_n - 1; t >= whole; --t)
-      sq[t] = reverse_step(codes[t], sq[t], lev[t],
-                           t > 0 ? env[t - 1] : e0, lam, lp, acc_ta, acc_tr,
-                           p);
-    for (int b = whole - kBatch; b >= 0; b -= kBatch) {
-      float g[kBatch], xv[kBatch], ev[kBatch];
-      load_batch(sq + b, g);
-      load_batch(lev + b, xv);
-      load_batch(env + b, ev);
-      const float e_before = b > 0 ? env[b - 1] : e0;
-      uint32_t cw[kBatch / 4];
-      const uint32_t* c4 = reinterpret_cast<const uint32_t*>(codes + b);
-#pragma unroll
-      for (int j = 0; j < kBatch / 4; ++j) cw[j] = c4[j];
-#pragma unroll
-      for (int i = kBatch - 1; i >= 0; --i)
-        g[i] = reverse_step((cw[i / 4] >> (8 * (i & 3))) & 0xffu, g[i],
-                            xv[i], i > 0 ? ev[i - 1] : e_before, lam, lp,
-                            acc_ta, acc_tr, p);
-      store_batch(sq + b, g);
-    }
+    float lam = g_e[c], lp = g_p[c];
+    envbwd::reverse_lam(s, p.ta, p.tr, lam, lp, &s_done);
     ge_out[c] = lam;
     gp_out[c] = lp;
+  } else if (tid == 32) {
+    float acc_ta = 0.0f, acc_tr = 0.0f;
+    envbwd::reverse_acc(s, acc_ta, acc_tr, &s_done);
     tau_part[c] = acc_ta;
     tau_part[c_n + c] = acc_tr;
   }
@@ -665,13 +617,14 @@ chain_dyn_bwd(const float* __restrict__ x, const float* __restrict__ win,
   const float n_f = (float)n_win;
   for (int t = tid; t < t_n; t += kBwdThreads) {
     const float l = lev[t];
-    float a = __fmul_rn(sq[t], __fdiv_rn(0.5f, l));
+    const float gl = envbwd::gx_of(s.codes[t], s.lv[t], p.ta, p.tr);
+    float a = __fmul_rn(gl, __fdiv_rn(0.5f, l));
     if (l == 0.0f) a = __fmul_rn(a, 0.5f);
     lev[t] = __fdiv_rn(a, n_f);
-    if (glev_out) glev_out[(size_t)c * t_n + t] = sq[t];
+    if (glev_out) glev_out[row + t] = gl;
   }
   __syncthreads();
-  auto a_at = [&](int s) { return s >= 0 && s < t_n ? (double)lev[s] : 0.0; };
+  auto a_at = [&](int i) { return i >= 0 && i < t_n ? (double)lev[i] : 0.0; };
   const float* gwo = g_wout + (size_t)c * n_win;
   float* gwr = g_win + (size_t)c * n_win;
   double carry = 0.0;                       // gf just before the tile
@@ -679,6 +632,16 @@ chain_dyn_bwd(const float* __restrict__ x, const float* __restrict__ win,
   constexpr int kTile = kBwdThreads * kBwdItems;
   for (int j0 = 0; j0 < l_n; j0 += kTile) {
     const int jb = j0 + tid * kBwdItems;
+    // this thread's x, g_x and window' cotangent, loaded ahead
+    float xp[kBwdItems], gp[kBwdItems], wp[kBwdItems];
+#pragma unroll
+    for (int i = 0; i < kBwdItems; ++i) {
+      const int j = jb + i;
+      const int t = j - n_win;
+      xp[i] = j >= n_win && j < l_n ? xr[t] : 0.0f;
+      gp[i] = j >= n_win && j < l_n ? gxr[t] : 0.0f;
+      wp[i] = j >= t_n && j < l_n ? gwo[j - t_n] : 0.0f;
+    }
     double pre[kBwdItems];
     double run = 0.0;
 #pragma unroll
@@ -705,16 +668,16 @@ chain_dyn_bwd(const float* __restrict__ x, const float* __restrict__ win,
       const int j = jb + i;
       if (j >= l_n) continue;
       double gd = base + pre[i];
-      if (j >= t_n) gd += (double)gwo[j - t_n];
+      if (j >= t_n) gd += (double)wp[i];
       const float gf = (float)gd;
       if (j < n_win) {
         gwr[j] = gf;
       } else {
         const int t = j - n_win;
-        const float xv = xr[t];
+        const float xv = xp[i];
         const float q = __fmul_rn(gf, __fmul_rn(fabsf(xv), p.g));
         const float gx = __fmul_rn(__fadd_rn(q, q), p.g);
-        gxr[t] = __fadd_rn(gxr[t], xv < 0.0f ? -gx : gx);
+        gxr[t] = __fadd_rn(gp[i], xv < 0.0f ? -gx : gx);
       }
     }
     carry += tot;
@@ -724,21 +687,41 @@ chain_dyn_bwd(const float* __restrict__ x, const float* __restrict__ win,
 
 // The channels' partials summed in channel order: the taus (attack,
 // release) in float32, as tau_sums_kernel does, the knee fields in
-// float64.
-__global__ void chain_dyn_sums(const float* __restrict__ tau_part,
-                               const double* __restrict__ knee_part,
-                               float* __restrict__ g_tau,
-                               float* __restrict__ g_knee, int c_n) {
+// float64; kSumRows channels at a time staged in shared memory by the
+// block (loads in parallel, then a thread a sum adds in order).
+constexpr int kSumThreads = 256, kSumRows = 256;
+
+__global__ void __launch_bounds__(kSumThreads)
+chain_dyn_sums(const float* __restrict__ tau_part,
+               const double* __restrict__ knee_part,
+               float* __restrict__ g_tau, float* __restrict__ g_knee,
+               int c_n) {
+  __shared__ float s_t[2][kSumRows];
+  __shared__ double s_k[2 * kKneeFields][kSumRows];
   const int i = threadIdx.x;
-  if (i < 2) {
-    float acc = 0.0f;
-    for (int r = 0; r < c_n; ++r) acc = __fadd_rn(acc, tau_part[i * c_n + r]);
-    g_tau[i] = acc;
-  } else if (i < 2 + 2 * kKneeFields) {
-    double acc = 0.0;
-    for (int r = 0; r < c_n; ++r) acc += knee_part[(size_t)(i - 2) * c_n + r];
-    g_knee[i - 2] = (float)acc;
+  float acc_t = 0.0f;
+  double acc_k = 0.0;
+  for (int r0 = 0; r0 < c_n; r0 += kSumRows) {
+    const int n = min(kSumRows, c_n - r0);
+    for (int j = i; j < n; j += kSumThreads) {
+      s_t[0][j] = tau_part[r0 + j];
+      s_t[1][j] = tau_part[c_n + r0 + j];
+#pragma unroll
+      for (int f = 0; f < 2 * kKneeFields; ++f)
+        s_k[f][j] = knee_part[(size_t)f * c_n + r0 + j];
+    }
+    __syncthreads();
+    if (i < 2) {
+      for (int j = 0; j < n; ++j) acc_t = __fadd_rn(acc_t, s_t[i][j]);
+    } else if (i < 2 + 2 * kKneeFields) {
+      for (int j = 0; j < n; ++j) acc_k += s_k[i - 2][j];
+    }
+    __syncthreads();
   }
+  if (i < 2)
+    g_tau[i] = acc_t;
+  else if (i < 2 + 2 * kKneeFields)
+    g_knee[i - 2] = (float)acc_k;
 }
 
 }  // namespace
@@ -762,28 +745,49 @@ int lsp_chain_dyn(const float* x, const float* win, const float* env_in,
   return (int)cudaGetLastError();
 }
 
-int lsp_chain_dyn_bwd(const float* x, const float* win, const float* env_in,
+int lsp_chain_dyn_save(const float* x, const float* win,
+                       const float* env_in, const float* peak_in,
+                       const int* hold_in, float* y, float* win_out,
+                       float* env_out, float* peak_out, int* hold_out,
+                       float* level_save, float* env_save, int c_n, int t_n,
+                       int n_win, LspDynParams p, void* stream) {
+  if (t_n < n_win || n_win < 1 || t_n > kMaxChunks * kChunk)
+    return (int)cudaErrorInvalidValue;
+  const int smem = (int)((size_t)2 * t_n * sizeof(float));
+  cudaError_t err = cudaFuncSetAttribute(
+      chain_dyn_save_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
+  if (err != cudaSuccess) return (int)err;
+  chain_dyn_save_kernel<<<c_n, kThreads, smem, (cudaStream_t)stream>>>(
+      x, win, env_in, peak_in, hold_in, y, win_out, env_out, peak_out,
+      hold_out, level_save, env_save, t_n, n_win, p);
+  return (int)cudaGetLastError();
+}
+
+int lsp_chain_dyn_bwd(const float* x, const float* env_in,
                       const float* peak_in, const int* hold_in,
-                      const float* g_y, const float* g_wout, const float* g_e,
-                      const float* g_p, float* g_x, float* g_win,
-                      float* ge_out, float* gp_out, float* tau_part,
-                      double* knee_part, float* g_tau, float* g_knee,
-                      float* level_out, float* env_out, float* genv_out,
-                      float* glev_out, float* y_out, int c_n, int t_n,
-                      int n_win, LspDynParams p, void* stream) {
+                      const float* level, const float* env, const float* g_y,
+                      const float* g_wout, const float* g_e, const float* g_p,
+                      float* g_x, float* g_win, float* ge_out, float* gp_out,
+                      float* tau_part, double* knee_part, float* g_tau,
+                      float* g_knee, float* genv_out, float* glev_out,
+                      float* y_out, int c_n, int t_n, int n_win,
+                      LspDynParams p, void* stream) {
   if (t_n < n_win || n_win < 1 || t_n > kMaxBwdT || c_n < 1)
     return (int)cudaErrorInvalidValue;
   const int smem = 13 * ((t_n + 3) & ~3);
+  // a hold time of 0: the codes by the whole block (a route; both exact)
+  auto kernel = p.nh == 0 ? chain_dyn_bwd<true> : chain_dyn_bwd<false>;
   cudaError_t err = cudaFuncSetAttribute(
-      chain_dyn_bwd, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
-  chain_dyn_bwd<<<c_n, kBwdThreads, smem, (cudaStream_t)stream>>>(
-      x, win, env_in, peak_in, hold_in, g_y, g_wout, g_e, g_p, g_x, g_win,
-      ge_out, gp_out, tau_part, knee_part, level_out, env_out, genv_out,
-      glev_out, y_out, c_n, t_n, n_win, p);
+  kernel<<<c_n, kBwdThreads, smem, (cudaStream_t)stream>>>(
+      x, env_in, peak_in, hold_in, level, env, g_y, g_wout, g_e, g_p, g_x,
+      g_win, ge_out, gp_out, tau_part, knee_part, genv_out, glev_out, y_out,
+      c_n, t_n, n_win, p);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  chain_dyn_sums<<<1, 64, 0, (cudaStream_t)stream>>>(tau_part, knee_part,
-                                                     g_tau, g_knee, c_n);
+  chain_dyn_sums<<<1, kSumThreads, 0, (cudaStream_t)stream>>>(
+      tau_part, knee_part, g_tau, g_knee, c_n);
   return (int)cudaGetLastError();
 }
 

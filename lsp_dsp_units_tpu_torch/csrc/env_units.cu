@@ -11,7 +11,9 @@
 // jax.grad; the Pallas kernels have no backward of their own):
 //
 //   lsp_sliding_rms_bwd    the adjoint of the sliding RMS
-//   lsp_peak_envelope_bwd  the adjoint of the peak-hold envelope
+//   lsp_peak_envelope_bwd  the adjoint of the peak-hold envelope (its
+//                          device code shared with csrc/env.cu's
+//                          backward, in csrc/env_bwd.cuh)
 //
 // The envelope update ``e + tau * d`` is one fused multiply-add,
 // __fmaf_rn: a single rounding, as XLA contracts it in the JAX package.
@@ -23,6 +25,8 @@
 #include <cuda_runtime.h>
 
 #include <cstdint>
+
+#include "env_bwd.cuh"
 
 namespace {
 
@@ -623,31 +627,35 @@ sliding_rms_bwd_kernel(const float* __restrict__ x,
 // a rise that reaches the peak) adds lp to lam and clears it; a step that
 // updates e' = e + tau (x - e) gives x lam tau, tau lam (x - e), and
 // leaves lam - lam tau; a held step passes lam on.  The hold, the peak
-// and the release threshold only steer the branches.
+// and the release threshold only steer the branches.  The inference
+// kernel above is untouched.
 //
-// The backward needs each step's branch.  The step's new envelope is the
-// forward's output, so the branches replay from x and the saved envelope
-// without the envelope's arithmetic: pass 1 runs the peak and hold
-// recurrences forward and writes a code a sample (bits 0-1: the tau, 0
-// none, 1 release, 2 attack; bit 2: the step set the peak; the codes of
-// ops/env_units.py), pass 2 runs the adjoint backward over the codes.
-// The inference kernel above is untouched.
-//
-// What bounds it: the two serial chains (hold and peak forward; the
-// cotangent backward), each one thread a row, as the forward's.  The
-// design is the simple one: one block a channel, chunks of kBwdChunk
-// samples staged through shared memory by the block (coalesced), thread
-// 0 running the chain over each chunk in turn.  Each product and sum is
-// rounded alone, and the per-row tau partials are summed row after row by
-// a second kernel, as the plain version sums them, so the two agree bit
-// for bit.
+// What bounds it: the one serial pass that must stay serial, the
+// cotangent backward, 3-4 dependent operations a step (12-16 cycles on
+// this card); where the envelope can hold, also the code pass forward.
+// The design (csrc/env_bwd.cuh): one block a row; the row staged in
+// shared memory once (x, the envelope, its cotangent: 13 bytes a sample,
+// in segments of kSegT samples for longer rows); the branch codes derived
+// by the whole block where the hold time is 0 (the serial pass only from
+// the incoming state until the envelope is free, and after a break), by
+// thread 0 in batches from registers otherwise; then thread 0 runs the
+// cotangent backward in batches of 32 from registers, thread 32 the taus'
+// sums behind it, and the block forms x's cotangent and writes it out.
+// Each product and sum is rounded alone in the plain version's order, and
+// the per-row tau partials are summed row after row by a second kernel,
+// as the plain version sums them, so the two agree bit for bit.  A row
+// longer than one segment writes its codes to `codes` between the passes.
 // ---------------------------------------------------------------------------
 
-constexpr int kBwdThreads = 128;
-constexpr int kBwdChunk = 2048;
-constexpr uint8_t kHoldCode = 0, kRiseCode = 2, kFallTrCode = 5, kSetTaCode = 6;
+constexpr int kBwdThreads = 256;
+constexpr int kSegT = 16384;                    // samples a segment
+constexpr int kSegBrkWords = kSegT / envbwd::kTile / 32;
 
-template <bool kUseRt>
+// shared memory of a segment of n samples: three float arrays and the
+// codes, each padded to 16 bytes
+int seg_smem_bytes(int n) { return 13 * ((n + 3) & ~3); }
+
+template <bool kUseRt, bool kFree>
 __global__ void __launch_bounds__(kBwdThreads)
 peak_envelope_bwd_kernel(const float* __restrict__ x,
                          const float* __restrict__ env,
@@ -662,101 +670,97 @@ peak_envelope_bwd_kernel(const float* __restrict__ x,
                          float* __restrict__ partials,
                          uint8_t* __restrict__ codes, int c_n, int t_n,
                          EnvCoef k) {
-  __shared__ float s_x[kBwdChunk];
-  __shared__ float s_e[kBwdChunk + 1];   // s_e[i]: the envelope before t0 + i
-  __shared__ float s_g[kBwdChunk];       // g_env in, g_x out
-  __shared__ uint8_t s_c[kBwdChunk];
+  extern __shared__ __align__(16) float smem[];
+  __shared__ uint32_t s_brk[kSegBrkWords];
+  __shared__ int s_done;
   const int c = blockIdx.x;
-  const float* xr = x + (size_t)c * t_n;
-  const float* er = env + (size_t)c * t_n;
-  const float* gr = g_env + (size_t)c * t_n;
-  float* gxr = g_x + (size_t)c * t_n;
-  uint8_t* cr = codes + (size_t)c * t_n;
-  const int n_chunks = (t_n + kBwdChunk - 1) / kBwdChunk;
-  const float e0 = e_in[c];
-
-  auto stage = [&](int t0, int len, bool with_g) {
-    for (int i = threadIdx.x; i < len; i += kBwdThreads) {
-      s_x[i] = xr[t0 + i];
-      s_e[i + 1] = er[t0 + i];
-      if (with_g) {
-        s_g[i] = gr[t0 + i];
-        s_c[i] = cr[t0 + i];
-      }
-    }
-    if (threadIdx.x == 0) s_e[0] = t0 > 0 ? er[t0 - 1] : e0;
+  const size_t row = (size_t)c * t_n;
+  const int pad = (min(t_n, kSegT) + 3) & ~3;
+  envbwd::Seg s{smem, smem + pad, smem + 2 * pad,
+                reinterpret_cast<uint8_t*>(smem + 3 * pad), s_brk, 0, 0.0f,
+                0, 0};
+  const int n_seg = (t_n + kSegT - 1) / kSegT;
+  // segment sg into shared memory (the cotangent with_g, the codes from
+  // `codes` with_codes)
+  auto load = [&](int sg, bool with_g, bool with_codes) {
+    const int t0 = sg * kSegT;
+    s.len = min(kSegT, t_n - t0);
+    s.eb = t0 > 0 ? env[row + t0 - 1] : e_in[c];
+    s.free_lo = s.free_hi = 0;
+    if (threadIdx.x < kSegBrkWords) s_brk[threadIdx.x] = 0;
+    if (threadIdx.x == 0) s_done = s.len;
+    envbwd::stage(s.x, x + row + t0, s.len);
+    envbwd::stage(s.env, env + row + t0, s.len);
+    if (with_g) envbwd::stage(s.lv, g_env + row + t0, s.len);
+    if (with_codes)
+      for (int i = threadIdx.x; i < s.len; i += kBwdThreads)
+        s.codes[i] = codes[row + t0 + i];
+    envbwd::stage_wait();
     __syncthreads();
   };
 
-  // pass 1: the branch codes, forward
+  // the codes, forward (thread 0 carries the peak and hold)
   float peak = p_in[c];
   int hold = h_in[c];
-  for (int j = 0; j < n_chunks; ++j) {
-    const int t0 = j * kBwdChunk;
-    const int len = min(kBwdChunk, t_n - t0);
-    stage(t0, len, false);
-    if (threadIdx.x == 0) {
-      for (int i = 0; i < len; ++i) {
-        const float e = s_e[i];
-        const float en = s_e[i + 1];
-        const bool falling = __fsub_rn(s_x[i], e) < 0.0f;
-        const bool holding = hold > 0;
-        const bool peaked = !falling && en >= peak;
-        const uint8_t fall = (!kUseRt || e > k.rt) ? kFallTrCode : kSetTaCode;
-        s_c[i] = falling ? (holding ? kHoldCode : fall)
-                         : (peaked ? kSetTaCode : kRiseCode);
-        peak = (falling && !holding) || peaked ? en : peak;
-        hold = falling ? (holding ? hold - 1 : hold) : (peaked ? k.nh : hold);
-      }
-    }
-    __syncthreads();
-    for (int i = threadIdx.x; i < len; i += kBwdThreads) cr[t0 + i] = s_c[i];
-    __syncthreads();
+  for (int sg = 0; sg < n_seg; ++sg) {
+    load(sg, n_seg == 1, false);
+    envbwd::segment_codes<kUseRt, kFree>(s, k.rt, k.nh, peak, hold, [] {});
+    if (n_seg > 1)
+      for (int i = threadIdx.x; i < s.len; i += kBwdThreads)
+        codes[row + (size_t)sg * kSegT + i] = s.codes[i];
   }
 
-  // pass 2: the adjoint, backward
+  // the cotangent, backward (thread 0 lam's chain, thread 32 the taus'
+  // sums), then x's cotangent by the block
   float lam = g_e[c], lp = g_p[c], acc_ta = 0.0f, acc_tr = 0.0f;
-  for (int j = n_chunks - 1; j >= 0; --j) {
-    const int t0 = j * kBwdChunk;
-    const int len = min(kBwdChunk, t_n - t0);
-    stage(t0, len, true);
-    if (threadIdx.x == 0) {
-      for (int i = len - 1; i >= 0; --i) {
-        const int code = s_c[i];
-        float lv = __fadd_rn(lam, s_g[i]);
-        const bool sets = (code & 4) != 0;
-        lv = sets ? __fadd_rn(lv, lp) : lv;
-        lp = sets ? 0.0f : lp;
-        const int kind = code & 3;
-        const float gx = kind ? __fmul_rn(lv, kind == 1 ? k.tr : k.ta) : 0.0f;
-        const float p = __fmul_rn(lv, __fsub_rn(s_x[i], s_e[i]));
-        acc_tr = __fadd_rn(acc_tr, kind == 1 ? p : 0.0f);
-        acc_ta = __fadd_rn(acc_ta, kind == 2 ? p : 0.0f);
-        lam = kind ? __fsub_rn(lv, gx) : lv;
-        s_g[i] = gx;
-      }
+  for (int sg = n_seg - 1; sg >= 0; --sg) {
+    if (n_seg > 1) {
+      load(sg, true, true);
+    } else if (threadIdx.x == 0) {
+      s_done = s.len;
     }
     __syncthreads();
-    for (int i = threadIdx.x; i < len; i += kBwdThreads) gxr[t0 + i] = s_g[i];
+    if (threadIdx.x == 0)
+      envbwd::reverse_lam(s, k.ta, k.tr, lam, lp, &s_done);
+    else if (threadIdx.x == 32)
+      envbwd::reverse_acc(s, acc_ta, acc_tr, &s_done);
+    __syncthreads();
+    float* gxr = g_x + row + (size_t)sg * kSegT;
+    for (int i = threadIdx.x; i < s.len; i += kBwdThreads)
+      gxr[i] = envbwd::gx_of(s.codes[i], s.lv[i], k.ta, k.tr);
     __syncthreads();
   }
   if (threadIdx.x == 0) {
     ge_out[c] = lam;
     gp_out[c] = lp;
+  } else if (threadIdx.x == 32) {
     partials[c] = acc_ta;
     partials[c_n + c] = acc_tr;
   }
 }
 
-// the taus' gradients: each one's per-row partials summed in row order
-__global__ void tau_sums_kernel(const float* __restrict__ partials,
-                                float* __restrict__ g_tau, int c_n) {
-  if (threadIdx.x < 2) {
-    float acc = 0.0f;
-    for (int r = 0; r < c_n; ++r)
-      acc = __fadd_rn(acc, partials[threadIdx.x * c_n + r]);
-    g_tau[threadIdx.x] = acc;
+// the taus' gradients: each one's per-row partials summed in row order,
+// kSumRows rows at a time staged in shared memory by the block (loads in
+// parallel, then two threads add in order)
+constexpr int kSumThreads = 256, kSumRows = 1024;
+
+__global__ void __launch_bounds__(kSumThreads)
+tau_sums_kernel(const float* __restrict__ partials, float* __restrict__ g_tau,
+                int c_n) {
+  __shared__ float s_p[2][kSumRows];
+  float acc = 0.0f;
+  for (int r0 = 0; r0 < c_n; r0 += kSumRows) {
+    const int n = min(kSumRows, c_n - r0);
+    for (int j = threadIdx.x; j < n; j += kSumThreads) {
+      s_p[0][j] = partials[r0 + j];
+      s_p[1][j] = partials[c_n + r0 + j];
+    }
+    __syncthreads();
+    if (threadIdx.x < 2)
+      for (int j = 0; j < n; ++j) acc = __fadd_rn(acc, s_p[threadIdx.x][j]);
+    __syncthreads();
   }
+  if (threadIdx.x < 2) g_tau[threadIdx.x] = acc;
 }
 
 // coefficients under which an envelope with peak == e and no hold left
@@ -858,14 +862,24 @@ int lsp_peak_envelope_bwd(const float* x, const float* env,
                           void* stream) {
   if (c_n < 1 || t_n < 1) return (int)cudaErrorInvalidValue;
   const EnvCoef k{ta, tr, rt + 0.0f, nh, 0.0f, 0.0f};
-  auto kernel = use_rt ? peak_envelope_bwd_kernel<true>
-                       : peak_envelope_bwd_kernel<false>;
-  kernel<<<c_n, kBwdThreads, 0, (cudaStream_t)stream>>>(
+  // a hold time of 0: the codes by the whole block (a route, not a
+  // fallback: both are exact)
+  const bool free = nh == 0;
+  auto kernel = use_rt ? (free ? peak_envelope_bwd_kernel<true, true>
+                               : peak_envelope_bwd_kernel<true, false>)
+                       : (free ? peak_envelope_bwd_kernel<false, true>
+                               : peak_envelope_bwd_kernel<false, false>);
+  const int smem = seg_smem_bytes(min(t_n, kSegT));
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<c_n, kBwdThreads, smem, (cudaStream_t)stream>>>(
       x, env, e_in, p_in, h_in, g_env, g_e, g_p, g_x, ge_out, gp_out,
       partials, codes, c_n, t_n, k);
-  cudaError_t err = cudaGetLastError();
+  err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  tau_sums_kernel<<<1, 32, 0, (cudaStream_t)stream>>>(partials, g_tau, c_n);
+  tau_sums_kernel<<<1, kSumThreads, 0, (cudaStream_t)stream>>>(partials,
+                                                                g_tau, c_n);
   return (int)cudaGetLastError();
 }
 

@@ -24,11 +24,13 @@ whose forward is the route above and whose backward is
 envelope (ops/env_units.peak_envelope_bwd_plain's recurrence) and of
 the sliding RMS (sliding_rms_bwd_plain's), in that order.  The release
 threshold and the hold only steer branches (zero gradient); the
-sidechain gain is a constant.  For CPU tensors the plain backward
+sidechain gain is a constant.  The forward saves its level and
+envelope for the backward (on the card ``chain_dyn_save_kernel``: kernel
+#3 writing both besides).  For CPU tensors the plain backward
 (:func:`chain_dyn_bwd_plain`, the gain's adjoint by autograd over
 compressor_x2_gain); for CUDA tensors the kernel ``chain_dyn_bwd`` of
-``csrc/env.cu``, which replays the level and the envelope as kernel #3
-computes them (it saves neither) and then runs the reverse pass.
+``csrc/env.cu`` from the saved level and envelope (branch codes, the
+gain's adjoint, the reverse pass, the RMS's adjoint).
 """
 
 from __future__ import annotations
@@ -60,7 +62,9 @@ class _DynParams(ctypes.Structure):
 
 _SIGS = {"lsp_chain_dyn": [ctypes.c_void_p] * 10 + [ctypes.c_int] * 3
          + [_DynParams, ctypes.c_void_p],
-         "lsp_chain_dyn_bwd": [ctypes.c_void_p] * 22 + [ctypes.c_int] * 3
+         "lsp_chain_dyn_save": [ctypes.c_void_p] * 12 + [ctypes.c_int] * 3
+         + [_DynParams, ctypes.c_void_p],
+         "lsp_chain_dyn_bwd": [ctypes.c_void_p] * 21 + [ctypes.c_int] * 3
          + [_DynParams, ctypes.c_void_p]}
 
 # the knee fields' gradients: 2 knees x 8 fields (start and end only steer
@@ -142,14 +146,17 @@ def _check_dyn(window, env_state, x, n_win):
 
 def _chain_dyn(window, env_state: EnvState, x, n_win: int, sc_gain,
                tau_attack, tau_release, release_thresh, hold_samples,
-               knees: Tuple[CompKnee, CompKnee]):
+               knees: Tuple[CompKnee, CompKnee], save: bool = False):
     """:func:`chain_dyn` outside autograd: the plain version for CPU
-    tensors, the kernel for CUDA tensors."""
+    tensors, the kernel for CUDA tensors.  ``save``: the level and the
+    envelope [C, T] come after the outputs (for the backward; on the card
+    ``chain_dyn_save_kernel``, counted as kernel #3)."""
     tensors = (window, env_state.envelope, env_state.peak, x)
     if _build.is_cpu(*tensors, env_state.hold):
-        return chain_dyn_plain(window, env_state, x, n_win, sc_gain,
+        out = _chain_dyn_plain(window, env_state, x, n_win, sc_gain,
                                tau_attack, tau_release, release_thresh,
                                hold_samples, knees)
+        return out if save else out[:3]
     _check_dyn(window, env_state, x, n_win)
     c, t = x.shape
     n = int(n_win)
@@ -161,14 +168,21 @@ def _chain_dyn(window, env_state: EnvState, x, n_win: int, sc_gain,
     prm = _params(n, sc_gain, tau_attack, tau_release, release_thresh,
                   hold_samples, knees)
     lib = _build.load("env", _SIGS)
-    _build.check(lib.lsp_chain_dyn(
-        _build.ptr(x), _build.ptr(window), _build.ptr(env_state.envelope),
-        _build.ptr(env_state.peak), _build.ptr(env_state.hold),
-        _build.ptr(y), _build.ptr(win_out), _build.ptr(e_out),
-        _build.ptr(p_out), _build.ptr(h_out), c, t, n, prm,
-        _build.stream_of(x)), "chain_dyn kernel")
+    args = [_build.ptr(v) for v in (
+        x, window, env_state.envelope, env_state.peak, env_state.hold, y,
+        win_out, e_out, p_out, h_out)]
+    if save:
+        level, env = torch.empty_like(x), torch.empty_like(x)
+        _build.check(lib.lsp_chain_dyn_save(
+            *args, _build.ptr(level), _build.ptr(env), c, t, n, prm,
+            _build.stream_of(x)), "chain_dyn_save kernel")
+    else:
+        _build.check(lib.lsp_chain_dyn(*args, c, t, n, prm,
+                                       _build.stream_of(x)),
+                     "chain_dyn kernel")
     chain_dyn.launches += 1
-    return win_out, EnvState(e_out, p_out, h_out), y
+    out = win_out, EnvState(e_out, p_out, h_out), y
+    return out + (level, env) if save else out
 
 
 chain_dyn.launches = 0
@@ -238,15 +252,16 @@ def chain_dyn_bwd(window, env_state: EnvState, x, g_win, g_e, g_p, g_y,
     the knee fields in CompKnee order, knee 0 then knee 1).  The plain
     version for CPU tensors (``saved``: the forward's level and
     envelope, else recomputed); for CUDA tensors the kernel
-    ``chain_dyn_bwd`` (one block a channel: the forward's level and
-    envelope replayed with kernel #3's own device functions, with each
-    step's branch; the gain's adjoint; the envelope's reverse pass on one
-    thread; the RMS's adjoint as a float64 sliding sum), then a kernel
+    ``chain_dyn_bwd`` (one block a channel, from ``saved``, else from the
+    level and envelope of kernel #3's saving form launched here: each
+    step's branch code, the gain's adjoint, the envelope's reverse pass on
+    one thread, the RMS's adjoint as a float64 sliding sum), then a kernel
     that sums the per-channel tau and knee partials in channel order:
     one call, counted in ``chain_dyn_bwd.launches``.  With ``replay`` the
-    kernel also writes what it replayed, returned after the gradients as
-    (level, envelope, the envelope's cotangent, the level's cotangent,
-    y), to hold it against kernel #3 and the plain adjoints."""
+    level and envelope it started from and what the kernel derived from
+    them come after the gradients, as (level, envelope, the envelope's
+    cotangent, the level's cotangent, y), to hold them against kernel #3
+    and the plain adjoints."""
     tensors = (window, env_state.envelope, env_state.peak, x, g_win, g_e,
                g_p, g_y)
     if _build.is_cpu(*tensors, env_state.hold):
@@ -267,25 +282,35 @@ def chain_dyn_bwd(window, env_state: EnvState, x, g_win, g_e, g_p, g_y,
     c, t = x.shape
     n = int(n_win)
     dev = x.device
+    if saved is None:
+        saved = _chain_dyn(window, env_state, x, n_win, sc_gain, tau_attack,
+                           tau_release, release_thresh, hold_samples, knees,
+                           save=True)[3:]
+    level, env = (v.contiguous() for v in saved)
+    _build.check_cuda_f32(level=level, env=env)
+    if level.shape != x.shape or env.shape != x.shape:
+        raise ValueError("chain_dyn_bwd: the saved level and envelope must "
+                         "be shaped as x")
     g_x, g_window = torch.empty_like(x), torch.empty_like(window)
     ge, gp = torch.empty(c, device=dev), torch.empty(c, device=dev)
     tau_part = torch.empty(2 * c, device=dev)
     knee_part = torch.empty(N_KNEE * c, dtype=torch.float64, device=dev)
     g_tau, g_knee = torch.empty(2, device=dev), torch.empty(N_KNEE,
                                                             device=dev)
-    extra = [torch.empty_like(x) for _ in range(5)] if replay else []
-    ptrs = [_build.ptr(v) for v in extra] or [None] * 5
+    extra = [torch.empty_like(x) for _ in range(3)] if replay else []
+    ptrs = [_build.ptr(v) for v in extra] or [None] * 3
     prm = _params(n, sc_gain, tau_attack, tau_release, release_thresh,
                   hold_samples, knees)
     lib = _build.load("env", _SIGS)
     _build.check(lib.lsp_chain_dyn_bwd(
-        *(_build.ptr(v) for v in (x, window, env_state.envelope,
-                                  env_state.peak, env_state.hold, g_y, g_win,
+        *(_build.ptr(v) for v in (x, env_state.envelope, env_state.peak,
+                                  env_state.hold, level, env, g_y, g_win,
                                   g_e, g_p, g_x, g_window, ge, gp, tau_part,
                                   knee_part, g_tau, g_knee)),
         *ptrs, c, t, n, prm, _build.stream_of(x)), "chain_dyn_bwd kernel")
     chain_dyn_bwd.launches += 1
-    return (g_window, ge, gp, g_x, g_tau, g_knee) + tuple(extra)
+    out = (g_window, ge, gp, g_x, g_tau, g_knee)
+    return out + (level, env, *extra) if replay else out
 
 
 chain_dyn_bwd.launches = 0
@@ -301,13 +326,9 @@ class _ChainDyn(torch.autograd.Function):
                 *kf):
         knees = (CompKnee(*kf[:8]), CompKnee(*kf[8:]))
         args = (n_win, sc_gain, ta, tr, rt, hold, knees)
-        if _build.is_cpu(window, e, p, h, x):
-            win, env_st, y, level, env = _chain_dyn_plain(
-                window, EnvState(e, p, h), x, *args)
-            ctx.save_for_backward(window, e, p, h, x, level, env)
-        else:
-            win, env_st, y = _chain_dyn(window, EnvState(e, p, h), x, *args)
-            ctx.save_for_backward(window, e, p, h, x)
+        win, env_st, y, level, env = _chain_dyn(
+            window, EnvState(e, p, h), x, *args, save=True)
+        ctx.save_for_backward(window, e, p, h, x, level, env)
         ctx.mark_non_differentiable(env_st.hold)
         ctx.args = args
         return win, env_st.envelope, env_st.peak, env_st.hold, y
@@ -315,10 +336,10 @@ class _ChainDyn(torch.autograd.Function):
     @staticmethod
     @once_differentiable
     def backward(ctx, g_win, g_e, g_p, _g_hold, g_y):
-        window, e, p, h, x, *saved = ctx.saved_tensors
+        window, e, p, h, x, level, env = ctx.saved_tensors
         g_window, ge, gp, gx, g_tau, g_knee = chain_dyn_bwd(
             window, EnvState(e, p, h), x, g_win, g_e, g_p, g_y, *ctx.args,
-            saved=saved or None)[:6]
+            saved=(level, env))
         n_win, sc_gain, ta, tr, rt, hold, knees = ctx.args
 
         def scalar(i, v, g):

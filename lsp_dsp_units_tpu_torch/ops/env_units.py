@@ -401,6 +401,88 @@ def peak_envelope_codes(x, env, e0, p0, h0, hold_samples,
     return codes
 
 
+def free_codes(x, env, e0, release_thresh=None):
+    """The branch code of every step as if it started free: its peak equal
+    to the envelope before it and no hold left (csrc/env_bwd.cuh's
+    free_code, which the kernels' threads apply in parallel).  A fall then
+    sets the peak with the release tau (the attack tau at or below the
+    release threshold), a rise to at least the envelope before it sets the
+    peak with the attack tau, and a rise below it (``_RISE``, a break)
+    leaves the peak.  x, env [..., T], e0 [...]; int8 [..., T]."""
+    rt = _coefs(x, 0.0, 0.0, 0, release_thresh)[3]
+    e = torch.cat([e0[..., None], env[..., :-1]], dim=-1)
+    fall = (torch.full(x.shape, _FALL_TR, device=x.device) if rt is None
+            else torch.where(e > rt, _FALL_TR, _SET_TA))
+    rise = torch.where(env >= e, _SET_TA, _RISE)
+    return torch.where((x - e) < 0.0, fall, rise).to(torch.int8)
+
+
+def peak_envelope_codes_free(x, env, e0, p0, h0, release_thresh=None,
+                             batch: int = 32):
+    """:func:`peak_envelope_codes` for a hold time of 0 samples, as the
+    backward kernels derive them (csrc/env_bwd.cuh::segment_codes):
+    :func:`free_codes` for every step; the recurrence from the incoming
+    state up to the first multiple of ``batch`` (or the start of the last
+    partial batch) at which the state is free; from there the free codes up
+    to the first break, and the recurrence again from it until the state
+    is free, and so on.  The codes are discrete, so the result is
+    :func:`peak_envelope_codes`'s exactly.  int8 [..., T]."""
+    t_n = x.shape[-1]
+    codes = free_codes(x, env, e0, release_thresh).reshape(-1, t_n).clone()
+    rt = _coefs(x, 0.0, 0.0, 0, release_thresh)[3]
+    xs, es, e0s = x.reshape(-1, t_n), env.reshape(-1, t_n), e0.reshape(-1)
+    p0s, h0s = p0.reshape(-1), h0.reshape(-1)
+    for r in range(xs.shape[0]):
+        xr, er, cr = xs[r], es[r], codes[r]
+
+        def e_before(i):
+            return er[i - 1] if i > 0 else e0s[r]
+
+        def step(i, peak, hold):
+            e, en = e_before(i), er[i]
+            falling = bool(xr[i] - e < 0.0)
+            holding = hold > 0
+            peaked = not falling and bool(en >= peak)
+            fall = _FALL_TR if rt is None or bool(e > rt) else _SET_TA
+            cr[i] = (fall if not holding else _HOLD) if falling else (
+                _SET_TA if peaked else _RISE)
+            if (falling and not holding) or peaked:
+                peak = en
+            hold = (hold - 1 if holding else hold) if falling else (
+                0 if peaked else hold)
+            return peak, hold
+
+        def free(i, peak, hold):
+            return hold == 0 and bool(peak == e_before(i))
+
+        def serial(i, peak, hold):
+            while i < t_n and i % batch:
+                peak, hold = step(i, peak, hold)
+                i += 1
+            while i + batch <= t_n:
+                if free(i, peak, hold):
+                    return i
+                for _ in range(batch):
+                    peak, hold = step(i, peak, hold)
+                    i += 1
+            if i < t_n and free(i, peak, hold):
+                return i
+            while i < t_n:
+                peak, hold = step(i, peak, hold)
+                i += 1
+            return t_n
+
+        i = serial(0, p0s[r], int(h0s[r]))
+        while i < t_n:
+            brk = torch.nonzero(cr[i:] == _RISE)
+            if not len(brk):
+                break
+            tb = i + int(brk[0, 0])
+            peak, hold = step(tb, e_before(tb), 0)
+            i = serial(tb + 1, peak, hold)
+    return codes.reshape(x.shape)
+
+
 def _row_sum(v: torch.Tensor) -> torch.Tensor:
     """Sum of v's entries in order, each sum rounded in v's type (the
     kernel's reduction of its per-row partials)."""
@@ -451,9 +533,12 @@ def peak_envelope_bwd(x, env, e0, p0, h0, g_env, g_e, g_p, tau_attack,
     level and envelope [..., T], ``e0``, ``p0``, ``h0`` its incoming
     state [...], ``g_*`` the cotangents of env, envelope' and peak'.
     The plain version for CPU tensors; for CUDA tensors the kernel
-    ``peak_envelope_bwd``: one thread a row replays the branches forward
-    into a code a sample, then runs the adjoint backward; the per-row
-    tau partials are summed on the card.  Returns (g_x, g_envelope,
+    ``peak_envelope_bwd`` (csrc/env_units.cu, csrc/env_bwd.cuh): a block
+    a row stages it in shared memory, derives the branch codes (by the
+    whole block where the hold time is 0, :func:`peak_envelope_codes_free`;
+    by one thread otherwise), one thread runs the adjoint backward, the
+    block forms x's cotangent; the per-row tau partials are summed on the
+    card.  Bit for bit the plain version.  Returns (g_x, g_envelope,
     g_peak, g_tau [2])."""
     if _build.is_cpu(x, env, e0, p0, h0, g_env, g_e, g_p):
         return peak_envelope_bwd_plain(x, env, e0, p0, h0, g_env, g_e, g_p,

@@ -66,6 +66,18 @@ compressor):
   (torch.profiler): short name, ms a launch, launches a call and the
   bytes bound of the launches (tools/launch_profile.py; none for
   the other build's launches that this tree lacks).
+* the envelope backwards: peak_envelope_bwd at [64, 16384] in step's
+  configuration (hold 0 from env_init) and with a hold of 24 from a
+  random state, through this checkout's wrapper on either library;
+  chain_dyn_bwd at [64, 8192], N = 480, the chain's compressor, from the
+  window and state after three blocks (hold 0) and from the random state
+  with a hold of 24, through each checkout's own ops/env.py (the C
+  interfaces may differ: this tree's backward starts from the level and
+  envelope its saving forward wrote, an older one replays them), replay
+  outputs included.  Every output bit for bit (the knee fields may move by 1
+  ulp); each build's ms, cycles a step at 1.98 GHz and launches (with
+  their bytes bounds), the one remaining serial pass's bound (T x 12
+  cycles: 3 dependent operations a step), and this tree's forward with and without saving.
 
 Each case's outputs must be identical between the builds (the indices
 of those that differ are listed: eqfdl_fused's are y, u, EQ state per
@@ -129,6 +141,38 @@ DELAY_MAX = 4800                     # the synth phase's delay bank
 VOICES, VBLOCK = 4096, 1024          # the sampler's configuration
 SPIN_CYCLES = 200_000_000
 BWD_DB = 110.0                       # the backwards against their plain ones
+SM_HZ = 1.98e9                       # the H100's boost clock (cycles a step)
+F32 = 4
+
+
+# each case's library (csrc/<name>.cu); env_units for the rest
+LIB_OF = {"eqfdl_fused": "fdl_fused", "fdl_fused": "fdl_fused",
+          "eqfdl_fused_bwd": "fdl_fused", "fdl_fused_bwd": "fdl_fused",
+          "chain_dyn": "env", "chain_dyn_bwd": "env",
+          "chain_dyn_bwd_hold24": "env",
+          "sliding_rms": "env_units", "batched_slice": "slicedma",
+          "biquad_seq": "biquad", "biquad_seq_dyn": "biquad",
+          "limiter": "limiter", "limiter_alr": "limiter",
+          "rider_autogain": "riders", "rider_dynproc": "riders",
+          "rider_simple": "riders", "rider_surge": "riders",
+          "rider_peak": "riders", "biquad_scan": "biquad_scan",
+          "biquad_scan_k15": "biquad_scan", "delay": "delay",
+          "rider_trigger": "riders", "rider_depopper": "riders"}
+
+
+def share_structs(mod, this_mod) -> None:
+    """Make the other checkout's module build and declare this checkout's
+    ctypes structures (the same layouts), so that either checkout's
+    wrappers may call either library."""
+    swap = {}
+    for name, obj in list(vars(mod).items()):
+        if isinstance(obj, type) and issubclass(obj, ctypes.Structure) \
+                and isinstance(getattr(this_mod, name, None), type):
+            swap[obj] = getattr(this_mod, name)
+            setattr(mod, name, swap[obj])
+    if hasattr(mod, "_SIGS"):
+        mod._SIGS = {fn: [swap.get(t, t) for t in types]
+                     for fn, types in mod._SIGS.items()}
 
 
 def build_other(root: str, name: str, sigs=None) -> ctypes.CDLL:
@@ -178,14 +222,14 @@ def time_ms(fn, reps: int) -> float:
     return start.elapsed_time(stop) / reps
 
 
-def other_fdl_fused(root: str):
-    """The other checkout's ops/fdl_fused.py as a module of its own (its
+def other_module(root: str, name: str):
+    """The other checkout's ops/<name>.py as a module of its own (its
     wrappers, its C signatures), or None where it has none."""
     path = os.path.join(root, "lsp_dsp_units_tpu_torch", "ops",
-                        "fdl_fused.py")
+                        f"{name}.py")
     if not os.path.exists(path):
         return None
-    spec = importlib.util.spec_from_file_location("ab_other_fdl_fused", path)
+    spec = importlib.util.spec_from_file_location(f"ab_other_{name}", path)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
@@ -287,6 +331,158 @@ def fdl_run(params, blocks):
     return outs + [ring.spec_re, ring.spec_im]
 
 
+def env_bwd_bytes(t: int, n: int):
+    """Bytes one launch of the envelope backwards must move at [C, t]
+    (window n), by short name (tools/launch_profile.py): the functions'
+    inputs read once and outputs written once.  An untemplated
+    chain_dyn_bwd (an older build's) takes x and replays the level and
+    envelope; this tree's, templated, takes the saved level and envelope
+    too."""
+    row, knee = F32 * C * t, 8 * 16 * C
+    table = {
+        # x, env, g_env in; g_x out; the state and its cotangents
+        "peak_envelope_bwd_kernel": 4 * row + F32 * 8 * C,
+        "tau_sums_kernel": F32 * (2 * C + 2),
+        # x, g_y in, g_x out (+ level, env saved); the window's cotangents
+        "chain_dyn_bwd": 3 * row + F32 * (2 * C * n + 8 * C) + knee,
+        "chain_dyn_bwd<": 5 * row + F32 * (2 * C * n + 8 * C) + knee,
+        "chain_dyn_sums": F32 * (2 * C + 18) + knee,
+    }
+
+    def of(name):
+        key = name if name in table else name.split("<")[0] + "<"
+        return table.get(key, table.get(name.split("<")[0]))
+    return of
+
+
+def env_bwd_cases(args, this, other, other_env, chain, cp, blocks, lev, st24,
+                  res) -> bool:
+    """The envelope backwards against the other build: peak_envelope_bwd
+    at [C, T_ENV] in step's configuration (hold 0 from env_init) and with
+    a hold of 24 from a random state, through this checkout's wrapper on
+    either library (its C interface is unchanged); chain_dyn_bwd at [C,
+    B], N = 480, the chain's compressor, from the window and state after
+    three blocks (hold 0) and from the random state with a hold of 24,
+    through each checkout's own ops/env.py, both given the level and
+    envelope this tree's saving forward kernel wrote (a build whose
+    kernel replays them ignores them).
+    Every output bit for bit (the knee fields' float64 partial sums may
+    move by 1 float32 ulp); times in turns; each build's launches; this
+    tree's forward with and without saving."""
+    gen = torch.Generator().manual_seed(34)
+
+    def r(*shape):
+        return torch.randn(*shape, generator=gen).cuda()
+    n_sc, g_sc = chain.sidechain.reactivity, float(chain.sidechain.gain)
+    knobs = (cp.tau_attack, cp.tau_release)
+    cases = {}
+
+    def wanted(name):
+        return args.cases is None or name in args.cases
+    for name, s0, hold in (("peak_envelope_bwd_step", dyn.env_init((C,)),
+                            cp.hold),
+                           ("peak_envelope_bwd_hold24", st24, 24)):
+        if not wanted(name) or "env_units" not in other:
+            continue
+        _, env_l = eu.peak_envelope(s0, lev, *knobs, hold, cp.release_thresh)
+        a = (lev, env_l, *s0, r(C, T_ENV), r(C), r(C), *knobs, hold,
+             cp.release_thresh)
+        fn = (lambda a: lambda: eu.peak_envelope_bwd(*a))(a)
+        cases[name] = dict(t=T_ENV, other=(fn, fn), this=(fn, fn),
+                           fwd=None)
+    dyn_names = ("chain_dyn_bwd", "chain_dyn_bwd_hold24")
+    if not any(wanted(n) for n in dyn_names) or "env" not in other \
+            or other_env is None:
+        dyn_names = ()
+    win_c, st_c = torch.zeros(C, n_sc, device="cuda"), dyn.env_init((C,))
+    for x_b, _ in blocks[:3 if dyn_names else 0]:
+        win_c, st_c, _ = env_ops.chain_dyn(
+            win_c, st_c, x_b * 8.0, n_sc, g_sc, *knobs, cp.release_thresh,
+            cp.hold, cp.knees)
+    x_c = blocks[3][0] * 8.0
+    cot = (r(C, n_sc), r(C), r(C), r(C, B)) if dyn_names else ()
+    for name, s0, hold in zip(dyn_names, (st_c, st24), (cp.hold, 24)):
+        if not wanted(name):
+            continue
+        fa = (win_c, s0, x_c, n_sc, g_sc, *knobs, cp.release_thresh, hold,
+              cp.knees)
+        a = (win_c, s0, x_c, *cot, n_sc, g_sc, *knobs, cp.release_thresh,
+             hold, cp.knees)
+        with using(this):
+            saved = env_ops._chain_dyn(*fa, save=True)[3:]
+        ob = other_env.chain_dyn_bwd
+        cases[name] = dict(
+            t=B, other=((lambda a, s: lambda: ob(*a, saved=s, replay=True))(
+                a, saved), (lambda a, s: lambda: ob(*a, saved=s))(a, saved)),
+            this=((lambda a, s: lambda: env_ops.chain_dyn_bwd(
+                *a, saved=s, replay=True))(a, saved),
+                (lambda a, s: lambda: env_ops.chain_dyn_bwd(
+                    *a, saved=s))(a, saved)),
+            fwd=((lambda f: lambda: env_ops._chain_dyn(*f))(fa),
+                 (lambda f: lambda: env_ops._chain_dyn(*f, save=True))(fa)))
+    ok = True
+    for name in ("peak_envelope_bwd_step", "peak_envelope_bwd_hold24",
+                 "chain_dyn_bwd", "chain_dyn_bwd_hold24"):
+        if wanted(name) and name not in cases:
+            print(f"{name}: skipped (the other checkout has no "
+                  f"{LIB_OF.get(name, 'env_units')})", flush=True)
+    for name, cs in cases.items():
+        t = cs["t"]
+        outs, prof = {}, {}
+        for who, libs in (("other", other), ("this", this)):
+            with using(libs):
+                outs[who] = [o for o in cs[who][0]()]
+                prof[who] = launch_profile(cs[who][1], C, t, 0, 0,
+                                           bytes_of=env_bwd_bytes(t, n_sc))
+        torch.cuda.synchronize()
+        diff = [i for i, (a, b) in enumerate(zip(outs["this"], outs["other"]))
+                if not torch.equal(a.view(torch.int32), b.view(torch.int32))]
+        knee_ulps = None
+        if name.startswith("chain"):
+            knee_ulps = int(ulps(outs["this"][5], outs["other"][5]).max())
+        allowed = {5} if knee_ulps is not None and knee_ulps <= 1 else set()
+        ok = ok and len(outs["this"]) == len(outs["other"]) \
+            and set(diff) <= allowed
+        times = []
+        for who in ("other", "this", "this", "other"):
+            with using(other if who == "other" else this):
+                times.append(time_ms(cs[who][1], 20))
+        rec = dict(identical=not diff, differing_outputs=diff,
+                   knee_max_ulps=knee_ulps,
+                   other_ms=(times[0] + times[3]) / 2,
+                   this_ms=(times[1] + times[2]) / 2, runs_ms=times,
+                   other_launches=prof["other"], this_launches=prof["this"],
+                   chain_bound_ms=t * 12 / SM_HZ * 1e3)
+        for who in ("other", "this"):
+            rec[f"{who}_cycles_per_step"] = rec[f"{who}_ms"] * 1e-3 * SM_HZ / t
+        if cs["fwd"]:
+            ft = []
+            with using(this):
+                for k in (0, 1, 1, 0):
+                    ft.append(time_ms(cs["fwd"][k], 20))
+            rec.update(this_fwd_ms=(ft[0] + ft[3]) / 2,
+                       this_fwd_save_ms=(ft[1] + ft[2]) / 2, fwd_runs_ms=ft)
+        res[name] = rec
+        print(f"{name}: identical = {not diff} (outputs differing: {diff}"
+              + ("" if knee_ulps is None else
+                 f", knee fields max {knee_ulps} ulp")
+              + f"); other {rec['other_ms']:.4f} ms "
+              f"({rec['other_cycles_per_step']:.1f} cycles a step), this "
+              f"{rec['this_ms']:.4f} ms ({rec['this_cycles_per_step']:.1f});"
+              f" chain bound {rec['chain_bound_ms']:.4f} ms (runs: "
+              + ", ".join(f"{v:.4f}" for v in times) + ")"
+              + ("" if not cs["fwd"] else
+                 f"; this forward {rec['this_fwd_ms']:.4f} ms, saving "
+                 f"{rec['this_fwd_save_ms']:.4f}"), flush=True)
+        for who in ("other", "this"):
+            print(f"  {who}: " + "; ".join(
+                f"{x['name']} {x['ms']:.4f} ms x {x['launches']}"
+                + ("" if x["bound_ms"] is None else
+                   f" (bound {x['bound_ms']:.4f})") for x in prof[who]),
+                flush=True)
+    return ok
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("other", help="root of the other checkout")
@@ -297,12 +493,20 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("ab_kernels: no CUDA device", file=sys.stderr)
         return 1
-    this = {n: _build.load(n, s) for n, s in SIGS.items()}
+    # the libraries the chosen cases need (with --cases), else all
+    need = set(SIGS) if args.cases is None else {
+        LIB_OF.get(n, "env_units") for n in args.cases}
+    this = {n: _build.load(n, s) for n, s in SIGS.items() if n in need}
     csrc = os.path.join(args.other, "lsp_dsp_units_tpu_torch", "csrc")
-    other_ff = other_fdl_fused(args.other)
-    other = {n: build_other(args.other, n, other_ff._SIGS
-                            if n == "fdl_fused" and other_ff else None)
-             for n in SIGS if os.path.exists(os.path.join(csrc, f"{n}.cu"))}
+    other_ff = other_module(args.other, "fdl_fused")
+    other_env = other_module(args.other, "env")
+    own_sigs = {"fdl_fused": other_ff, "env": other_env}
+    if other_env is not None:
+        share_structs(other_env, env_ops)
+    other = {n: build_other(args.other, n, own_sigs[n]._SIGS
+                            if own_sigs.get(n) else None)
+             for n in SIGS if n in need
+             and os.path.exists(os.path.join(csrc, f"{n}.cu"))}
 
     chain = pipeline.FilterConvChain(SR, C, rank=RANK, ir_seconds=1.0)
     params = chain.build()
@@ -478,16 +682,7 @@ def main(argv=None) -> int:
             dpop, dst, glev)), lambda: riders.depopper_forward(
             dpop, dst, glev), 10),
     }
-    lib_of = {"eqfdl_fused": "fdl_fused", "fdl_fused": "fdl_fused",
-              "chain_dyn": "env",
-              "sliding_rms": "env_units", "batched_slice": "slicedma",
-              "biquad_seq": "biquad", "biquad_seq_dyn": "biquad",
-              "limiter": "limiter", "limiter_alr": "limiter",
-              "rider_autogain": "riders", "rider_dynproc": "riders",
-              "rider_simple": "riders", "rider_surge": "riders",
-              "rider_peak": "riders", "biquad_scan": "biquad_scan",
-              "biquad_scan_k15": "biquad_scan", "delay": "delay",
-              "rider_trigger": "riders", "rider_depopper": "riders"}
+    lib_of = LIB_OF
     functor = {"rider_trigger": riders.KIND["trigger"]
                + TriggerType.ADVANCED_RISING_EDGE.value,
                "rider_depopper": riders.KIND["depopper"]}
@@ -581,6 +776,8 @@ def main(argv=None) -> int:
                 + ("" if r["bound_ms"] is None else
                    f" (bound {r['bound_ms']:.4f})") for r in prof[who]),
                 flush=True)
+    ok = env_bwd_cases(args, this, other, other_env, chain, cp, blocks, lev,
+                       st24, res) and ok
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
                           text=True, timeout=60).stdout.strip()

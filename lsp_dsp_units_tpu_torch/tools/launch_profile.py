@@ -1,18 +1,25 @@
-"""The kernels of one call of the convolver's backwards on the card, by
-torch.profiler: each launch's short name, ms a launch, launches a call
-and the bytes bound of those launches (each input of the function read
-once, each output written once, over the H100's memory rate).  Used by
+"""The kernels of one call of a backward on the card, by torch.profiler:
+each launch's short name, ms a launch, launches a call and the bytes
+bound of those launches (each input of the function read once, each
+output written once, over the H100's memory rate).  Used by
 ``chip_smoke.py``'s grad_ring phase and by ``tools/ab_kernels.py``'s
-backward cases; a launch it has no byte count for (another build's) has
-no bound."""
+backward cases; the convolver's launches have their byte counts here
+(:func:`launch_bytes`), other callers pass theirs; a launch without a
+byte count (another build's) has no bound."""
 
 from __future__ import annotations
 
 import re
+import time
 
 import torch
 
 HBM_BYTES_PER_S = 3.35e12            # the H100's memory rate (the bounds)
+
+# host seconds between the warm-up calls of a profile and the counted
+# ones, wider than any error of the device timestamps' conversion
+GAP_S = 0.02
+MARK = "launch_profile.counted"      # the counted calls' range
 
 
 def launch_name(name: str) -> str:
@@ -22,7 +29,7 @@ def launch_name(name: str) -> str:
         return "torch add"
     if "copy" in name:
         return "torch copy"
-    m = re.search(r"::(\w+(?:<\d+>)?)\(", name)
+    m = re.search(r"::(\w+(?:<[^<>()]*>)?)\(", name)
     return m.group(1) if m else name[:60]
 
 
@@ -53,30 +60,48 @@ def launch_bytes(name: str, c: int, b: int, p_n: int, k2: int):
     return table.get(name)
 
 
-def launch_profile(fn, c: int, b: int, p_n: int, k2: int, calls: int = 10):
+def launch_profile(fn, c: int, b: int, p_n: int, k2: int, calls: int = 10,
+                   bytes_of=None, warm: int = 30):
     """The kernels of ``fn()`` (one backward call) by torch.profiler over
     ``calls`` calls: short name, ms a launch, launches a call, and the
-    bytes bound of those launches (ms a call, None where launch_bytes
-    has no count), the most time first."""
+    bytes bound of those launches (ms a call, None where ``bytes_of``,
+    by default the convolver's launch_bytes at (c, b, p_n, k2), has no
+    count), the most time first.  On the H100 machine a profile late in
+    a long process lost the device records of its first launches, so
+    ``warm`` calls run first inside the profile, and only the launches
+    that start after a synchronisation and a GAP_S pause are counted."""
+    if bytes_of is None:
+        def bytes_of(name):
+            return launch_bytes(name, c, b, p_n, k2)
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, record_function
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
+        for _ in range(warm):
             fn()
         torch.cuda.synchronize()
+        time.sleep(GAP_S)
+        with record_function(MARK):
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+    events = prof.events()
+    start = min(e.time_range.start for e in events
+                if e.name == MARK) - GAP_S * 1e6 / 2
     rows = {}
-    for e in prof.key_averages():
-        if e.device_type != DeviceType.CUDA or e.self_device_time_total <= 0:
+    for e in events:
+        us = e.time_range.elapsed_us()
+        if e.device_type != DeviceType.CUDA or us <= 0 \
+                or e.time_range.start < start or e.name == MARK:
             continue
-        name = launch_name(e.key)
+        name = launch_name(e.name)
         ms, n = rows.get(name, (0.0, 0))
-        rows[name] = (ms + e.self_device_time_total / 1e3, n + e.count)
+        rows[name] = (ms + us / 1e3, n + 1)
     out = []
     for name, (ms, n) in sorted(rows.items(), key=lambda r: -r[1][0]):
-        nbytes = launch_bytes(name, c, b, p_n, k2)
+        nbytes = bytes_of(name)
         per_call = round(n / calls)
         out.append(dict(name=name, ms=ms / n, launches=per_call,
                         bound_ms=None if nbytes is None

@@ -1516,20 +1516,56 @@ def test_sliding_rms_bwd_kernel_matches_plain(cuda_device, t, c):
     assert _snr(gw_p, gw_k) >= 120.0
 
 
+def _bits(v):
+    """A float32 tensor's bits (NaN payloads included), on the CPU."""
+    return v.detach().contiguous().view(torch.int32).cpu()
+
+
+def _same_bits(outs, again):
+    return all(torch.equal(_bits(a), _bits(b)) for a, b in zip(outs, again))
+
+
+def _same_values(a, b):
+    """Equal where neither is NaN, NaN at the same places (the card's NaN
+    and the CPU's differ in payload)."""
+    a, b = a.cpu(), b.cpu()
+    nan = torch.isnan(a)
+    return torch.equal(nan, torch.isnan(b)) and torch.equal(a[~nan], b[~nan])
+
+
+def _rows(t):
+    """The rows of an envelope backward case: one at T = 31, 65 at T = 33
+    (more than the blocks of one wave on some cards), else 5."""
+    return {31: 1, 33: 65}.get(t, 5)
+
+
+@pytest.mark.parametrize("case", ["random", "free", "inf"])
 @pytest.mark.parametrize("hold", [0, 24])
-@pytest.mark.parametrize("t", [1, 2047, 2049, 5000])
+@pytest.mark.parametrize("t", [1, 31, 33, 2047, 2049, 5000, 16384, 20000])
 @pytest.mark.parametrize("rt", [None, 0.2])
-def test_peak_envelope_bwd_kernel_matches_plain(cuda_device, rt, t, hold):
-    """The envelope's adjoint: the kernel's branch codes and reverse
-    chain against the plain loop bit for bit (g_x, the state's
-    cotangents, both taus), from a random state, across chunk ends."""
-    gen = torch.Generator().manual_seed(t + hold)
-    c = 5
+def test_peak_envelope_bwd_kernel_matches_plain(cuda_device, rt, t, hold,
+                                                case):
+    """The envelope's adjoint: the kernel's branch codes (by the block at
+    a hold of 0, where the state at the start leaves a serial prefix; by
+    one thread at a hold of 24) and reverse chain against the plain loop
+    bit for bit (g_x, the state's cotangents, both taus), from a random
+    state, from one already free (peak == envelope, no hold), and with a
+    level of inf in each row; T below a batch, across batches and across
+    the kernel's segment of 16384 samples; one row at T = 31, 65 at
+    T = 33.  One launch a call; the same bits again and with TF32 on."""
+    gen = torch.Generator().manual_seed(t + hold + len(case))
+    c = _rows(t)
     x = (torch.randn(c, t, generator=gen).abs() * 0.6).to(cuda_device)
-    st = tdyn.EnvState(torch.rand(c, generator=gen).to(cuda_device),
-                       torch.rand(c, generator=gen).to(cuda_device),
-                       torch.randint(0, 25, (c,), generator=gen,
-                                     dtype=torch.int32).to(cuda_device))
+    if case == "inf":
+        x[:, (t - 1) // 2] = float("inf")
+    e0 = torch.rand(c, generator=gen)
+    st = tdyn.EnvState(e0.to(cuda_device),
+                       (e0 if case == "free" else
+                        torch.rand(c, generator=gen)).to(cuda_device),
+                       (torch.zeros(c, dtype=torch.int32) if case == "free"
+                        else torch.randint(0, 25, (c,), generator=gen,
+                                           dtype=torch.int32))
+                       .to(cuda_device))
     _, env = eu.peak_envelope(st, x, 0.05, 0.01, hold, rt)
     args = (x, env, *st, _randn(gen, c, t, device=cuda_device),
             _randn(gen, c, device=cuda_device),
@@ -1540,7 +1576,12 @@ def test_peak_envelope_bwd_kernel_matches_plain(cuda_device, rt, t, hold):
     p_out = eu.peak_envelope_bwd_plain(*[a.cpu() if torch.is_tensor(a)
                                          else a for a in args])
     for a, b in zip(k_out, p_out):
-        assert torch.equal(a.cpu(), b)
+        if case == "inf":
+            assert _same_values(a, b)
+        else:
+            assert torch.equal(a.cpu(), b)
+    assert _same_bits(k_out, eu.peak_envelope_bwd(*args))
+    assert _same_with_tf32(lambda: eu.peak_envelope_bwd(*args), k_out)
 
 
 @pytest.mark.parametrize("case", ["rfft", "rfft_zeropad", "irfft",
@@ -1637,11 +1678,12 @@ def _ring_case(gen, dev, c, b, p_n, k2):
                      r(p_n, c, b)))
 
 
-def _assert_matches(ref, out):
-    """``out`` >= 110 dB from ``ref``; where ``ref`` is zero throughout
-    (the ring's cotangent at P = 1: its only slot is w), identical."""
+def _assert_matches(ref, out, db=110.0):
+    """``out`` >= ``db`` from ``ref``; where ``ref`` is zero throughout
+    (the ring's cotangent at P = 1: its only slot is w; the peak's where
+    nothing holds), identical."""
     if torch.any(ref != 0):
-        assert _snr(ref, out) >= 110.0
+        assert _snr(ref, out) >= db
     else:
         assert torch.equal(ref, out)
 
@@ -1653,7 +1695,7 @@ def _same_with_tf32(fn, out):
     torch.backends.cuda.matmul.allow_tf32 = True
     torch.backends.cudnn.allow_tf32 = True
     try:
-        return all(torch.equal(a, b) for a, b in zip(out, fn()))
+        return _same_bits(out, fn())
     finally:
         torch.backends.cuda.matmul.allow_tf32, \
             torch.backends.cudnn.allow_tf32 = prev
@@ -1718,31 +1760,47 @@ def test_eqfdl_bwd_kernel_matches_plain(cuda_device, c, b, p_n, w, k2):
     assert _same_with_tf32(lambda: tfdl.eqfdl_fused_bwd(*args), k_out)
 
 
+@pytest.mark.parametrize("case", ["random", "free", "inf"])
 @pytest.mark.parametrize("t,hold", [(480, 0), (2049, 0), (8192, 0),
-                                    (3000, 3), (8192, 24)])
-def test_chain_dyn_bwd_kernel_matches_plain(cuda_device, t, hold):
-    """#3's backward: its replay is kernel #3's (y bit for bit), its
-    envelope adjoint is peak_envelope_bwd_plain's on the replayed level,
-    envelope and cotangent (bit for bit), the envelope's cotangent (the
-    knee gain's hand-written adjoint) >= 120 dB from autograd's, and the
-    whole against the plain backward on the same saved level and
-    envelope >= 120 dB, knee fields included; at a hold of 0 (the main
-    path's), 3 and 24 from a state with holds left.  With holds the
-    taus' gradients sum cotangents carried through held steps, where the
-    two envelope cotangents' roundings add up (116.9 dB at a hold of 24
-    on the H100): there the taus are held by the two checks before."""
-    gen = torch.Generator().manual_seed(t + hold)
-    c, n = 6, 480
+                                    (3000, 3), (8192, 24), (1, 0), (31, 0),
+                                    (33, 24), (16384, 0)])
+def test_chain_dyn_bwd_kernel_matches_plain(cuda_device, t, hold, case):
+    """#3's backward from the level and envelope that kernel #3 saved (its
+    y bit for bit), its envelope adjoint is peak_envelope_bwd_plain's on
+    that level, envelope and cotangent (bit for bit), the envelope's
+    cotangent (the knee gain's hand-written adjoint) >= 120 dB from
+    autograd's, and the whole against the plain backward on the same
+    saved level and envelope >= 120 dB, knee fields included; at a hold of
+    0 (the main path's: the codes by the block), 3 and 24, from a state
+    with holds left, from one already free, and with a sample of x whose
+    square overflows (a level of inf, then NaN sums: there only the bit
+    for bit checks, NaN where the plain one has NaN); T from 1 (N = T
+    below 480) to the kernel's limit of 16384; one row at T = 31, 65 at
+    T = 33.  With holds the taus' gradients sum cotangents carried
+    through held steps, where the two envelope cotangents' roundings add
+    up (116.9 dB at a hold of 24 on the H100): there the taus are held by
+    the two checks before.  One launch a call; the same bits again and
+    with TF32 on."""
+    gen = torch.Generator().manual_seed(t + hold + len(case))
+    c, n = _rows(t), min(480, t)
     cp = Compressor(48000, attack_thresh=0.25, release_thresh=0.125,
                     attack_ms=10.0, release_ms=80.0, knee=0.7071,
                     ratio=4.0).build()
-    swell = torch.sin(torch.linspace(0.0, torch.pi, t)) * 2.0
+    # (a swell of 1 below 3 samples, where the sine's would be all 0)
+    swell = (torch.sin(torch.linspace(0.0, torch.pi, t)) if t > 2
+             else torch.ones(t)) * 2.0
     x = (torch.randn(c, t, generator=gen) * swell).to(cuda_device)
+    if case == "inf":
+        x[:, t // 2] = 3e19
     win = (_randn(gen, c, n, scale=0.5) ** 2).to(cuda_device)
-    st = tdyn.EnvState(torch.rand(c, generator=gen).to(cuda_device),
-                       torch.rand(c, generator=gen).to(cuda_device),
-                       torch.randint(0, hold + 1, (c,), generator=gen,
-                                     dtype=torch.int32).to(cuda_device))
+    e0 = torch.rand(c, generator=gen)
+    st = tdyn.EnvState(e0.to(cuda_device),
+                       (e0 if case == "free" else
+                        torch.rand(c, generator=gen)).to(cuda_device),
+                       (torch.zeros(c, dtype=torch.int32) if case == "free"
+                        else torch.randint(0, hold + 1, (c,), generator=gen,
+                                           dtype=torch.int32))
+                       .to(cuda_device))
     args = (n, 1.0, cp.tau_attack, cp.tau_release, cp.release_thresh, hold,
             cp.knees)
     cot = (_randn(gen, c, n, device=cuda_device),
@@ -1753,23 +1811,29 @@ def test_chain_dyn_bwd_kernel_matches_plain(cuda_device, t, hold):
     k_out = tenv.chain_dyn_bwd(win, st, x, *cot, *args, replay=True)
     assert tenv.chain_dyn_bwd.launches == before + 1
     level, env, genv, glev, y = k_out[6:]
-    assert torch.equal(y, chain_dyn(win, st, x, *args)[2])
+    y3 = chain_dyn(win, st, x, *args)[2]
+    assert torch.equal(_bits(y), _bits(y3))
     pe = eu.peak_envelope_bwd_plain(level, env, *st, genv, cot[1], cot[2],
                                     cp.tau_attack, cp.tau_release, hold,
                                     cp.release_thresh)
     for a, bb in zip(pe, (glev, k_out[1], k_out[2], k_out[4])):
-        assert torch.equal(a, bb)
-    assert _snr(tenv.gain_adjoint_plain(env, x, cot[3], cp.knees)[1],
-                genv) >= 120.0
+        assert _same_values(a, bb)
+    saved = (level, env)
+    assert _same_bits(k_out[:6], tenv.chain_dyn_bwd(win, st, x, *cot, *args,
+                                                    saved=saved))
+    assert _same_with_tf32(lambda: tenv.chain_dyn_bwd(
+        win, st, x, *cot, *args, saved=saved), k_out[:6])
+    if case == "inf":
+        return
+    # (zero where the envelope stays below the first knee: then identical)
+    _assert_matches(tenv.gain_adjoint_plain(env, x, cot[3], cp.knees)[1],
+                    genv, 120.0)
     p_out = tenv.chain_dyn_bwd_plain(win, st, x, *cot, *args,
                                      saved=(level, env))
     for i, (a, bb) in enumerate(zip(p_out, k_out[:6])):
         if i == 4 and hold:
             continue
-        if torch.any(a != 0):
-            assert _snr(a, bb) >= 120.0
-        else:                   # the peak's cotangent where nothing holds
-            assert torch.equal(a, bb)
+        _assert_matches(a, bb, 120.0)
 
 
 def test_step_ring_gradient_on_card_matches_cpu(cuda_device):
