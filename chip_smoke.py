@@ -275,9 +275,13 @@ Phases (any failure exits non-zero; nothing is caught):
             dependent operations, 12 cycles a step) and its bytes bound;
             biquad_cascade_bwd at [64, 16384], K = 9 (the chain's 8 bands)
             against its plain backward (the same adjoint on the plain
-            scan), >= 120 dB, its scan launches a call; #1's four
-            adjoints as step runs them, against the same adjoints on
-            torch.fft (>= 95 dB).  Each timed, with its bound.
+            scan), >= 120 dB, its scan launches a call; #1's adjoints
+            as step runs them at [128, N = 16384] (the zero-pad and whole
+            forward's, the first, last and whole inverse's), against the
+            same adjoints on torch.fft (>= 95 dB), each one launch of its
+            kernel a call and nothing else (torch.profiler after
+            uncounted calls), torch.fft.irfft / rfft at the same shape in
+            natural order beside it.  Each timed, with its bound.
 17b. grad_ring — gradients through step_ring at full width: 8 blocks
             of [64, 8192] from init_ring_state (inputs at amplitude 2.0,
             seeded), loss the sum of every output squared, d/d each
@@ -286,8 +290,10 @@ Phases (any failure exits non-zero; nothing is caught):
             graph), the loss over the channels whose envelope branches
             (from the level and envelope kernel #3 saves for
             chain_dyn_bwd) agree with the CPU run's (the others printed).
-            The launch counters of eqfdl_fused_bwd and chain_dyn_bwd,
-            zeroed just before and read just after, each >= 8.  Card
+            The launch counters of eqfdl_fused_bwd, chain_dyn_bwd, the
+            frame kernel (frame_bwd) and the zero-pad adjoint of #1
+            (rfft_packed_zeropad.bwd_launches), zeroed just before and
+            read just after, each >= 8.  Card
             against the port's CPU run: >= 100 dB each; again with TF32
             on: identical.  8 blocks of the packed
             fdl_ring_step under grad (x and the IR spectra): fdl_bwd
@@ -296,8 +302,11 @@ Phases (any failure exits non-zero; nothing is caught):
             fdl_fused_bwd against their plain backwards >= 110 dB per
             output, identical from run to run, each launch of one call
             of each (torch.profiler: name, ms, bytes bound; the EQ
-            adjoint's eqfdl_bwd and eqfdl_bwd_sums and fdl_bwd must be
-            among them); chain_dyn_bwd from the level and envelope that
+            adjoint's eqfdl_bwd and eqfdl_bwd_sums, fdl_bwd and the
+            frame kernel must be among them, and no torch add, copy or
+            #1 inverse); the frame kernel alone in both forms against
+            frame_bwd_plain (>= 95 dB), one launch a call (the
+            profiler); chain_dyn_bwd from the level and envelope that
             kernel #3's saving form wrote: its y identical to kernel
             #3's, the saved envelope identical to the plain envelope on
             its level, its envelope adjoint identical to
@@ -348,10 +357,12 @@ Phases (any failure exits non-zero; nothing is caught):
 The last three lines of standard output are the kernel table (JSON:
 the nine TPU kernels' ports, biquad_seq, limiter_kernel,
 rider_kernel, biquad_scan, delay_kernel, rider_kernel<TriggerStep>,
-rider_kernel<DepopperStep>, and the backward kernels sliding_rms_bwd
-and peak_envelope_bwd, whose launches are the grad phase's, and
-eqfdl_bwd, fdl_bwd and chain_dyn_bwd, whose launches are the grad_ring
-phase's), the card's
+rider_kernel<DepopperStep>, and the backward kernels sliding_rms_bwd,
+peak_envelope_bwd and #1's adjoints rfft_packed_bwd_kernel and
+irfft_packed_bwd_kernel (timed in their zero-pad and first-half forms,
+every form under "modes"), whose launches are the grad phase's, and
+eqfdl_bwd, fdl_bwd, chain_dyn_bwd and frame_bwd_kernel, whose launches
+are the grad_ring phase's), the card's
 name and power limit, and the
 contract line
 {"ok": true, "device": {...}}.
@@ -581,6 +592,15 @@ KERNELS = (
     ("eqfdl_bwd", "eqfdl_bwd", "fdl_fused.cu", "ops/pallas_fdl_fused.py:222"),
     ("fdl_bwd", "fdl_bwd", "fdl_fused.cu", "ops/pallas_fdl_fused.py:80"),
     ("dyn_bwd", "chain_dyn_bwd", "env.cu", "ops/pallas_env.py:523"),
+    # #1's adjoints, one launch each (the inverse with weighted loads, the
+    # forward transform with weighted stores), and the convolver
+    # backwards' frame transforms in one cluster kernel
+    ("rfft_bwd", "rfft_packed_bwd_kernel", "fft_packed.cu",
+     "ops/pallas_fft.py:549"),
+    ("irfft_bwd", "irfft_packed_bwd_kernel", "fft_packed.cu",
+     "ops/pallas_fft.py:549"),
+    ("frame_bwd", "frame_bwd_kernel", "fdl_fused.cu",
+     "ops/pallas_fdl_fused.py:222"),
 )
 
 
@@ -620,6 +640,10 @@ EXTRA_KEYS = {
     "dyn_bwd": ("db", "envelope_identical", "chain_ms", "cycles_per_sample",
                 "fwd_ms", "fwd_save_ms", "launch_profile",
                 "profile_whole"),
+    "rfft_bwd": ("modes",),
+    "irfft_bwd": ("modes",),
+    "frame_bwd": ("db", "fdl_ms", "fdl_plain_ms", "fdl_bound_ms",
+                  "launch_profile", "profile_whole"),
     "peak": ("chain_ms", "cycles_per_step", "hold24_ms",
              "hold24_cycles_per_step", "sass_free_cycles_per_step",
              "sass_ref_cycles_per_step", "sm_clock_hz"),
@@ -3913,6 +3937,9 @@ RMS_BWD_DB = 120.0    # sliding_rms_bwd vs its plain version (float64 sums
 #                       of the window in another order)
 SCAN_BWD_DB = 120.0   # the scan's backward vs its plain backward
 FFT_BWD_DB = FFT_DB   # #1's adjoints on the kernel vs on torch.fft
+# calls a launch_profile makes (its default warm and counted calls, and
+# the one before the profile)
+LAUNCH_PROFILE_CALLS = 1 + 30 + 10
 ENV_BWD_T = 4096      # the plain envelope backward's length off step's case
 GRAD_COUNTERS = ((fp.rfft_packed, "bwd_launches"),
                  (fp.rfft_packed_zeropad, "bwd_launches"),
@@ -3986,6 +4013,83 @@ def envelope_codes(chain, params, xs, device):
                 share = float(torch.mean((env > cp.knees[0].start).float()))
             st = pipeline.ChainState(eq=eq, fdl=fdl, sc=sc, env=env_st)
     return codes, share, y * gain
+
+
+def adjoint_timings(gen, dev) -> dict:
+    """#1's adjoint routes at step's shapes ([2 C, N]: step's two blocks a
+    call): each against its plain version (>= FFT_BWD_DB), its kernels
+    of a call by torch.profiler after uncounted calls (one launch, its
+    kernel's, and nothing else), the route's time (CUDA events behind
+    the spin kernel), the plain route's and torch.fft's at the same shape
+    in natural order (irfft of the [2 C, M + 1] spectrum for the inverse
+    adjoints, rfft of the cotangent, zero-padded to N for a half, for
+    the forward ones), and the bound."""
+    rows = C * STEP_BLOCKS
+    gre, gim = randn(gen, rows, B, dev=dev), randn(gen, rows, B, dev=dev)
+    g_half = randn(gen, rows, B, dev=dev)
+    g_full = randn(gen, rows, N, dev=dev)
+    spec = torch.complex(randn(gen, rows, B + 1, dev=dev),
+                         randn(gen, rows, B + 1, dev=dev))
+    adj = dict(
+        rfft_zeropad=(fp.rfft_packed_bwd, fp.rfft_packed_bwd_plain,
+                      (gre, gim, N, 1), 2 * rows * B + rows * B,
+                      lambda: torch.fft.irfft(spec, n=N)),
+        rfft=(fp.rfft_packed_bwd, fp.rfft_packed_bwd_plain,
+              (gre, gim, N, 0), 2 * rows * B + rows * N,
+              lambda: torch.fft.irfft(spec, n=N)),
+        irfft_first=(fp.irfft_packed_bwd, fp.irfft_packed_bwd_plain,
+                     (g_half, N, "first"), rows * B + 2 * rows * B,
+                     lambda: torch.fft.rfft(g_half, n=N)),
+        irfft_last=(fp.irfft_packed_bwd, fp.irfft_packed_bwd_plain,
+                    (g_half, N, "last"), rows * B + 2 * rows * B,
+                    lambda: torch.fft.rfft(g_half, n=N)),
+        irfft=(fp.irfft_packed_bwd, fp.irfft_packed_bwd_plain,
+               (g_full, N, False), rows * N + 2 * rows * B,
+               lambda: torch.fft.rfft(g_full)))
+    out = {}
+    for name, (fn, plain, args, floats, lib) in adj.items():
+        out_k, out_p = fn(*args), plain(*args)
+        out_k = out_k if isinstance(out_k, tuple) else (out_k,)
+        out_p = out_p if isinstance(out_p, tuple) else (out_p,)
+        db = min(snr_db(a, b) for a, b in zip(out_p, out_k))
+        check(db >= FFT_BWD_DB, f"#1 adjoint {name} {db:.1f} dB")
+        kernel = ("rfft_packed_bwd_kernel" if name.startswith("rfft")
+                  else "irfft_packed_bwd_kernel")
+        counter = {"rfft": fp.rfft_packed, "rfft_zeropad":
+                   fp.rfft_packed_zeropad}.get(name, fp.irfft_packed)
+        before = counter.bwd_launches
+        prof = launch_profile((lambda a: lambda: fn(*a))(args), rows, B, 1,
+                              2, bytes_of=lambda k, f=floats: (
+                                  F32 * f if k == kernel else None))
+        calls = counter.bwd_launches - before
+        # one launch a call by the wrapper's counter (the profiler can
+        # lose records late in a long process, never add them): no other
+        # kernel in the profile, and whether it is whole
+        check(calls == LAUNCH_PROFILE_CALLS and all(
+            r["name"] == kernel for r in prof),
+            f"#1 adjoint {name}: {calls} launches over "
+            f"{LAUNCH_PROFILE_CALLS} calls, profile {prof}")
+        out[name] = dict(
+            profile_whole=[(r["name"], r["launches"]) for r in prof]
+            == [(kernel, 1)],
+            db=db, max_abs_err=max(max_abs(a, b)
+                                   for a, b in zip(out_p, out_k)),
+            ms=time_ms(lambda: fn(*args), 50),
+            kernel_ms=prof[0]["ms"] if prof else None,
+            launches_per_call=1,
+            plain_ms=time_ms(lambda: plain(*args), 20),
+            library_ms=time_ms(lib, 50),
+            **bound(F32 * floats, rows * fft_flops(N)))
+    print("#1's adjoints at step's shapes ([" + f"{rows}, N = {N}], one "
+          "launch a call each): " + "; ".join(
+              f"{k} {v['ms']:.4f} ms (kernel "
+              + ("not in the profile" if v["kernel_ms"] is None
+                 else f"{v['kernel_ms']:.4f} by the profiler")
+              + f", plain {v['plain_ms']:.4f} (host-paced: a pageable "
+              f"copy a call), torch.fft {v['library_ms']:.4f}, bound "
+              f"{v['bound_ms']:.4f}) {v['db']:.1f} dB"
+              for k, v in out.items()))
+    return out
 
 
 def grad_phase(chain, params, dev, res):
@@ -4227,34 +4331,25 @@ def grad_phase(chain, params, dev, res):
           f"host-paced), bound {r['bound_ms']:.4f} ({r['bound_by']}); vs "
           f"plain {scan_db:.1f} dB, identical = {scan_same}")
 
-    # #1's four adjoints as step runs them, at step's shapes
-    rows = C * STEP_BLOCKS
-    gre, gim = randn(gen, rows, B, dev=dev), randn(gen, rows, B, dev=dev)
-    g_half = randn(gen, rows, B, dev=dev)
-    adj = dict(
-        rfft_zeropad=(fp.rfft_packed_bwd, fp.rfft_packed_bwd_plain,
-                      (gre, gim, N, 1), 2 * rows * B + rows * B),
-        rfft=(fp.rfft_packed_bwd, fp.rfft_packed_bwd_plain,
-              (gre, gim, N, 0), 2 * rows * B + rows * N),
-        irfft_first=(fp.irfft_packed_bwd, fp.irfft_packed_bwd_plain,
-                     (g_half, N, "first"), rows * B + 2 * rows * B),
-        irfft_last=(fp.irfft_packed_bwd, fp.irfft_packed_bwd_plain,
-                    (g_half, N, "last"), rows * B + 2 * rows * B))
-    res["fft_bwd"] = {}
-    for name, (fn, plain, args, floats) in adj.items():
-        out_k, out_p = fn(*args), plain(*args)
-        out_k = out_k if isinstance(out_k, tuple) else (out_k,)
-        out_p = out_p if isinstance(out_p, tuple) else (out_p,)
-        db = min(snr_db(a, b) for a, b in zip(out_p, out_k))
-        check(db >= FFT_BWD_DB, f"#1 adjoint {name} {db:.1f} dB")
-        res["fft_bwd"][name] = dict(
-            db=db, ms=time_ms(lambda: fn(*args), 50),
-            plain_ms=time_ms(lambda: plain(*args), 20),
-            **bound(F32 * floats, rows * fft_flops(N)))
-    print("#1's adjoints at step's shapes ([" + f"{rows}, N = {N}]): "
-          + "; ".join(f"{k} {v['ms']:.4f} ms (plain {v['plain_ms']:.4f}, "
-                      f"bound {v['bound_ms']:.4f}) {v['db']:.1f} dB"
-                      for k, v in res["fft_bwd"].items()))
+    # #1's adjoints as step runs them, at step's shapes (and the whole
+    # frame's inverse adjoint): one launch each, its weights inside the
+    # kernel; the route against its plain version (the weights by torch's
+    # multiplies around torch.fft), torch.fft in natural order beside it
+    res["fft_bwd"] = adjoint_timings(gen, dev)
+    for key, modes in (("rfft_bwd", ("rfft_zeropad", "rfft")),
+                       ("irfft_bwd", ("irfft_first", "irfft_last",
+                                      "irfft"))):
+        first = res["fft_bwd"][modes[0]]
+        res[key] = dict(
+            {k: first[k] for k in ("ms", "plain_ms", "library_ms",
+                                   "bound_ms", "bound_by")},
+            max_abs_err=max(res["fft_bwd"][m]["max_abs_err"]
+                            for m in modes),
+            modes={m: res["fft_bwd"][m] for m in modes})
+    res["rfft_bwd"]["launches"] = (launched["rfft_packed.bwd_launches"]
+                                   + launched["rfft_packed_zeropad"
+                                              ".bwd_launches"])
+    res["irfft_bwd"]["launches"] = launched["irfft_packed.bwd_launches"]
     res["grad"] = dict(
         knee_share=share, launches=launched, db=dbs,
         all_channels_db=flipped_dbs,
@@ -4276,7 +4371,8 @@ FDL_BWD_DB = 110.0    # eqfdl_bwd's and fdl_bwd's routes vs their plain
 #                       sums in another order)
 DYN_BWD_DB = 120.0    # chain_dyn_bwd vs its plain backward (the float64
 #                       level against the plain float32 prefix sums)
-RING_COUNTERS = (ff.eqfdl_fused_bwd, ff.fdl_fused_bwd, env_ops.chain_dyn_bwd)
+RING_COUNTERS = (ff.eqfdl_fused_bwd, ff.fdl_fused_bwd, env_ops.chain_dyn_bwd,
+                 ff.frame_bwd)
 
 
 def dbs_of(names, refs, outs) -> dict:
@@ -4398,12 +4494,16 @@ def grad_ring_phase(chain, params, dev, res):
     torch.cuda.synchronize()
     for f in RING_COUNTERS:
         f.launches = 0
+    fp.rfft_packed_zeropad.bwd_launches = 0
     g_card = ring_grad_run(chain, params, xs, dev, agree)
     torch.cuda.synchronize()
     launched = {f.__name__: f.launches for f in RING_COUNTERS}
-    check(launched["eqfdl_fused_bwd"] >= RING_GRAD_BLOCKS
-          and launched["chain_dyn_bwd"] >= RING_GRAD_BLOCKS,
-          f"grad_ring: backward launches {launched}")
+    launched["rfft_packed_zeropad.bwd_launches"] = \
+        fp.rfft_packed_zeropad.bwd_launches
+    check(all(launched[k] >= RING_GRAD_BLOCKS for k in (
+        "eqfdl_fused_bwd", "chain_dyn_bwd", "frame_bwd",
+        "rfft_packed_zeropad.bwd_launches")),
+        f"grad_ring: backward launches {launched}")
     prev = (torch.backends.cuda.matmul.allow_tf32,
             torch.backends.cudnn.allow_tf32)
     torch.backends.cuda.matmul.allow_tf32 = True
@@ -4511,7 +4611,9 @@ def grad_ring_phase(chain, params, dev, res):
     check(sum(n.startswith("eqfdl_bwd<") for n in names["eqfdl_bwd"]) == 1
           and "eqfdl_bwd_sums" in names["eqfdl_bwd"]
           and "fdl_bwd" in names["eqfdl_bwd"]
-          and "fdl_bwd" in names["fdl_bwd"],
+          and "fdl_bwd" in names["fdl_bwd"]
+          and not any(n in ("torch add", "torch copy", "irfft_packed_kernel")
+                      for v in names.values() for n in v),
           f"grad_ring: the backwards' launches {names}")
     plane = C * B * F32
     k2b = k2 * B * F32
@@ -4543,6 +4645,38 @@ def grad_ring_phase(chain, params, dev, res):
         launch_profile=profiles["fdl_bwd"],
         **bound(6 * p_n * plane + 4 * p_n * B * F32 + 3 * plane,
                 C * (2 * fft_flops(N) + 16 * p_n * B)))
+
+    # the frame kernel alone: eqfdl_fused_bwd's form (the inverse, the sum
+    # with u's cotangent, its zero-pad transform) and fdl_fused_bwd's (the
+    # inverse's two halves) against frame_bwd_plain on the card
+    gs = (randn(gen, C, B, dev=dev), randn(gen, C, B, dev=dev))
+    fr_k = ff.frame_bwd(*gs, N, cot[1])
+    fr_p = ff.frame_bwd_plain(*gs, N, cot[1])
+    fr_db = min(snr_db(a, b) for a, b in zip(fr_p, fr_k))
+    fdl_k, fdl_p = ff.frame_bwd(*gs, N), ff.frame_bwd_plain(*gs, N)
+    fr_db = min([fr_db] + [snr_db(a, b) for a, b in zip(fdl_p, fdl_k)])
+    check(fr_db >= FFT_BWD_DB, f"frame_bwd {fr_db:.1f} dB < {FFT_BWD_DB}")
+    before = ff.frame_bwd.launches
+    fr_prof = launch_profile(lambda: ff.frame_bwd(*gs, N, cot[1]), C, B, p_n,
+                             k2)
+    fr_calls = ff.frame_bwd.launches - before
+    check(fr_calls == LAUNCH_PROFILE_CALLS and all(
+        r["name"] == "frame_bwd_kernel<true>" for r in fr_prof),
+        f"frame_bwd: {fr_calls} launches over {LAUNCH_PROFILE_CALLS} "
+        f"calls, profile {fr_prof}")
+    res["frame_bwd"] = dict(
+        db=fr_db, launches=launched["frame_bwd"],
+        profile_whole=[(r["name"], r["launches"]) for r in fr_prof]
+        == [("frame_bwd_kernel<true>", 1)],
+        max_abs_err=max(max_abs(a, b) for a, b in zip(
+            fr_p + fdl_p, fr_k + fdl_k)),
+        ms=time_ms(lambda: ff.frame_bwd(*gs, N, cot[1]), 50),
+        plain_ms=time_ms(lambda: ff.frame_bwd_plain(*gs, N, cot[1]), 20),
+        library_ms=None, launch_profile=fr_prof,
+        fdl_ms=time_ms(lambda: ff.frame_bwd(*gs, N), 50),
+        fdl_plain_ms=time_ms(lambda: ff.frame_bwd_plain(*gs, N), 20),
+        fdl_bound_ms=bound(4 * plane, C * fft_flops(N))["bound_ms"],
+        **bound(7 * plane, 2 * C * fft_flops(N)))
 
     # chain_dyn_bwd on the block's y and state, from the level and
     # envelope of kernel #3's saving form: y against kernel #3, the
@@ -4656,6 +4790,7 @@ def grad_ring_phase(chain, params, dev, res):
         fwd_bwd_top_kernels=top)
     for key, name in (("eqfdl_bwd", "eqfdl_fused_bwd"),
                       ("fdl_bwd", "fdl_fused_bwd"),
+                      ("frame_bwd", "frame_bwd"),
                       ("dyn_bwd", "chain_dyn_bwd")):
         r = res[key]
         print(f"{name}: {r['ms']:.4f} ms, plain {r['plain_ms']:.4f}, bound "
@@ -4666,7 +4801,13 @@ def grad_ring_phase(chain, params, dev, res):
                 f"{x['name']} {x['ms']:.4f} x {x['launches']}"
                 + ("" if x["bound_ms"] is None
                    else f" ({x['bound_ms']:.4f})")
-                for x in profiles[key])))
+                for x in profiles[key]))
+              + ("" if key != "frame_bwd" else
+                 "; the kernel " + (f"{fr_prof[0]['ms']:.4f} ms by the "
+                                    "profiler" if fr_prof else
+                                    "not in the profile") + "; "
+                 f"fdl_fused_bwd's form {r['fdl_ms']:.4f}, plain "
+                 f"{r['fdl_plain_ms']:.4f}, bound {r['fdl_bound_ms']:.4f}"))
     print(f"chain_dyn_bwd [{C}, {B}]: {res['dyn_bwd']['cycles_per_sample']:.1f}"
           f" cycles a sample, the reverse pass's chain bound "
           f"{res['dyn_bwd']['chain_ms']:.4f} ms; kernel #3 {dyn_fwd_ms:.4f} "

@@ -507,10 +507,11 @@ int launch_shape(Kernel kernel, int log_m, int c_n, int* out) {
 //
 // A backward runs as a few launches (ops/fdl_fused.py): kernel #1's
 // zero-pad forward transform of y's cotangent, then fdl_bwd (the MAC's
-// adjoint), then kernel #1's inverse of S's cotangent (the frame's
-// cotangent: hist's first half, u's or x's second); for eqfdl, kernel
-// #1's zero-pad forward transform of u's whole cotangent, then eqfdl_bwd
-// (the EQ's adjoint but for sv's and m_mat's sums) and eqfdl_bwd_sums.
+// adjoint), then frame_bwd_kernel: the inverse of S's cotangent (the
+// frame's cotangent: hist's first half, u's or x's second) and, for
+// eqfdl, the zero-pad forward transform of u's whole cotangent; then for
+// eqfdl eqfdl_bwd (the EQ's adjoint but for sv's and m_mat's sums) and
+// eqfdl_bwd_sums.
 //
 // The channel split.  Both wide kernels cut the C channels into G =
 // min(4, C) contiguous groups (group r: channels [r C / G, (r + 1) C / G), in
@@ -903,6 +904,130 @@ eqfdl_bwd_sums(const float* __restrict__ part_sv,
   }
 }
 
+// The frame's transforms in the backward, one cluster of two blocks a
+// channel (blockIdx.x = 2 * channel + b), block b holding packed positions
+// [b L, (b+1) L), L = M/2, as irfft_packed_kernel: the inverse of S's
+// cotangent gs (fdl_bwd wrote it weighted), its half's retangle and local
+// DIT stages, then the last stage (span L) for this block's quarter i in
+// [b L/2, (b+1) L/2), whose a + c is hist's cotangent and a - c the frame
+// input's.  fdl_fused_bwd (kEq false) writes the two halves as g_hist and
+// g_x.  eqfdl_fused_bwd (kEq true) adds u's own cotangent gu to the last
+// half (g_ut, one rounding: __fadd_rn, never an FMA with the scaling),
+// writes it, and forms the zero-pad forward transform's first DIF stage
+// of it in place (g_ut to half 0, g_ut w to half 1, as
+// rfft_packed_kernel's first load does), so that after one more cluster
+// barrier each block runs that transform's other stages and untangle on
+// its own half (-> gp).  The frame never leaves shared memory between
+// the two transforms, and the outputs are bit for bit those of the chain
+// of launches it replaces (kernel #1's inverse, the halves copied out,
+// the add, kernel #1's zero-pad forward): the same operations on the
+// same operands.  What bounds it: like kernel #1, its passes' latency
+// and barriers, not its bytes (7 planes of [C, M] at the EQ route).
+template <bool kEq>
+__global__ void __cluster_dims__(2, 1, 1) __launch_bounds__(kThreads)
+frame_bwd_kernel(const float* __restrict__ gs_re,
+                 const float* __restrict__ gs_im,
+                 const float* __restrict__ gu, float* __restrict__ g_hist,
+                 float* __restrict__ g_last, float* __restrict__ gp_re,
+                 float* __restrict__ gp_im, const float2* __restrict__ wst,
+                 const float2* __restrict__ wnb, int log_m) {
+  extern __shared__ __align__(16) float2 buf[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int log_l = log_m - 1;
+  const int l = 1 << log_l;
+  const int m = l << 1;
+  const int b = (int)cluster.block_rank();
+  const int off = b * l;
+  const size_t row = (size_t)(blockIdx.x >> 1) << log_m;
+  int t0, count;
+  half_pairs(b, l, t0, count);
+  {
+    const float* ire = gs_re + row;
+    const float* iim = gs_im + row;
+    for (int u = threadIdx.x; u < count; u += blockDim.x) {
+      int j, jp;
+      pair_of(t0 + u, j, jp);
+      float2 zk, zmk;
+      retangle(make_float2(ire[j], iim[j]), make_float2(ire[jp], iim[jp]),
+               __ldg(&wnb[j]), zk, zmk);
+      buf[pad(j - off)] = zk;
+      buf[pad(jp - off)] = zmk;
+    }
+    if (b == 0 && threadIdx.x == 0) {
+      buf[0] = retangle0(make_float2(ire[0], iim[0]));
+      buf[1] = make_float2(ire[1], -iim[1]);
+    }
+  }
+  auto ld = [&](int i) { return buf[pad(i)]; };
+  auto st = [&](int i, float2 v) { buf[pad(i)] = v; };
+  for (int lo = 0; lo < log_l;) {
+    __syncthreads();
+    const int kk = min(kRadixBits, log_l - lo);
+    pass<true>(kk, wst, lo, blockDim.x, ld, st);
+    lo += kk;
+  }
+  cluster.sync();
+
+  {
+    float2* lower = b ? cluster.map_shared_rank(buf, 0) : buf;
+    float2* upper = b ? buf : cluster.map_shared_rank(buf, 1);
+    float2* hz = reinterpret_cast<float2*>(g_hist + row);
+    float2* lz = reinterpret_cast<float2*>(g_last + row);
+    const float2* uz = reinterpret_cast<const float2*>(gu + row);
+    const float inv_m = 1.0f / (float)m;
+    const int i0 = b * (l >> 1);
+    for (int i = i0 + threadIdx.x; i < i0 + (l >> 1); i += blockDim.x) {
+      const float2 tw = __ldg(&wst[l + i]);
+      const float2 a = lower[pad(i)];
+      const float2 c = cmulc(upper[pad(i)], tw);
+      hz[i] = cscale(cadd(a, c), inv_m);
+      const float2 d = cscale(csub(a, c), inv_m);
+      if constexpr (kEq) {
+        const float2 g = uz[i];
+        const float2 ut = make_float2(__fadd_rn(d.x, g.x),
+                                      __fadd_rn(d.y, g.y));
+        lz[i] = ut;
+        lower[pad(i)] = ut;
+        upper[pad(i)] = cmul(ut, tw);
+      } else {
+        lz[i] = d;
+      }
+    }
+  }
+  // the partner reads or writes this block's shared memory until here
+  cluster.sync();
+  if constexpr (kEq) {
+    int rem = log_l;
+    while (rem > 0) {
+      const int kk = min(kRadixBits, rem);
+      rem -= kk;
+      pass<false>(kk, wst, rem, blockDim.x, ld, st);
+      __syncthreads();
+    }
+    float* ore = gp_re + row;
+    float* oim = gp_im + row;
+    for (int u = threadIdx.x; u < count; u += blockDim.x) {
+      int j, jp;
+      pair_of(t0 + u, j, jp);
+      float2 xk, xmk;
+      untangle(buf[pad(j - off)], buf[pad(jp - off)], __ldg(&wnb[j]), xk,
+               xmk);
+      ore[j] = xk.x;
+      oim[j] = xk.y;
+      ore[jp] = xmk.x;
+      oim[jp] = xmk.y;
+    }
+    if (b == 0 && threadIdx.x == 0) {
+      const float2 x0 = untangle0(buf[0]);
+      const float2 x1 = cconj(buf[1]);
+      ore[0] = x0.x;
+      oim[0] = x0.y;
+      ore[1] = x1.x;
+      oim[1] = x1.y;
+    }
+  }
+}
+
 // a launch of `kernel` as clusters of `groups` blocks along the grid's z
 template <class... Exp, class... Act>
 cudaError_t cluster_launch(void (*kernel)(Exp...), dim3 grid, int threads,
@@ -1003,6 +1128,28 @@ int lsp_eqfdl_bwd(const float* gp_re, const float* gp_im, const float* gu,
   const int n = c_n * k2 + k2 * k2;      // outputs, a warp each
   eqfdl_bwd_sums<<<tiles_of(32 * n, kBwdThreads), kBwdThreads, 0, st>>>(
       part_sv, gsv2, m_mat, sv, g_sv, g_m, tiles, c_n, k2);
+  return (int)cudaGetLastError();
+}
+
+// The frame's transforms of the backward over c_n channels (gs [C, M]
+// -> g_hist, g_last [C, M]): fdl_fused_bwd's (gu, gp_re, gp_im null) or,
+// with gu, eqfdl_fused_bwd's (g_last = g_ut; gp [C, M]).
+int lsp_frame_bwd(const float* gs_re, const float* gs_im, const float* gu,
+                  float* g_hist, float* g_last, float* gp_re, float* gp_im,
+                  const float2* wst, const float2* wnb, int log_m, int c_n,
+                  void* stream) {
+  if (bad_size(log_m) || c_n < 1) return (int)cudaErrorInvalidValue;
+  const bool eq = gu != nullptr;
+  if (eq && (gp_re == nullptr || gp_im == nullptr))
+    return (int)cudaErrorInvalidValue;
+  const int smem = half_smem(log_m);
+  const int threads = (1 << (log_m - 1)) / kPts;
+  auto kernel = eq ? frame_bwd_kernel<true> : frame_bwd_kernel<false>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<2 * c_n, threads, smem, (cudaStream_t)stream>>>(
+      gs_re, gs_im, gu, g_hist, g_last, gp_re, gp_im, wst, wnb, log_m);
   return (int)cudaGetLastError();
 }
 

@@ -39,6 +39,17 @@
 // and barriers (3 at M = 8192), in one wave of 2 x rows blocks; the card
 // could move the bytes ~5x faster.  Threads per block: (M/2) / 16, from
 // 2 (N = 128) to 512 (N = 32768).
+//
+// The adjoints of the two transforms (ops/fft_packed.py's backwards) are
+// the other direction's transform with weights that are powers of two:
+// rfft_packed_bwd_kernel is the inverse on the packed cotangent, each
+// value multiplied as it is loaded; irfft_packed_bwd_kernel the forward
+// transform of the output's cotangent, each value multiplied (and in the
+// upper half negated, for the last half) as it is stored.  They share
+// their bodies (rfft_row, irfft_row) with the inference kernels, whose
+// code the template leaves as it was, and their products are exact, so
+// their outputs are those of the weights and the transform launched
+// apart, bit for bit, in one launch and no pass over the spectra.
 
 #include <cooperative_groups.h>
 
@@ -52,11 +63,18 @@ namespace {
 constexpr int kMaxThreads = 8192 / kPts;       // M/2 = 8192 at N = 32768
 
 // blockIdx.x = 2 * row + b: block b owns packed positions [b L, (b+1) L),
-// L = M/2.
-__global__ void __launch_bounds__(kMaxThreads)
-rfft_packed_kernel(const float* __restrict__ x, float* __restrict__ out_re,
-                   float* __restrict__ out_im, const float2* __restrict__ wst,
-                   const float2* __restrict__ wnb, int log_m, int half_input) {
+// L = M/2.  kAdj: irfft_packed's adjoint (ops/fft_packed.py::
+// irfft_packed_bwd), each output stored times 2/N, position 0's times 1/N,
+// and negated in block 1 (packed positions >= M/2, the odd natural bins)
+// where flip: powers of two, so each product (__fmul_rn, never contracted
+// into a neighbour's FMA) is the one the weights gave after the transform.
+template <bool kAdj>
+__device__ __forceinline__ void rfft_row(const float* __restrict__ x,
+                                         float* __restrict__ out_re,
+                                         float* __restrict__ out_im,
+                                         const float2* __restrict__ wst,
+                                         const float2* __restrict__ wnb,
+                                         int log_m, int half_input, int flip) {
   extern __shared__ __align__(16) float2 buf[];
   const int log_l = log_m - 1;
   const int l = 1 << log_l;
@@ -86,6 +104,18 @@ rfft_packed_kernel(const float* __restrict__ x, float* __restrict__ out_re,
   float* ore = out_re + (size_t)row * 2 * l;
   float* oim = out_im + (size_t)row * 2 * l;
   const int off = b * l;
+  // the adjoint's weights: 2/N = 2^-log_m, exact in float
+  const float w = kAdj ? 1.0f / (float)(1 << log_m) : 1.0f;
+  const float wb = kAdj && flip && b ? -w : w;
+  auto put = [&](int j, float2 v, float s) {
+    if constexpr (kAdj) {
+      ore[j] = __fmul_rn(v.x, s);
+      oim[j] = __fmul_rn(v.y, s);
+    } else {
+      ore[j] = v.x;
+      oim[j] = v.y;
+    }
+  };
   int t0, count;
   half_pairs(b, l, t0, count);
   for (int u = threadIdx.x; u < count; u += blockDim.x) {
@@ -93,30 +123,47 @@ rfft_packed_kernel(const float* __restrict__ x, float* __restrict__ out_re,
     pair_of(t0 + u, j, jp);
     float2 xk, xmk;
     untangle(buf[pad(j - off)], buf[pad(jp - off)], __ldg(&wnb[j]), xk, xmk);
-    ore[j] = xk.x;
-    oim[j] = xk.y;
-    ore[jp] = xmk.x;
-    oim[jp] = xmk.y;
+    put(j, xk, wb);
+    put(jp, xmk, wb);
   }
   if (b == 0 && threadIdx.x == 0) {
-    const float2 x0 = untangle0(buf[0]);
-    const float2 x1 = cconj(buf[1]);
-    ore[0] = x0.x;
-    oim[0] = x0.y;
-    ore[1] = x1.x;
-    oim[1] = x1.y;
+    put(0, untangle0(buf[0]), 0.5f * w);
+    put(1, cconj(buf[1]), w);
   }
+}
+
+__global__ void __launch_bounds__(kMaxThreads)
+rfft_packed_kernel(const float* __restrict__ x, float* __restrict__ out_re,
+                   float* __restrict__ out_im, const float2* __restrict__ wst,
+                   const float2* __restrict__ wnb, int log_m, int half_input) {
+  rfft_row<false>(x, out_re, out_im, wst, wnb, log_m, half_input, 0);
+}
+
+// irfft_packed's adjoint: the forward transform of the output's cotangent
+// (the whole frame, or a half through the zero-pad form), weighted
+__global__ void __launch_bounds__(kMaxThreads)
+irfft_packed_bwd_kernel(const float* __restrict__ g,
+                        float* __restrict__ out_re, float* __restrict__ out_im,
+                        const float2* __restrict__ wst,
+                        const float2* __restrict__ wnb, int log_m,
+                        int half_input, int flip) {
+  rfft_row<true>(g, out_re, out_im, wst, wnb, log_m, half_input, flip);
 }
 
 // half: 0 = all N samples, 1 = first N/2, 2 = last N/2.  A cluster of the
 // two blocks of a row; block b retangles half b and runs the local DIT
 // stages, then the last stage (span L) pairs point i of half 0 with
 // point i of half 1, and block b computes it for i in [b L/2, (b+1) L/2).
-__global__ void __cluster_dims__(2, 1, 1) __launch_bounds__(kMaxThreads)
-irfft_packed_kernel(const float* __restrict__ in_re,
-                    const float* __restrict__ in_im, float* __restrict__ y,
-                    const float2* __restrict__ wst,
-                    const float2* __restrict__ wnb, int log_m, int half) {
+// kAdj: rfft_packed's adjoint (ops/fft_packed.py::rfft_packed_bwd), the
+// packed cotangent loaded times N/2, position 0's times N (__fmul_rn,
+// exact: powers of two).
+template <bool kAdj>
+__device__ __forceinline__ void irfft_row(const float* __restrict__ in_re,
+                                          const float* __restrict__ in_im,
+                                          float* __restrict__ y,
+                                          const float2* __restrict__ wst,
+                                          const float2* __restrict__ wnb,
+                                          int log_m, int half) {
   extern __shared__ __align__(16) float2 buf[];
   cg::cluster_group cluster = cg::this_cluster();
   const int log_l = log_m - 1;
@@ -126,20 +173,27 @@ irfft_packed_kernel(const float* __restrict__ in_re,
   const float* ire = in_re + (size_t)row * 2 * l;
   const float* iim = in_im + (size_t)row * 2 * l;
   const int off = b * l;
+  // the adjoint's weights: N/2 = M = 2^log_m, exact in float
+  const float w = kAdj ? (float)(1 << log_m) : 1.0f;
+  auto get = [&](int j, float s) {
+    if constexpr (kAdj)
+      return make_float2(__fmul_rn(ire[j], s), __fmul_rn(iim[j], s));
+    else
+      return make_float2(ire[j], iim[j]);
+  };
   int t0, count;
   half_pairs(b, l, t0, count);
   for (int u = threadIdx.x; u < count; u += blockDim.x) {
     int j, jp;
     pair_of(t0 + u, j, jp);
     float2 zk, zmk;
-    retangle(make_float2(ire[j], iim[j]), make_float2(ire[jp], iim[jp]),
-             __ldg(&wnb[j]), zk, zmk);
+    retangle(get(j, w), get(jp, w), __ldg(&wnb[j]), zk, zmk);
     buf[pad(j - off)] = zk;
     buf[pad(jp - off)] = zmk;
   }
   if (b == 0 && threadIdx.x == 0) {
-    buf[0] = retangle0(make_float2(ire[0], iim[0]));
-    buf[1] = make_float2(ire[1], -iim[1]);
+    buf[0] = retangle0(get(0, 2.0f * w));
+    buf[1] = cconj(get(1, w));
   }
   auto ld = [&](int i) { return buf[pad(i)]; };
   auto st = [&](int i, float2 v) { buf[pad(i)] = v; };
@@ -167,7 +221,25 @@ irfft_packed_kernel(const float* __restrict__ in_re,
   cluster.sync();
 }
 
-// threads and dynamic shared memory of one block of either kernel
+__global__ void __cluster_dims__(2, 1, 1) __launch_bounds__(kMaxThreads)
+irfft_packed_kernel(const float* __restrict__ in_re,
+                    const float* __restrict__ in_im, float* __restrict__ y,
+                    const float2* __restrict__ wst,
+                    const float2* __restrict__ wnb, int log_m, int half) {
+  irfft_row<false>(in_re, in_im, y, wst, wnb, log_m, half);
+}
+
+// rfft_packed's adjoint: the inverse of the weighted packed cotangent (the
+// whole frame, or its first half for the zero-pad form)
+__global__ void __cluster_dims__(2, 1, 1) __launch_bounds__(kMaxThreads)
+rfft_packed_bwd_kernel(const float* __restrict__ g_re,
+                       const float* __restrict__ g_im, float* __restrict__ gx,
+                       const float2* __restrict__ wst,
+                       const float2* __restrict__ wnb, int log_m, int half) {
+  irfft_row<true>(g_re, g_im, gx, wst, wnb, log_m, half);
+}
+
+// threads and dynamic shared memory of one block of any of the kernels
 void block_shape(int log_m, int& threads, int& smem) {
   const int l = 1 << (log_m - 1);
   threads = l / kPts;
@@ -203,6 +275,42 @@ int lsp_irfft_packed(const float* in_re, const float* in_im, float* y,
   if (err != cudaSuccess) return (int)err;
   irfft_packed_kernel<<<2 * rows, threads, smem, (cudaStream_t)stream>>>(
       in_re, in_im, y, wst, wnb, log_m, half);
+  return (int)cudaGetLastError();
+}
+
+// rfft_packed's adjoint (half_input 0) and rfft_packed_zeropad's (1): the
+// packed cotangent [rows, M] -> gx [rows, N] or [rows, N/2]
+int lsp_rfft_packed_bwd(const float* g_re, const float* g_im, float* gx,
+                        const float2* wst, const float2* wnb, int rows,
+                        int log_m, int half_input, void* stream) {
+  if (bad_size(log_m)) return (int)cudaErrorInvalidValue;
+  int threads, smem;
+  block_shape(log_m, threads, smem);
+  cudaError_t err = cudaFuncSetAttribute(
+      rfft_packed_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
+  if (err != cudaSuccess) return (int)err;
+  rfft_packed_bwd_kernel<<<2 * rows, threads, smem, (cudaStream_t)stream>>>(
+      g_re, g_im, gx, wst, wnb, log_m, half_input ? 1 : 0);
+  return (int)cudaGetLastError();
+}
+
+// irfft_packed's adjoint: mode 0 (the whole frame's cotangent [rows, N]),
+// 1 and 2 (the first or last half's, [rows, N/2]) -> the packed
+// cotangent [rows, M]
+int lsp_irfft_packed_bwd(const float* g, float* g_re, float* g_im,
+                         const float2* wst, const float2* wnb, int rows,
+                         int log_m, int mode, void* stream) {
+  if (bad_size(log_m) || mode < 0 || mode > 2)
+    return (int)cudaErrorInvalidValue;
+  int threads, smem;
+  block_shape(log_m, threads, smem);
+  cudaError_t err = cudaFuncSetAttribute(
+      irfft_packed_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
+  if (err != cudaSuccess) return (int)err;
+  irfft_packed_bwd_kernel<<<2 * rows, threads, smem, (cudaStream_t)stream>>>(
+      g, g_re, g_im, wst, wnb, log_m, mode != 0, mode == 2);
   return (int)cudaGetLastError();
 }
 

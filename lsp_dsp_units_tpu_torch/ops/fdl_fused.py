@@ -40,10 +40,13 @@ N / 2: its first half is the history's cotangent, its second the
 frame input's), and for :func:`eqfdl_fused` the EQ's (the first-half
 inverse's adjoint, the products with Heq, g_mat, m_mat and w_mat).  For
 CPU tensors the plain backwards (``*_bwd_plain``); for CUDA tensors
-:func:`fdl_fused_bwd` and :func:`eqfdl_fused_bwd`: the transforms on the
-packed FFT kernels (csrc/fft_packed.cu) and the products on
-``csrc/fdl_fused.cu``'s ``fdl_bwd`` (the MAC's adjoint) and ``eqfdl_bwd``
-+ ``eqfdl_bwd_sums`` (the EQ's) kernels.  The two wide kernels split the
+:func:`fdl_fused_bwd` and :func:`eqfdl_fused_bwd`: y's cotangent's
+transform on the packed FFT kernel (csrc/fft_packed.cu), and on
+``csrc/fdl_fused.cu`` the MAC's adjoint (``fdl_bwd``), the frame's
+transforms (``frame_bwd_kernel``: for the EQ route the inverse, the sum
+with u's cotangent and that sum's zero-pad transform, in one cluster a
+channel) and the EQ's adjoint (``eqfdl_bwd`` + ``eqfdl_bwd_sums``).
+The two wide kernels split the
 channels into at most four groups, a block each, the groups of a
 position tile one thread block cluster: the products shared by all
 channels (H, Heq, g_t, w_mat) are summed within a group in channel
@@ -74,6 +77,8 @@ _SIGS = {"lsp_eqfdl_fused": [ctypes.c_void_p] * 19 + [ctypes.c_int] * 5
          "lsp_eqfdl_bwd": [ctypes.c_void_p] * 23 + [ctypes.c_int] * 3
          + [ctypes.c_void_p],
          "lsp_eqfdl_bwd_tiles": [ctypes.c_int],
+         "lsp_frame_bwd": [ctypes.c_void_p] * 9 + [ctypes.c_int] * 2
+         + [ctypes.c_void_p],
          "lsp_eqfdl_shape": [ctypes.c_int, ctypes.c_int,
                              ctypes.POINTER(ctypes.c_int)],
          "lsp_fdl_shape": [ctypes.c_int, ctypes.c_int,
@@ -239,17 +244,64 @@ def fdl_fused_bwd_plain(ring_re, ring_im, h_re, h_im, w: int, g_y, g_ring_re,
     gr, gi, gh_re, gh_im, gs_re, gs_im = ring_mac_bwd_plain(
         ring_re, ring_im, h_re, h_im, g_re, g_im, g_ring_re, g_ring_im, w,
         packed_dc=True)
-    g_frame = fp.rfft_packed_bwd_plain(gs_re, gs_im, n, 0)
+    return (gr, gi, gh_re, gh_im) + frame_bwd_plain(
+        *fp._rfft_adjoint_in(gs_re, gs_im, n), n)
+
+
+def frame_bwd_plain(gs_re, gs_im, n: int, g_u=None):
+    """Plain PyTorch version of :func:`frame_bwd`."""
+    g_frame = fp.irfft_packed_plain(gs_re, gs_im, n)
     b = n // 2
-    return (gr, gi, gh_re, gh_im, g_frame[..., :b].contiguous(),
-            g_frame[..., b:].contiguous())
+    g_hist = g_frame[..., :b].contiguous()
+    if g_u is None:
+        return g_hist, g_frame[..., b:].contiguous()
+    g_ut = g_frame[..., b:] + g_u
+    return (g_hist, g_ut) + fp.rfft_packed_zeropad_plain(g_ut)
+
+
+def frame_bwd(gs_re, gs_im, n: int, g_u=None):
+    """The frame's transforms in the convolver backwards, from S's
+    cotangent ``gs_*`` [C, N/2] as ``fdl_bwd`` writes it (packed, already
+    weighted N at position 0 and N / 2 elsewhere: the frame transform's
+    adjoint weights): its inverse, whose first half is hist's cotangent
+    and its last the frame input's.  Without ``g_u`` returns (g_hist,
+    g_x), :func:`fdl_fused_bwd`'s; with u's own cotangent ``g_u`` [C,
+    N/2] (:func:`eqfdl_fused_bwd`'s) returns (g_hist, g_ut, gp_re,
+    gp_im): g_ut = the last half + g_u, and gp its zero-pad forward
+    transform (unweighted).  The plain version for CPU tensors; for CUDA
+    tensors one launch of ``frame_bwd_kernel`` (a two-block cluster a
+    channel, the frame in shared memory from one transform to the
+    other), counted in ``frame_bwd.launches``."""
+    ins = (gs_re, gs_im) + (() if g_u is None else (g_u,))
+    if _build.is_cpu(*ins):
+        return frame_bwd_plain(gs_re, gs_im, n, g_u)
+    ins = tuple(fp._aligned(t) for t in ins)
+    c_n = ins[0].shape[0]
+    _build.check_cuda_f32(**_build.check_shapes(ins, {
+        k: (c_n, n // 2) for k in ("gs_re", "gs_im", "g_u")[:len(ins)]}))
+    outs = tuple(torch.empty_like(ins[0])
+                 for _ in range(2 if g_u is None else 4))
+    null = ctypes.c_void_p(None)
+    g_u_p, gp_p = ((null, (null, null)) if g_u is None else
+                   (_build.ptr(ins[2]), tuple(map(_build.ptr, outs[2:]))))
+    wst, wnb = fp.tables(n, ins[0].device)
+    _build.check(_lib().lsp_frame_bwd(
+        _build.ptr(ins[0]), _build.ptr(ins[1]), g_u_p, _build.ptr(outs[0]),
+        _build.ptr(outs[1]), *gp_p, _build.ptr(wst), _build.ptr(wnb),
+        fp.log2_m(n), c_n, _build.stream_of(ins[0])), "frame_bwd kernel")
+    frame_bwd.launches += 1
+    return outs
+
+
+frame_bwd.launches = 0
 
 
 def _fdl_bwd_launch(ring_re, ring_im, h_re, h_im, w: int, g_y, g_ring_re,
                     g_ring_im, counter):
     """The MAC's adjoint on the card: the zero-pad forward transform of
-    g_y (kernel #1), ``fdl_bwd`` and the frame's inverse (kernel #1).
-    Returns (g_ring_re, g_ring_im, g_h_re, g_h_im, g_frame [C, N])."""
+    g_y (kernel #1) and ``fdl_bwd``.  Returns (g_ring_re, g_ring_im,
+    g_h_re, g_h_im, gs_re, gs_im): S's cotangent ``gs`` [C, N/2] already
+    carries the frame transform's adjoint weights."""
     p_n, c_n, b = ring_re.shape
     n = 2 * b
     g_y = fp._aligned(g_y)
@@ -268,9 +320,8 @@ def _fdl_bwd_launch(ring_re, ring_im, h_re, h_im, w: int, g_y, g_ring_re,
                                   gs_re, gs_im)),
         fp.log2_m(n), p_n, int(w), c_n, _build.stream_of(g_y)),
         "fdl_bwd kernel")
-    g_frame = fp._irfft_launch(gs_re, gs_im, n, 0)
-    counter.fft_launches += 2
-    return gr, gi, gh_re, gh_im, g_frame
+    counter.fft_launches += 1
+    return gr, gi, gh_re, gh_im, gs_re, gs_im
 
 
 def fdl_fused_bwd(ring_re, ring_im, h_re, h_im, w: int, g_y, g_ring_re,
@@ -281,20 +332,21 @@ def fdl_fused_bwd(ring_re, ring_im, h_re, h_im, w: int, g_y, g_ring_re,
     incoming ring, g_h_re, g_h_im, g_hist, g_x).  The plain version for
     CPU tensors; for CUDA tensors three launches: kernel #1's zero-pad
     forward transform, ``fdl_bwd`` (a cluster of channel groups a
-    position tile and partition) and kernel #1's inverse, counted once
-    in ``fdl_fused_bwd.launches`` (the transforms also in
+    position tile and partition) and the frame's inverse
+    (:func:`frame_bwd`, writing g_hist and g_x apart), counted once in
+    ``fdl_fused_bwd.launches`` (the two transforms also in
     ``fdl_fused_bwd.fft_launches``)."""
     if _build.is_cpu(ring_re, ring_im, h_re, h_im, g_y, g_ring_re,
                      g_ring_im):
         return fdl_fused_bwd_plain(ring_re, ring_im, h_re, h_im, w, g_y,
                                    g_ring_re, g_ring_im)
-    gr, gi, gh_re, gh_im, g_frame = _fdl_bwd_launch(
+    gr, gi, gh_re, gh_im, gs_re, gs_im = _fdl_bwd_launch(
         ring_re, ring_im, h_re, h_im, w, g_y, g_ring_re, g_ring_im,
         fdl_fused_bwd)
+    g_hist, g_x = frame_bwd(gs_re, gs_im, 2 * g_y.shape[-1])
+    fdl_fused_bwd.fft_launches += 1
     fdl_fused_bwd.launches += 1
-    b = g_y.shape[-1]
-    return (gr, gi, gh_re, gh_im, g_frame[:, :b].contiguous(),
-            g_frame[:, b:].contiguous())
+    return gr, gi, gh_re, gh_im, g_hist, g_x
 
 
 def eqfdl_fused_bwd_plain(ring_re, ring_im, h_re, h_im, heq_re, heq_im,
@@ -321,14 +373,16 @@ def eqfdl_fused_bwd(ring_re, ring_im, h_re, h_im, heq_re, heq_im, xs_re,
     the other tensors its inputs, ``g_*`` the cotangents of y, u, sv'
     and the ring.  Returns the cotangents of (ring_re, ring_im, h_re,
     h_im, heq_re, heq_im, xs_re, xs_im, x, sv, g_t, m_mat, w_mat, hist).
-    The plain version for CPU tensors; for CUDA tensors
-    :func:`fdl_fused_bwd`'s three launches, an element-wise sum of the
-    frame's cotangent with u's, kernel #1's zero-pad forward transform
-    and the EQ's adjoint, two kernels of one C call: ``eqfdl_bwd`` (a
-    cluster of channel groups a position tile: every cotangent but sv's
-    and m_mat's, and sv's partial sums over each tile into a scratch)
-    and ``eqfdl_bwd_sums`` (sv's and m_mat's), counted once in
-    ``eqfdl_fused_bwd.launches``."""
+    The plain version for CPU tensors; for CUDA tensors kernel #1's
+    zero-pad forward transform of y's cotangent, ``fdl_bwd``, the frame's
+    transforms in one launch (:func:`frame_bwd`: the inverse, the sum of
+    the frame's cotangent with u's, and that sum's zero-pad forward
+    transform) and the EQ's adjoint, two kernels of one C call:
+    ``eqfdl_bwd`` (a cluster of channel groups a position tile: every
+    cotangent but sv's and m_mat's, and sv's partial sums over each tile
+    into a scratch) and ``eqfdl_bwd_sums`` (sv's and m_mat's), counted
+    once in ``eqfdl_fused_bwd.launches`` (the two transforms' launches in
+    ``eqfdl_fused_bwd.fft_launches``)."""
     ins = (ring_re, ring_im, h_re, h_im, heq_re, heq_im, xs_re, xs_im, x,
            sv, g_t, m_mat, w_mat, g_y, g_u, g_sv2, g_ring_re, g_ring_im)
     if _build.is_cpu(*ins):
@@ -336,18 +390,17 @@ def eqfdl_fused_bwd(ring_re, ring_im, h_re, h_im, heq_re, heq_im, xs_re,
     p_n, c_n, b = ring_re.shape
     k2 = m_mat.shape[0]
     n = 2 * b
-    gr, gi, gh_re, gh_im, g_frame = _fdl_bwd_launch(
+    gr, gi, gh_re, gh_im, gs_re, gs_im = _fdl_bwd_launch(
         ring_re, ring_im, h_re, h_im, w, g_y, g_ring_re, g_ring_im,
         eqfdl_fused_bwd)
-    g_ut = fp._aligned(g_frame[:, b:] + g_u)
+    g_hist, g_ut, gp_re, gp_im = frame_bwd(gs_re, gs_im, n, g_u)
+    eqfdl_fused_bwd.fft_launches += 1
     g_sv2 = g_sv2.contiguous()
     _build.check_cuda_f32(**_build.check_shapes(
         (heq_re, heq_im, xs_re, xs_im, x, sv, g_t, m_mat, w_mat, g_sv2),
         dict(heq_re=(b,), heq_im=(b,), xs_re=(c_n, b), xs_im=(c_n, b),
              x=(c_n, b), sv=(c_n, k2), g_t=(k2, b), m_mat=(k2, k2),
              w_mat=(k2, b), g_sv2=(c_n, k2))))
-    gp_re, gp_im = fp._rfft_launch(g_ut, n, 1)
-    eqfdl_fused_bwd.fft_launches += 1
     g_xs_re, g_xs_im = torch.empty_like(xs_re), torch.empty_like(xs_im)
     g_heq_re, g_heq_im = torch.empty_like(heq_re), torch.empty_like(heq_im)
     g_gt, g_m, g_w = (torch.empty_like(g_t), torch.empty_like(m_mat),
@@ -364,7 +417,7 @@ def eqfdl_fused_bwd(ring_re, ring_im, h_re, h_im, heq_re, heq_im, xs_re,
         "eqfdl_bwd kernel")
     eqfdl_fused_bwd.launches += 1
     return (gr, gi, gh_re, gh_im, g_heq_re, g_heq_im, g_xs_re, g_xs_im, g_x,
-            g_sv, g_gt, g_m, g_w, g_frame[:, :b].contiguous())
+            g_sv, g_gt, g_m, g_w, g_hist)
 
 
 fdl_fused_bwd.launches = 0

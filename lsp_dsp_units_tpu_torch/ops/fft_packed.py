@@ -20,8 +20,12 @@ Each wrapper counts its kernel launches in ``<wrapper>.launches``.
 Gradients: under autograd (grad mode on, an input that requires grad)
 each wrapper runs as a ``torch.autograd.Function`` whose backward is the
 adjoint transform, worked out from the packed layout; it is the other
-direction's packed transform, so the backward of each wrapper launches
-the same kernels (one launch, counted in ``<wrapper>.bwd_launches``):
+direction's packed transform with weights that are powers of two, so on
+the card each backward is one launch of that transform's code with the
+weights applied as it loads (``rfft_packed_bwd_kernel``) or stores
+(``irfft_packed_bwd_kernel``) the spectrum, exactly, counted in
+``<wrapper>.bwd_launches``; the plain versions weight apart
+(``_weighted``) around ``torch.fft``:
 
 * ``rfft_packed``: the forward's outputs are Re X[k] and Im X[k] for the
   interior bins and the real DC and Nyquist bins at position 0.  Their
@@ -57,6 +61,10 @@ _SIGS = {
     "lsp_rfft_packed": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3
     + [ctypes.c_void_p],
     "lsp_irfft_packed": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3
+    + [ctypes.c_void_p],
+    "lsp_rfft_packed_bwd": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3
+    + [ctypes.c_void_p],
+    "lsp_irfft_packed_bwd": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3
     + [ctypes.c_void_p],
     "lsp_fft_packed_shape": [ctypes.c_int, ctypes.POINTER(ctypes.c_int)],
 }
@@ -343,12 +351,26 @@ def rfft_packed_bwd(g_re, g_im, n: int, half_input: int = 0):
     """Backward of :func:`rfft_packed` (``half_input`` 0) and
     :func:`rfft_packed_zeropad` (1) at frame size N: the packed
     cotangent [..., N/2] weighted N at position 0 and N / 2 elsewhere,
-    through the inverse kernel (its whole frame, or its first half).
-    One launch, counted in the forward wrapper's ``bwd_launches``."""
+    through the inverse (its whole frame, or its first half).  On the
+    card one launch of ``rfft_packed_bwd_kernel``, the weights applied as
+    it loads the cotangent, counted in the forward wrapper's
+    ``bwd_launches``."""
     if _build.is_cpu(g_re, g_im):
         return rfft_packed_bwd_plain(g_re, g_im, n, half_input)
-    sr, si = _rfft_adjoint_in(g_re, g_im, n)
-    gx = _irfft_launch(sr, si, n, 1 if half_input else 0)
+    g_re, g_im = _aligned(g_re), _aligned(g_im)
+    _build.check_cuda_f32(g_re=g_re, g_im=g_im)
+    lm = log2_m(n)
+    if g_re.shape[-1] != n // 2 or g_im.shape != g_re.shape:
+        raise ValueError(f"packed cotangents must be [..., {n // 2}], got "
+                         f"{tuple(g_re.shape)} and {tuple(g_im.shape)}")
+    rows = g_re.numel() // g_re.shape[-1]
+    gx = torch.empty(g_re.shape[:-1] + (n // 2 if half_input else n,),
+                     dtype=torch.float32, device=g_re.device)
+    wst, wnb = tables(n, g_re.device)
+    _build.check(_lib().lsp_rfft_packed_bwd(
+        _build.ptr(g_re), _build.ptr(g_im), _build.ptr(gx), _build.ptr(wst),
+        _build.ptr(wnb), rows, lm, 1 if half_input else 0,
+        _build.stream_of(g_re)), "rfft_packed_bwd kernel")
     (rfft_packed_zeropad if half_input else rfft_packed).bwd_launches += 1
     return gx
 
@@ -366,18 +388,34 @@ def irfft_packed_bwd_plain(g_y, n: int, half: Half = False):
 
 
 def irfft_packed_bwd(g_y, n: int, half: Half = False):
-    """Backward of :func:`irfft_packed`: the forward kernel on the
+    """Backward of :func:`irfft_packed`: the forward transform of the
     output's cotangent (the whole frame, or the half given, through the
     zero-pad form), weighted 1 / N at position 0 and 2 / N elsewhere,
-    the odd bins negated for the last half.  One launch, counted in
-    ``irfft_packed.bwd_launches``."""
+    the odd bins negated for the last half.  On the card one launch of
+    ``irfft_packed_bwd_kernel``, the weights applied as it stores the
+    spectrum, counted in ``irfft_packed.bwd_launches``."""
     mode = half_mode(half)
     g_y = _aligned(g_y)
     if _build.is_cpu(g_y):
         return irfft_packed_bwd_plain(g_y, n, half)
-    g_re, g_im = _rfft_launch(g_y, n, 0 if mode == 0 else 1)
+    _build.check_cuda_f32(g_y=g_y)
+    lm = log2_m(n)
+    if g_y.shape[-1] != (n if mode == 0 else n // 2):
+        raise ValueError(f"the cotangent of irfft_packed(n={n}, half="
+                         f"{half!r}) must be [..., "
+                         f"{n if mode == 0 else n // 2}], got "
+                         f"{tuple(g_y.shape)}")
+    rows = g_y.numel() // g_y.shape[-1]
+    g_re = torch.empty(g_y.shape[:-1] + (n // 2,), dtype=torch.float32,
+                       device=g_y.device)
+    g_im = torch.empty_like(g_re)
+    wst, wnb = tables(n, g_y.device)
+    _build.check(_lib().lsp_irfft_packed_bwd(
+        _build.ptr(g_y), _build.ptr(g_re), _build.ptr(g_im), _build.ptr(wst),
+        _build.ptr(wnb), rows, lm, mode, _build.stream_of(g_y)),
+        "irfft_packed_bwd kernel")
     irfft_packed.bwd_launches += 1
-    return _irfft_adjoint_out(g_re, g_im, n, mode)
+    return g_re, g_im
 
 
 class _Rfft(torch.autograd.Function):

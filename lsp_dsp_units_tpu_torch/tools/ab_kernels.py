@@ -1,14 +1,14 @@
-"""Hold this checkout's EQ + convolver, dynamics tail, envelope, sliding
-RMS, slice,
-biquad cascade, limiter, rider, biquad scan and delay kernels against
-another checkout's on the card: outputs bit for bit, device times in
-turns.
+"""Hold this checkout's packed FFT, EQ + convolver, dynamics tail,
+envelope, sliding RMS, slice, biquad cascade, limiter, rider, biquad
+scan and delay kernels against another checkout's on the card: outputs
+bit for bit, device times in turns.
 
     python3 -m lsp_dsp_units_tpu_torch.tools.ab_kernels OTHER [--out F]
         [--cases NAME ...]
 
 OTHER is the root of another checkout (for a redesign, its parent commit
-unpacked with ``git archive``).  Its ``csrc/fdl_fused.cu``,
+unpacked with ``git archive``).  Its ``csrc/fft_packed.cu``,
+``csrc/fdl_fused.cu``,
 ``csrc/env.cu``, ``csrc/env_units.cu``, ``csrc/slicedma.cu``, ``csrc/biquad.cu``,
 ``csrc/limiter.cu``, ``csrc/riders.cu``, ``csrc/biquad_scan.cu`` and
 ``csrc/delay.cu`` (those it has; the cases of a missing one, or of a step
@@ -21,6 +21,8 @@ backwards' cases, last below).  At the main
 paths' shapes (64 channels, N = 16384, P = 6, the chain's EQ and
 compressor):
 
+* kernel #1 at [C, N] (fft_rfft, fft_rfft_zeropad on [C, N / 2],
+  fft_irfft, fft_irfft_first, fft_irfft_last): the spectra or the frame;
 * eqfdl_fused over P + 2 blocks: y, u, EQ state and ring;
 * fdl_fused over P + 2 blocks: y and ring;
 * chain_dyn (kernel #3) at [64, 8192], N = 480, the chain's compressor,
@@ -66,6 +68,12 @@ compressor):
   (torch.profiler): short name, ms a launch, launches a call and the
   bytes bound of the launches (tools/launch_profile.py; none for
   the other build's launches that this tree lacks).
+* #1's adjoints (fft_adjoint_rfft, _rfft_zeropad, _irfft, _irfft_first,
+  _irfft_last at step's [2 C, N], fft_adjoint_ring_rfft_zeropad at
+  step_ring's [C, N]), each build's route through its own
+  ops/fft_packed.py (the C interfaces differ): every output bit for bit,
+  the routes' times in turns and each build's launches of a call with
+  their bytes bounds (torch.profiler after uncounted calls).
 * the envelope backwards: peak_envelope_bwd at [64, 16384] in step's
   configuration (hold 0 from env_init) and with a hold of 24 from a
   random state, through this checkout's wrapper on either library;
@@ -133,7 +141,8 @@ from lsp_dsp_units_tpu_torch.tools.launch_profile import launch_profile
 C, RANK, SR = 64, 14, 48000
 B = 1 << (RANK - 1)
 T_ENV = 2 * B                        # step's envelope call: [64, 16384]
-SIGS = {"fdl_fused": ff._SIGS, "env": env_ops._SIGS, "env_units": eu._SIGS,
+SIGS = {"fft_packed": fp._SIGS, "fdl_fused": ff._SIGS, "env": env_ops._SIGS,
+        "env_units": eu._SIGS,
         "slicedma": slicedma._SIGS, "biquad": bq._SIGS,
         "limiter": lim_ops._SIGS, "riders": riders._SIGS,
         "biquad_scan": bq._SCAN_SIGS, "delay": delay_ops._SIGS}
@@ -145,8 +154,17 @@ SM_HZ = 1.98e9                       # the H100's boost clock (cycles a step)
 F32 = 4
 
 
+# kernel #1's forward cases ([C, N], N = 16384; the zero-pad form and the
+# halves on [C, N / 2]) and its adjoints' (step's [2 C, N]; step_ring's
+# zero-pad adjoint at [C, N])
+FFT_MODES = ("rfft", "rfft_zeropad", "irfft", "irfft_first", "irfft_last")
+ADJOINT_MODES = FFT_MODES + ("ring_rfft_zeropad",)
+
+
 # each case's library (csrc/<name>.cu); env_units for the rest
-LIB_OF = {"eqfdl_fused": "fdl_fused", "fdl_fused": "fdl_fused",
+LIB_OF = {**{f"fft_{m}": "fft_packed" for m in FFT_MODES},
+          **{f"fft_adjoint_{m}": "fft_packed" for m in ADJOINT_MODES},
+          "eqfdl_fused": "fdl_fused", "fdl_fused": "fdl_fused",
           "eqfdl_fused_bwd": "fdl_fused", "fdl_fused_bwd": "fdl_fused",
           "chain_dyn": "env", "chain_dyn_bwd": "env",
           "chain_dyn_bwd_hold24": "env",
@@ -331,6 +349,86 @@ def fdl_run(params, blocks):
     return outs + [ring.spec_re, ring.spec_im]
 
 
+def adjoint_args(mode: str, gen):
+    """An adjoint case's arguments after the frame size: step's [2 C, N]
+    (two blocks a call) or step_ring's [C, N]."""
+    n = 2 * B
+    rows = C if mode.startswith("ring") else 2 * C
+
+    def r(*shape):
+        return torch.randn(*shape, generator=gen).cuda()
+    if mode.endswith("rfft_zeropad") or mode == "rfft":
+        return (r(rows, B), r(rows, B), n, int(mode != "rfft"))
+    half = {"irfft": False, "irfft_first": "first", "irfft_last": "last"}
+    return (r(rows, n if mode == "irfft" else B), n, half[mode])
+
+
+def adjoint_bytes(mode: str):
+    """The bytes an adjoint must move (its cotangent read once, its
+    gradient written once), for launch_profile's bounds."""
+    rows = C if mode.startswith("ring") else 2 * C
+    n = 2 * B
+    floats = {"rfft": 2 * B + n, "irfft": n + 2 * B}.get(mode, 3 * B)
+
+    def of(name):
+        return rows * floats * F32 if "packed" in name else None
+    return of
+
+
+def fft_adjoint_cases(args, this, other, other_fp, res) -> bool:
+    """#1's adjoints at step's shapes and step_ring's zero-pad one, each
+    build's route through its own ops/fft_packed.py (the C interfaces
+    differ): every output bit for bit the other build's, the route's time
+    in turns, and each build's launches of a call with their bytes
+    bounds (torch.profiler after uncounted calls)."""
+    ok = True
+    gen = torch.Generator().manual_seed(34)
+    for mode in ADJOINT_MODES:
+        name = f"fft_adjoint_{mode}"
+        if args.cases is not None and name not in args.cases:
+            continue
+        if other_fp is None or "fft_packed" not in other:
+            print(f"{name}: skipped (the other checkout has no fft_packed)",
+                  flush=True)
+            continue
+        a = adjoint_args(mode, gen)
+        fn_name = ("irfft_packed_bwd" if mode.startswith("irfft")
+                   else "rfft_packed_bwd")
+        fns = {"other": (other, (lambda f: lambda: f(*a))(
+                   getattr(other_fp, fn_name))),
+               "this": (this, (lambda f: lambda: f(*a))(
+                   getattr(fp, fn_name)))}
+        outs, prof = {}, {}
+        for who, (libs, fn) in fns.items():
+            with using(libs):
+                out = fn()
+                outs[who] = out if isinstance(out, tuple) else (out,)
+                prof[who] = launch_profile(fn, C, B, 1, 2,
+                                           bytes_of=adjoint_bytes(mode))
+        same = all(torch.equal(x.view(torch.int32), y.view(torch.int32))
+                   for x, y in zip(outs["this"], outs["other"]))
+        ok = ok and same
+        times = []
+        for who in ("other", "this", "this", "other"):
+            with using(fns[who][0]):
+                times.append(time_ms(fns[who][1], 50))
+        res[name] = dict(identical=same, other_ms=(times[0] + times[3]) / 2,
+                         this_ms=(times[1] + times[2]) / 2, runs_ms=times,
+                         other_launches=prof["other"],
+                         this_launches=prof["this"])
+        print(f"{name}: identical = {same}; route other "
+              f"{res[name]['other_ms']:.4f} ms, this "
+              f"{res[name]['this_ms']:.4f} ms (runs: "
+              + ", ".join(f"{t:.4f}" for t in times) + ")", flush=True)
+        for who in ("other", "this"):
+            print(f"  {who}: " + "; ".join(
+                f"{r['name'][:48]} {r['ms']:.4f} ms x {r['launches']}"
+                + ("" if r["bound_ms"] is None else
+                   f" (bound {r['bound_ms']:.4f})") for r in prof[who]),
+                flush=True)
+    return ok
+
+
 def env_bwd_bytes(t: int, n: int):
     """Bytes one launch of the envelope backwards must move at [C, t]
     (window n), by short name (tools/launch_profile.py): the functions'
@@ -500,7 +598,9 @@ def main(argv=None) -> int:
     csrc = os.path.join(args.other, "lsp_dsp_units_tpu_torch", "csrc")
     other_ff = other_module(args.other, "fdl_fused")
     other_env = other_module(args.other, "env")
-    own_sigs = {"fdl_fused": other_ff, "env": other_env}
+    other_fp = other_module(args.other, "fft_packed")
+    own_sigs = {"fdl_fused": other_ff, "env": other_env,
+                "fft_packed": other_fp}
     if other_env is not None:
         share_structs(other_env, env_ops)
     other = {n: build_other(args.other, n, own_sigs[n]._SIGS
@@ -612,7 +712,18 @@ def main(argv=None) -> int:
                                                  xr)),
     }
 
+    n_fft = 2 * B
+    x_fft = (torch.randn(C, n_fft, generator=gen) * 0.25).cuda()
+    s_fft = fp.rfft_packed(x_fft)
+    fft_calls = {
+        "rfft": lambda: fp.rfft_packed(x_fft),
+        "rfft_zeropad": lambda: fp.rfft_packed_zeropad(x0),
+        "irfft": lambda: (fp.irfft_packed(*s_fft, n_fft),),
+        "irfft_first": lambda: (fp.irfft_packed(*s_fft, n_fft, "first"),),
+        "irfft_last": lambda: (fp.irfft_packed(*s_fft, n_fft, "last"),)}
     cases = {
+        **{f"fft_{k}": (lambda f: (lambda: list(f()), f, 50))(f)
+           for k, f in fft_calls.items()},
         **{k: (lambda a: (lambda: list(lim_ops.limiter(*a)),
                           lambda: lim_ops.limiter(*a), 10))(a)
            for k, a in lim_args.items()},
@@ -776,6 +887,7 @@ def main(argv=None) -> int:
                 + ("" if r["bound_ms"] is None else
                    f" (bound {r['bound_ms']:.4f})") for r in prof[who]),
                 flush=True)
+    ok = fft_adjoint_cases(args, this, other, other_fp, res) and ok
     ok = env_bwd_cases(args, this, other, other_env, chain, cp, blocks, lev,
                        st24, res) and ok
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",

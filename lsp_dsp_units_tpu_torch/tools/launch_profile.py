@@ -54,25 +54,23 @@ def launch_bytes(name: str, c: int, b: int, p_n: int, k2: int):
         "eqfdl_bwd_sums": (c * k2 + 2 * k2 * k2) * f,
         "rfft_packed_kernel": 3 * plane,      # half a frame in, spectra out
         "irfft_packed_kernel": 4 * plane,     # spectra in, the frame out
+        # S's cotangent and u's in; hist's, g_ut and its spectra out
+        "frame_bwd_kernel<true>": 7 * plane,
+        # S's cotangent in; hist's and x's out
+        "frame_bwd_kernel<false>": 4 * plane,
         "torch add": 3 * plane,
         "torch copy": 2 * plane,
     }
     return table.get(name)
 
 
-def launch_profile(fn, c: int, b: int, p_n: int, k2: int, calls: int = 10,
-                   bytes_of=None, warm: int = 30):
-    """The kernels of ``fn()`` (one backward call) by torch.profiler over
-    ``calls`` calls: short name, ms a launch, launches a call, and the
-    bytes bound of those launches (ms a call, None where ``bytes_of``,
-    by default the convolver's launch_bytes at (c, b, p_n, k2), has no
-    count), the most time first.  On the H100 machine a profile late in
-    a long process lost the device records of its first launches, so
-    ``warm`` calls run first inside the profile, and only the launches
-    that start after a synchronisation and a GAP_S pause are counted."""
-    if bytes_of is None:
-        def bytes_of(name):
-            return launch_bytes(name, c, b, p_n, k2)
+def device_kernels(fn, calls: int = 10, warm: int = 30) -> dict:
+    """Every kernel of ``fn()`` by torch.profiler, by the profiler's own
+    name: (ms, launches) summed over ``calls`` calls.  On the H100
+    machine a profile late in a long process lost the device records of
+    its first launches, so ``warm`` calls run first inside the profile,
+    and only the launches that start after a synchronisation and a GAP_S
+    pause are counted."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, record_function
     fn()
@@ -96,9 +94,27 @@ def launch_profile(fn, c: int, b: int, p_n: int, k2: int, calls: int = 10,
         if e.device_type != DeviceType.CUDA or us <= 0 \
                 or e.time_range.start < start or e.name == MARK:
             continue
-        name = launch_name(e.name)
-        ms, n = rows.get(name, (0.0, 0))
-        rows[name] = (ms + us / 1e3, n + 1)
+        ms, n = rows.get(e.name, (0.0, 0))
+        rows[e.name] = (ms + us / 1e3, n + 1)
+    return rows
+
+
+def launch_profile(fn, c: int, b: int, p_n: int, k2: int, calls: int = 10,
+                   bytes_of=None, warm: int = 30):
+    """The kernels of ``fn()`` (one backward call) by torch.profiler over
+    ``calls`` calls after ``warm`` uncounted ones (:func:`device_kernels`):
+    short name, ms a launch, launches a call, and the bytes bound of
+    those launches (ms a call, None where ``bytes_of``, by default the
+    convolver's launch_bytes at (c, b, p_n, k2), has no count), the most
+    time first."""
+    if bytes_of is None:
+        def bytes_of(name):
+            return launch_bytes(name, c, b, p_n, k2)
+    rows = {}
+    for raw, (ms, n) in device_kernels(fn, calls, warm).items():
+        name = launch_name(raw)
+        ms0, n0 = rows.get(name, (0.0, 0))
+        rows[name] = (ms0 + ms, n0 + n)
     out = []
     for name, (ms, n) in sorted(rows.items(), key=lambda r: -r[1][0]):
         nbytes = bytes_of(name)

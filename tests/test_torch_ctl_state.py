@@ -444,6 +444,8 @@ def test_new_modules_import_no_jax():
             "import lsp_dsp_units_tpu_torch.tools.tour\n"
             "import lsp_dsp_units_tpu_torch.tools.cpu_probe\n"
             "import lsp_dsp_units_tpu_torch.tools.launch_profile\n"
+            "import lsp_dsp_units_tpu_torch.tools.grad_profile\n"
+            "import lsp_dsp_units_tpu_torch.tools.ab_kernels\n"
             "import lsp_dsp_units_tpu_torch.ops.env_units\n"
             "import lsp_dsp_units_tpu_torch.ops.fft_packed\n"
             "import lsp_dsp_units_tpu_torch.ops.biquad\n"

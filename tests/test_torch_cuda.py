@@ -1616,6 +1616,174 @@ def test_fft_adjoints_on_card_match_plain(cuda_device, case):
         assert _snr(a, b) >= 120.0
 
 
+FFT_SIZES = [1 << k for k in range(7, 16)]          # 128 ... 32768
+ADJOINT_CASES = ["rfft", "rfft_zeropad", "irfft", "irfft_first",
+                 "irfft_last"]
+
+
+def _adjoint_case(case, n, rows, gen, dev):
+    """An adjoint route's call on the card and the same route as it ran
+    before the weights went into the kernels: the plain weights
+    (``_weighted``, torch's multiplies), then the inference kernel.
+    Returns (cotangents, call, unfused, the forward wrapper)."""
+    if case.startswith("rfft"):
+        half_input = int(case == "rfft_zeropad")
+        g = (_randn(gen, rows, n // 2, device=dev),
+             _randn(gen, rows, n // 2, device=dev))
+
+        def call(*a):
+            return (tfft.rfft_packed_bwd(*a, n, half_input),)
+
+        def unfused(*a):
+            return (tfft._irfft_launch(*tfft._rfft_adjoint_in(*a, n), n,
+                                       half_input),)
+        fwd = tfft.rfft_packed_zeropad if half_input else tfft.rfft_packed
+        return g, call, unfused, fwd
+    mode = {"irfft": 0, "irfft_first": 1, "irfft_last": 2}[case]
+    half = {0: False, 1: "first", 2: "last"}[mode]
+    g = (_randn(gen, rows, n if mode == 0 else n // 2, device=dev),)
+
+    def call(a):
+        return tfft.irfft_packed_bwd(a, n, half)
+
+    def unfused(a):
+        return tfft._irfft_adjoint_out(*tfft._rfft_launch(a, n, int(mode > 0)),
+                                       n, mode)
+    return g, call, unfused, tfft.irfft_packed
+
+
+@pytest.mark.parametrize("case", ADJOINT_CASES)
+@pytest.mark.parametrize("n", FFT_SIZES)
+def test_fft_adjoint_kernels_match_the_unfused_route(cuda_device, n, case):
+    """Each of #1's adjoints, one launch with its weights inside the
+    kernel, is bit for bit the route it replaced (the weights by torch's
+    multiplies, then the inference kernel) at every frame size the
+    kernels take, over an odd row count; one launch counted a call; the
+    same bits again and with TF32 on."""
+    gen = torch.Generator().manual_seed(n + len(case))
+    g, call, unfused, fwd = _adjoint_case(case, n, 7, gen, cuda_device)
+    before = fwd.bwd_launches
+    out = call(*g)
+    assert fwd.bwd_launches == before + 1
+    assert _same_bits(out, unfused(*g))
+    assert _same_bits(out, call(*g))
+    assert _same_with_tf32(lambda: call(*g), out)
+
+
+@pytest.mark.parametrize("case", ADJOINT_CASES)
+def test_fft_adjoint_kernels_take_misaligned_and_strided_cotangents(
+        cuda_device, case):
+    """A cotangent that is a view with an offset of one float (not
+    16-byte aligned) or a strided view is copied once and gives the
+    unfused route's bits."""
+    n, rows = 2048, 5
+    gen = torch.Generator().manual_seed(len(case) + 1)
+    g, call, unfused, _ = _adjoint_case(case, n, rows, gen, cuda_device)
+    shifted = []
+    for t in g:
+        base = torch.empty(t.numel() + 1, device=cuda_device)
+        base[1:] = t.reshape(-1)
+        shifted.append(base[1:].view(t.shape))
+        assert shifted[-1].data_ptr() % 16
+    assert _same_bits(call(*shifted), unfused(*g))
+    wide = [torch.cat([t, t], dim=-1)[..., :t.shape[-1]] for t in g]
+    assert not wide[0].is_contiguous()
+    assert _same_bits(call(*wide), unfused(*g))
+
+
+@pytest.mark.parametrize("case", ADJOINT_CASES)
+def test_fft_adjoint_kernels_match_the_unfused_route_on_inf_and_nan(
+        cuda_device, case):
+    """inf, -inf, NaN and the largest finite values (whose products with
+    the weights overflow to inf, as torch's do) in the cotangent: the
+    same bits as the unfused route's."""
+    n, rows = 4096, 3
+    gen = torch.Generator().manual_seed(len(case) + 2)
+    g, call, unfused, _ = _adjoint_case(case, n, rows, gen, cuda_device)
+    for t in g:
+        t[0, 0] = float("inf")
+        t[0, 5] = float("nan")
+        t[1, 1] = -float("inf")
+        t[2, :7] = 3.0e38
+    assert _same_bits(call(*g), unfused(*g))
+
+
+def test_fft_adjoint_route_is_one_kernel_launch(cuda_device):
+    """By torch.profiler after uncounted calls: each adjoint route
+    launches its one kernel a call and no PyTorch kernel (no weights'
+    multiplies, fills or copies)."""
+    from lsp_dsp_units_tpu_torch.tools.launch_profile import launch_profile
+    gen = torch.Generator().manual_seed(4)
+    for case in ADJOINT_CASES:
+        g, call, _, _ = _adjoint_case(case, 16384, 16, gen, cuda_device)
+        rows = launch_profile(lambda: call(*g), 16, 8192, 1, 2, calls=5,
+                              bytes_of=lambda name: None, warm=5)
+        kernel = ("rfft_packed_bwd_kernel" if case.startswith("rfft")
+                  else "irfft_packed_bwd_kernel")
+        assert [(r["name"], r["launches"]) for r in rows] == [(kernel, 1)]
+
+
+def _frame_chain_unfused(gs_re, gs_im, n, g_u=None):
+    """The convolver backwards' frame chain as it ran before the frame
+    kernel: kernel #1's inverse of the whole frame, the halves copied
+    out, the sum with u's cotangent and kernel #1's zero-pad forward
+    transform of it."""
+    b = n // 2
+    g_frame = tfft._irfft_launch(gs_re, gs_im, n, 0)
+    if g_u is None:
+        return g_frame[:, :b].contiguous(), g_frame[:, b:].contiguous()
+    g_ut = tfft._aligned(g_frame[:, b:] + g_u)
+    return (g_frame[:, :b].contiguous(), g_ut) + tfft._rfft_launch(g_ut, n,
+                                                                   1)
+
+
+@pytest.mark.parametrize("eq", [False, True])
+@pytest.mark.parametrize("n,c", [(n, 5) for n in FFT_SIZES]
+                         + [(16384, 1), (16384, 64), (2048, 133)])
+def test_frame_bwd_kernel_matches_the_unfused_chain(cuda_device, n, c, eq):
+    """The frame kernel (one cluster a channel) is bit for bit the chain
+    it fuses, at every frame size and at 1, 64 and 133 channels; one
+    launch counted; the same bits again and with TF32 on."""
+    gen = torch.Generator().manual_seed(n + c + eq)
+    gs = (_randn(gen, c, n // 2, device=cuda_device),
+          _randn(gen, c, n // 2, device=cuda_device))
+    g_u = _randn(gen, c, n // 2, device=cuda_device) if eq else None
+    before = tfdl.frame_bwd.launches
+    out = tfdl.frame_bwd(*gs, n, g_u)
+    assert tfdl.frame_bwd.launches == before + 1
+    assert len(out) == (4 if eq else 2)
+    assert _same_bits(out, _frame_chain_unfused(*gs, n, g_u))
+    assert _same_bits(out, tfdl.frame_bwd(*gs, n, g_u))
+    assert _same_with_tf32(lambda: tfdl.frame_bwd(*gs, n, g_u), out)
+
+
+@pytest.mark.parametrize("route", ["eqfdl", "fdl"])
+@pytest.mark.parametrize("c,b,p_n,w", [(64, 8192, 6, 4), (13, 1024, 3, 2),
+                                       (65, 128, 2, 0)])
+def test_convolver_bwd_routes_identical_before_and_after_the_frame_kernel(
+        cuda_device, monkeypatch, route, c, b, p_n, w):
+    """eqfdl_fused_bwd and fdl_fused_bwd on the frame kernel give every
+    cotangent bit for bit as on the chain it replaced (the same routes
+    with frame_bwd swapped for that chain); each route launches the frame
+    kernel once and two transforms in all (the g_y transform and the
+    frame kernel)."""
+    gen = torch.Generator().manual_seed(b + c + len(route))
+    d = _ring_case(gen, cuda_device, c, b, p_n, 18)
+    if route == "eqfdl":
+        fn = tfdl.eqfdl_fused_bwd
+        args = (*d["ring"], *d["h"], *d["heq"], *d["xs"], d["x"], d["sv"],
+                *d["mats"], w, *d["cot"])
+    else:
+        fn = tfdl.fdl_fused_bwd
+        args = (*d["ring"], *d["h"], w, d["cot"][0], *d["cot"][3:])
+    before = (tfdl.frame_bwd.launches, fn.fft_launches)
+    out = fn(*args)
+    assert (tfdl.frame_bwd.launches, fn.fft_launches) == (before[0] + 1,
+                                                          before[1] + 2)
+    monkeypatch.setattr(tfdl, "frame_bwd", _frame_chain_unfused)
+    assert _same_bits(out, fn(*args))
+
+
 def test_biquad_cascade_bwd_on_card_matches_plain(cuda_device):
     """The scan's adjoint on the kernel (2K - 1 launches) against the
     same adjoint on the plain scan on the card: bit for bit, as the scan

@@ -193,3 +193,13 @@ def test_launch_bytes_count_each_input_and_output_once(c, b, p_n, k2):
     assert launch_bytes("fdl_bwd", c, b, p_n, k2) == nbytes(
         [ring] * 4 + [s] * 2 + [h] * 2 + [ring] * 2 + [h] * 2 + [s] * 2)
     assert launch_bytes("eqfdl_bwd_mats", c, b, p_n, k2) is None
+
+
+@pytest.mark.parametrize("c,b", [(64, 8192), (13, 128)])
+def test_launch_bytes_of_the_frame_kernel(c, b):
+    """The frame kernel's bytes bounds: the EQ route's form reads S's
+    cotangent (2 planes) and u's, writes hist's, g_ut and g_ut's spectra
+    (2); the convolver route's reads S's and writes hist's and x's."""
+    plane = 4 * c * b
+    assert launch_bytes("frame_bwd_kernel<true>", c, b, 6, 18) == 7 * plane
+    assert launch_bytes("frame_bwd_kernel<false>", c, b, 6, 18) == 4 * plane

@@ -23,6 +23,18 @@ schedule from the frame [hist || x], whose first DIF stage each block
 forms for its own half as it loads its first register pass; its model
 is held against the one-block model and ``fdl_fused_plain`` likewise.
 
+The adjoints of the packed FFT run the same schedules with weights that
+are powers of two: ``rfft_packed_bwd_kernel`` multiplies the packed
+cotangent as the inverse loads it, ``irfft_packed_bwd_kernel`` each
+output as the forward transform stores it (block 1's negated for the
+last half).  Their models must equal ``_weighted``'s products and the
+unweighted schedule bitwise.  The convolver backwards' frame kernel
+(``fdl_fused.cu``, ``frame_bwd_kernel``) runs the inverse's cluster,
+then in its cross stage hist's cotangent, the last half plus u's
+cotangent, and that sum's zero-pad first DIF stage, then the forward
+passes on each half: its model must equal the chain it fuses (the
+inverse, the add, the zero-pad forward) bitwise.
+
 The dynamics tail (``csrc/env.cu``) and the peak envelope
 (``csrc/env_units.cu``) replace their envelope step, where the envelope
 cannot hold, by one with no compare on the envelope's path:
@@ -55,6 +67,7 @@ import pytest
 import torch
 
 from lsp_dsp_units_tpu_torch.ops import env_units as eu
+from lsp_dsp_units_tpu_torch.ops import fdl_fused
 from lsp_dsp_units_tpu_torch.ops import fft_packed as fp
 from lsp_dsp_units_tpu_torch.ops.dynamics import EnvState
 from lsp_dsp_units_tpu_torch.ops.fdl_fused import (eqfdl_fused_plain,
@@ -202,9 +215,11 @@ def _half_pairs(b, l):
     return _pair_of(t0 + np.arange(count))
 
 
-def _split_forward(z, wst, wnb, half_input):
+def _split_forward(z, wst, wnb, half_input, flip=None):
     """rfft_packed_kernel for one row: z complex [M] (its upper half zero
-    when half_input, which the kernel then never reads)."""
+    when half_input, which the kernel then never reads).  With ``flip``
+    set, irfft_packed_bwd_kernel: each output stored times its weight
+    (:func:`_store_weights`), block 1's negated where ``flip``."""
     m = z.size
     l = m // 2
     log_l = l.bit_length() - 1
@@ -225,36 +240,37 @@ def _split_forward(z, wst, wnb, half_input):
         j, jp = _half_pairs(b, l)
         assert np.all((j >= off) & (j < off + l) & (jp >= off)
                       & (jp < off + l))
-        out[j], out[jp] = _untangle(buf[j - off], buf[jp - off], wnb[j])
+        w, w0 = (1.0, 1.0) if flip is None else _store_weights(m, b, flip)
+        xk, xmk = _untangle(buf[j - off], buf[jp - off], wnb[j])
+        out[j], out[jp] = xk * w, xmk * w
         if b == 0:
-            out[0] = _untangle0(buf[0])
-            out[1] = np.conj(buf[1])
+            out[0] = _untangle0(buf[0]) * w0
+            out[1] = np.conj(buf[1]) * w
     assert not np.isnan(out).any()
     return out
 
 
-def _split_inverse(spec, wst, wnb, half):
+def _store_weights(m, b, flip):
+    """irfft_packed_bwd_kernel's weights of block b: 2/N = 2^-log2(M)
+    (negated in block 1 where flip) and position 0's 1/N."""
+    w = 1.0 / float(np.float32(m))
+    return (-w if flip and b else w), 0.5 * w
+
+
+def _load_weights(m):
+    """rfft_packed_bwd_kernel's weights: N/2 = M, position 0's N."""
+    w = float(np.float32(m))
+    return w, 2.0 * w
+
+
+def _split_inverse(spec, wst, wnb, half, weighted=False):
     """irfft_packed_kernel for one row: packed complex [M] -> complex
-    natural [M] (or its first / last half), scaled by 1/M."""
+    natural [M] (or its first / last half), scaled by 1/M.  ``weighted``:
+    rfft_packed_bwd_kernel, each value loaded times its weight
+    (:func:`_load_weights`)."""
     m = spec.size
     l = m // 2
-    log_l = l.bit_length() - 1
-    bufs = []
-    for b in (0, 1):
-        off = b * l
-        buf = np.full(l, np.nan + 0j)
-        j, jp = _half_pairs(b, l)
-        buf[j - off], buf[jp - off] = _retangle(spec[j], spec[jp], wnb[j])
-        if b == 0:
-            buf[0] = _retangle0(spec[0])
-            buf[1] = np.conj(spec[1])
-        assert not np.isnan(buf).any()
-        lo = 0
-        while lo < log_l:
-            kk = min(RADIX_BITS, log_l - lo)
-            buf = _radix_pass(buf, wst, lo, kk, inverse=True)
-            lo += kk
-        bufs.append(buf)
+    bufs = _inverse_halves(spec, wst, wnb, weighted)
     out = np.full(m, np.nan + 0j)
     for b in (0, 1):
         i = np.arange(b * (l >> 1), (b + 1) * (l >> 1))
@@ -262,6 +278,34 @@ def _split_inverse(spec, wst, wnb, half):
                                             wst[l + i])
     out = out * (1.0 / m)
     return {0: out, 1: out[:l], 2: out[l:]}[half]
+
+
+def _inverse_halves(spec, wst, wnb, weighted=False):
+    """The inverse kernels' two blocks up to the cross stage: each
+    retangles its half's pairs (the values loaded times the weights where
+    ``weighted``) and runs the local DIT stages."""
+    m = spec.size
+    l = m // 2
+    log_l = l.bit_length() - 1
+    w, w0 = _load_weights(m) if weighted else (1.0, 1.0)
+    bufs = []
+    for b in (0, 1):
+        off = b * l
+        buf = np.full(l, np.nan + 0j)
+        j, jp = _half_pairs(b, l)
+        buf[j - off], buf[jp - off] = _retangle(spec[j] * w, spec[jp] * w,
+                                                wnb[j])
+        if b == 0:
+            buf[0] = _retangle0(spec[0] * w0)
+            buf[1] = np.conj(spec[1] * w)
+        assert not np.isnan(buf).any()
+        lo = 0
+        while lo < log_l:
+            kk = min(RADIX_BITS, log_l - lo)
+            buf = _radix_pass(buf, wst, lo, kk, inverse=True)
+            lo += kk
+        bufs.append(buf)
+    return bufs
 
 
 def _ref_inverse(spec, wst, wnb, half):
@@ -571,6 +615,132 @@ def test_fdl_cluster_schedule_matches_one_block_and_plain(m):
         assert _snr(py[ch].numpy(), _as_real(new[0])) >= 95.0, ch
         assert _snr(ring_after[0][w, ch].numpy(), new[1].real) >= 95.0, ch
         assert _snr(ring_after[1][w, ch].numpy(), new[1].imag) >= 95.0, ch
+
+
+# --- #1's adjoints and the convolver backward's frame chain ----------------
+
+
+def _spec(re, im):
+    return re.double().numpy() + 1j * im.double().numpy()
+
+
+@pytest.mark.parametrize("half", [0, 1])
+@pytest.mark.parametrize("n", SIZES)
+def test_fft_adjoint_weighted_loads_match_weights_then_inverse(n, half):
+    """rfft_packed_bwd_kernel (the inverse, the packed cotangent weighted
+    as it is loaded) is bitwise the unfused route: _weighted's products,
+    then the inverse kernel's schedule (the whole frame, or the first
+    half for the zero-pad form); and rfft_packed_bwd_plain within 130
+    dB."""
+    wst, wnb = _twiddles(n)
+    gen = torch.Generator().manual_seed(n + half)
+    g_re, g_im = torch.randn(2, n // 2, generator=gen)
+    new = _split_inverse(_spec(g_re, g_im), wst, wnb, half, weighted=True)
+    ref = _split_inverse(_spec(*fp._rfft_adjoint_in(g_re, g_im, n)), wst,
+                         wnb, half)
+    assert np.array_equal(new, ref)
+    plain = fp.rfft_packed_bwd_plain(g_re, g_im, n, half).numpy()
+    assert _snr(plain, _as_real(new)) >= 130.0
+
+
+@pytest.mark.parametrize("mode", [0, 1, 2])
+@pytest.mark.parametrize("n", SIZES)
+def test_fft_adjoint_weighted_stores_match_transform_then_weights(n, mode):
+    """irfft_packed_bwd_kernel (the forward transform, each output
+    weighted as it is stored, block 1's negated for the last half) is
+    bitwise the unfused route: the forward kernel's schedule (the whole
+    frame, or the zero-pad form), then _weighted's products and signs;
+    and irfft_packed_bwd_plain within 130 dB."""
+    wst, wnb = _twiddles(n)
+    gen = torch.Generator().manual_seed(n + mode)
+    g_y = torch.randn(n if mode == 0 else n // 2, generator=gen)
+    xin = g_y.double().numpy()
+    if mode:
+        xin = np.concatenate([xin, np.zeros(n // 2)])
+    z = xin[0::2] + 1j * xin[1::2]
+    new = _split_forward(z, wst, wnb, mode != 0, flip=mode == 2)
+    out = _split_forward(z, wst, wnb, mode != 0)
+    ref = fp._irfft_adjoint_out(torch.from_numpy(out.real.copy()),
+                                torch.from_numpy(out.imag.copy()), n, mode)
+    assert np.array_equal(new, _spec(*ref))
+    half = {0: False, 1: "first", 2: "last"}[mode]
+    plain = fp.irfft_packed_bwd_plain(g_y, n, half)
+    assert _snr(plain[0].numpy(), new.real) >= 130.0
+    assert _snr(plain[1].numpy(), new.imag) >= 130.0
+
+
+def _frame_bwd_cluster(gs, gu, wst, wnb):
+    """frame_bwd_kernel for one channel: the inverse's two blocks, then
+    each block's quarter of the cross stage: hist's cotangent (a + c) /
+    M; the frame input's (a - c) / M, and where gu is given (the EQ
+    route) g_ut = that + gu, written, and the zero-pad forward
+    transform's first stage formed in place (g_ut to half 0, g_ut w to
+    half 1); then each block's forward passes and untangle (-> gp)."""
+    m = gs.size
+    l = m // 2
+    bufs = _inverse_halves(gs, wst, wnb)
+    g_hist, g_last = np.full(l, np.nan + 0j), np.full(l, np.nan + 0j)
+    new = [np.full(l, np.nan + 0j) for _ in (0, 1)]
+    for b in (0, 1):
+        i = np.arange(b * (l >> 1), (b + 1) * (l >> 1))
+        lower, upper = _dit_butterfly(bufs[0][i], bufs[1][i], wst[l + i])
+        g_hist[i] = lower * (1.0 / m)
+        g_last[i] = upper * (1.0 / m)
+        if gu is not None:
+            g_last[i] = g_last[i] + gu[i]
+            new[0][i], new[1][i] = g_last[i], g_last[i] * wst[l + i]
+    if gu is None:
+        return g_hist, g_last
+    log_l = l.bit_length() - 1
+    gp = np.full(m, np.nan + 0j)
+    for b in (0, 1):
+        buf = new[b]
+        rem = log_l
+        while rem > 0:
+            kk = min(RADIX_BITS, rem)
+            rem -= kk
+            buf = _radix_pass(buf, wst, rem, kk, inverse=False)
+        off = b * l
+        j, jp = _half_pairs(b, l)
+        gp[j], gp[jp] = _untangle(buf[j - off], buf[jp - off], wnb[j])
+        if b == 0:
+            gp[0] = _untangle0(buf[0])
+            gp[1] = np.conj(buf[1])
+    assert not np.isnan(gp).any()
+    return g_hist, g_last, gp
+
+
+@pytest.mark.parametrize("eq", [False, True])
+@pytest.mark.parametrize("n", SIZES)
+def test_frame_bwd_cluster_matches_the_chain_it_fuses(n, eq):
+    """frame_bwd_kernel's schedule is bitwise the composition it fuses:
+    the inverse kernel's schedule over the whole frame, its halves
+    (fdl_fused_bwd's g_hist and g_x), and for the EQ route the last half
+    plus u's cotangent, then the zero-pad forward kernel's schedule of
+    that sum; and frame_bwd_plain within 130 dB."""
+    m = n // 2
+    wst, wnb = _twiddles(n)
+    gen = torch.Generator().manual_seed(n + eq)
+    gs_re, gs_im = torch.randn(2, 1, m, generator=gen)
+    g_u = torch.randn(1, m, generator=gen) if eq else None
+    gs = _spec(gs_re[0], gs_im[0])
+    guz = None if g_u is None else g_u[0].double().numpy()
+    guz = None if guz is None else guz[0::2] + 1j * guz[1::2]
+    new = _frame_bwd_cluster(gs, guz, wst, wnb)
+    out = _split_inverse(gs, wst, wnb, 0)
+    ref = [out[:m // 2], out[m // 2:]]
+    if eq:
+        ref[1] = ref[1] + guz
+        ref.append(_split_forward(np.concatenate(
+            [ref[1], np.zeros(m // 2)]), wst, wnb, True))
+    for name, a, b in zip(("g_hist", "g_last", "gp"), ref, new):
+        assert np.array_equal(a, b), name
+    plain = fdl_fused.frame_bwd_plain(gs_re, gs_im, n, g_u)
+    assert _snr(plain[0][0].numpy(), _as_real(new[0])) >= 130.0
+    assert _snr(plain[1][0].numpy(), _as_real(new[1])) >= 130.0
+    if eq:
+        assert _snr(plain[2][0].numpy(), new[2].real) >= 130.0
+        assert _snr(plain[3][0].numpy(), new[2].imag) >= 130.0
 
 
 # --- the gate's curve track as a scan (env_units.cu) ------------------------
