@@ -7,7 +7,7 @@ Phases (any failure exits non-zero; nothing is caught):
 
 1. card   — CUDA must be available; prints nvidia-smi's name and power
             limit.
-2. build  — compiles the eleven CUDA sources of
+2. build  — compiles the twelve CUDA sources of
             lsp_dsp_units_tpu_torch/csrc (nvcc, sm_90a), one nvcc each,
             all started together, and prints the seconds.
 3. parity — each kernel against its plain PyTorch version on the card, at
@@ -320,7 +320,26 @@ Phases (any failure exits non-zero; nothing is caught):
             bound; step_ring's ms a block forward and forward + backward
             (CUDA events behind the spin kernel) and torch.profiler's
             kernels of one forward + backward.
-17c. demo  — every mode of tools/demo.py (filter, chain, loudness,
+17c. grad_units — gradients through the sequential cascade, the Gate
+            and the DynamicDelay, at [64, 2 x 16384] with the state
+            carried: Filter seq with the chain's K = 9 passed as its
+            coefficients (which take a gradient), the IIR Equalizer
+            (iir_block=None), DynamicFilters seq (K = 4 per sample; the
+            gain through the per-sample design), the LoudnessMeter, the
+            Gate at a hold of 0 and of 24 (the taus), the synth phase's
+            LFO-swept DynamicDelay (the buffer and the gain); the loss
+            puts seeded weights on every output.  The counters of
+            biquad_seq_bwd (static: 6, per sample: 2), the row sums (2),
+            delay_bwd_kernel (2) and peak_envelope_bwd (4), zeroed just
+            before and read just after, exact.  Card against the port's
+            CPU run at [64, 2 x 1024]: >= 100 dB per gradient, the
+            Gate's NaN positions equal; TF32 on: identical.  Each
+            backward kernel against its plain adjoint on the CPU at [64,
+            2048], bit for bit (the saving forward's signals too); each
+            timed at [64, 16384] beside its plain adjoint's time at [64,
+            2048] on the card (host-paced), its bytes / operations bound
+            and its chain bound.
+17d. demo  — every mode of tools/demo.py (filter, chain, loudness,
             sampler, stretch) through its main(), on the card (its
             default) and with --cpu, on WAVs written from fixed seeds:
             10 s of stereo at 48 kHz (three tones and noise, peaks at -12
@@ -332,7 +351,7 @@ Phases (any failure exits non-zero; nothing is caught):
             run, must advance: filter biquad_scan; chain #1's three
             wrappers, #5 and #6; loudness biquad_seq.  Seconds per mode
             and device printed.
-17d. tour  — every block of lsp_dsp_units_tpu_torch/docs/API_TOUR.md on
+17e. tour  — every block of lsp_dsp_units_tpu_torch/docs/API_TOUR.md on
             the card (tools/tour.run), every launch counter zeroed just
             before and read just after: #1 (any of its three wrappers),
             #5, #6, #8, biquad_scan, biquad_seq, limiter_kernel,
@@ -362,7 +381,9 @@ peak_envelope_bwd and #1's adjoints rfft_packed_bwd_kernel and
 irfft_packed_bwd_kernel (timed in their zero-pad and first-half forms,
 every form under "modes"), whose launches are the grad phase's, and
 eqfdl_bwd, fdl_bwd, chain_dyn_bwd and frame_bwd_kernel, whose launches
-are the grad_ring phase's), the card's
+are the grad_ring phase's, and biquad_seq_bwd in both forms,
+delay_bwd_kernel and peak_envelope_bwd<gate>, whose launches are the
+grad_units phase's), the card's
 name and power limit, and the
 contract line
 {"ok": true, "device": {...}}.
@@ -601,6 +622,16 @@ KERNELS = (
      "ops/pallas_fft.py:549"),
     ("frame_bwd", "frame_bwd_kernel", "fdl_fused.cu",
      "ops/pallas_fdl_fused.py:222"),
+    # the backwards of the sequential cascade (static and per-sample
+    # coefficients), the DynamicDelay and the Gate (#7's route, on
+    # peak_envelope_bwd without a release threshold): what jax.grad
+    # differentiates of their lax.scan bodies and of the gate's scan
+    ("bq_bwd", "biquad_seq_bwd", "biquad_bwd.cu", "ops/biquad.py:140"),
+    ("bq_bwd_dyn", "biquad_seq_bwd<per-sample>", "biquad_bwd.cu",
+     "ops/biquad.py:198"),
+    ("delay_bwd", "delay_bwd_kernel", "delay.cu", "models/util/delay.py:122"),
+    ("gate_bwd", "peak_envelope_bwd<gate>", "env_units.cu",
+     "ops/pallas_env.py:183"),
 )
 
 
@@ -644,6 +675,14 @@ EXTRA_KEYS = {
     "irfft_bwd": ("modes",),
     "frame_bwd": ("db", "fdl_ms", "fdl_plain_ms", "fdl_bound_ms",
                   "launch_profile", "profile_whole"),
+    "bq_bwd": ("chain_ms", "chain_ops", "cycles_per_step", "sm_clock_hz",
+               "plain_t", "k", "db_vs_cpu", "loudness_vs_f64"),
+    "bq_bwd_dyn": ("chain_ms", "chain_ops", "cycles_per_step",
+                   "sm_clock_hz", "plain_t", "k"),
+    "delay_bwd": ("chain_ms", "chain_ops", "cycles_per_step", "sm_clock_hz",
+                  "plain_t"),
+    "gate_bwd": ("chain_ms", "cycles_per_step", "sm_clock_hz", "plain_t",
+                 "hold24_ms", "hold24_cycles_per_step", "hold24_plain_ms"),
     "peak": ("chain_ms", "cycles_per_step", "hold24_ms",
              "hold24_cycles_per_step", "sass_free_cycles_per_step",
              "sass_ref_cycles_per_step", "sm_clock_hz"),
@@ -4829,6 +4868,431 @@ def grad_ring_phase(chain, params, dev, res):
           + f"; phase {time.perf_counter() - t_start:.1f} s")
 
 
+# --- the grad_units phase: gradients through the sequential cascade, the
+# Gate and the DynamicDelay ------------------------------------------------
+
+GU_T, GU_CALLS = 16384, 2     # [64, 2 x 16384], the state carried
+GU_CPU_T = 1024               # the CPU run: [64, 2 x 1024], the inputs' start
+GU_PLAIN_T = 2048             # the plain adjoints' length against the kernels
+GU_DB = 100.0                 # the card's gradients vs the port's CPU run
+GU_F64_RULE_DB = 1.0          # the loudness: the card within this of the
+#                               CPU's distance from its float64 run
+GU_HOLDS = (0, 24)            # the Gate's hold times, samples
+GU_GATE_KW = dict(threshold=0.2, zone=0.5, hyst_threshold=0.15,
+                  attack_ms=2.0, release_ms=20.0)
+GU_COUNTERS = (bq.biquad_cascade_seq_bwd, bq.dyn_biquad_cascade_seq_bwd,
+               delay_ops.dynamic_delay_bwd, eu.peak_envelope_bwd)
+
+
+def gu_inputs():
+    """The phase's inputs from its seed, [C, 2 T] each: the filters'
+    input, the gate's detector level, the DynamicFilters' gain (a swell
+    of +-12 dB, per channel), the loss weights."""
+    rng = np.random.default_rng(31)
+    t_all = GU_T * GU_CALLS
+    n = np.arange(t_all)[None]
+    swell = np.sin(np.pi * n / t_all)
+    gain = 10.0 ** ((-12.0 + 24.0 * swell
+                     * rng.uniform(0.5, 1.0, (C, 1))) / 20.0)
+    # the gate's level crosses its knees every 4096 samples (the phases
+    # spread over the channels), quiet over the last quarter
+    beat = np.abs(np.sin(np.pi * (n / 4096.0 + rng.uniform(0, 1, (C, 1)))))
+    level = np.abs(rng.standard_normal((C, t_all))) * 0.4 * beat
+    level[:, 3 * t_all // 4:] *= 0.02
+    return dict(
+        x=(rng.standard_normal((C, t_all)) * 0.25).astype(np.float32),
+        level=level.astype(np.float32), gain=gain.astype(np.float32),
+        w=rng.standard_normal((C, t_all)).astype(np.float32),
+        w_loud=rng.standard_normal(t_all).astype(np.float32))
+
+
+def gu_units(dev, dtype=torch.float32):
+    """The phase's units on device ``dev``: name -> (leaves(), step(state,
+    x_call, k, t) -> (state, y)), the leaves a list of new tensors that
+    require grad: the incoming state's, then the unit's parameters.
+    ``dtype`` float64 gives the LoudnessMeter its float64 run (its
+    weighting and channel weights in float64)."""
+    eq = flt.Equalizer(SR, filters=8, mode=flt.EqMode.IIR, iir_block=None)
+    for i, p in enumerate(pipeline.default_eq_params(SR)):
+        eq.set_params(i, p)
+    eqp = eq.build(device=dev)
+    c9 = eqp.coeffs                                  # the chain's K = 9
+    fil = flt.Filter(SR, flt.FilterParams(ftype=flt.FilterType.BT_RLC_BELL,
+                                          freq=1000.0, gain=2.0))
+    dynf = flt.DynamicFilters(SR, 1)
+    dynf.set_params(0, flt.FilterParams(ftype=flt.FilterType.BT_BWC_BELL,
+                                        freq=1000.0, slope=2, quality=0.7))
+    loud = mtr.LoudnessMeter(SR, C, device=dev)
+    loud._coeffs, loud.weights = loud._coeffs.to(dtype), loud.weights.to(dtype)
+    dd = DynamicDelay(SYN_MAX_DELAY)
+    gen = torch.Generator().manual_seed(33)
+
+    def leaf(v):
+        return v.detach().to(dev, dtype).clone().requires_grad_(True)
+
+    def rnd(*shape, scale=0.1):
+        return (torch.randn(*shape, generator=gen) * scale)
+
+    s9, s4 = rnd(C, c9.shape[0], 2), rnd(C, 4, 2)
+    fl0, win0 = rnd(C, 2, 2), rnd(C, loud.period).abs()
+    buf0 = rnd(C, SYN_MAX_DELAY + 1, scale=0.25)
+    eq_st = eq.init_state(eqp, (C,), device=dev)
+
+    def eq_step(lv, st, x, g, k):
+        st, y = eq.process(eqp, eq_st._replace(iir=st), x)
+        return st.iir, y
+
+    units = {
+        "filter_seq": (lambda: [leaf(s9), leaf(c9)],
+                       lambda lv, st, x, g, k: fil.process(
+                           st, x, coeffs=lv[1], method="seq")),
+        "eq_iir": (lambda: [leaf(s9)], eq_step),
+        "dyn_seq": (lambda: [leaf(s4)],
+                    lambda lv, st, x, g, k: dynf.process(0, st, x, g,
+                                                         method="seq")),
+        "loudness": (lambda: [leaf(fl0), leaf(win0)],
+                     lambda lv, st, x, g, k: loud.process(st, x)),
+        "delay": (lambda: [leaf(buf0), leaf(torch.tensor(0.5))],
+                  lambda lv, st, x, g, k: dd.process(st, x, k[0], lv[1],
+                                                     k[1])),
+    }
+    for hold in GU_HOLDS:
+        gt = Gate(SR, hold_ms=hold * 1000.0 / SR, **GU_GATE_KW)
+        p = gt.build()
+        units[f"gate{hold}"] = (
+            (lambda p: lambda: [leaf(torch.tensor(p.tau_attack)),
+                                leaf(torch.tensor(p.tau_release))])(p),
+            (lambda gt, p: lambda lv, st, x, g, k: gt.process(
+                p._replace(tau_attack=lv[0], tau_release=lv[1]), st, x)[:2])(
+                gt, p))
+    return units
+
+
+def gu_run(name, dev, inp, t, calls, delays=None, dtype=torch.float32):
+    """Forward and backward of one unit over ``calls`` calls of [C, t]
+    from the start of the phase's inputs, the state carried; the loss
+    puts the phase's weights on every output (and on the outgoing state's
+    first leaf).  Returns the gradients, on the CPU: the leaves', then x
+    (each call's, concatenated) and, for dyn_seq, the gain's."""
+    step_leaves, step = gu_units(dev, dtype)[name]
+    lv = step_leaves()
+    gate = name.startswith("gate")
+    src = inp["level"] if gate else inp["x"]
+    xs = [torch.from_numpy(src[:, k * t:(k + 1) * t]).to(dev, dtype)
+          .requires_grad_(True) for k in range(calls)]
+    gs = [torch.from_numpy(inp["gain"][:, k * t:(k + 1) * t]).to(dev, dtype)
+          .requires_grad_(True) for k in range(calls)]
+    if name == "loudness":
+        st = type(mtr.LoudnessMeter(SR, C, device=dev).init_state())(
+            flt=lv[0], window=lv[1])
+    elif name == "delay":
+        st = DynamicDelay(SYN_MAX_DELAY).init_state((C,), device=dev)
+        st = st._replace(buffer=lv[0])
+    elif gate:
+        st = Gate(SR).init_state((C,), device=dev)
+    else:
+        st = lv[0]
+    total = 0.0
+    for k in range(calls):
+        sl = slice(k * t, (k + 1) * t)
+        dk = None if delays is None else (delays[0][:, sl], delays[1][:, sl])
+        st, y = step(lv, st, xs[k], gs[k], dk)
+        w = inp["w_loud"][sl] if name == "loudness" else inp["w"][:, sl]
+        total = total + torch.sum(y * torch.from_numpy(w).to(dev, dtype))
+    last = {"loudness": lambda s: s.flt, "delay": lambda s: s.buffer}.get(
+        name, lambda s: s.env.envelope if gate else s)(st)
+    total = total + torch.sum(last * 0.5)
+    total.backward()
+    out = [v.grad for v in lv] + [torch.cat([v.grad for v in xs], -1)]
+    if name == "dyn_seq":
+        out.append(torch.cat([v.grad for v in gs], -1))
+    return [v.detach().cpu() for v in out]
+
+
+def gu_compare(ref, out, gate):
+    """min dB over the gradients, the Gate's with equal NaN masks and
+    over their finite entries; raises on a NaN mask that differs."""
+    dbs = []
+    for a, b in zip(ref, out):
+        na, nb = torch.isnan(a), torch.isnan(b)
+        check(torch.equal(na, nb), "NaN positions differ between the card "
+              "and the CPU")
+        check(gate or not na.any(), "a NaN gradient")
+        if (~na).any() and bool(torch.any(a[~na] != 0)):
+            dbs.append(snr_db(a[~na], b[~nb]))
+        else:
+            check(torch.equal(a[~na], b[~nb]), "a zero gradient moved")
+    return min(dbs, default=float("inf"))
+
+
+def gu_kernel_parity(dev, inp, t):
+    """Each backward kernel against its plain adjoint (on the CPU, the same
+    inputs) at [C, t], bit for bit: biquad_seq_bwd static (the chain's K =
+    9, shared coefficients: their row sums), per sample (K = 4 per row),
+    delay_bwd_kernel (the LFO-swept bank), and the Gate's route
+    (peak_envelope_bwd without a threshold, on the gate's forward)."""
+    gen = torch.Generator().manual_seed(35)
+    eq = flt.Equalizer(SR, filters=8, mode=flt.EqMode.IIR, iir_block=None)
+    for i, p in enumerate(pipeline.default_eq_params(SR)):
+        eq.set_params(i, p)
+    c9 = eq.build(device="cpu").coeffs
+    x = torch.from_numpy(inp["x"][:, :t])
+    g_y = torch.randn(C, t, generator=gen)
+    same = {}
+    for key, (coeffs, k_n) in {
+            "bq_bwd": (c9, c9.shape[0]),
+            "bq_bwd_dyn": (dynf._design_per_sample(
+                flt.FilterParams(ftype=flt.FilterType.BT_BWC_BELL,
+                                 freq=1000.0, slope=2, quality=0.7),
+                torch.from_numpy(inp["gain"][:, :t]), SR), 4)}.items():
+        dyn_form = key == "bq_bwd_dyn"
+        st = torch.randn(C, k_n, 2, generator=gen) * 0.1
+        gs = torch.randn(C, k_n, 2, generator=gen)
+        y_c, s_c, sig = bq._seq_plain_run(coeffs, st, x, dyn_form, save=True)
+        y_d, s_d, sig_d = bq._seq_cuda(coeffs.to(dev), st.to(dev),
+                                       x.to(dev), dyn_form, save=True)
+        bwd, plain = ((bq.dyn_biquad_cascade_seq_bwd,
+                       bq.dyn_biquad_cascade_seq_bwd_plain) if dyn_form else
+                      (bq.biquad_cascade_seq_bwd,
+                       bq.biquad_cascade_seq_bwd_plain))
+        ref = plain(coeffs, st, x, sig, g_y, gs)
+        out = bwd(*(v.to(dev) for v in (coeffs, st, x, sig, g_y, gs)))
+        torch.cuda.synchronize()
+        same[key] = (all(torch.equal(a, b.cpu()) for a, b in zip(ref, out))
+                     and torch.equal(sig, sig_d.cpu())
+                     and torch.equal(y_c, y_d.cpu())
+                     and torch.equal(s_c, s_d.cpu()))
+    d = lfo_delays(dev)[:, :t].cpu()
+    fd = torch.from_numpy(synth_inputs()[1][:, :t])
+    buf = torch.randn(C, SYN_MAX_DELAY + 1, generator=gen) * 0.25
+    g = torch.tensor(0.5)
+    gb = torch.randn(C, SYN_MAX_DELAY + 1, generator=gen)
+    _, _, s = delay_ops._delay_plain(buf, x, d, g, fd, SYN_MAX_DELAY, True)
+    ref = delay_ops.dynamic_delay_bwd_plain(buf, x, d, g, fd, s, g_y, gb,
+                                            SYN_MAX_DELAY)
+    out = delay_ops.dynamic_delay_bwd(*(v.to(dev) for v in (
+        buf, x, d, g, fd, s, g_y, gb)), SYN_MAX_DELAY)
+    torch.cuda.synchronize()
+    same["delay_bwd"] = all(torch.equal(a, b.cpu()) for a, b in zip(ref, out))
+    lev = torch.from_numpy(inp["level"][:, :t])
+    for hold in GU_HOLDS:
+        p = Gate(SR, hold_ms=hold * 1000.0 / SR, **GU_GATE_KW).build()
+        e0 = dyn.env_init((C,), "cpu")
+        _, _, env, _ = eu.gate_envelope(
+            e0, torch.zeros(C, dtype=torch.int32), lev, p.tau_attack,
+            p.tau_release, p.hold, p.knees[0].end, p.knees[1].start)
+        args = (lev, env, *e0, g_y, torch.randn(C, generator=gen),
+                torch.randn(C, generator=gen))
+        ref = eu.peak_envelope_bwd_plain(*args, p.tau_attack, p.tau_release,
+                                         p.hold, None)
+        out = eu.peak_envelope_bwd(*(v.to(dev) for v in args),
+                                   p.tau_attack, p.tau_release, p.hold, None)
+        torch.cuda.synchronize()
+        same[f"gate{hold}"] = all(torch.equal(a, b.cpu())
+                                  for a, b in zip(ref, out))
+    return same
+
+
+def gu_timings(dev, inp, clock):
+    """Each backward kernel at one call of the phase's [C, 16384] (CUDA
+    events behind the spin kernel), its plain adjoint on the card at [C,
+    2048] (one call, host-paced), the bytes / operations bound at [C,
+    16384] and the chain bound (T x the step's dependent operations x 4
+    cycles at the SM clock)."""
+    t, tp = GU_T, GU_PLAIN_T
+    gen = torch.Generator().manual_seed(37)
+    eq = flt.Equalizer(SR, filters=8, mode=flt.EqMode.IIR, iir_block=None)
+    for i, p in enumerate(pipeline.default_eq_params(SR)):
+        eq.set_params(i, p)
+    c9 = eq.build(device=dev).coeffs
+    x = torch.from_numpy(inp["x"][:, :t]).to(dev)
+    g_y = torch.randn(C, t, generator=gen).to(dev)
+    c4 = dynf._design_per_sample(
+        flt.FilterParams(ftype=flt.FilterType.BT_BWC_BELL, freq=1000.0,
+                         slope=2, quality=0.7),
+        torch.from_numpy(inp["gain"][:, :t]).to(dev), SR)
+    bq_ops = bq.seq_bwd_chain_ops()
+    out = {}
+    for key, (coeffs, dyn_form) in {"bq_bwd": (c9, False),
+                                    "bq_bwd_dyn": (c4, True)}.items():
+        k_n = coeffs.shape[-2]
+        st = torch.zeros(C, k_n, 2, device=dev)
+        gs = torch.randn(C, k_n, 2, generator=gen).to(dev)
+        _, _, sig = bq._seq_cuda(coeffs, st, x, dyn_form, save=True)
+        bwd, plain = ((bq.dyn_biquad_cascade_seq_bwd,
+                       bq.dyn_biquad_cascade_seq_bwd_plain) if dyn_form else
+                      (bq.biquad_cascade_seq_bwd,
+                       bq.biquad_cascade_seq_bwd_plain))
+        ms = time_ms(lambda: bwd(coeffs, st, x, sig, g_y, gs), 5)
+        plain_ms, _ = time_once_ms(lambda: plain(
+            coeffs[:, :tp] if dyn_form else coeffs, st, x[:, :tp],
+            sig[:, :, :tp].contiguous(), g_y[:, :tp], gs))
+        # bytes: the K + 1 signals, g_y and (per sample) the coefficients
+        # in, g_x and (per sample) the coefficients' terms out;
+        # operations: 4 FMA, 6 products and 5 sums a stage and sample
+        floats = (k_n + 3) * C * t + (2 * C * t * k_n * 5 if dyn_form else 0)
+        out[key] = dict(ms=ms, plain_ms=plain_ms, plain_t=tp,
+                        library_ms=None,
+                        **bound(F32 * floats, 19.0 * C * t * k_n),
+                        chain_ms=t * bq_ops * 4 / clock * 1e3,
+                        chain_ops=bq_ops,
+                        cycles_per_step=ms * 1e-3 * clock / t,
+                        sm_clock_hz=clock, k=k_n)
+    d = lfo_delays(dev)[:, :t]
+    fd = torch.from_numpy(synth_inputs()[1][:, :t]).to(dev)
+    buf = torch.zeros(C, SYN_MAX_DELAY + 1, device=dev)
+    g = torch.tensor(0.5, device=dev)
+    gb = torch.randn(C, SYN_MAX_DELAY + 1, generator=gen).to(dev)
+    _, _, s = delay_ops._delay_cuda(buf, x, d, g, fd, SYN_MAX_DELAY, True)
+    ms = time_ms(lambda: delay_ops.dynamic_delay_bwd(
+        buf, x, d, g, fd, s, g_y, gb, SYN_MAX_DELAY), 5)
+    plain_ms, _ = time_once_ms(lambda: delay_ops.dynamic_delay_bwd_plain(
+        buf, x[:, :tp], d[:, :tp], g, fd[:, :tp], s[:, :tp].contiguous(),
+        g_y[:, :tp], gb, SYN_MAX_DELAY))
+    d_ops = delay_ops.bwd_chain_ops()
+    out["delay_bwd"] = dict(
+        ms=ms, plain_ms=plain_ms, plain_t=tp, library_ms=None,
+        **bound(F32 * (6 * C * t + 2 * C * (SYN_MAX_DELAY + 1)), 0.0),
+        chain_ms=t * d_ops * 4 / clock * 1e3, chain_ops=d_ops,
+        cycles_per_step=ms * 1e-3 * clock / t, sm_clock_hz=clock)
+    lev = torch.from_numpy(inp["level"][:, :t]).to(dev)
+    for hold in GU_HOLDS:
+        p = Gate(SR, hold_ms=hold * 1000.0 / SR, **GU_GATE_KW).build()
+        e0 = dyn.env_init((C,), dev)
+        _, _, env, _ = eu.gate_envelope(
+            e0, torch.zeros(C, dtype=torch.int32, device=dev), lev,
+            p.tau_attack, p.tau_release, p.hold, p.knees[0].end,
+            p.knees[1].start)
+        z = torch.zeros(C, device=dev)
+        args = (lev, env, *e0, g_y, z, z)
+        ms = time_ms(lambda: eu.peak_envelope_bwd(
+            *args, p.tau_attack, p.tau_release, p.hold, None), 5)
+        plain_ms, _ = time_once_ms(lambda: eu.peak_envelope_bwd_plain(
+            lev[:, :tp], env[:, :tp], *e0, g_y[:, :tp], z, z, p.tau_attack,
+            p.tau_release, p.hold, None))
+        out[f"gate{hold}"] = dict(
+            ms=ms, plain_ms=plain_ms, plain_t=tp, library_ms=None,
+            **bound(F32 * 4 * C * t, 4.0 * C * t),
+            chain_ms=t * REV_CHAIN_OPS * 4 / clock * 1e3,
+            cycles_per_step=ms * 1e-3 * clock / t, sm_clock_hz=clock)
+    return out
+
+
+def grad_units_phase(dev, res):
+    """Gradients through the routes on the sequential cascade, the Gate
+    and the DynamicDelay, which jax.grad differentiates in the JAX
+    package: Filter seq (K = 9, the coefficients too), the IIR
+    Equalizer, DynamicFilters seq (K = 4 per sample, the gain too), the
+    LoudnessMeter, the Gate at a hold of 0 and of 24 (the taus too) and
+    the synth phase's LFO-swept DynamicDelay (the buffer and the gain
+    too), at [64, 2 x 16384] with the state carried; the backward
+    counters zeroed just before and read just after.  The card against
+    the port's CPU run at [64, 2 x 1024], each kernel against its plain
+    adjoint, TF32, timings."""
+    t_start = time.perf_counter()
+    inp = gu_inputs()
+    names = list(gu_units("cpu"))
+    dl = lfo_delays(dev)
+    fd = torch.from_numpy(synth_inputs()[1]).to(dev)
+    delays = {"delay": (dl, fd)}
+    torch.cuda.synchronize()
+    for f in GU_COUNTERS:
+        f.launches = 0
+        if hasattr(f, "sum_launches"):
+            f.sum_launches = 0
+    t0 = time.perf_counter()
+    full = {n: gu_run(n, dev, inp, GU_T, GU_CALLS, delays.get(n))
+            for n in names}
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launched = {f.__name__: f.launches for f in GU_COUNTERS}
+    sums = {f.__name__: f.sum_launches for f in GU_COUNTERS[:2]}
+    print(f"grad_units: {len(names)} units x {GU_CALLS} calls of [{C}, "
+          f"{GU_T}] forward and backward in {wall:.2f} s (host clock); "
+          f"backward launches {launched}, row sums {sums}")
+    # filter_seq and eq_iir and the loudness: 3 units x 2 calls of K <= 32
+    check(launched["biquad_cascade_seq_bwd"] == 3 * GU_CALLS,
+          f"biquad_seq_bwd launched {launched['biquad_cascade_seq_bwd']}")
+    check(sums["biquad_cascade_seq_bwd"] == GU_CALLS,
+          "the row sums of the shared coefficients")
+    check(launched["dyn_biquad_cascade_seq_bwd"] == GU_CALLS,
+          "biquad_seq_bwd (per sample) launches")
+    check(launched["dynamic_delay_bwd"] == GU_CALLS, "delay_bwd launches")
+    check(launched["peak_envelope_bwd"] == len(GU_HOLDS) * GU_CALLS,
+          "the Gate's backward launches")
+    for n, gs in full.items():
+        check(gs[-2 if n == "dyn_seq" else -1].shape == (C, GU_T * GU_CALLS),
+              f"{n}: x's gradient shape")
+        for g in gs:
+            check(bool(torch.isfinite(g).all()) or n.startswith("gate"),
+                  f"{n}: a gradient not finite")
+    # the card against the port's CPU run, at [64, 2 x 1024]
+    cpu_delays = {"delay": (dl.cpu(), fd.cpu())}
+    dbs, loud_f64 = {}, {}
+    for n in names:
+        ref = gu_run(n, "cpu", inp, GU_CPU_T, GU_CALLS, cpu_delays.get(n))
+        out = gu_run(n, dev, inp, GU_CPU_T, GU_CALLS, delays.get(n))
+        dbs[n] = gu_compare(ref, out, n.startswith("gate"))
+        if n != "loudness":
+            check(dbs[n] >= GU_DB, f"grad_units {n}: {dbs[n]:.2f} dB card "
+                  f"vs CPU")
+            continue
+        # the meter's sliding sums (cumsum differences, as the JAX
+        # package's) leave its float32 gradient tens of dB from float64
+        # on either device: both held to the CPU's float64 run instead
+        f64 = gu_run(n, "cpu", inp, GU_CPU_T, GU_CALLS,
+                     dtype=torch.float64)
+        for i, (a, b, r) in enumerate(zip(ref, out, f64)):
+            loud_f64[i] = (snr_db(r, a), snr_db(r, b))
+            check(loud_f64[i][1] >= loud_f64[i][0] - GU_F64_RULE_DB,
+                  f"grad_units loudness, gradient {i}: the card "
+                  f"{loud_f64[i][1]:.2f} dB from float64, the CPU "
+                  f"{loud_f64[i][0]:.2f}")
+    print(f"grad_units loudness against its float64 CPU run (dB; the CPU's "
+          f"float32, the card's), per gradient (flt, window, x): {loud_f64}")
+    print(f"grad_units, card vs the CPU run at [{C}, {GU_CALLS} x "
+          f"{GU_CPU_T}] (dB, the worst gradient): " + ", ".join(
+              f"{k} {v:.2f}" for k, v in dbs.items()))
+    # TF32 on: no library matmul on these routes
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        tf32 = gu_run("filter_seq", dev, inp, GU_CPU_T, GU_CALLS)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+    base = gu_run("filter_seq", dev, inp, GU_CPU_T, GU_CALLS)
+    same_tf32 = all(torch.equal(a, b) for a, b in zip(base, tf32))
+    check(same_tf32, "grad_units: gradients changed with TF32 on")
+    same = gu_kernel_parity(dev, inp, GU_PLAIN_T)
+    print(f"grad_units: each backward kernel against its plain adjoint at "
+          f"[{C}, {GU_PLAIN_T}], identical: {same}; TF32 on identical: "
+          f"{same_tf32}")
+    check(all(same.values()), f"a backward kernel differs from its plain "
+          f"adjoint: {same}")
+    clock = sm_clock_hz()
+    tim = gu_timings(dev, inp, clock)
+    card = card_line()
+    for key, r in tim.items():
+        print(f"grad_units {key}: [{C}, {GU_T}] {r['ms']:.4f} ms "
+              f"({r['cycles_per_step']:.1f} cycles a step), plain "
+              f"{r['plain_ms']:.1f} ms at [{C}, {r['plain_t']}] (one call, "
+              f"host-paced), bound {r['bound_ms']:.4f} ms ({r['bound_by']}),"
+              f" chain bound {r['chain_ms']:.4f} ms ({card})")
+    res["bq_bwd"] = dict(tim["bq_bwd"], launches=launched[
+        "biquad_cascade_seq_bwd"], max_abs_err=0.0, db_vs_cpu=dbs,
+        loudness_vs_f64=loud_f64)
+    res["bq_bwd_dyn"] = dict(tim["bq_bwd_dyn"], launches=launched[
+        "dyn_biquad_cascade_seq_bwd"], max_abs_err=0.0)
+    res["delay_bwd"] = dict(tim["delay_bwd"], launches=launched[
+        "dynamic_delay_bwd"], max_abs_err=0.0)
+    g24 = tim["gate24"]
+    res["gate_bwd"] = dict(tim["gate0"], launches=launched[
+        "peak_envelope_bwd"], max_abs_err=0.0, hold24_ms=g24["ms"],
+        hold24_cycles_per_step=g24["cycles_per_step"],
+        hold24_plain_ms=g24["plain_ms"])
+    print(f"grad_units phase: {time.perf_counter() - t_start:.1f} s")
+
+
 # --- the demo and the tour: the port's user-facing entry points ------------
 
 DEMO_S, DEMO_CHAIN_S = 10, 4  # the demo's WAVs: 10 s stereo, 4 s of C ch
@@ -5075,7 +5539,7 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     sources = ("fft_packed", "fdl_fused", "env", "env_units", "ring_mac",
                "slicedma", "biquad", "limiter", "riders", "biquad_scan",
-               "delay")
+               "delay", "biquad_bwd")
     with concurrent.futures.ThreadPoolExecutor(len(sources)) as pool:
         list(pool.map(_build.build, sources))
     res["build_s"] = time.perf_counter() - t0
@@ -5107,6 +5571,7 @@ def main(argv=None) -> int:
     serve_phase(dev, res)
     grad_phase(chain, params, dev, res)
     grad_ring_phase(chain, params, dev, res)
+    grad_units_phase(dev, res)
     demo_phase(dev, res)
     tour_phase(dev, res)
     timing_phase(chain, params, dev, res)

@@ -33,6 +33,7 @@ from lsp_dsp_units_tpu_torch.models.dynamics.compressor import (
     CompressorParams)
 from lsp_dsp_units_tpu_torch.models.dynamics.dynamic_processor import (
     DynProcParams)
+from lsp_dsp_units_tpu_torch.models.dynamics.gate import GateParams
 from lsp_dsp_units_tpu_torch.models.dynamics.limiter import (
     LimiterParams, LimiterState)
 from lsp_dsp_units_tpu_torch.models.dynamics.surge_protector import (
@@ -135,6 +136,19 @@ def compressor_params_from_jax(p, device="cuda", requires_grad=False
         else int(np.asarray(leaves[19]))
     return tree.tree_unflatten(_COMP_SKELETON,
                                [leaf(v) for v in leaves[:19]] + [hold])
+
+
+def gate_params_from_jax(p, device="cuda", requires_grad=False
+                         ) -> GateParams:
+    """JAX ``GateParams`` (numpy leaves) -> port ``GateParams``: the 16
+    knee fields and the two taus as 0-d float32 tensors on ``device``
+    (requiring grad with ``requires_grad``), the hold as an int."""
+    def leaf(v):
+        return _t(np.float32(v), device).requires_grad_(requires_grad)
+    return GateParams(
+        knees=tuple(dyn.GateKnee(*(leaf(v) for v in k)) for k in p.knees),
+        tau_attack=leaf(p.tau_attack), tau_release=leaf(p.tau_release),
+        hold=int(np.asarray(p.hold)))
 
 
 def env_state_from_jax(s, device="cuda") -> dyn.EnvState:

@@ -62,6 +62,13 @@
 // contraction) in the plain PyTorch loop's order, as torch's separate
 // element-wise ops do, so the kernels and their plain versions agree bit
 // for bit.
+//
+// Under autograd (lsp_biquad_seq_save) each kernel's kSave form also
+// writes every stage's output: lane k stores the y of stage k0 + k at
+// save[k0 + k + 1][row][t], so that save [K + 1, rows, T] (row 0 the
+// input, copied by the wrapper) holds each stage's input and output for
+// the adjoint of csrc/biquad_bwd.cu.  The stores leave the chain alone;
+// kSave = false is the inference kernel as it was.
 
 #include <cuda_runtime.h>
 
@@ -83,6 +90,7 @@ struct Args {
   const float* s_in;   // [rows, K, 2]
   float* y;            // [rows, T]
   float* s_out;        // [rows, K, 2]
+  float* save;         // kSave: [K + 1, rows, T] stage signals
   int t_n, k_n, k0, kg;
   long long row_stride, t_stride;   // in floats
 };
@@ -125,9 +133,18 @@ __device__ __forceinline__ void store_state(const Lane& l, const Args& a,
   }
 }
 
+// This lane's stage output at sample t, into the saved signals.
+template <bool kSave>
+__device__ __forceinline__ void save_y(const Lane& l, const Args& a,
+                                       bool in, int t) {
+  if (kSave && in && (int)threadIdx.x < a.kg)
+    a.save[((size_t)(a.k0 + threadIdx.x + 1) * gridDim.x + blockIdx.x) *
+               a.t_n + t] = l.y;
+}
+
 // static_kernel's 32 steps of tile m (steps j = 32 m + i).  kGuard: some
 // lane's sample j - lane may lie outside [0, T).
-template <bool kGuard>
+template <bool kGuard, bool kSave>
 __device__ __forceinline__ void static_tile(Lane& l, const Args& a, int m,
                                             const float* xs, float* y_row) {
   const int lane = threadIdx.x;
@@ -140,9 +157,11 @@ __device__ __forceinline__ void static_tile(Lane& l, const Args& a, int m,
     const bool in = !kGuard || (t >= 0 && t < a.t_n);
     stage(l, yin, in);
     if (in && lane == a.kg - 1) y_row[t] = l.y;
+    save_y<kSave>(l, a, in, t);
   }
 }
 
+template <bool kSave>
 __global__ void __launch_bounds__(kLanes) static_kernel(Args a) {
   extern __shared__ float xs[];   // [kRing] x by sample
   const int lane = threadIdx.x;
@@ -174,9 +193,9 @@ __global__ void __launch_bounds__(kLanes) static_kernel(Args a) {
     x_next = load_x(x_row, (m + 2) * kTile + lane, a.t_n);
     __syncwarp();
     if (m == 0 || m * kTile + kTile > a.t_n)
-      static_tile<true>(l, a, m, xs, y_row);
+      static_tile<true, kSave>(l, a, m, xs, y_row);
     else
-      static_tile<false>(l, a, m, xs, y_row);
+      static_tile<false, kSave>(l, a, m, xs, y_row);
   }
   store_state(l, a, s_at);
 }
@@ -193,7 +212,7 @@ __device__ __forceinline__ void fetch(float (&c)[5], const Args& a,
 }
 
 // dyn_kernel's 32 steps of tile m; xt holds x[32 m + lane].
-template <bool kGuard>
+template <bool kGuard, bool kSave>
 __device__ __forceinline__ void dyn_tile(Lane& l, const Args& a, int m,
                                          float xt, float (&ring)[kAhead][5],
                                          const float* c_grp, float* y_row) {
@@ -219,9 +238,11 @@ __device__ __forceinline__ void dyn_tile(Lane& l, const Args& a, int m,
     const bool in = !kGuard || (t >= 0 && t < a.t_n);
     stage(l, yin, in);
     if (in && lane == a.kg - 1) y_row[t] = l.y;
+    save_y<kSave>(l, a, in, t);
   }
 }
 
+template <bool kSave>
 __global__ void __launch_bounds__(kLanes) dyn_kernel(Args a) {
   const int lane = threadIdx.x;
   const size_t r = blockIdx.x;
@@ -246,13 +267,27 @@ __global__ void __launch_bounds__(kLanes) dyn_kernel(Args a) {
   const int tiles = (steps + kTile - 1) / kTile;
   for (int m = 0; m < tiles; ++m) {
     if (m == 0 || m * kTile + kTile > a.t_n)
-      dyn_tile<true>(l, a, m, x0, ring, c_grp, y_row);
+      dyn_tile<true, kSave>(l, a, m, x0, ring, c_grp, y_row);
     else
-      dyn_tile<false>(l, a, m, x0, ring, c_grp, y_row);
+      dyn_tile<false, kSave>(l, a, m, x0, ring, c_grp, y_row);
     x0 = x1;
     x1 = load_x(x_row, (m + 2) * kTile + lane, a.t_n);
   }
   store_state(l, a, s_at);
+}
+
+template <bool kSave>
+int launch(const Args& a, int rows, int dyn, cudaStream_t s) {
+  if (dyn)
+    dyn_kernel<kSave><<<rows, kLanes, 0, s>>>(a);
+  else
+    static_kernel<kSave><<<rows, kLanes, kRing * sizeof(float), s>>>(a);
+  return (int)cudaGetLastError();
+}
+
+bool bad(int rows, int t_n, int k_n, int k0, int kg) {
+  return kg < 1 || kg > kLanes || k0 < 0 || k0 + kg > k_n || rows < 1 ||
+         t_n < 1;
 }
 
 }  // namespace
@@ -265,16 +300,24 @@ int lsp_biquad_seq(const float* x, const float* c, const float* s_in,
                    float* y, float* s_out, int rows, int t_n, int k_n,
                    int k0, int kg, long long row_stride, long long t_stride,
                    int dyn, void* stream) {
-  if (kg < 1 || kg > kLanes || k0 < 0 || k0 + kg > k_n || rows < 1 ||
-      t_n < 1)
+  if (bad(rows, t_n, k_n, k0, kg)) return (int)cudaErrorInvalidValue;
+  const Args a{x,  c,  s_in, y,  s_out,      nullptr, t_n,
+               k_n, k0, kg,   row_stride, t_stride};
+  return launch<false>(a, rows, dyn, (cudaStream_t)stream);
+}
+
+// The same launch, also writing each stage's output y into
+// save[k + 1] [rows, T] (save [K + 1, rows, T]).
+int lsp_biquad_seq_save(const float* x, const float* c, const float* s_in,
+                        float* y, float* s_out, float* save, int rows,
+                        int t_n, int k_n, int k0, int kg,
+                        long long row_stride, long long t_stride, int dyn,
+                        void* stream) {
+  if (bad(rows, t_n, k_n, k0, kg) || save == nullptr)
     return (int)cudaErrorInvalidValue;
-  const Args a{x, c, s_in, y, s_out, t_n, k_n, k0, kg, row_stride, t_stride};
-  const cudaStream_t s = (cudaStream_t)stream;
-  if (dyn)
-    dyn_kernel<<<rows, kLanes, 0, s>>>(a);
-  else
-    static_kernel<<<rows, kLanes, kRing * sizeof(float), s>>>(a);
-  return (int)cudaGetLastError();
+  const Args a{x,  c,  s_in, y,  s_out,      save,    t_n,
+               k_n, k0, kg,   row_stride, t_stride};
+  return launch<true>(a, rows, dyn, (cudaStream_t)stream);
 }
 
 }  // extern "C"

@@ -24,6 +24,8 @@ from lsp_dsp_units_tpu_torch.ops.env_units import gate_envelope
 
 
 class GateParams(NamedTuple):
+    """Host floats, or 0-d float32 tensors for the knee fields and the
+    taus (the gate then differentiates in them); the hold is an int."""
     knees: Tuple[dyn.GateKnee, dyn.GateKnee]   # [normal, hysteresis]
     tau_attack: float
     tau_release: float

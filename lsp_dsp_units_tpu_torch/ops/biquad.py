@@ -47,7 +47,12 @@ Two forms, as in the JAX package:
   running stage k; up to 32 stages a launch), counting launches in
   ``biquad_cascade_seq.launches``.  The kernel rounds every product and
   sum once in the plain loop's order, so the two agree bit for bit.
-  They have no backward and raise under grad.
+  Under autograd they run as ``_SeqCascade``, whose forward (the saving
+  form of the same loop or kernel) also keeps each stage's signal where
+  the coefficients want a gradient, and whose backward
+  (:func:`biquad_cascade_seq_bwd`, :func:`dyn_biquad_cascade_seq_bwd`)
+  is the reverse-time transpose of the DF2T step: the plain loop for CPU
+  tensors, ``csrc/biquad_bwd.cu`` for CUDA tensors, bit for bit the same.
 """
 
 from __future__ import annotations
@@ -60,11 +65,21 @@ import torch
 from torch.autograd.function import once_differentiable
 
 from lsp_dsp_units_tpu_torch.ops import _build
+from lsp_dsp_units_tpu_torch.ops.env_units import _mul_add
 
 LANES = 32          # stages per kernel launch (csrc/biquad.cu kLanes)
 
 _SIGS = {"lsp_biquad_seq": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
+         + [ctypes.c_longlong] * 2 + [ctypes.c_int, ctypes.c_void_p],
+         "lsp_biquad_seq_save": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
          + [ctypes.c_longlong] * 2 + [ctypes.c_int, ctypes.c_void_p]}
+_BWD_SIGS = {"lsp_biquad_seq_bwd": [ctypes.c_void_p] * 8
+             + [ctypes.c_int] * 5 + [ctypes.c_longlong] * 2
+             + [ctypes.c_int] * 2 + [ctypes.c_void_p],
+             "lsp_biquad_seq_bwd_sums": [ctypes.c_void_p] * 2
+             + [ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
+                ctypes.c_void_p],
+             "lsp_biquad_seq_bwd_chain_ops": []}
 _SCAN_SIGS = {"lsp_biquad_scan": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3
               + [ctypes.c_longlong, ctypes.c_void_p],
               "lsp_biquad_scan_scratch": [ctypes.c_int]}
@@ -381,9 +396,11 @@ def dyn_biquad_cascade(coeffs: torch.Tensor, state: torch.Tensor,
 
 
 def _seq_plain(coeff_at: Callable[[int], torch.Tensor], k: int,
-               state: torch.Tensor, x: torch.Tensor):
+               state: torch.Tensor, x: torch.Tensor, outs=None):
     """The per-sample DF2T loop: stage after stage within each sample,
-    every product and sum rounded on its own, ``(c1 y + c3 yi) + s2``."""
+    every product and sum rounded on its own, ``(c1 y + c3 yi) + s2``.
+    ``outs`` (a list of K empty lists) receives each stage's output a
+    sample."""
     s1 = [state[..., i, 0] for i in range(k)]
     s2 = [state[..., i, 1] for i in range(k)]
     ys = []
@@ -396,6 +413,8 @@ def _seq_plain(coeff_at: Callable[[int], torch.Tensor], k: int,
             s1[i] = ci[1] * y + ci[3] * yi + s2[i]
             s2[i] = ci[2] * y + ci[4] * yi
             y = yi
+            if outs is not None:
+                outs[i].append(yi)
         ys.append(y)
     new_state = torch.stack(
         [torch.stack(torch.broadcast_tensors(a, b), dim=-1)
@@ -408,14 +427,38 @@ def _per_stage(c: torch.Tensor):
     return [c[..., i, :].unbind(-1) for i in range(c.shape[-2])]
 
 
+def _seq_plain_run(coeffs, state, x, dyn: bool, save: bool = False):
+    """The plain loop of either form; with ``save`` also the stage
+    signals [K + 1, rows, T] (the input, then each stage's output) at the
+    common batch shape, as the kernel's saving form writes them."""
+    if dyn:
+        per_t = coeffs.unbind(-3)
+
+        def coeff_at(t):
+            return _per_stage(per_t[t])
+    else:
+        stages = _per_stage(coeffs)
+
+        def coeff_at(t):
+            return stages
+    k_n = coeffs.shape[-2]
+    outs = [[] for _ in range(k_n)] if save else None
+    y, st = _seq_plain(coeff_at, k_n, state, x, outs)
+    if not save:
+        return y, st
+    sig = torch.stack([x.expand(y.shape)] + [
+        torch.stack(torch.broadcast_tensors(*o), dim=-1).expand(y.shape)
+        for o in outs]).reshape(k_n + 1, -1, x.shape[-1])
+    return y, st, sig
+
+
 def biquad_cascade_seq_plain(coeffs: torch.Tensor, state: torch.Tensor,
                              x: torch.Tensor
                              ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch version of :func:`biquad_cascade_seq`."""
     if _empty(coeffs, x):
         return x, state
-    stages = _per_stage(coeffs)
-    return _seq_plain(lambda t: stages, coeffs.shape[-2], state, x)
+    return _seq_plain_run(coeffs, state, x, dyn=False)
 
 
 def dyn_biquad_cascade_seq_plain(coeffs: torch.Tensor, state: torch.Tensor,
@@ -424,37 +467,81 @@ def dyn_biquad_cascade_seq_plain(coeffs: torch.Tensor, state: torch.Tensor,
     """Plain PyTorch version of :func:`dyn_biquad_cascade_seq`."""
     if _empty(coeffs, x):
         return x, state
-    per_t = coeffs.unbind(-3)
-    return _seq_plain(lambda t: _per_stage(per_t[t]), coeffs.shape[-2],
-                      state, x)
+    return _seq_plain_run(coeffs, state, x, dyn=True)
+
+
+def _seq_rows(coeffs, state, x, dyn: bool):
+    """:func:`_batch_rows` of a sequential cascade, after checking that
+    per-sample coefficients cover the input."""
+    if dyn and coeffs.shape[-3] != x.shape[-1]:
+        raise ValueError(f"per-sample coefficients cover {coeffs.shape[-3]}"
+                         f" samples, the input {x.shape[-1]}")
+    return _batch_rows(coeffs, state, x, 3 if dyn else 2)
 
 
 def _seq_cuda(coeffs: torch.Tensor, state: torch.Tensor, x: torch.Tensor,
-              dyn: bool) -> Tuple[torch.Tensor, torch.Tensor]:
+              dyn: bool, save: bool = False):
     """Launch ``csrc/biquad.cu`` once per group of up to 32 stages.
     Broadcast inputs are made contiguous at the common batch shape;
-    coefficients shared by every row are read with a row stride of 0."""
+    coefficients shared by every row are read with a row stride of 0.
+    With ``save`` the saving form also writes the stage signals [K + 1,
+    rows, T], returned third."""
     t_n, k_n = x.shape[-1], coeffs.shape[-2]
-    if dyn and coeffs.shape[-3] != t_n:
-        raise ValueError(f"per-sample coefficients cover {coeffs.shape[-3]}"
-                         f" samples, the input {t_n}")
-    batch, xr, st, cr, row_stride = _batch_rows(coeffs, state, x,
-                                                3 if dyn else 2)
+    batch, xr, st, cr, row_stride = _seq_rows(coeffs, state, x, dyn)
     rows = int(np.prod(batch, dtype=np.int64))
     _build.check_cuda(torch.float32, x.device, x=xr, state=st, coeffs=cr)
     lib = _build.load("biquad", _SIGS)
     st_out = torch.empty_like(st)
+    sig = None
+    if save:
+        sig = xr.new_empty((k_n + 1, rows, t_n))
+        sig[0].copy_(xr.reshape(rows, t_n))
     src = xr
     for k0 in range(0, k_n, LANES):
         y = torch.empty_like(xr)
-        _build.check(lib.lsp_biquad_seq(
-            _build.ptr(src), _build.ptr(cr), _build.ptr(st), _build.ptr(y),
-            _build.ptr(st_out), rows, t_n, k_n, k0, min(LANES, k_n - k0),
-            row_stride, k_n * 5 if dyn else 0, int(dyn),
-            _build.stream_of(xr)), "biquad_seq kernel")
+        common = (_build.ptr(src), _build.ptr(cr), _build.ptr(st),
+                  _build.ptr(y), _build.ptr(st_out))
+        tail = (rows, t_n, k_n, k0, min(LANES, k_n - k0), row_stride,
+                k_n * 5 if dyn else 0, int(dyn), _build.stream_of(xr))
+        if save:
+            err = lib.lsp_biquad_seq_save(*common, _build.ptr(sig), *tail)
+        else:
+            err = lib.lsp_biquad_seq(*common, *tail)
+        _build.check(err, "biquad_seq kernel")
         biquad_cascade_seq.launches += 1
         src = y
-    return src, st_out
+    return (src, st_out, sig) if save else (src, st_out)
+
+
+def _seq(coeffs, state, x, dyn: bool, save: bool = False):
+    """Either form outside autograd: the plain loop for CPU tensors, the
+    kernel for CUDA tensors."""
+    if _build.is_cpu(coeffs, state, x):
+        return _seq_plain_run(coeffs, state, x, dyn, save)
+    return _seq_cuda(coeffs, state, x, dyn, save)
+
+
+class _SeqCascade(torch.autograd.Function):
+    """:func:`biquad_cascade_seq` and :func:`dyn_biquad_cascade_seq`
+    under autograd: the forward saves the stage signals where the
+    coefficients want a gradient."""
+
+    @staticmethod
+    def forward(ctx, coeffs, state, x, dyn):
+        want = ctx.needs_input_grad[0]
+        out = _seq(coeffs, state, x, dyn, save=want)
+        ctx.save_for_backward(coeffs, state, x, out[2] if want else None)
+        ctx.dyn = dyn
+        return out[0], out[1]
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g_y, g_state):
+        coeffs, state, x, sig = ctx.saved_tensors
+        bwd = dyn_biquad_cascade_seq_bwd if ctx.dyn else biquad_cascade_seq_bwd
+        g_c, g_s, g_x = bwd(coeffs, state, x, sig, g_y, g_state,
+                            ctx.needs_input_grad[0])
+        return g_c, g_s, g_x, None
 
 
 def biquad_cascade_seq(coeffs: torch.Tensor, state: torch.Tensor,
@@ -462,13 +549,13 @@ def biquad_cascade_seq(coeffs: torch.Tensor, state: torch.Tensor,
     """Sequential cascade: the exact per-sample DF2T order (the
     reference's own precision class; ~80 dB from float64 for near-unit
     poles, where the float32 associative scan drops to ~40 dB).
-    Shapes as :func:`biquad_cascade`."""
+    Shapes as :func:`biquad_cascade`.  Differentiable in all three
+    (:func:`biquad_cascade_seq_bwd`)."""
     if _empty(coeffs, x):
         return x, state
-    _build.no_grad_route("biquad_cascade_seq", coeffs, state, x)
-    if _build.is_cpu(coeffs, state, x):
-        return biquad_cascade_seq_plain(coeffs, state, x)
-    return _seq_cuda(coeffs, state, x, dyn=False)
+    if _build.needs_grad(coeffs, state, x):
+        return _SeqCascade.apply(coeffs, state, x, False)
+    return _seq(coeffs, state, x, dyn=False)
 
 
 biquad_cascade_seq.launches = 0
@@ -481,13 +568,235 @@ def dyn_biquad_cascade_seq(coeffs: torch.Tensor, state: torch.Tensor,
     5]``: the precision class of the reference's own float32 recurrence,
     for near-unit-pole (low-frequency) dynamic filters.  Runs the same
     kernel as :func:`biquad_cascade_seq` and counts its launches
-    there."""
+    there.  Differentiable in all three
+    (:func:`dyn_biquad_cascade_seq_bwd`)."""
     if _empty(coeffs, x):
         return x, state
-    _build.no_grad_route("dyn_biquad_cascade_seq", coeffs, state, x)
-    if _build.is_cpu(coeffs, state, x):
-        return dyn_biquad_cascade_seq_plain(coeffs, state, x)
-    return _seq_cuda(coeffs, state, x, dyn=True)
+    if _build.needs_grad(coeffs, state, x):
+        return _SeqCascade.apply(coeffs, state, x, True)
+    return _seq(coeffs, state, x, dyn=True)
+
+
+# ---------------------------------------------------------------------------
+# the sequential cascade's adjoint
+# ---------------------------------------------------------------------------
+
+
+def _sum_rows(p: torch.Tensor) -> torch.Tensor:
+    """Sum over the first axis in order, in float64 (the backward
+    kernel's ``sums_kernel``)."""
+    acc = p[0].double()
+    for r in range(1, p.shape[0]):
+        acc = acc + p[r].double()
+    return acc
+
+
+def _fold(p: torch.Tensor, batch, shape) -> torch.Tensor:
+    """Per-row coefficient gradients ``p`` [rows, *tail] (coefficients
+    broadcast over some of the batch axes, not all) summed over those
+    axes one after the other, each in order, in float64."""
+    tail = tuple(shape[len(shape) - (p.ndim - 1):])
+    g = p.reshape(tuple(batch) + tail).double()
+    lead = tuple(shape[:len(shape) - len(tail)])
+    pad = len(batch) - len(lead)
+    for d in range(len(batch)):
+        if (1 if d < pad else lead[d - pad]) == 1 and g.shape[d] != 1:
+            acc = g.narrow(d, 0, 1)
+            for i in range(1, g.shape[d]):
+                acc = acc + g.narrow(d, i, 1)
+            g = acc
+    return g.reshape(shape)
+
+
+def _coef_grad(p, row_stride, batch, coeffs, sums):
+    """The coefficients' gradient from the per-row terms ``p`` (float64
+    sums of the static form, float32 terms of the per-sample form):
+    summed over the rows by ``sums`` where all rows share the
+    coefficients (row stride 0), else folded onto the broadcast axes."""
+    if row_stride == 0:
+        g = sums(p.reshape(p.shape[0], -1))
+    else:
+        g = _fold(p, batch, coeffs.shape)
+    return g.to(coeffs.dtype).reshape(coeffs.shape)
+
+
+def _seq_adjoint_plain(cr, row_stride, dyn, sig, g_y, g_s, want):
+    """The adjoint loop on rows: ``g_y`` [rows, T], ``g_s`` [rows, K, 2],
+    ``sig`` the saved stage signals [K + 1, rows, T] (used with
+    ``want``).  Per sample in reverse, per stage from the last, ``gy =
+    fma(c3, l1, fma(c4, l2, g))``, ``g_u = fma(c0, gy, fma(c1, l1, c2
+    l2))`` (the FMAs through :func:`_mul_add`, as the kernel's
+    ``__fmaf_rn``), the terms ``gy u, l1 u, l2 u, l1 y, l2 y``, then
+    ``(l1, l2) = (gy, l1)``.  Returns (g_x [rows, T], g_state [rows, K,
+    2], the per-row coefficient terms or None)."""
+    rows, t_n = g_y.shape
+    k_n = g_s.shape[-2]
+    if dyn:
+        cv = cr.reshape((rows, t_n, k_n, 5) if row_stride else (t_n, k_n, 5))
+
+        def coef_at(t):
+            return cv[:, t] if row_stride else cv[t]
+    else:
+        cv = cr.reshape((rows, k_n, 5) if row_stride else (k_n, 5))
+
+        def coef_at(t):
+            return cv
+    l1 = [g_s[:, k, 0] for k in range(k_n)]
+    l2 = [g_s[:, k, 1] for k in range(k_n)]
+    acc = [g_y.new_zeros((rows, 5), dtype=torch.float64)
+           for _ in range(k_n)] if want and not dyn else None
+    gc = g_y.new_empty((rows, t_n, k_n, 5)) if want and dyn else None
+    gx = torch.empty_like(g_y)
+    for t in reversed(range(t_n)):
+        g = g_y[:, t]
+        c_t = coef_at(t)
+        for k in reversed(range(k_n)):
+            c0, c1, c2, c3, c4 = c_t[..., k, :].unbind(-1)
+            gy = _mul_add(c3, l1[k], _mul_add(c4, l2[k], g))
+            g_u = _mul_add(c0, gy, _mul_add(c1, l1[k], c2 * l2[k]))
+            if want:
+                u, yo = sig[k, :, t], sig[k + 1, :, t]
+                terms = torch.stack([gy * u, l1[k] * u, l2[k] * u,
+                                     l1[k] * yo, l2[k] * yo], dim=-1)
+                if dyn:
+                    gc[:, t, k] = terms
+                else:
+                    acc[k] = acc[k] + terms.double()
+            l1[k], l2[k] = gy, l1[k]
+            g = g_u
+        gx[:, t] = g
+    g_state = torch.stack([torch.stack([a, b], dim=-1)
+                           for a, b in zip(l1, l2)], dim=-2)
+    part = (gc if dyn else torch.stack(acc, dim=-2)) if want else None
+    return gx, g_state, part
+
+
+def _seq_adjoint_cuda(cr, row_stride, dyn, sig, g_y, g_s, want, counter):
+    """The adjoint on ``csrc/biquad_bwd.cu``: one launch per group of up
+    to 32 stages, the last group first, each counted in ``counter``."""
+    rows, t_n = g_y.shape
+    k_n = g_s.shape[-2]
+    _build.check_cuda(torch.float32, g_y.device, g_y=g_y, g_state=g_s,
+                      coeffs=cr)
+    if want:
+        _build.check_cuda(torch.float32, g_y.device, sig=sig)
+    lib = _build.load("biquad_bwd", _BWD_SIGS)
+    gs_out = torch.empty_like(g_s)
+    part = gc = None
+    if want and dyn:
+        gc = g_y.new_empty((rows, t_n, k_n, 5))
+    elif want:
+        part = g_y.new_empty((rows, k_n, 5), dtype=torch.float64)
+    g = g_y
+    for k0 in reversed(range(0, k_n, LANES)):
+        g_out = torch.empty_like(g_y)
+        _build.check(lib.lsp_biquad_seq_bwd(
+            _build.ptr(sig) if want else None, _build.ptr(g), _build.ptr(cr),
+            _build.ptr(g_s), _build.ptr(g_out), _build.ptr(gs_out),
+            None if part is None else _build.ptr(part),
+            None if gc is None else _build.ptr(gc), rows, t_n, k_n, k0,
+            min(LANES, k_n - k0), row_stride, k_n * 5 if dyn else 0,
+            int(dyn), int(want), _build.stream_of(g_y)),
+            "biquad_seq_bwd kernel")
+        counter.launches += 1
+        g = g_out
+    return g, gs_out, (gc if dyn else part) if want else None
+
+
+def _sums_cuda(counter):
+    """:func:`_sum_rows` on the card (``sums_kernel``), counted in
+    ``counter.sum_launches``."""
+    def sums(p):
+        out = torch.empty(p.shape[1:], dtype=torch.float32, device=p.device)
+        _build.check(_build.load("biquad_bwd", _BWD_SIGS)
+                     .lsp_biquad_seq_bwd_sums(
+                         _build.ptr(p), _build.ptr(out), p.shape[0],
+                         p.shape[1], int(p.dtype == torch.float64),
+                         _build.stream_of(p)), "biquad_seq_bwd sums kernel")
+        counter.sum_launches += 1
+        return out
+    return sums
+
+
+def _seq_bwd(coeffs, state, x, sig, g_y, g_state, want_coeffs, dyn,
+             counter, plain):
+    t_n, k_n = x.shape[-1], coeffs.shape[-2]
+    batch, _, _, cr, row_stride = _seq_rows(coeffs, state, x, dyn)
+    rows = int(np.prod(batch, dtype=np.int64))
+    g_y = g_y.expand(batch + (t_n,)).contiguous().reshape(rows, t_n)
+    g_s = g_state.expand(batch + (k_n, 2)).contiguous().reshape(rows, k_n, 2)
+    if want_coeffs and sig is None:
+        raise ValueError("the coefficients' gradient needs the forward's "
+                         "stage signals")
+    if plain or _build.is_cpu(cr, g_y, g_s):
+        gx, gs, part = _seq_adjoint_plain(cr, row_stride, dyn, sig, g_y, g_s,
+                                          want_coeffs)
+        sums = _sum_rows
+    else:
+        gx, gs, part = _seq_adjoint_cuda(cr, row_stride, dyn, sig, g_y, g_s,
+                                         want_coeffs, counter)
+        sums = _sums_cuda(counter)
+    g_c = _coef_grad(part, row_stride, batch, coeffs, sums) \
+        if want_coeffs else None
+    return (g_c, gs.reshape(batch + (k_n, 2)).sum_to_size(state.shape),
+            gx.reshape(batch + (t_n,)).sum_to_size(x.shape))
+
+
+def biquad_cascade_seq_bwd_plain(coeffs, state, x, sig, g_y, g_state,
+                                 want_coeffs=True):
+    """Plain PyTorch version of :func:`biquad_cascade_seq_bwd`, on any
+    device."""
+    return _seq_bwd(coeffs, state, x, sig, g_y, g_state, want_coeffs, False,
+                    biquad_cascade_seq_bwd, True)
+
+
+def biquad_cascade_seq_bwd(coeffs, state, x, sig, g_y, g_state,
+                           want_coeffs=True):
+    """Backward of :func:`biquad_cascade_seq`: the cotangents of (y,
+    state') -> those of (coeffs, state, x).  ``sig`` is the forward's
+    stage signals [K + 1, rows, T] (``_SeqCascade`` saves them; needed
+    only with ``want_coeffs``).  The reverse-time transpose of the DF2T
+    step, last stage first (``csrc/biquad_bwd.cu`` states it); the
+    coefficients' terms summed over time per row in float64, then over
+    the rows in order (or folded onto the axes they broadcast over),
+    rounded once.  The plain loop for CPU tensors; for CUDA tensors the
+    kernel (a launch per group of up to 32 stages, counted in
+    ``biquad_cascade_seq_bwd.launches``, and one of the row sums where the
+    rows share the coefficients, in ``.sum_launches``), bit for bit the
+    plain version."""
+    return _seq_bwd(coeffs, state, x, sig, g_y, g_state, want_coeffs, False,
+                    biquad_cascade_seq_bwd, False)
+
+
+def dyn_biquad_cascade_seq_bwd_plain(coeffs, state, x, sig, g_y, g_state,
+                                     want_coeffs=True):
+    """Plain PyTorch version of :func:`dyn_biquad_cascade_seq_bwd`, on any
+    device."""
+    return _seq_bwd(coeffs, state, x, sig, g_y, g_state, want_coeffs, True,
+                    dyn_biquad_cascade_seq_bwd, True)
+
+
+def dyn_biquad_cascade_seq_bwd(coeffs, state, x, sig, g_y, g_state,
+                               want_coeffs=True):
+    """Backward of :func:`dyn_biquad_cascade_seq`: as
+    :func:`biquad_cascade_seq_bwd`, each sample's coefficients taking
+    that sample's terms (summed over the rows in float64 in order where
+    the rows share them).  Launches counted in
+    ``dyn_biquad_cascade_seq_bwd.launches`` and ``.sum_launches``."""
+    return _seq_bwd(coeffs, state, x, sig, g_y, g_state, want_coeffs, True,
+                    dyn_biquad_cascade_seq_bwd, False)
+
+
+def seq_bwd_chain_ops() -> int:
+    """The dependent operations a step of the adjoint's recurrence puts
+    on its chain (``kChainOps`` in csrc/biquad_bwd.cu; builds it)."""
+    return int(_build.load("biquad_bwd", _BWD_SIGS)
+               .lsp_biquad_seq_bwd_chain_ops())
+
+
+for _f in (biquad_cascade_seq_bwd, dyn_biquad_cascade_seq_bwd):
+    _f.launches = 0
+    _f.sum_launches = 0
 
 
 def impulse_response(coeffs: torch.Tensor, length: int) -> torch.Tensor:

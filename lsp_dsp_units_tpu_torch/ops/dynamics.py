@@ -111,7 +111,8 @@ def compressor_x2_curve(knees: Tuple[CompKnee, CompKnee],
 class GateKnee(NamedTuple):
     """Gate knee (reference Gate.cpp:180-206): ``gain_start`` below
     start, ``gain_end`` above end, a log-log Hermite cubic between.  Host
-    floats, rounded to float32."""
+    floats, rounded to float32, or 0-d float32 tensors (the gate's knees
+    differentiate in their parameters)."""
     start: float
     end: float
     gain_start: float
@@ -122,14 +123,24 @@ class GateKnee(NamedTuple):
     herm3: float
 
 
+def _level(v, ax: torch.Tensor) -> torch.Tensor:
+    """A knee's constant gain beside ax: a tensor as it is (broadcast, in
+    the graph), a host float filled."""
+    return v if torch.is_tensor(v) else torch.full_like(ax, v)
+
+
 def gate_x1_gain(k: GateKnee, x: torch.Tensor) -> torch.Tensor:
+    """The knee's gain at |x|, in the JAX package's form: the Hermite
+    branch is evaluated everywhere, so where it overflows outside its
+    range its gradient is 0 x inf = NaN, as jax.grad's."""
+    k = GateKnee(*(_on(v, x) for v in k))
     ax = torch.abs(x)
     lx = torch.log(torch.clamp(ax, min=1e-36))
     herm = torch.exp(((k.herm0 * lx + k.herm1) * lx + k.herm2) * lx
                      + k.herm3)
-    return torch.where(ax <= k.start, torch.full_like(ax, k.gain_start),
-                       torch.where(ax >= k.end,
-                                   torch.full_like(ax, k.gain_end), herm))
+    return torch.where(ax <= k.start, _level(k.gain_start, ax),
+                       torch.where(ax >= k.end, _level(k.gain_end, ax),
+                                   herm))
 
 
 def gate_x1_curve(k: GateKnee, x: torch.Tensor) -> torch.Tensor:

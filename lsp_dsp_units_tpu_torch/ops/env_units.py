@@ -39,7 +39,10 @@ the envelope and its kernel agree bit for bit (both round every product
 and sum alone in one order, and sum the per-row tau partials row after
 row); the RMS's sums its window adjoints in float64 like its forward, in
 another order than its plain version (>= 120 dB).  :func:`gate_envelope`
-has no backward and raises under grad.
+differentiates through its own Function: its envelope is the follower's
+without a release threshold, so its backward is
+:func:`peak_envelope_bwd` with ``release_thresh=None``; the curve track
+and the hold are decisions and take no gradient.
 """
 
 from __future__ import annotations
@@ -612,11 +615,10 @@ class _PeakEnvelope(torch.autograd.Function):
 # ---------------------------------------------------------------------------
 
 
-def gate_envelope_plain(env_state, curve: torch.Tensor, x: torch.Tensor,
-                        tau_attack, tau_release, hold_samples, k0_end,
-                        k1_start):
-    """Plain PyTorch version of :func:`gate_envelope`."""
-    e, peak, hold = env_state
+def _gate_plain(x, e, peak, hold, curve, tau_attack, tau_release,
+                hold_samples, k0_end, k1_start):
+    """The gate's recurrence over T on the state's fields: (e', peak',
+    hold', curve', env, curves)."""
     ta, tr, nh, _ = _coefs(x, tau_attack, tau_release, hold_samples, None)
     k0e = torch.tensor(float(k0_end), dtype=torch.float32, device=x.device)
     k1s = torch.tensor(float(k1_start), dtype=torch.float32,
@@ -632,22 +634,27 @@ def gate_envelope_plain(env_state, curve: torch.Tensor, x: torch.Tensor,
         cur = torch.where(up, 1, torch.where(dn, 0, cur)).to(torch.int32)
         env[..., t] = e
         curves[..., t] = cur
+    return e, peak, hold, cur, env, curves
+
+
+def gate_envelope_plain(env_state, curve: torch.Tensor, x: torch.Tensor,
+                        tau_attack, tau_release, hold_samples, k0_end,
+                        k1_start):
+    """Plain PyTorch version of :func:`gate_envelope`."""
+    e, peak, hold, cur, env, curves = _gate_plain(
+        x, *env_state, curve, tau_attack, tau_release, hold_samples, k0_end,
+        k1_start)
     return env_state._make((e, peak, hold)), cur, env, curves
 
 
-def gate_envelope(env_state, curve: torch.Tensor, x: torch.Tensor,
-                  tau_attack, tau_release, hold_samples, k0_end, k1_start):
-    """Gate envelope (reference Gate.cpp:267-367): the peak-hold follower
-    without release threshold, plus the active-curve track, which
-    switches to 1 when the envelope exceeds ``k0_end`` and back to 0 when
-    it falls below ``k1_start``.  ``curve`` [...] int32.  Returns
-    (EnvState', curve' [...], env [..., T], curves [..., T] int32)."""
-    e, peak, hold = env_state
-    _build.no_grad_route("gate_envelope", x, e, peak, hold, curve)
+def _gate_envelope(x, e, peak, hold, curve, tau_attack, tau_release,
+                   hold_samples, k0_end, k1_start):
+    """:func:`gate_envelope` outside autograd, on the state's fields: the
+    plain version for CPU tensors, the kernel for CUDA tensors.  Returns
+    (e', peak', hold', curve', env, curves)."""
     if _build.is_cpu(x, e, peak, hold, curve):
-        return gate_envelope_plain(env_state, curve, x, tau_attack,
-                                   tau_release, hold_samples, k0_end,
-                                   k1_start)
+        return _gate_plain(x, e, peak, hold, curve, tau_attack, tau_release,
+                           hold_samples, k0_end, k1_start)
     _check_env_state(x, e, peak, hold, curve)
     t = x.shape[-1]
     xr = x.reshape(-1, t)
@@ -666,9 +673,65 @@ def gate_envelope(env_state, curve: torch.Tensor, x: torch.Tensor,
         "gate_envelope kernel")
     gate_envelope.launches += 1
     lead = x.shape[:-1]
-    return (env_state._make((e2.reshape(lead), p2.reshape(lead),
-                             h2.reshape(lead))), cur2.reshape(lead),
-            env.reshape(x.shape), curves.reshape(x.shape))
+    return (e2.reshape(lead), p2.reshape(lead), h2.reshape(lead),
+            cur2.reshape(lead), env.reshape(x.shape),
+            curves.reshape(x.shape))
+
+
+class _GateEnvelope(torch.autograd.Function):
+    """:func:`gate_envelope` under autograd: forward
+    :func:`_gate_envelope`, backward :func:`peak_envelope_bwd` without a
+    release threshold; the hold, the curve and the curve track are
+    marked non-differentiable."""
+
+    @staticmethod
+    def forward(ctx, x, e, peak, hold, curve, tau_attack, tau_release,
+                hold_samples, k0_end, k1_start):
+        e2, p2, h2, cur2, env, curves = _gate_envelope(
+            x, e, peak, hold, curve, tau_attack, tau_release, hold_samples,
+            k0_end, k1_start)
+        ctx.mark_non_differentiable(h2, cur2, curves)
+        ctx.save_for_backward(x, env, e, peak, hold)
+        ctx.coefs = (tau_attack, tau_release, hold_samples)
+        return env, e2, p2, h2, cur2, curves
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g_env, g_e, g_p, _g_hold, _g_cur, _g_curves):
+        x, env, e, peak, hold = ctx.saved_tensors
+        ta, tr, nh = ctx.coefs
+        gx, ge, gp, g_tau = peak_envelope_bwd(x, env, e, peak, hold, g_env,
+                                              g_e, g_p, ta, tr, nh, None)
+
+        def tau_grad(i, v):
+            if not ctx.needs_input_grad[i]:
+                return None
+            return g_tau[i - 5].to(dtype=v.dtype,
+                                   device=v.device).reshape(v.shape)
+        return (gx, ge, gp, None, None, tau_grad(5, ta), tau_grad(6, tr),
+                None, None, None)
+
+
+def gate_envelope(env_state, curve: torch.Tensor, x: torch.Tensor,
+                  tau_attack, tau_release, hold_samples, k0_end, k1_start):
+    """Gate envelope (reference Gate.cpp:267-367): the peak-hold follower
+    without release threshold, plus the active-curve track, which
+    switches to 1 when the envelope exceeds ``k0_end`` and back to 0 when
+    it falls below ``k1_start``.  ``curve`` [...] int32.  Returns
+    (EnvState', curve' [...], env [..., T], curves [..., T] int32).
+    Differentiable in x, the envelope and peak, and the taus (host
+    numbers or 0-d tensors); the hold, the curve and the knee points
+    only steer decisions (zero gradient)."""
+    e, peak, hold = env_state
+    if _build.needs_grad(x, e, peak, tau_attack, tau_release):
+        env, e2, p2, h2, cur2, curves = _GateEnvelope.apply(
+            x, e, peak, hold, curve, tau_attack, tau_release, hold_samples,
+            k0_end, k1_start)
+    else:
+        e2, p2, h2, cur2, env, curves = _gate_envelope(
+            x, e, peak, hold, curve, tau_attack, tau_release, hold_samples,
+            k0_end, k1_start)
+    return env_state._make((e2, p2, h2)), cur2, env, curves
 
 
 sliding_rms.launches = 0

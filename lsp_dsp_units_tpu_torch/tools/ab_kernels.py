@@ -10,8 +10,8 @@ OTHER is the root of another checkout (for a redesign, its parent commit
 unpacked with ``git archive``).  Its ``csrc/fft_packed.cu``,
 ``csrc/fdl_fused.cu``,
 ``csrc/env.cu``, ``csrc/env_units.cu``, ``csrc/slicedma.cu``, ``csrc/biquad.cu``,
-``csrc/limiter.cu``, ``csrc/riders.cu``, ``csrc/biquad_scan.cu`` and
-``csrc/delay.cu`` (those it has; the cases of a missing one, or of a step
+``csrc/limiter.cu``, ``csrc/riders.cu``, ``csrc/biquad_scan.cu``,
+``csrc/delay.cu`` and ``csrc/biquad_bwd.cu`` (those it has; the cases of a missing one, or of a step
 functor its riders.cu lacks, are skipped) are built with this
 checkout's nvcc flags into
 ``build/lsp_dsp_units_tpu_torch/ab/`` and stand in for this checkout's
@@ -57,6 +57,12 @@ compressor):
   0.5): y and ring; the trigger (advanced rising edge, hold 24) and the
   depopper's forward machine (CUBIC, on gated levels) of rider_kernel:
   output and state.
+* the sequential cascade's backward (csrc/biquad_bwd.cu) at [64, 16384]
+  on the saved signals of this checkout's saving forward: the chain's
+  K = 9 with the coefficients' gradient (biquad_seq_bwd: its row sums
+  too) and without (biquad_seq_bwd_x), DynamicFilters' bell per sample
+  (biquad_seq_bwd_dyn); the DynamicDelay's (delay_bwd) on the delay
+  case's bank: every cotangent;
 * the convolver's backwards, eqfdl_fused_bwd and fdl_fused_bwd, on a
   seeded ring, the chain's IR and EQ spectra and matrices and seeded
   cotangents: each build's route through its own wrapper (the other
@@ -145,7 +151,8 @@ SIGS = {"fft_packed": fp._SIGS, "fdl_fused": ff._SIGS, "env": env_ops._SIGS,
         "env_units": eu._SIGS,
         "slicedma": slicedma._SIGS, "biquad": bq._SIGS,
         "limiter": lim_ops._SIGS, "riders": riders._SIGS,
-        "biquad_scan": bq._SCAN_SIGS, "delay": delay_ops._SIGS}
+        "biquad_scan": bq._SCAN_SIGS, "delay": delay_ops._SIGS,
+        "biquad_bwd": bq._BWD_SIGS}
 DELAY_MAX = 4800                     # the synth phase's delay bank
 VOICES, VBLOCK = 4096, 1024          # the sampler's configuration
 SPIN_CYCLES = 200_000_000
@@ -175,6 +182,8 @@ LIB_OF = {**{f"fft_{m}": "fft_packed" for m in FFT_MODES},
           "rider_simple": "riders", "rider_surge": "riders",
           "rider_peak": "riders", "biquad_scan": "biquad_scan",
           "biquad_scan_k15": "biquad_scan", "delay": "delay",
+          "biquad_seq_bwd": "biquad_bwd", "biquad_seq_bwd_x": "biquad_bwd",
+          "biquad_seq_bwd_dyn": "biquad_bwd", "delay_bwd": "delay",
           "rider_trigger": "riders", "rider_depopper": "riders"}
 
 
@@ -696,6 +705,26 @@ def main(argv=None) -> int:
                          dtype=torch.int32).cuda()
     dring = (torch.randn(C, DELAY_MAX + 1, generator=gen) * 0.25).cuda()
     g05 = torch.tensor(0.5, device="cuda")
+    # the backwards' saved inputs, from this checkout's saving forwards
+    gen_b = torch.Generator().manual_seed(34)
+    g_y = torch.randn(C, T_ENV, generator=gen_b).cuda()
+    gs9, gs4 = (torch.randn(C, k, 2, generator=gen_b).cuda() for k in (
+        c9.shape[0], cdyn.shape[-2]))
+    g_ring = torch.randn(C, DELAY_MAX + 1, generator=gen_b).cuda()
+    sig9 = bq._seq_cuda(c9, s9, xr, False, save=True)[2]
+    sig4 = bq._seq_cuda(cdyn, s4, xr, True, save=True)[2]
+    s_dly = delay_ops._delay_cuda(dring, xr, dly, g05, fdly, DELAY_MAX,
+                                  save=True)[2]
+    seq_bwd = {
+        "biquad_seq_bwd": lambda: bq.biquad_cascade_seq_bwd(
+            c9, s9, xr, sig9, g_y, gs9),
+        "biquad_seq_bwd_x": lambda: bq.biquad_cascade_seq_bwd(
+            c9, s9, xr, None, g_y, gs9, False)[1:],
+        "biquad_seq_bwd_dyn": lambda: bq.dyn_biquad_cascade_seq_bwd(
+            cdyn, s4, xr, sig4, g_y, gs4),
+        "delay_bwd": lambda: delay_ops.dynamic_delay_bwd(
+            dring, xr, dly, g05, fdly, s_dly, g_y, g_ring, DELAY_MAX),
+    }
     trg = Trigger(TriggerType.ADVANCED_RISING_EDGE, TriggerMode.REPEAT,
                   threshold=0.3, hysteresis=0.1, hold_samples=24)
     tst = trg.init_state("cuda")
@@ -787,6 +816,8 @@ def main(argv=None) -> int:
             dring, xr, dly, g05, fdly, DELAY_MAX)), lambda: (
             delay_ops.dynamic_delay(dring, xr, dly, g05, fdly, DELAY_MAX)),
             10),
+        **{k: (lambda f: (lambda: list(f()), f, 10))(f)
+           for k, f in seq_bwd.items()},
         "rider_trigger": (lambda: flat(riders.trigger(trg, tst, xr)),
                           lambda: riders.trigger(trg, tst, xr), 10),
         "rider_depopper": (lambda: flat(riders.depopper_forward(

@@ -2049,3 +2049,221 @@ def test_step_ring_gradient_on_card_matches_cpu(cuda_device):
     for a, b, cc in zip(g_cpu, g_card, g_tf32):
         assert torch.equal(b, cc)
         assert _snr(a, b) >= 100.0
+
+
+# ---------------------------------------------------------------------------
+# the backwards of the sequential cascade, the DynamicDelay and the Gate
+# ---------------------------------------------------------------------------
+
+
+_BWD_SIZES = [(1, 1), (1, 777), (9, 1023), (9, 4097), (33, 333), (40, 1023)]
+
+
+def _seq_bwd_inputs(kind, k, t, rows=3):
+    """(coeffs, state, x, g_y, g_state) float32 CPU tensors; ``kind`` as
+    :func:`_biquad_inputs`, plus ``sample_shared`` (per-sample
+    coefficients [T, K, 5] shared by the rows) and ``expanded``
+    (coefficients [2, 1, K, 5] over a [2, rows, T] input: one broadcast
+    axis folded)."""
+    rng = np.random.default_rng(k * 7919 + t + len(kind))
+    base = "per_sample" if kind == "sample_shared" else (
+        "shared" if kind == "expanded" else kind)
+    c, st, x = _biquad_inputs(rng, base, k, t, rows)
+    if kind == "sample_shared":
+        c = c[0]
+    if kind == "expanded":
+        c = np.stack([c, c[::-1]])[:, None]
+        x = np.stack([x, -x])
+        st = np.stack([st, st])
+    gy = rng.standard_normal(x.shape).astype(np.float32)
+    gs = rng.standard_normal(st.shape).astype(np.float32)
+    return tuple(torch.from_numpy(np.ascontiguousarray(v))
+                 for v in (c, st, x, gy, gs))
+
+
+@pytest.mark.parametrize("k,t", _BWD_SIZES)
+@pytest.mark.parametrize("kind", ["shared", "per_row", "per_sample"])
+def test_biquad_seq_save_form_matches_plain(cuda_device, kind, k, t):
+    """The forward's saving form (lsp_biquad_seq_save): y, the state and
+    every stage's signal [K + 1, rows, T] bit for bit the plain loop's;
+    y and the state also the inference form's."""
+    c, st, x, _, _ = _seq_bwd_inputs(kind, k, t)
+    dyn = kind == "per_sample"
+    yc, sc, sigc = tbq._seq_plain_run(c, st, x, dyn, save=True)
+    dev = [v.to(cuda_device) for v in (c, st, x)]
+    yd, sd, sigd = tbq._seq_cuda(*dev, dyn, save=True)
+    yi, si = tbq._seq_cuda(*dev, dyn)
+    torch.cuda.synchronize()
+    assert torch.equal(yd.cpu(), yc) and torch.equal(sd.cpu(), sc)
+    assert torch.equal(sigd.cpu(), sigc)
+    assert torch.equal(yi, yd) and torch.equal(si, sd)
+
+
+@pytest.mark.parametrize("want", [True, False])
+@pytest.mark.parametrize("k,t", _BWD_SIZES)
+@pytest.mark.parametrize("kind", ["shared", "per_row", "per_sample",
+                                  "sample_shared", "expanded"])
+def test_biquad_seq_bwd_kernel_matches_plain(cuda_device, kind, k, t, want):
+    """csrc/biquad_bwd.cu against the plain adjoint (on the CPU, the same
+    saved signals) bit for bit: the coefficients' gradient (summed over
+    the rows by sums_kernel where they share the coefficients, folded
+    onto the broadcast axis where expanded), the state's and x's; K > 32
+    as groups of 32, the last first."""
+    c, st, x, gy, gs = _seq_bwd_inputs(kind, k, t)
+    dyn = kind in ("per_sample", "sample_shared")
+    _, _, sig = tbq._seq_plain_run(c, st, x, dyn, save=True)
+    bwd, plain = ((tbq.dyn_biquad_cascade_seq_bwd,
+                   tbq.dyn_biquad_cascade_seq_bwd_plain) if dyn else
+                  (tbq.biquad_cascade_seq_bwd,
+                   tbq.biquad_cascade_seq_bwd_plain))
+    ref = plain(c, st, x, sig if want else None, gy, gs, want)
+    before = (bwd.launches, bwd.sum_launches)
+    out = bwd(*(v.to(cuda_device) for v in (c, st, x)),
+              sig.to(cuda_device) if want else None,
+              gy.to(cuda_device), gs.to(cuda_device), want)
+    torch.cuda.synchronize()
+    assert bwd.launches - before[0] == -(-k // 32)
+    shared = kind in ("shared", "sample_shared")
+    assert bwd.sum_launches - before[1] == int(want and shared)
+    assert (out[0] is None) == (not want)
+    for a, b in zip(ref, out):
+        if a is not None:
+            assert torch.equal(b.cpu(), a)
+
+
+@pytest.mark.parametrize("kind", ["static", "dyn"])
+def test_seq_cascade_grad_on_the_card(cuda_device, kind):
+    """Through autograd on the card: the saving forward, the backward
+    kernel and the row sums; the gradients of the coefficients, the state
+    and x bit for bit the CPU run's (the same plain loops), and again
+    with TF32 on."""
+    c, st, x, gy, gs = _seq_bwd_inputs(
+        "shared" if kind == "static" else "per_sample", 9, 1500)
+    fn = tbq.biquad_cascade_seq if kind == "static" \
+        else tbq.dyn_biquad_cascade_seq
+
+    def run(dev):
+        ins = [v.detach().to(dev).requires_grad_(True) for v in (c, st, x)]
+        y, s = fn(*ins)
+        (torch.sum(y * gy.to(dev)) + torch.sum(s * gs.to(dev))).backward()
+        return [v.grad.cpu() for v in ins]
+
+    ref = run("cpu")
+    out = run(cuda_device)
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        out32 = run(cuda_device)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    for a, b, b32 in zip(ref, out, out32):
+        assert torch.equal(b, a) and torch.equal(b32, a)
+
+
+@pytest.mark.parametrize("t", [1, 777, 4097])
+@pytest.mark.parametrize("rows", [1, 5])
+@pytest.mark.parametrize("max_delay", [0, 64, 4800, 60000])
+def test_delay_bwd_kernel_matches_plain(cuda_device, max_delay, rows, t):
+    """delay_bwd_kernel against its plain loop (on the CPU, the same saved
+    s): the cotangents of the incoming ring, x and fgain bit for bit; the
+    saving forward's y, ring and s the plain loop's; 60000 samples is
+    above what shared memory holds (lam in a global scratch row)."""
+    rng = np.random.default_rng(max_delay * 3 + rows + t)
+    buf = torch.from_numpy(rng.standard_normal((rows, max_delay + 1)
+                                               ).astype(np.float32))
+    x = torch.from_numpy(rng.standard_normal((rows, t)).astype(np.float32))
+    d = torch.from_numpy(rng.integers(-3, max_delay + 5, (rows, t)
+                                      ).astype(np.int32))
+    f = torch.from_numpy(rng.integers(-3, max_delay + 2, (rows, t)
+                                      ).astype(np.int32))
+    g = torch.from_numpy((rng.standard_normal((rows, t)) * 0.5
+                          ).astype(np.float32))
+    gy = torch.from_numpy(rng.standard_normal((rows, t)).astype(np.float32))
+    gb = torch.from_numpy(rng.standard_normal((rows, max_delay + 1)
+                                              ).astype(np.float32))
+    bc, yc, sc = tdelay._delay_plain(buf, x, d, g, f, max_delay, save=True)
+    dev = [v.to(cuda_device) for v in (buf, x, d, g, f)]
+    bd, yd, sd = tdelay._delay_cuda(*dev, max_delay, save=True)
+    ref = tdelay.dynamic_delay_bwd_plain(buf, x, d, g, f, sc, gy, gb,
+                                         max_delay)
+    before = tdelay.dynamic_delay_bwd.launches
+    out = tdelay.dynamic_delay_bwd(*dev, sc.to(cuda_device),
+                                   gy.to(cuda_device), gb.to(cuda_device),
+                                   max_delay)
+    torch.cuda.synchronize()
+    assert tdelay.dynamic_delay_bwd.launches == before + 1
+    assert torch.equal(yd.cpu(), yc) and torch.equal(bd.cpu(), bc)
+    assert torch.equal(sd.cpu(), sc)
+    for a, b in zip(ref, out):
+        assert torch.equal(b.cpu(), a)
+
+
+def test_dynamic_delay_grad_on_the_card(cuda_device):
+    """DynamicDelay.process under autograd on the card, an LFO-swept
+    bank with a shared gain: the gradients of x, the gain and the buffer
+    bit for bit the CPU run's (the gain's summed over its broadcast axes
+    by torch, >= 130 dB)."""
+    rng = np.random.default_rng(12)
+    rows, t, md = 4, 900, 200
+    x = torch.from_numpy(rng.standard_normal((rows, t)).astype(np.float32))
+    buf = torch.from_numpy(rng.standard_normal((rows, md + 1)).astype(
+        np.float32))
+    d = torch.from_numpy((100 + 80 * np.sin(np.arange(t) / 50.0)[None]
+                          + 5 * np.arange(rows)[:, None]).astype(np.int32))
+    f = torch.full((rows, t), 3, dtype=torch.int32)
+    w = torch.from_numpy(rng.standard_normal((rows, t)).astype(np.float32))
+
+    def run(dev):
+        ins = [v.detach().to(dev).requires_grad_(True)
+               for v in (buf, x, torch.tensor(0.4))]
+        st, y = DynamicDelay(md).process(
+            DynamicDelay(md).init_state((rows,), device=dev)._replace(
+                buffer=ins[0]), ins[1], d.to(dev), ins[2], f.to(dev))
+        (torch.sum(y * w.to(dev)) + torch.sum(st.buffer)).backward()
+        return [v.grad.cpu() for v in ins]
+
+    ref, out = run("cpu"), run(cuda_device)
+    assert torch.equal(out[0], ref[0]) and torch.equal(out[1], ref[1])
+    assert _snr(ref[2], out[2]) >= 130.0
+
+
+@pytest.mark.parametrize("hold_ms", [0.0, 0.5])
+def test_gate_grad_on_the_card(cuda_device, hold_ms):
+    """Gate.process under autograd on the card (gate_envelope's kernel
+    forward, peak_envelope_bwd at use_rt = 0 backward, counted) against
+    the CPU run: the NaN positions of x's gradient equal, its finite
+    entries and the taus' and knees' gradients >= 100 dB; the forward
+    under grad identical to the one without."""
+    g = Gate(48000, threshold=0.2, zone=0.5, hyst_threshold=0.15,
+             attack_ms=2.0, release_ms=20.0, hold_ms=hold_ms)
+    p = g.build()
+    rng = np.random.default_rng(int(hold_ms * 10) + 3)
+    x = torch.from_numpy((np.abs(rng.standard_normal((6, 3001))) * 0.4
+                          * np.sin(np.linspace(0, 3, 3001))[None] ** 2
+                          ).astype(np.float32))
+
+    def run(dev):
+        leaves = [torch.tensor(v, device=dev, requires_grad=True)
+                  for v in (p.tau_attack, p.tau_release)]
+        pp = p._replace(tau_attack=leaves[0], tau_release=leaves[1])
+        xx = x.detach().to(dev).requires_grad_(True)
+        st0 = g.init_state((6,), dev)
+        st0 = st0._replace(env=st0.env._replace(
+            envelope=torch.full((6,), 0.05, device=dev)))
+        _, gain, env = g.process(pp, st0, xx)
+        with torch.no_grad():
+            _, gain0, _ = g.process(p, st0, x.to(dev))
+        assert torch.equal(gain.detach(), gain0)
+        torch.sum(gain * gain).backward()
+        return [xx.grad.cpu()] + [v.grad.cpu() for v in leaves]
+
+    ref = run("cpu")
+    before = eu.peak_envelope_bwd.launches
+    out = run(cuda_device)
+    assert eu.peak_envelope_bwd.launches == before + 1
+    nan_r, nan_o = torch.isnan(ref[0]), torch.isnan(out[0])
+    assert torch.equal(nan_r, nan_o)
+    assert _snr(ref[0][~nan_r], out[0][~nan_o]) >= 100.0
+    for a, b in zip(ref[1:], out[1:]):
+        assert torch.isnan(a) == torch.isnan(b)
+        if not torch.isnan(a):
+            assert _snr(a, b) >= 100.0

@@ -37,7 +37,6 @@ from lsp_dsp_units_tpu_torch.models.dynamics.compressor import (
 from lsp_dsp_units_tpu_torch.models.filters import (Filter, FilterParams,
                                                     FilterType)
 from lsp_dsp_units_tpu_torch.ops import biquad as tbq
-from lsp_dsp_units_tpu_torch.ops import delay as tdelay
 from lsp_dsp_units_tpu_torch.ops import dynamics as tdyn
 from lsp_dsp_units_tpu_torch.ops import env_units as eu
 from lsp_dsp_units_tpu_torch.ops import fft_packed as tfp
@@ -516,17 +515,13 @@ def _env():
     return tdyn.env_init((2,), "cpu")
 
 
+# ring_mac, batched_slice and the limiter stay without a backward: jax.grad
+# raises on them in the JAX package too (pallas_call has no reverse mode;
+# reverse mode does not go through the limiter's lax.while_loop)
 RAISING = {
     "ring_mac": lambda: ring_mac(*[_req(2)] * 6, 0),
     "batched_slice": lambda: batched_slice(
         _req(64), torch.zeros(2, dtype=torch.int32), 8),
-    "gate_envelope": lambda: eu.gate_envelope(
-        _env(), torch.zeros(2, dtype=torch.int32), _req(2, 8), 0.1, 0.1, 0,
-        0.5, 0.4),
-    "biquad_cascade_seq": lambda: tbq.biquad_cascade_seq(
-        _req(1, 5), torch.zeros(2, 1, 2), torch.zeros(2, 8)),
-    "dyn_biquad_cascade_seq": lambda: tbq.dyn_biquad_cascade_seq(
-        torch.zeros(8, 1, 5), torch.zeros(2, 1, 2), _req(2, 8)),
     "limiter": lambda: tlim.limiter((), torch.zeros(2, 4), torch.zeros(2),
                                     _req(2, 8), 1, False),
     "autogain": lambda: trd.autogain(None, (), _req(2, 8), _req(2, 8),
@@ -538,8 +533,6 @@ RAISING = {
     "dynproc_envelope": lambda: trd.dynproc_envelope(None, (), _req(2, 8)),
     "trigger": lambda: trd.trigger(None, (), _req(2, 8)),
     "depopper_forward": lambda: trd.depopper_forward(None, (), _req(2, 8)),
-    "dynamic_delay": lambda: tdelay.dynamic_delay(
-        torch.zeros(2, 9), _req(2, 8), *[torch.zeros(2, 8)] * 3, 8),
     "pmax": lambda: pmesh.pmax(_req(2), None),
     "_mul_add": lambda: eu.peak_envelope_plain(
         _env(), _req(2, 8), 0.1, 0.1, 0),
