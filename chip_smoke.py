@@ -144,7 +144,10 @@ Phases (any failure exits non-zero; nothing is caught):
             plain version's (the first call), its bytes bound, its chain
             bound (T x the step's dependent operations x 4 cycles at the
             measured SM clock) and, for the limiter, its pass bound
-            (passes x T x 8 B at 128 B a cycle of shared memory).
+            (passes x T x 8 B at 128 B a cycle of shared memory); for
+            each rider, cycles a step beside the chain bound's and the
+            chain loop in the SASS (LDL / STL: none; BRA, BSSY, CALL;
+            compares; static stall cycles a step).
 12. spectral — the spectral units, the Oversampler and the measurement
             units at full width (64 channels, 2 calls of 16384 with the
             state carried; the Analyzer 2 calls of 16800, 7 periods of
@@ -200,7 +203,10 @@ Phases (any failure exits non-zero; nothing is caught):
             Each of the three kernels' ms at [64, 16384] beside its
             plain loop's (one call, host-paced), its bytes bound and its
             chain bound (T x the step's dependent operations x 4 cycles
-            at the measured SM clock), one launch a call.
+            at the measured SM clock), one launch a call; then every
+            trigger type and depopper mode timed on its first call's
+            inputs, cycles a step beside the chain bound's, and its
+            chain loop in the SASS as the riders'.
 14. parallel — the sharded chain at world size 1: NCCL with an in-process
             store, a (1, 1) ('chan', 'time') mesh on the card,
             sharded_step for 2 calls of [64, 16384] with the state
@@ -394,6 +400,7 @@ from __future__ import annotations
 import argparse
 import concurrent.futures
 import contextlib
+import functools
 import json
 import multiprocessing
 import os
@@ -521,6 +528,15 @@ SMEM_BYTES_PER_CLK = 128      # one SM's shared-memory rate (32 banks x 4 B)
 RIDER_KIND = {"autogain": "autogain", "autogain_quick": "autogain",
               "simple": "simple_autogain", "surge": "surge",
               "peak": "peak_meter", "dynproc": "dynproc"}
+# each rider case's rider_kernel instantiation in the SASS (a substring
+# of its mangled name: AutoGainStep<quick_amp, use_max_gain>) and its
+# step functor
+RIDER_SASS = {"autogain": ("AutoGainStepILb0ELb0E", "AutoGainStep"),
+              "autogain_quick": ("AutoGainStepILb1ELb1E", "AutoGainStep"),
+              "simple": ("SimpleAutoGainStep", "SimpleAutoGainStep"),
+              "surge": ("SurgeStep", "SurgeStep"),
+              "peak": ("PeakMeterStep", "PeakMeterStep"),
+              "dynproc": ("DynProcStep", "DynProcStep")}
 ALR_CHAIN_OPS = 3             # compare-select, subtract, FMA
 
 PAR_T, PAR_CALLS = 16384, 2   # the parallel phase: 64 ch x T, state carried
@@ -1069,18 +1085,23 @@ def rms_ideal(win, x, n):
                                   / n, min=0.0))
 
 
-def sass_batches(lib: str, kernel: str) -> list:
-    """The batch bodies of an envelope kernel in its SASS (cuobjdump
-    beside nvcc): the basic blocks that hold a batch's 2 x 32 FFMAs, each
-    as a dict: its FMNMX, FSETP (float compares) and STS (shared-memory
-    stores) counts and its static stall cycles per step.  An
-    instruction's stall count is bits 41-44 of its second 64-bit word;
-    the count leaves out waits on variable-latency results."""
+@functools.lru_cache(maxsize=None)
+def sass_text(lib: str) -> str:
+    """A library's SASS by cuobjdump (beside nvcc), once a run."""
     cuobjdump = os.path.join(os.path.dirname(_build.find_nvcc()), "cuobjdump")
     out = subprocess.run([cuobjdump, "-sass", _build.build(lib)],
                          capture_output=True, text=True, timeout=120)
     check(out.returncode == 0, f"cuobjdump: {out.stderr.strip()}")
-    body = [f for f in out.stdout.split("Function : ")
+    return out.stdout
+
+
+def sass_blocks(lib: str, kernel: str) -> list:
+    """The basic blocks of one kernel in a library's SASS (cuobjdump
+    beside nvcc), in code order: each a list of (instruction, static
+    stall cycles).  An instruction's stall count is bits 41-44 of its
+    second 64-bit word; the count leaves out waits on variable-latency
+    results.  ``kernel``: a substring of one function's mangled name."""
+    body = [f for f in sass_text(lib).split("Function : ")
             if kernel in f.split("\n", 1)[0]]
     check(len(body) == 1, f"{kernel}: {len(body)} functions in the SASS")
     ins = re.compile(r"/\*[0-9a-f]{4,}\*/\s+(.*?);\s*/\* 0x[0-9a-f]{16} \*/")
@@ -1102,13 +1123,82 @@ def sass_batches(lib: str, kernel: str) -> list:
             blocks.append(cur)
             cur = []
     blocks.append(cur)
+    return blocks
 
-    def count(blk, name):
-        return sum(1 for o, _ in blk if re.search(rf"\b{name}\b", o))
 
-    return [dict(fmnmx=count(blk, "FMNMX"), fsetp=count(blk, "FSETP"),
-                 sts=count(blk, "STS"), stalls=sum(s for _, s in blk) / 32)
-            for blk in blocks if count(blk, "FFMA") == 64]
+def sass_count(ins, name: str) -> int:
+    """Instructions of ``ins`` ((op, stall) pairs) whose opcode is
+    ``name`` (with or without a suffix: "STS" counts STS.128)."""
+    return sum(1 for o, _ in ins if re.search(rf"\b{name}\b", o))
+
+
+def sass_batches(lib: str, kernel: str) -> list:
+    """The batch bodies of an envelope kernel in its SASS: the basic
+    blocks that hold a batch's 2 x 32 FFMAs, each as a dict: its FMNMX,
+    FSETP (float compares) and STS (shared-memory stores) counts and its
+    static stall cycles per step."""
+    return [dict(fmnmx=sass_count(blk, "FMNMX"),
+                 fsetp=sass_count(blk, "FSETP"), sts=sass_count(blk, "STS"),
+                 stalls=sum(s for _, s in blk) / 32)
+            for blk in sass_blocks(lib, kernel)
+            if sass_count(blk, "FFMA") == 64]
+
+
+def sass_line(sass: dict) -> str:
+    """sass_rider_chain's record as a line."""
+    return (f"chain loop in the SASS: {sass['instructions']} instructions, "
+            f"LDL {sass['ldl']}, STL {sass['stl']}, BRA {sass['bra']}, "
+            f"BSSY {sass['bssy']}, CALL {sass['call']}, {sass['setp']} "
+            f"compares, {sass['stall_cycles_per_step']:.1f} static stall "
+            f"cycles a step")
+
+
+def check_chain(sass: dict, what: str, divisions: bool = False) -> None:
+    """A chain loop without local memory and, but for the slow-path calls
+    of IEEE divisions (AutoGain's), without branches."""
+    check(sass["ldl"] == 0 and sass["stl"] == 0,
+          f"{what}: local memory in the chain loop")
+    check(divisions or sass["bra"] == sass["bssy"] == sass["call"] == 0,
+          f"{what}: branches in the chain loop")
+
+
+def rider_batches() -> dict:
+    """Each step functor's kBatch (steps a chain batch) in
+    csrc/riders.cu, by struct name."""
+    with open(os.path.join(_build.CSRC_DIR, "riders.cu")) as f:
+        src = f.read()
+    return {m.group(1): int(m.group(2)) for m in re.finditer(
+        r"struct (\w+Step) : StepBase \{.*?kBatch = (\d+);", src, re.S)}
+
+
+def sass_rider_chain(kernel: str, batch: int) -> dict:
+    """rider_kernel's chain loop for one step functor in the SASS: the
+    code from the batch's first 16-byte shared load of pre words
+    (LDS.128; where the step reads none, from the start of the basic
+    block of its first record store) to its last 16-byte record store
+    (STS.128), the chain thread's alone (the producers and consumers
+    move single words): its instructions, local-memory traffic (LDL,
+    STL), branches (BRA, BSSY, CALL: an IEEE division's slow path is a
+    call), predicate compares and static stall cycles per step over
+    ``batch`` steps."""
+    ins, first, last = [], None, None
+    for blk in sass_blocks("riders", kernel):
+        start = len(ins)
+        for op, stall in blk:
+            if "LDS.128" in op and first is None:
+                first = len(ins)
+            if "STS.128" in op:
+                first = start if first is None else first
+                last = len(ins)
+            ins.append((op, stall))
+    check(last is not None, f"{kernel}: no chain batch (STS.128) in the SASS")
+    span = ins[first:last + 1]
+    return dict(instructions=len(span), ldl=sass_count(span, "LDL"),
+                stl=sass_count(span, "STL"), bra=sass_count(span, "BRA"),
+                bssy=sass_count(span, "BSSY"),
+                call=sass_count(span, "CALL"),
+                setp=sass_count(span, "FSETP") + sass_count(span, "ISETP"),
+                stall_cycles_per_step=sum(st for _, st in span) / batch)
 
 
 def free_batch(kernel: str, what: str) -> dict:
@@ -2528,22 +2618,29 @@ def dynamics_phase(dev, res):
           f"{r['alr_chain_ms']:.4f} ms, passes {r['alr_pass_bound_ms']:.4f} "
           f"ms ({card_line()})")
     steps = {}
+    batches = rider_batches()
     for name, (fn, _, _, _) in rider_cases.items():
         st0, args, _, _ = trace[name][0]
         ms = time_ms(lambda: fn(st0, *args), 5)
         n_in = len(args) if args[-1].shape[-1] == t_n else len(args) - 1
         ops = riders.chain_ops(RIDER_KIND[name])
+        kernel, functor = RIDER_SASS[name]
+        sass = sass_rider_chain(kernel, batches[functor])
         steps[name] = dict(
             ms=ms, plain_ms=plain_ms[name],
             bound_ms=bound(F32 * C * t_n * (n_in + 1), 0.0)["bound_ms"],
             chain_ms=t_n * ops * 4 / clock * 1e3, chain_ops=ops,
-            cycles_per_step=ms * 1e-3 * clock / t_n)
+            cycles_per_step=ms * 1e-3 * clock / t_n,
+            chain_cycles_per_step=ops * 4, sass=sass)
         print(f"rider_kernel {name}: {ms:.4f} ms "
-              f"({steps[name]['cycles_per_step']:.1f} cycles a step), plain "
+              f"({steps[name]['cycles_per_step']:.1f} cycles a step against "
+              f"a chain bound of {ops * 4}), plain "
               f"{plain_ms[name]:.1f} ms, chain bound "
               f"{steps[name]['chain_ms']:.4f} ms "
               f"({ops} dependent ops), bytes bound "
-              f"{steps[name]['bound_ms']:.4f} ms")
+              f"{steps[name]['bound_ms']:.4f} ms; " + sass_line(sass))
+        check_chain(sass, f"rider_kernel {name}",
+                    divisions=name.startswith("autogain"))
     main = steps["autogain"]
     res["rider"] = dict(
         launches=sum(launched[f.__name__] for f in riders.RIDERS),
@@ -3489,7 +3586,8 @@ def synth_phase(dev, res):
             delay_ops.chain_ops(), launched["dynamic_delay"], 0.0),
         "trig": (lambda: riders.trigger(ut, ts0, y),
                  lambda: riders.trigger_plain(ut, ts0, y),
-                 F32 * 2 * C * t_n, riders.chain_ops("trigger"),
+                 F32 * 2 * C * t_n, riders.chain_ops(
+                     "trigger", riders.KIND["trigger"] + tt0.value),
                  launched["trigger"], 0.0),
         "depop": (lambda: riders.depopper_forward(up, ps0, env0),
                   lambda: riders.depopper_forward_plain(up, ps0, env0),
@@ -3510,8 +3608,34 @@ def synth_phase(dev, res):
               f"{plain_ms:.1f} ms (one call, host-paced), bytes bound "
               f"{r['bound_ms']:.4f} ms, chain bound {r['chain_ms']:.4f} ms "
               f"({ops} dependent ops), 1 launch a call ({card_line()})")
-    res["trig"]["types"] = [tt.name for tt in TriggerType]
-    res["depop"]["modes"] = [m.name for m in modes]
+    # every trigger type and depopper mode, on the first call's inputs
+    batches = rider_batches()
+    every = {
+        "trig": {tt.name: (functools.partial(
+            riders.trigger, ut, ttrace[tt][0][0], y),
+            f"TriggerStepILi{tt.value}E", "TriggerStep",
+            riders.chain_ops("trigger", riders.KIND["trigger"] + tt.value))
+            for tt, ut in ud["trig"].items()},
+        "depop": {m.name: (functools.partial(
+            riders.depopper_forward, ud["depop"][m],
+            *rec.calls[i * calls][:2]), "DepopperStep", "DepopperStep",
+            riders.chain_ops("depopper"))
+            for i, m in enumerate(modes)}}
+    for key, fns in every.items():
+        rows = {}
+        for name, (fn, kernel, functor, ops) in fns.items():
+            ms = time_ms(fn, 5)
+            sass = sass_rider_chain(kernel, batches[functor])
+            rows[name] = dict(ms=ms, cycles_per_step=ms * 1e-3 * clock / t_n,
+                              chain_ms=t_n * ops * 4 / clock * 1e3,
+                              chain_ops=ops, chain_cycles_per_step=ops * 4,
+                              sass=sass)
+            print(f"{key} kernel {name}: [{C}, {t_n}] {ms:.4f} ms "
+                  f"({rows[name]['cycles_per_step']:.1f} cycles a step "
+                  f"against a chain bound of {ops * 4}: "
+                  f"{rows[name]['chain_ms']:.4f} ms); " + sass_line(sass))
+            check_chain(sass, f"{key} {name}")
+        res[key]["types" if key == "trig" else "modes"] = rows
     print(f"synth phase: {time.perf_counter() - t_start:.1f} s")
 
 

@@ -8,8 +8,11 @@ models/util/trigger.py :114-164 and models/util/depopper.py :137-186).
 
 Each wrapper runs its plain PyTorch version (``*_plain``: a Python loop
 over T, each step vectorised over the rows) for CPU tensors and launches
-``csrc/riders.cu`` (``rider_kernel<Step>``, one thread per row, the step a
-functor) for CUDA tensors, counting launches in ``<wrapper>.launches``.
+``csrc/riders.cu`` (``rider_kernel<Step>``, one block per row: producer
+warps compute each step's input terms, one thread runs the state
+transition, consumer warps form the outputs; the step a functor split in
+those three parts) for CUDA tensors, counting launches in
+``<wrapper>.launches``.
 Inputs are [..., T] (T >= 1), copied where they are not contiguous;
 the kernel sees them as [rows, T].
 
@@ -69,10 +72,13 @@ def _lib():
     return _build.load("riders", _SIGS)
 
 
-def chain_ops(name: str) -> int:
-    """The dependent operations a step of ``name``'s functor puts on its
-    state chain (its ``kChainOps`` in csrc/riders.cu; builds the kernel)."""
-    return int(_lib().lsp_rider_chain_ops(KIND[name]))
+def chain_ops(name: str, kind=None) -> int:
+    """The dependent operations a step of ``name``'s functor (``kind``,
+    by default ``KIND[name]``: the Trigger's is 5 + its type) puts on its
+    state chain (its ``kChainOps`` in csrc/riders.cu; builds the
+    kernel)."""
+    return int(_lib().lsp_rider_chain_ops(KIND[name] if kind is None
+                                          else kind))
 
 
 def _f32(v) -> float:
@@ -362,8 +368,13 @@ def peak_meter(unit, state, x):
 
 
 def _dynproc_consts(params):
-    levels = (params.att_level, params.att_tau, params.rel_level,
-              params.rel_tau)
+    """(floats, ints) of the kernel's DynProcStep: each level list
+    ascending beside its taus in the caller's order (the tau of c levels
+    <= e is tau[c - 1] whatever the levels' order, and the kernel finds c
+    by a ladder over ascending levels), padded to MAX_LEVELS; the
+    counts, the hold."""
+    levels = (sorted(params.att_level), params.att_tau,
+              sorted(params.rel_level), params.rel_tau)
     if not 1 <= len(params.att_level) <= MAX_LEVELS or not (
             1 <= len(params.rel_level) <= MAX_LEVELS):
         raise ValueError(f"1 to {MAX_LEVELS} attack and release levels")

@@ -45,18 +45,21 @@ compressor):
   random carry: HERM_THIN at 2 ms (the patch passes alone) and EXP_WIDE
   at 5 ms with ALR: gain, carry, ALR envelope and pass counts;
 * rider_kernel at [64, 16384], each step functor: AutoGain (quick_amp
-  and max_gain on), DynamicProcessor's envelope (4 attack and 4 release
-  levels, a hold), SimpleAutoGain, SurgeProtector and PeakMeter: output
-  and state;
+  and max_gain on; rider_autogain_default: both off), DynamicProcessor's
+  envelope (4 attack and 4 release levels, a hold), SimpleAutoGain,
+  SurgeProtector and PeakMeter: output and state, and each build's
+  cycles a step at 1.98 GHz;
 * biquad_scan (the time-parallel cascade) at [64, 16384] on the chain's
   8-band EQ (K = 9) and at [64, 65536] on the Oversampler's 4x filter
   (K = 15), from random states: y and state.
 * the synth phase's machines (chip_smoke.py) at [64, 16384]: the
   dynamic delay (a ring of 4801 from a random state, each channel's
   delay swept by the LFO's quick sine, seeded feedback delays, a gain of
-  0.5): y and ring; the trigger (advanced rising edge, hold 24) and the
-  depopper's forward machine (CUBIC, on gated levels) of rider_kernel:
-  output and state.
+  0.5): y and ring; the trigger (rider_trigger: the advanced rising
+  edge; rider_trigger_<type>: every other type; hold 24) and the
+  depopper's forward machine (rider_depopper: CUBIC;
+  rider_depopper_<mode>: every other mode; on gated levels) of
+  rider_kernel: output and state, and cycles a step.
 * the sequential cascade's backward (csrc/biquad_bwd.cu) at [64, 16384]
   on the saved signals of this checkout's saving forward: the chain's
   K = 9 with the coefficients' gradient (biquad_seq_bwd: its row sums
@@ -168,6 +171,12 @@ FFT_MODES = ("rfft", "rfft_zeropad", "irfft", "irfft_first", "irfft_last")
 ADJOINT_MODES = FFT_MODES + ("ring_rfft_zeropad",)
 
 
+# the Trigger's and the Depopper's cases: every type and mode (the
+# advanced rising edge and the cubic fade keep their first names)
+TRIGGER_CASE = {tt: "rider_trigger" if tt.name == "ADVANCED_RISING_EDGE"
+                else f"rider_trigger_{tt.name.lower()}" for tt in TriggerType}
+DEPOPPER_CASE = {m: "rider_depopper" if m.name == "CUBIC"
+                 else f"rider_depopper_{m.name.lower()}" for m in DepopperMode}
 # each case's library (csrc/<name>.cu); env_units for the rest
 LIB_OF = {**{f"fft_{m}": "fft_packed" for m in FFT_MODES},
           **{f"fft_adjoint_{m}": "fft_packed" for m in ADJOINT_MODES},
@@ -184,7 +193,9 @@ LIB_OF = {**{f"fft_{m}": "fft_packed" for m in FFT_MODES},
           "biquad_scan_k15": "biquad_scan", "delay": "delay",
           "biquad_seq_bwd": "biquad_bwd", "biquad_seq_bwd_x": "biquad_bwd",
           "biquad_seq_bwd_dyn": "biquad_bwd", "delay_bwd": "delay",
-          "rider_trigger": "riders", "rider_depopper": "riders"}
+          "rider_autogain_default": "riders",
+          **{k: "riders" for k in TRIGGER_CASE.values()},
+          **{k: "riders" for k in DEPOPPER_CASE.values()}}
 
 
 def share_structs(mod, this_mod) -> None:
@@ -685,6 +696,7 @@ def main(argv=None) -> int:
         for k, v in lims.items()}
     ag = AutoGain(SR, quick_amplifier=True, use_max_gain=True, max_gain=3.0)
     ag_st = ag.init_state((C,))
+    ag0 = AutoGain(SR, long_grow_db_s=60.0, long_fall_db_s=60.0)
     ag_in = (lev, (lev * 1.3).contiguous(), torch.full((C, 1), 0.2,
                                                        device="cuda"))
     dp = DynamicProcessor(SR, out_ratio=2.0, hold_ms=1.0,
@@ -725,11 +737,12 @@ def main(argv=None) -> int:
         "delay_bwd": lambda: delay_ops.dynamic_delay_bwd(
             dring, xr, dly, g05, fdly, s_dly, g_y, g_ring, DELAY_MAX),
     }
-    trg = Trigger(TriggerType.ADVANCED_RISING_EDGE, TriggerMode.REPEAT,
-                  threshold=0.3, hysteresis=0.1, hold_samples=24)
-    tst = trg.init_state("cuda")
+    trgs = {tt: Trigger(tt, TriggerMode.REPEAT, threshold=0.3,
+                        hysteresis=0.1, hold_samples=24)
+            for tt in TriggerType}
+    tst = trgs[TriggerType.NONE].init_state("cuda")
     tst = tst._make(torch.stack([f] * C) for f in tst)
-    dpop = Depopper(SR, fade_in_mode=DepopperMode.CUBIC)
+    dpops = {m: Depopper(SR, fade_in_mode=m) for m in DepopperMode}
     dst = tuple(torch.zeros(C, dtype=torch.int32, device="cuda")
                 for _ in range(3))
     light = {
@@ -758,6 +771,9 @@ def main(argv=None) -> int:
            for k, a in lim_args.items()},
         "rider_autogain": (lambda: flat(riders.autogain(ag, ag_st, *ag_in)),
                            lambda: riders.autogain(ag, ag_st, *ag_in), 10),
+        "rider_autogain_default": (
+            lambda: flat(riders.autogain(ag0, ag_st, *ag_in)),
+            lambda: riders.autogain(ag0, ag_st, *ag_in), 10),
         "rider_dynproc": (lambda: flat(riders.dynproc_envelope(
             dpp, st24, lev)), lambda: riders.dynproc_envelope(
             dpp, st24, lev), 10),
@@ -818,16 +834,19 @@ def main(argv=None) -> int:
             10),
         **{k: (lambda f: (lambda: list(f()), f, 10))(f)
            for k, f in seq_bwd.items()},
-        "rider_trigger": (lambda: flat(riders.trigger(trg, tst, xr)),
-                          lambda: riders.trigger(trg, tst, xr), 10),
-        "rider_depopper": (lambda: flat(riders.depopper_forward(
-            dpop, dst, glev)), lambda: riders.depopper_forward(
-            dpop, dst, glev), 10),
+        **{TRIGGER_CASE[tt]: (lambda u: (
+            lambda: flat(riders.trigger(u, tst, xr)),
+            lambda: riders.trigger(u, tst, xr), 10))(u)
+           for tt, u in trgs.items()},
+        **{DEPOPPER_CASE[m]: (lambda u: (
+            lambda: flat(riders.depopper_forward(u, dst, glev)),
+            lambda: riders.depopper_forward(u, dst, glev), 10))(u)
+           for m, u in dpops.items()},
     }
     lib_of = LIB_OF
-    functor = {"rider_trigger": riders.KIND["trigger"]
-               + TriggerType.ADVANCED_RISING_EDGE.value,
-               "rider_depopper": riders.KIND["depopper"]}
+    functor = {**{TRIGGER_CASE[tt]: riders.KIND["trigger"] + tt.value
+                  for tt in TriggerType},
+               **{k: riders.KIND["depopper"] for k in DEPOPPER_CASE.values()}}
     res, ok = {}, True
     for name, (run, call, reps) in cases.items():
         if args.cases is not None and name not in args.cases:
@@ -869,6 +888,13 @@ def main(argv=None) -> int:
                          other_ms=(times[0] + times[3]) / 2,
                          this_ms=(times[1] + times[2]) / 2, runs_ms=times,
                          **extra)
+        if name.startswith("rider_"):
+            for who in ("other", "this"):
+                res[name][f"{who}_cycles_per_step"] = (
+                    res[name][f"{who}_ms"] * 1e-3 * SM_HZ / T_ENV)
+            extra = {k: round(res[name][f"{k}_cycles_per_step"], 1)
+                     for k in ("other", "this")}
+            extra = dict(cycles_a_step=extra)
         print(f"{name}: identical = {same} (outputs differing: {diff}"
               + "".join(f", {k} {v}" for k, v in extra.items())
               + f"); other {res[name]['other_ms']:.4f}"

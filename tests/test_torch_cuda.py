@@ -6,6 +6,9 @@ alone, skipping the repository's JAX conftest:
     python -m pytest --noconftest -q tests/test_torch_cuda.py
 """
 
+import os
+import re
+
 import numpy as np
 import pytest
 import torch
@@ -783,7 +786,7 @@ def test_limiter_kernel_matches_plain_on_the_card(cuda_device):
 
 def _rider_case(kind, rows, t, dev):
     """(call on device tensors, the same unit's plain call) for each of
-    the five step functors (AutoGain in two flag settings)."""
+    the five step functors (AutoGain in four flag settings)."""
     from lsp_dsp_units_tpu_torch.models.dynamics import (
         AutoGain, DynamicProcessor, SimpleAutoGain, SurgeProtector)
     from lsp_dsp_units_tpu_torch.models.meters import PeakMeter
@@ -794,8 +797,10 @@ def _rider_case(kind, rows, t, dev):
         np.float32))
     short = (lvl * 1.3).contiguous()
     if kind.startswith("autogain"):
-        quick = kind == "autogain_quick"
-        u = AutoGain(48000, quick_amplifier=quick, use_max_gain=quick,
+        # quick_amp and max_gain both on, each alone, or both off
+        quick = kind in ("autogain_quick", "autogain_quick_only")
+        use_max = kind in ("autogain_quick", "autogain_max_only")
+        u = AutoGain(48000, quick_amplifier=quick, use_max_gain=use_max,
                      max_gain=3.0, long_grow_db_s=60.0)
         args = (lvl, short, torch.full((rows, 1), 0.2))
         return (u.init_state((rows,), device=dev), args,
@@ -830,20 +835,38 @@ def _rider_case(kind, rows, t, dev):
         u.set_attack_level(i, lv)
         u.set_release_level(i, lv * 2)
     p = u.build(device=dev)
+    if kind == "dynproc_unordered":
+        # levels out of order beside their taus (a caller's own params)
+        p = p._replace(att_level=p.att_level[::-1], att_tau=p.att_tau[1:]
+                       + p.att_tau[:1], rel_level=p.rel_level[::-1])
     return (u.init_state((rows,), device=dev), (x.abs(),),
             lambda s, *a: rd.dynproc_envelope(p, s, *a),
             lambda s, *a: rd.dynproc_envelope_plain(p, s, *a),
             rd.dynproc_envelope)
 
 
-@pytest.mark.parametrize("kind", ["autogain", "autogain_quick", "simple",
-                                  "surge", "peak", "dynproc"])
-@pytest.mark.parametrize("t", [1, 1037])
-@pytest.mark.parametrize("rows", [1, 6])
+with open(os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
+        __file__))), "lsp_dsp_units_tpu_torch", "csrc", "riders.cu")) as _f:
+    RIDERS_CHUNK = int(re.search(r"constexpr int kChunk = (\d+);",
+                                 _f.read()).group(1))
+# T at rider_kernel's chunk boundaries: one step, a chunk less one, a
+# chunk, a chunk and one, three chunks and a partial batch
+RIDER_TS = (1, RIDERS_CHUNK - 1, RIDERS_CHUNK, RIDERS_CHUNK + 1,
+            3 * RIDERS_CHUNK + 17)
+RIDER_KINDS = ["autogain", "autogain_quick", "autogain_quick_only",
+               "autogain_max_only", "simple", "surge", "peak", "dynproc",
+               "dynproc_unordered"]
+
+
+@pytest.mark.parametrize("kind", RIDER_KINDS)
+@pytest.mark.parametrize("t", (1037,) + RIDER_TS)
+@pytest.mark.parametrize("rows", [1, 6, 64, 200])
 def test_rider_kernels_match_plain(cuda_device, kind, rows, t):
-    """Each step functor of rider_kernel against its plain loop, two
-    calls with the state carried (odd T: a partial last tile), output
-    and state bit for bit; the launch counter advances once a call."""
+    """Each step functor of rider_kernel against its plain loop (on the
+    CPU), two calls with the state carried, at T around the pipeline's
+    chunk (kChunk) and 1037, 1 to 200 rows (more blocks than SMs), every
+    rider case: output and state bit for bit; the launch counter
+    advances once a call."""
     st_d, args, kernel, plain, wrapper = _rider_case(kind, rows, t,
                                                      cuda_device)
     st_c = st_d._make(f.cpu() for f in st_d)
@@ -851,10 +874,10 @@ def test_rider_kernels_match_plain(cuda_device, kind, rows, t):
     for k in range(2):
         st_c, yc = plain(st_c, *args)
         st_d, yd = kernel(st_d, *(a.to(cuda_device) for a in args))
+        assert wrapper.launches == before + k + 1
         torch.cuda.synchronize()
         assert torch.equal(yd.cpu(), yc), k
         assert all(torch.equal(a.cpu(), b) for a, b in zip(st_d, st_c)), k
-    assert wrapper.launches == before + 2
 
 
 def test_rider_plain_on_the_card_matches_the_kernel(cuda_device):
@@ -1223,13 +1246,73 @@ def test_depopper_kernel_matches_plain(cuda_device, mode, t):
     assert t == 1 or falls > 0
 
 
+@pytest.mark.parametrize("rows", [1, 64, 200])
+@pytest.mark.parametrize("t", RIDER_TS)
+@pytest.mark.parametrize("mode", [TriggerMode.SINGLE, TriggerMode.REPEAT],
+                         ids=lambda m: m.name)
+@pytest.mark.parametrize("ttype", list(TriggerType), ids=lambda t: t.name)
+def test_trigger_kernel_chunk_boundaries(cuda_device, ttype, mode, t, rows):
+    """TriggerStep on rider_kernel's pipeline at T around its chunk, 1,
+    64 and 200 rows, every type, a third of the rows locked at the start
+    (the one-shot mode locks the rest on their first fire), two calls
+    with the state carried: states and output bit for bit the CPU plain
+    loop's; one launch a call."""
+    u = Trigger(ttype, mode, threshold=0.3, hysteresis=0.1, hold_samples=5)
+    rng = np.random.default_rng(t + 7 * ttype.value + rows)
+    st = u.init_state(device="cpu")
+    st = st._make(torch.stack([f] * rows) for f in st)
+    st = st._replace(locked=torch.arange(rows) % 3 == 1)
+    sd = st._make(f.to(cuda_device) for f in st)
+    before = trd.trigger.launches
+    for k in range(2):
+        x = torch.from_numpy((rng.standard_normal((rows, t))
+                              * np.linspace(0.05, 1.0, t)).astype(
+            np.float32))
+        st, oc = trd.trigger_plain(u, st, x)
+        sd, od = trd.trigger(u, sd, x.to(cuda_device))
+        assert trd.trigger.launches == before + k + 1
+        torch.cuda.synchronize()
+        assert torch.equal(od.cpu(), oc), k
+        assert all(torch.equal(a.cpu(), b) for a, b in zip(sd, st)), k
+
+
+@pytest.mark.parametrize("rows", [1, 64, 200])
+@pytest.mark.parametrize("t", RIDER_TS)
+@pytest.mark.parametrize("mode", list(DepopperMode), ids=lambda m: m.name)
+def test_depopper_kernel_chunk_boundaries(cuda_device, mode, t, rows):
+    """DepopperStep on rider_kernel's pipeline at T around its chunk, 1,
+    64 and 200 rows, every mode, on bursts that open, fade in, fall and
+    wait, two calls with the state carried: falls, patch lengths, raw
+    gains and state bit for bit the CPU plain loop's; one launch a
+    call."""
+    u = Depopper(48000, fade_in_mode=mode, fade_out_mode=mode,
+                 fade_in_ms=1.0, fade_out_ms=0.5, fade_in_delay_ms=0.1,
+                 fade_out_delay_ms=0.2, rms_ms=0.2)
+    st = tuple(torch.zeros(rows, dtype=torch.int32) for _ in range(3))
+    sd = tuple(f.to(cuda_device) for f in st)
+    env = _bursts(rows, 2 * t, t + rows).abs()
+    before = trd.depopper_forward.launches
+    for k in range(2):
+        e = env[:, k * t:(k + 1) * t].contiguous()
+        st, oc = trd.depopper_forward_plain(u, st, e)
+        sd, od = trd.depopper_forward(u, sd, e.to(cuda_device))
+        assert trd.depopper_forward.launches == before + k + 1
+        torch.cuda.synchronize()
+        assert all(torch.equal(a.cpu(), b) for a, b in zip(od, oc)), k
+        assert all(torch.equal(a.cpu(), b) for a, b in zip(sd, st)), k
+
+
 def test_trigger_and_depopper_chain_ops_come_from_the_functors(cuda_device):
     """TriggerStep and DepopperStep state their chains' dependent
-    operations (kChainOps), and delay.cu its own."""
+    operations (kChainOps, each trigger type its own: NONE's the
+    shortest, the advanced edges' the longest), and delay.cu its own."""
     assert trd.chain_ops("trigger") > 0 and trd.chain_ops("depopper") > 0
-    assert all(trd.chain_ops("trigger") == int(
-        trd._lib().lsp_rider_chain_ops(trd.KIND["trigger"] + t))
-        for t in range(5))
+    ops = [trd.chain_ops("trigger", trd.KIND["trigger"] + t)
+           for t in range(5)]
+    assert ops == [int(trd._lib().lsp_rider_chain_ops(trd.KIND["trigger"]
+                                                      + t))
+                   for t in range(5)]
+    assert ops[0] == min(ops) and ops[3] == ops[4] == max(ops)
     assert tdelay.chain_ops() == 4
 
 
