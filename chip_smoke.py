@@ -281,7 +281,10 @@ Phases (any failure exits non-zero; nothing is caught):
             dependent operations, 12 cycles a step) and its bytes bound;
             biquad_cascade_bwd at [64, 16384], K = 9 (the chain's 8 bands)
             against its plain backward (the same adjoint on the plain
-            scan), >= 120 dB, its scan launches a call; #1's adjoints
+            scan), >= 120 dB, its scan launches a call (17 scans of two
+            launches: the prefix table, the rows), its time split by
+            torch.profiler into the scan kernels, torch's own launches
+            and the rest (the host's gaps between them); #1's adjoints
             as step runs them at [128, N = 16384] (the zero-pad and whole
             forward's, the first, last and whole inverse's), against the
             same adjoints on torch.fft (>= 95 dB), each one launch of its
@@ -455,7 +458,7 @@ from lsp_dsp_units_tpu_torch.models.threed import (  # noqa: E402
     SourceShape)
 from lsp_dsp_units_tpu_torch.tools import room_demo, serve  # noqa: E402
 from lsp_dsp_units_tpu_torch.tools.launch_profile import (  # noqa: E402
-    launch_profile)
+    device_kernels as profile_kernels, launch_name, launch_profile)
 from lsp_dsp_units_tpu_torch.ops import _build  # noqa: E402
 from lsp_dsp_units_tpu_torch.ops import biquad_block  # noqa: E402
 from lsp_dsp_units_tpu_torch.ops import cplx  # noqa: E402
@@ -2745,6 +2748,26 @@ def oversampler_f64(ovs, x: np.ndarray, fn) -> np.ndarray:
     return sos_f64(ovs.filter_coeffs.cpu(), fn(hi))[:, ::ovs.ratio]
 
 
+# the kernels of csrc/biquad_scan.cu, by short name
+SCAN_KERNELS = ("table_kernel", "shared_kernel", "per_row_kernel")
+
+
+def scan_route_split(fn, ms: float, calls: int = 5) -> dict:
+    """One call of the scan's backward route ``fn`` (``ms`` by events)
+    split by torch.profiler: the scan kernels' ms and launches, torch's
+    own launches (the adjoint's glue), and the rest, the host's gaps."""
+    rows = profile_kernels(fn, calls, warm=5)
+    scan = [v for k, v in rows.items() if launch_name(k) in SCAN_KERNELS]
+    glue = [v for k, v in rows.items() if launch_name(k) not in SCAN_KERNELS]
+    scan_ms = sum(v[0] for v in scan) / calls
+    glue_ms = sum(v[0] for v in glue) / calls
+    return dict(scan_kernels_ms=scan_ms,
+                scan_launches=round(sum(v[1] for v in scan) / calls),
+                glue_kernels_ms=glue_ms,
+                glue_launches=round(sum(v[1] for v in glue) / calls),
+                host_gaps_ms=ms - scan_ms - glue_ms)
+
+
 def scan_flops(t: int, k: int, rows: int) -> float:
     """Operations the associative scan needs over T samples and K stages
     with coefficients shared by the rows, counted from its tree.  A
@@ -3208,7 +3231,8 @@ def spectral_timings(dev, res):
               f"{plain_ms:.1f} ms (one call, host-paced), bound "
               f"{r['bound_ms']:.4f} ms ({r['bound_by']}; bytes "
               f"{r['bytes_bound_ms']:.4f}), "
-              f"{per_call} launch a call, identical to plain = {same} "
+              f"{per_call} launches a call (the prefix table, the rows), "
+              f"identical to plain = {same} "
               f"({card_line()})")
     a, b = cases["k9"], cases["k15"]
     res["scan"] = dict(
@@ -4481,18 +4505,24 @@ def grad_phase(chain, params, dev, res):
     scan_db = min(snr_db(a, b) for a, b in zip(p_out, k_out))
     check(scan_db >= SCAN_BWD_DB,
           f"biquad_cascade_bwd {scan_db:.1f} dB < {SCAN_BWD_DB}")
+    route_ms = time_ms(lambda: bq.biquad_cascade_bwd(*scan_args), 10)
     res["scan_bwd"] = dict(
         launches_per_call=per_call, db=scan_db, identical=scan_same,
         max_abs_err=max(max_abs(a, b) for a, b in zip(p_out, k_out)),
-        ms=time_ms(lambda: bq.biquad_cascade_bwd(*scan_args), 10),
-        plain_ms=p_ms, library_ms=None,
+        ms=route_ms, plain_ms=p_ms, library_ms=None,
+        **scan_route_split(lambda: bq.biquad_cascade_bwd(*scan_args),
+                           route_ms),
         **bound(F32 * (4 * C * t + 10 * k + 4 * C * k),
                 (2 * k - 1) * scan_flops(t, 1, C) + 16 * C * t * k))
     r = res["scan_bwd"]
     print(f"biquad_cascade_bwd [{C}, {t}] K = {k}: {r['ms']:.4f} ms "
           f"({per_call} scan launches), plain {p_ms:.1f} ms (one call, "
           f"host-paced), bound {r['bound_ms']:.4f} ({r['bound_by']}); vs "
-          f"plain {scan_db:.1f} dB, identical = {scan_same}")
+          f"plain {scan_db:.1f} dB, identical = {scan_same}; of a call: "
+          f"the scan kernels {r['scan_kernels_ms']:.4f} ms "
+          f"({r['scan_launches']} launches), torch's "
+          f"{r['glue_kernels_ms']:.4f} ({r['glue_launches']} launches), the "
+          f"rest {r['host_gaps_ms']:.4f} ({card_line()})")
 
     # #1's adjoints as step runs them, at step's shapes (and the whole
     # frame's inverse adjoint): one launch each, its weights inside the

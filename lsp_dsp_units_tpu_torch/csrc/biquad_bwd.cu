@@ -29,24 +29,50 @@
 // x's gradient sat 4.4 dB further from float64 than jax.grad's
 // (tests/test_torch_grad_units.py); as FMAs it sits where JAX's does.
 //
-// Design: the forward's systolic warp, run backwards.  One warp per row,
-// lane k runs stage k0 + kg - 1 - k of the launch's group of up to 32
-// stages; at step j lane k works on the sample of reverse index j - k
-// (t = T - 1 - (j - k)): lane 0 takes g from the cotangent row g_in, every
-// other lane the g_u its left neighbour made a step before (one shuffle),
-// and the last lane writes g_u.  Groups run last first, each one's g_u the
-// next one's g_in.  The signals reach the lanes through a ring in shared
-// memory: per tile of 32 steps the warp copies the next tile's 32 samples
-// of the kg + 1 signals and of g_in by cp.async (one coalesced 128-byte
-// load a row), and each lane reads its stage's two a step.  Per-sample
-// coefficients come through a ring of registers kAhead steps ahead, as the
-// forward's dyn_kernel takes them.
+// Design: the recurrence alone on a chain lane, everything else off it.
+// Write G for the sequence of a stage's gy in reverse time, i = T - 1 - t,
+// with G[-1], G[-2] the cotangent of the outgoing state (l1, l2); then at
+// step i l1 = G[i - 1], l2 = G[i - 2], the stage's recurrence is
 //
-// What bounds it: the adjoint's recurrence within a stage, l1 ->
-// fma(c3, l1, .) = the next l1, one dependent FMA a step (T x 1 x 4
-// cycles; fma(c4, l2, g) is ready a step earlier).  Across the lanes each
-// step also carries g_u -> shuffle -> two FMAs -> g_u.  The bytes (the
-// K + 1 signals and the cotangents) are below it at the main path's K = 9.
+//   G[i] = fma(c3, G[i - 1], fma(c4, G[i - 2], g[i]))
+//
+// and g_u[i] = fma(c0, G[i], fma(c1, G[i - 1], c2 G[i - 2])) and the five
+// terms are maps of G and the saved signals.  One block a row, the
+// launch's group of up to 32 stages pipelined over chunks of kChunk
+// steps, one block barrier a slot:
+//
+// * warp 0, the chain: lane k runs stage k0 + kg - 1 - k; at slot s it
+//   runs chunk s - 2k, reading each step's g (and, per sample, c3 and c4)
+//   from shared memory kBatch steps at a time into registers (16-byte
+//   loads, the next batch's issued before this one runs), writing each G
+//   into the stage's record (which starts with the chunk's incoming l2,
+//   l1) as 16-byte stores: two FMAs a step, one on the carried path;
+// * the map warps: at slot s, first the cp.async copies of slot s + 1's
+//   inputs (lane 0's chunk of g_in, each lane's two signals, its input u
+//   and output yo, of the chunk it runs at slot s, and per sample its
+//   (c3, c4) of the chunk it runs at slot s + 1); then, for each stage,
+//   the chunk its lane ran in slot s - 1: g_u from the record into the g
+//   of the next lane (which runs that chunk at slot s + 1) or, for the
+//   group's first stage, into g_out, four steps a thread (per sample,
+//   consecutive threads on consecutive steps, with the five terms into
+//   gc);
+// * the sum warps (coefficients shared or per row): a thread per (stage,
+//   coefficient) adds that stage's terms of the chunk into its float64
+//   sum in reverse time, one accumulator each, from shared memory
+//   kBatch steps at a time through registers.
+//
+// Each of a lane's buffers holds two chunks (by the chunk's parity), the
+// lanes' rows spread over the banks so that one step's 32 lanes meet no
+// conflict.
+//
+// What bounds it: the recurrence within a stage, G[i - 1] -> fma(c3,
+// G[i - 1], .), one dependent FMA a step (T x 1 x 4 cycles; fma(c4, G[i -
+// 2], g) is ready before it), plus 2 (kg - 1) chunks of pipeline fill; with
+// the coefficients' sums, each sum's dependent float64 adds, one a step,
+// which take longer (PERF.md, PR 23); per sample, the coefficients' and
+// terms' records K x 5 floats apart a step, a 32-byte sector each.  The
+// bytes (the K + 1 signals and the cotangents) are below the chain at the
+// main path's K = 9.
 //
 // Every other product and sum rounds once (__fmul_rn, __fadd_rn), the
 // FMAs as __fmaf_rn, in the plain PyTorch version's order (its FMAs
@@ -59,16 +85,25 @@
 
 namespace {
 
-constexpr int kLanes = 32;     // stages per launch, one lane each
-constexpr int kTile = 32;      // steps per tile
-constexpr int kRing = 128;     // samples held by each signal's ring
-constexpr int kAhead = 16;     // per-sample coefficients, steps ahead
-constexpr int kChainOps = 1;   // fma(c3, l1, .) a step
-constexpr unsigned kFull = 0xffffffffu;
+constexpr int kLanes = 32;      // stages per launch, one chain lane each
+constexpr int kChunk = 128;     // steps a slot
+constexpr int kBatch = 16;      // the chain's steps a register batch
+constexpr int kWarps = 8;       // the chain, then the sum and map warps
+constexpr int kThreads = 32 * kWarps;
+// a lane's rows: two chunks each, as 16-byte words, the lanes' rows
+// spread over the banks so that a step's 32 lanes (16-byte accesses: 8
+// at a time) meet no conflict
+constexpr int kGStride = 2 * kChunk + 4;          // g, u, yo (floats)
+constexpr int kRec = kChunk + 4;                  // a record: 2 free, l2,
+constexpr int kRecStride = 2 * kRec + 4;          // l1, then each gy
+constexpr int kCStride = 2 * kChunk + 2;          // (c3, c4) (float2)
+constexpr int kChainOps = 1;    // fma(c3, l1, .) a step
 
-static_assert(kRing % kTile == 0 && kRing >= 3 * kTile,
-              "the ring holds the tile before, this one and the next");
-static_assert(kTile % kAhead == 0, "ring slots repeat within a tile");
+static_assert(kGStride % 32 == 4 && kRecStride % 32 == 12 &&
+                  (2 * kCStride) % 32 == 4,
+              "a step's lanes on distinct banks");
+static_assert(kChunk % kBatch == 0 && kBatch % 4 == 0,
+              "whole 16-byte batches in a whole chunk");
 
 struct Args {
   const float* sig;    // save + k0 * rows * T: signal q of the group at q
@@ -83,164 +118,381 @@ struct Args {
   long long row_stride, t_stride;   // in floats
 };
 
-// The ring's rows: signal q (0 .. kg) at q, g_in at kg + 1.
-__device__ __forceinline__ float* ring_row(float* ring, int q) {
-  return ring + q * kRing;
-}
-
-// Copy tile n's 32 samples (reverse indices 32 n + lane) of g_in and, with
-// kCoef, of the kg + 1 signals into the ring, asynchronously.
-template <bool kCoef>
-__device__ __forceinline__ void fetch_tile(float* ring, const Args& a,
-                                           int n) {
-  const int ri = n * kTile + threadIdx.x;
-  const int slot = ri & (kRing - 1);
-  const int t = a.t_n - 1 - ri;
-  const size_t r = blockIdx.x;
-  const size_t plane = (size_t)gridDim.x * a.t_n;
-  if (t < 0) return;
-  __pipeline_memcpy_async(ring_row(ring, a.kg + 1) + slot,
-                          a.g_in + r * a.t_n + t, sizeof(float));
-  if (kCoef) {
-    for (int q = 0; q <= a.kg; ++q)
-      __pipeline_memcpy_async(ring_row(ring, q) + slot,
-                              a.sig + q * plane + r * a.t_n + t,
-                              sizeof(float));
-  }
-}
-
-struct Lane {
-  float l1, l2, g;
-  float c0, c1, c2, c3, c4;
-  double acc[5];
+// A block's shared memory, each array [kg][stride]: per sample the (c3,
+// c4) pairs (float2, first for their alignment), the records, the g, with
+// the coefficients' gradient the two signals; the static coefficients
+// [kg][5] last.
+struct Smem {
+  float2* c34;
+  float *rec, *g, *u, *yo, *cst;
 };
 
-// This lane's stage coefficients at reverse index ri (left as they are
-// outside [0, T) or for a lane without a stage).
-__device__ __forceinline__ void fetch_c(float (&c)[5], const Args& a,
-                                        const float* c_lane, int ri) {
-  if ((int)threadIdx.x < a.kg && ri >= 0 && ri < a.t_n) {
-    const float* p = c_lane + (size_t)(a.t_n - 1 - ri) * a.t_stride;
+__host__ __device__ constexpr int smem_floats(bool dyn, bool coef, int kg) {
+  return kg * ((dyn ? 2 * kCStride : 0) + kRecStride + kGStride +
+               (coef ? 2 * kGStride : 0) + 5);
+}
+
+template <bool kDyn, bool kCoef>
+__device__ __forceinline__ Smem smem_of(float* base, int kg) {
+  Smem m;
+  m.c34 = reinterpret_cast<float2*>(base);
+  m.rec = base + (kDyn ? 2 * kg * kCStride : 0);
+  m.g = m.rec + kg * kRecStride;
+  m.u = m.g + kg * kGStride;
+  m.yo = m.u + (kCoef ? kg * kGStride : 0);
+  m.cst = m.yo + (kCoef ? kg * kGStride : 0);
+  return m;
+}
+
+// lane k's record of chunk n, from its l2: [0] l2, [1] l1, [2 + i] gy_i
+__device__ __forceinline__ float* record(const Smem& m, int k, int n) {
+  return m.rec + k * kRecStride + (n & 1) * kRec + 2;
+}
+
+// steps of chunk n (reverse indices n kChunk ..)
+__device__ __forceinline__ int chunk_len(const Args& a, int n) {
+  return min(kChunk, a.t_n - n * kChunk);
+}
+
+// stage k0 + kg - 1 - k's coefficients at time t (any t without kDyn)
+template <bool kDyn>
+__device__ __forceinline__ const float* coefs(const Args& a, int k, int t) {
+  return a.c + blockIdx.x * a.row_stride + (a.k0 + a.kg - 1 - k) * 5 +
+         (kDyn ? (size_t)t * a.t_stride : 0);
+}
+
+// kBatch steps of the chain from registers
+template <bool kDyn>
+__device__ __forceinline__ void chain_batch(float& l1, float& l2, float c3,
+                                            float c4, const float (&gv)[kBatch],
+                                            const float2 (&cv)[kBatch],
+                                            float (&out)[kBatch]) {
 #pragma unroll
-    for (int q = 0; q < 5; ++q) c[q] = __ldg(p + q);
+  for (int i = 0; i < kBatch; ++i) {
+    const float gy = __fmaf_rn(kDyn ? cv[i].x : c3, l1,
+                               __fmaf_rn(kDyn ? cv[i].y : c4, l2, gv[i]));
+    out[i] = gy;
+    l2 = l1;
+    l1 = gy;
   }
 }
 
-// The 32 steps of tile m.  kGuard: some lane's sample may lie outside [0,
-// T).  The per-sample form runs an unguarded copy on the steady tiles, as
-// the forward does; the static form one guarded body for every tile,
-// which measured faster for it (PERF.md, the backward kernels).
-template <bool kGuard, bool kDyn, bool kCoef>
-__device__ __forceinline__ void bwd_tile(Lane& l, const Args& a, int m,
-                                         const float* ring,
-                                         float (&cring)[kAhead][5],
-                                         const float* c_lane, int s) {
-  const int lane = threadIdx.x;
-  const bool live = lane < a.kg;
-  const int q = a.kg - 1 - lane;   // the stage's input signal; output q + 1
-  const size_t r = blockIdx.x;
-  const float* g_ring = ring + (a.kg + 1) * kRing;
+// a whole batch's g and (c3, c4) as 16-byte loads
+template <bool kDyn>
+__device__ __forceinline__ void chain_load(float (&gv)[kBatch],
+                                           float2 (&cv)[kBatch],
+                                           const float* g, const float2* cc) {
 #pragma unroll
-  for (int i = 0; i < kTile; ++i) {
-    const int j = m * kTile + i;
-    const int ri = j - lane;   // this lane's reverse index
-    const int t = a.t_n - 1 - ri;
-    if (kDyn) {
-      float(&c)[5] = cring[i % kAhead];
-      l.c0 = c[0];
-      l.c1 = c[1];
-      l.c2 = c[2];
-      l.c3 = c[3];
-      l.c4 = c[4];
-      fetch_c(c, a, c_lane, ri + kAhead);
+  for (int q = 0; q < kBatch / 4; ++q) {
+    const float4 v = reinterpret_cast<const float4*>(g)[q];
+    gv[4 * q] = v.x;
+    gv[4 * q + 1] = v.y;
+    gv[4 * q + 2] = v.z;
+    gv[4 * q + 3] = v.w;
+  }
+  if (kDyn) {
+#pragma unroll
+    for (int q = 0; q < kBatch / 2; ++q) {
+      const float4 v = reinterpret_cast<const float4*>(cc)[q];
+      cv[2 * q] = make_float2(v.x, v.y);
+      cv[2 * q + 1] = make_float2(v.z, v.w);
     }
-    const float up = __shfl_up_sync(kFull, l.g, 1);
-    const float gin = lane == 0 ? g_ring[j & (kRing - 1)] : up;
-    const bool in = live && (!kGuard || (ri >= 0 && ri < a.t_n));
-    const float gy = __fmaf_rn(l.c3, l.l1, __fmaf_rn(l.c4, l.l2, gin));
-    l.g = __fmaf_rn(l.c0, gy, __fmaf_rn(l.c1, l.l1, __fmul_rn(l.c2, l.l2)));
-    if (in) {
+  }
+}
+
+// The chain lane's chunk from its carried (l1, l2) into its record: a
+// whole chunk kBatch steps at a time through registers (each batch's
+// loads issued before the batch before it runs, its gy stored as 16-byte
+// words), a partial one step by step.
+template <bool kDyn>
+__device__ __forceinline__ void chain_chunk(float& l1, float& l2, float c3,
+                                            float c4, const float* g,
+                                            const float2* cc, float* rec,
+                                            int len) {
+  rec[0] = l2;
+  rec[1] = l1;
+  float* out = rec + 2;
+  if (len < kChunk) {
+    for (int i = 0; i < len; ++i) {
+      const float gy = __fmaf_rn(kDyn ? cc[i].x : c3, l1,
+                                 __fmaf_rn(kDyn ? cc[i].y : c4, l2, g[i]));
+      out[i] = gy;
+      l2 = l1;
+      l1 = gy;
+    }
+    return;
+  }
+  float gv[kBatch], gn[kBatch], ov[kBatch];
+  float2 cv[kBatch], cn[kBatch];
+  chain_load<kDyn>(gv, cv, g, cc);
+#pragma unroll
+  for (int b = 0; b < kChunk; b += kBatch) {
+    if (b + kBatch < kChunk)
+      chain_load<kDyn>(gn, cn, g + b + kBatch, cc + b + kBatch);
+    chain_batch<kDyn>(l1, l2, c3, c4, gv, cv, ov);
+#pragma unroll
+    for (int q = 0; q < kBatch / 4; ++q)
+      reinterpret_cast<float4*>(out + b)[q] =
+          make_float4(ov[4 * q], ov[4 * q + 1], ov[4 * q + 2], ov[4 * q + 3]);
+#pragma unroll
+    for (int i = 0; i < kBatch; ++i) {
+      gv[i] = gn[i];
+      cv[i] = cn[i];
+    }
+  }
+}
+
+// The per-sample form's g_u and terms of the chunks the lanes ran in slot
+// s - 1: consecutive threads on consecutive steps (the coefficients'
+// records and the terms' lie K x 5 floats apart a step), four steps a
+// thread at a time, their loads first.
+template <bool kCoef>
+__device__ __forceinline__ void map_steps(const Args& a, int s, int nch,
+                                          const Smem& m, int tid, int n_thr) {
+  const size_t r = blockIdx.x;
+  constexpr int kItems = 4;
+  for (int base = tid; base < a.kg * kChunk; base += kItems * n_thr) {
+    float c0[kItems], c1[kItems], c2[kItems], l2[kItems], l1[kItems],
+        gy[kItems], u[kItems], yo[kItems];
+    bool on[kItems];
+#pragma unroll
+    for (int q = 0; q < kItems; ++q) {
+      const int it = base + q * n_thr;
+      const int k = it / kChunk, i = it % kChunk, n = s - 1 - 2 * k;
+      on[q] = it < a.kg * kChunk && n >= 0 && n < nch && i < chunk_len(a, n);
+      if (!on[q]) continue;
+      const float* c = coefs<true>(a, k, a.t_n - 1 - (n * kChunk + i));
+      c0[q] = __ldg(c);
+      c1[q] = __ldg(c + 1);
+      c2[q] = __ldg(c + 2);
+      const float* rc = record(m, k, n) + i;
+      l2[q] = rc[0];
+      l1[q] = rc[1];
+      gy[q] = rc[2];
       if (kCoef) {
-        const int slot = ri & (kRing - 1);
-        const float u = ring[q * kRing + slot];
-        const float yo = ring[(q + 1) * kRing + slot];
-        const float t0 = __fmul_rn(gy, u), t1 = __fmul_rn(l.l1, u),
-                    t2 = __fmul_rn(l.l2, u), t3 = __fmul_rn(l.l1, yo),
-                    t4 = __fmul_rn(l.l2, yo);
-        if (kDyn) {
-          float* o = a.gc + ((r * a.t_n + t) * a.k_n + s) * 5;
-          o[0] = t0;
-          o[1] = t1;
-          o[2] = t2;
-          o[3] = t3;
-          o[4] = t4;
-        } else {
-          l.acc[0] = __dadd_rn(l.acc[0], (double)t0);
-          l.acc[1] = __dadd_rn(l.acc[1], (double)t1);
-          l.acc[2] = __dadd_rn(l.acc[2], (double)t2);
-          l.acc[3] = __dadd_rn(l.acc[3], (double)t3);
-          l.acc[4] = __dadd_rn(l.acc[4], (double)t4);
-        }
+        const int at = k * kGStride + (n & 1) * kChunk + i;
+        u[q] = m.u[at];
+        yo[q] = m.yo[at];
       }
-      l.l2 = l.l1;
-      l.l1 = gy;
-      if (lane == a.kg - 1) a.g_out[r * a.t_n + t] = l.g;
+    }
+#pragma unroll
+    for (int q = 0; q < kItems; ++q) {
+      if (!on[q]) continue;
+      const int it = base + q * n_thr;
+      const int k = it / kChunk, i = it % kChunk, n = s - 1 - 2 * k;
+      const int t = a.t_n - 1 - (n * kChunk + i);
+      const float gu = __fmaf_rn(c0[q], gy[q],
+                                 __fmaf_rn(c1[q], l1[q],
+                                           __fmul_rn(c2[q], l2[q])));
+      if (k + 1 < a.kg)
+        m.g[(k + 1) * kGStride + (n & 1) * kChunk + i] = gu;
+      else
+        a.g_out[r * a.t_n + t] = gu;
+      if (kCoef) {
+        float* o = a.gc + ((r * a.t_n + t) * a.k_n + a.k0 + a.kg - 1 - k) * 5;
+        o[0] = __fmul_rn(gy[q], u[q]);
+        o[1] = __fmul_rn(l1[q], u[q]);
+        o[2] = __fmul_rn(l2[q], u[q]);
+        o[3] = __fmul_rn(l1[q], yo[q]);
+        o[4] = __fmul_rn(l2[q], yo[q]);
+      }
+    }
+  }
+}
+
+// The map warps' share of slot s: the copies of slot s + 1's inputs; g_u
+// and the per-sample terms of the chunks the lanes ran in slot s - 1.
+template <bool kDyn, bool kCoef>
+__device__ __forceinline__ void map_slot(const Args& a, int s, int nch,
+                                         const Smem& m, int tid, int n_thr) {
+  const size_t r = blockIdx.x;
+  const size_t plane = (size_t)gridDim.x * a.t_n;
+  // first the copies of slot s + 1's inputs, to land while the rest runs:
+  // lane 0's g; each lane's signals of chunk s - 2k; per sample each
+  // lane's (c3, c4) of chunk s + 1 - 2k
+  const int n0 = s + 1;
+  if (n0 < nch)
+    for (int i = tid; i < chunk_len(a, n0); i += n_thr)
+      __pipeline_memcpy_async(
+          m.g + (n0 & 1) * kChunk + i,
+          a.g_in + r * a.t_n + a.t_n - 1 - (n0 * kChunk + i), sizeof(float));
+  for (int it = tid; it < a.kg * kChunk; it += n_thr) {
+    const int k = it / kChunk, i = it % kChunk;
+    if (kCoef) {
+      const int n = s - 2 * k;
+      if (n >= 0 && n < nch && i < chunk_len(a, n)) {
+        const int q = a.kg - 1 - k;   // the stage's input signal
+        const float* src = a.sig + q * plane + r * a.t_n + a.t_n - 1 -
+                           (n * kChunk + i);
+        const int at = k * kGStride + (n & 1) * kChunk + i;
+        __pipeline_memcpy_async(m.u + at, src, sizeof(float));
+        __pipeline_memcpy_async(m.yo + at, src + plane, sizeof(float));
+      }
+    }
+    if (kDyn) {
+      const int n = s + 1 - 2 * k;
+      if (n >= 0 && n < nch && i < chunk_len(a, n)) {
+        const float* c = coefs<true>(a, k, a.t_n - 1 - (n * kChunk + i));
+        float2* d = m.c34 + k * kCStride + (n & 1) * kChunk + i;
+        __pipeline_memcpy_async(&d->x, c + 3, sizeof(float));
+        __pipeline_memcpy_async(&d->y, c + 4, sizeof(float));
+      }
+    }
+  }
+  __pipeline_commit();
+  if (kDyn) {
+    map_steps<kCoef>(a, s, nch, m, tid, n_thr);
+    return;
+  }
+  // g_u by quads: four steps of one lane a thread, every load of a quad
+  // before its stores
+  constexpr int kQuads = kChunk / 4;
+  for (int it = tid; it < a.kg * kQuads; it += n_thr) {
+    const int k = it / kQuads, i0 = 4 * (it % kQuads), n = s - 1 - 2 * k;
+    if (n < 0 || n >= nch) continue;
+    const int len = min(4, chunk_len(a, n) - i0);
+    if (len <= 0) continue;
+    // rb[i0 + q] = l2, rb[i0 + q + 1] = l1, rb[i0 + q + 2] = gy of step
+    // i0 + q (8-byte words: the record's rb and i0 are even)
+    const float2* rb = reinterpret_cast<const float2*>(record(m, k, n) + i0);
+    float v[6];
+#pragma unroll
+    for (int w = 0; w < 3; ++w) {
+      const float2 p = rb[w];
+      v[2 * w] = p.x;
+      v[2 * w + 1] = p.y;
+    }
+    const float c0 = m.cst[k * 5], c1 = m.cst[k * 5 + 1],
+                c2 = m.cst[k * 5 + 2];
+    float gu[4];
+#pragma unroll
+    for (int q = 0; q < 4; ++q)
+      gu[q] = __fmaf_rn(c0, v[q + 2], __fmaf_rn(c1, v[q + 1],
+                                                __fmul_rn(c2, v[q])));
+    const int at = (k + 1) * kGStride + (n & 1) * kChunk + i0;
+    const int t0 = a.t_n - 1 - (n * kChunk + i0);
+    if (k + 1 < a.kg && len == 4) {
+      *reinterpret_cast<float4*>(m.g + at) =
+          make_float4(gu[0], gu[1], gu[2], gu[3]);
+    } else {
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+        if (q < len) {
+          if (k + 1 < a.kg)
+            m.g[at + q] = gu[q];
+          else
+            a.g_out[r * a.t_n + t0 - q] = gu[q];
+        }
+    }
+  }
+}
+
+// A sum thread's share of slot s: (stage k0 + kg - 1 - k, coefficient j)
+// over the chunk its lane ran in slot s - 1, in reverse time.
+__device__ __forceinline__ void sum_slot(const Args& a, int s, int nch,
+                                         const Smem& m, int k, int j,
+                                         double& acc) {
+  const int n = s - 1 - 2 * k;
+  if (n < 0 || n >= nch) return;
+  // gy u, l1 u, l2 u, l1 yo, l2 yo: the record's offset and the signal
+  const int off = j == 0 ? 2 : (j == 1 || j == 3) ? 1 : 0;
+  const float* sv = (j < 3 ? m.u : m.yo) + k * kGStride + (n & 1) * kChunk;
+  const float* rc = record(m, k, n) + off;
+  const int len = chunk_len(a, n);
+  if (len < kChunk) {
+    for (int i = 0; i < len; ++i)
+      acc = __dadd_rn(acc, (double)__fmul_rn(rc[i], sv[i]));
+    return;
+  }
+  // a whole chunk kBatch steps at a time through registers, each batch's
+  // loads issued before the batch before it is added
+  float rv[kBatch], xv[kBatch], rn[kBatch], xn[kBatch];
+#pragma unroll
+  for (int i = 0; i < kBatch; ++i) {
+    rv[i] = rc[i];
+    xv[i] = sv[i];
+  }
+#pragma unroll
+  for (int b = 0; b < kChunk; b += kBatch) {
+    if (b + kBatch < kChunk) {
+#pragma unroll
+      for (int i = 0; i < kBatch; ++i) {
+        rn[i] = rc[b + kBatch + i];
+        xn[i] = sv[b + kBatch + i];
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < kBatch; ++i)
+      acc = __dadd_rn(acc, (double)__fmul_rn(rv[i], xv[i]));
+#pragma unroll
+    for (int i = 0; i < kBatch; ++i) {
+      rv[i] = rn[i];
+      xv[i] = xn[i];
     }
   }
 }
 
 template <bool kDyn, bool kCoef>
-__global__ void __launch_bounds__(kLanes) bwd_kernel(Args a) {
-  extern __shared__ float ring[];   // [kg + 2][kRing]
-  const int lane = threadIdx.x;
+__global__ void __launch_bounds__(kThreads) bwd_kernel(Args a) {
+  extern __shared__ float smem[];
+  const Smem m = smem_of<kDyn, kCoef>(smem, a.kg);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const size_t r = blockIdx.x;
-  const int s = a.k0 + a.kg - 1 - lane;   // this lane's stage
-  const bool live = lane < a.kg;
-  const float* c_lane = a.c + r * a.row_stride + (live ? s : 0) * 5;
-  const size_t s_at = (r * a.k_n + (live ? s : 0)) * 2;
+  const int nch = (a.t_n + kChunk - 1) / kChunk;
+  const int sum_warps = kCoef && !kDyn ? (a.kg * 5 + 31) / 32 : 0;
+  const int map_tid = threadIdx.x - 32 * (1 + sum_warps);
+  const int map_thr = kThreads - 32 * (1 + sum_warps);
 
-  Lane l{};
+  // the chain lane's stage and state
+  const bool live = warp == 0 && lane < a.kg;
+  const size_t s_at = (r * a.k_n + a.k0 + a.kg - 1 - (live ? lane : 0)) * 2;
+  float l1 = 0.f, l2 = 0.f, c3 = 0.f, c4 = 0.f;
   if (live) {
-    l.l1 = a.gs_in[s_at];
-    l.l2 = a.gs_in[s_at + 1];
+    l1 = a.gs_in[s_at];
+    l2 = a.gs_in[s_at + 1];
     if (!kDyn) {
-      l.c0 = c_lane[0];
-      l.c1 = c_lane[1];
-      l.c2 = c_lane[2];
-      l.c3 = c_lane[3];
-      l.c4 = c_lane[4];
+      const float* c = coefs<false>(a, lane, 0);
+      c3 = c[3];
+      c4 = c[4];
     }
   }
-  float cring[kAhead][5] = {};
-  if (kDyn) {
-#pragma unroll
-    for (int k = 0; k < kAhead; ++k) fetch_c(cring[k], a, c_lane, k - lane);
-  }
-  fetch_tile<kCoef>(ring, a, 0);
-  __pipeline_commit();
-  __pipeline_wait_prior(0);
-  __syncwarp();
+  if (!kDyn)
+    for (int i = threadIdx.x; i < a.kg * 5; i += kThreads)
+      m.cst[i] = coefs<false>(a, i / 5, 0)[i % 5];
+  // the sum thread's (stage, coefficient)
+  const int sk = (threadIdx.x - 32) / 5, sj = (threadIdx.x - 32) % 5;
+  const bool summing = warp >= 1 && warp <= sum_warps && sk < a.kg;
+  double acc = 0.0;
 
-  const int steps = a.t_n + a.kg - 1;
-  const int tiles = (steps + kTile - 1) / kTile;
-  for (int m = 0; m < tiles; ++m) {
-    fetch_tile<kCoef>(ring, a, m + 1);
-    __pipeline_commit();
-    if (kDyn && m > 0 && m * kTile + kTile <= a.t_n)
-      bwd_tile<false, kDyn, kCoef>(l, a, m, ring, cring, c_lane, s);
-    else
-      bwd_tile<true, kDyn, kCoef>(l, a, m, ring, cring, c_lane, s);
+  if (map_tid >= 0) {
+    map_slot<kDyn, kCoef>(a, -1, nch, m, map_tid, map_thr);
     __pipeline_wait_prior(0);
-    __syncwarp();
+  }
+  __syncthreads();
+  const int slots = nch + 2 * (a.kg - 1) + 1;
+  for (int s = 0; s < slots; ++s) {
+    if (warp == 0) {
+      const int n = s - 2 * lane;
+      if (live && n >= 0 && n < nch) {
+        chain_chunk<kDyn>(l1, l2, c3, c4,
+                          m.g + lane * kGStride + (n & 1) * kChunk,
+                          m.c34 + lane * kCStride + (n & 1) * kChunk,
+                          record(m, lane, n), chunk_len(a, n));
+      }
+    } else if (summing) {
+      sum_slot(a, s, nch, m, sk, sj, acc);
+    } else if (map_tid >= 0) {
+      map_slot<kDyn, kCoef>(a, s, nch, m, map_tid, map_thr);
+      __pipeline_wait_prior(0);
+    }
+    __syncthreads();
   }
   if (live) {
-    a.gs_out[s_at] = l.l1;
-    a.gs_out[s_at + 1] = l.l2;
-    if (kCoef && !kDyn) {
-#pragma unroll
-      for (int k = 0; k < 5; ++k) a.part[(r * a.k_n + s) * 5 + k] = l.acc[k];
-    }
+    a.gs_out[s_at] = l1;
+    a.gs_out[s_at + 1] = l2;
   }
+  if (summing)
+    a.part[(r * a.k_n + a.k0 + a.kg - 1 - sk) * 5 + sj] = acc;
 }
 
 // out[i] = sum over rows of p[row][i], in float64 row after row, rounded
@@ -266,8 +518,16 @@ int launch_sums(const T* p, float* out, int rows, long long n,
 
 template <bool kDyn, bool kCoef>
 int launch(const Args& a, int rows, cudaStream_t s) {
-  bwd_kernel<kDyn, kCoef>
-      <<<rows, kLanes, (a.kg + 2) * kRing * sizeof(float), s>>>(a);
+  const int bytes = smem_floats(kDyn, kCoef, a.kg) * (int)sizeof(float);
+  static bool opted = false;
+  if (!opted) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        bwd_kernel<kDyn, kCoef>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        smem_floats(kDyn, kCoef, kLanes) * (int)sizeof(float));
+    if (err != cudaSuccess) return (int)err;
+    opted = true;
+  }
+  bwd_kernel<kDyn, kCoef><<<rows, kThreads, bytes, s>>>(a);
   return (int)cudaGetLastError();
 }
 

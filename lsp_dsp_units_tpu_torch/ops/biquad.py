@@ -26,9 +26,11 @@ Two forms, as in the JAX package:
   packages combine the same elements in the same tree.
   :func:`biquad_cascade` runs its plain version
   (:func:`biquad_cascade_plain`) for CPU tensors and launches
-  ``csrc/biquad_scan.cu`` for CUDA tensors (one launch for all K stages,
-  a block per row, a warp per tile of 128; counted in
-  ``biquad_cascade.launches``), which evaluates the same tree as a
+  ``csrc/biquad_scan.cu`` for CUDA tensors (all K stages in one pass
+  over the rows, a warp per tile of 128, a row split over a cluster of
+  blocks; with coefficients shared by the rows, a first launch computes
+  the stages' prefix matrices once for all of them; every launch counted
+  in ``biquad_cascade.launches``), which evaluates the same tree as a
   hierarchy of tiles, every product and sum rounded once, so the two
   agree bit for bit.  The per-sample form
   :func:`dyn_biquad_cascade` stays plain PyTorch on both devices.
@@ -82,7 +84,10 @@ _BWD_SIGS = {"lsp_biquad_seq_bwd": [ctypes.c_void_p] * 8
              "lsp_biquad_seq_bwd_chain_ops": []}
 _SCAN_SIGS = {"lsp_biquad_scan": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3
               + [ctypes.c_longlong, ctypes.c_void_p],
-              "lsp_biquad_scan_scratch": [ctypes.c_int]}
+              "lsp_biquad_scan_table": [ctypes.c_void_p] * 2
+              + [ctypes.c_int] * 3 + [ctypes.c_void_p],
+              "lsp_biquad_scan_scratch": [ctypes.c_int] * 3
+              + [ctypes.c_longlong, ctypes.c_void_p]}
 
 
 def init_state(num_stages: int, batch_shape: Tuple[int, ...] = (),
@@ -225,21 +230,34 @@ def _batch_rows(coeffs: torch.Tensor, state: torch.Tensor, x: torch.Tensor,
 
 
 def _scan_launch(coeffs: torch.Tensor, state: torch.Tensor, x: torch.Tensor,
-                 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Launch ``csrc/biquad_scan.cu`` once for all K stages, with a
-    scratch row for the tile roots of each depth of its tree."""
-    t_n = x.shape[-1]
+                 counter: str) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Launch ``csrc/biquad_scan.cu``, each launch counted in
+    ``biquad_cascade.<counter>``: with coefficients shared by the rows its
+    table of the stages' prefix matrices, then the rows (two launches);
+    with per-row coefficients the rows alone (one)."""
+    t_n, k_n = x.shape[-1], coeffs.shape[-2]
     batch, xr, st, cr, row_stride = _batch_rows(coeffs, state, x, 2)
     _build.check_cuda(torch.float32, x.device, x=xr, state=st, coeffs=cr)
     rows = int(np.prod(batch, dtype=np.int64))
     lib = _build.load("biquad_scan", _SCAN_SIGS)
+    floats = ctypes.c_longlong(0)
+    _build.check(lib.lsp_biquad_scan_scratch(rows, t_n, k_n, row_stride,
+                                             ctypes.byref(floats)),
+                 "biquad_scan scratch")
     y = torch.empty_like(xr)
     st_out = torch.empty_like(st)
-    roots = xr.new_empty(max(rows * lib.lsp_biquad_scan_scratch(t_n) * 6, 1))
+    scratch = xr.new_empty(max(floats.value, 1))
+    stream = _build.stream_of(xr)
+    if row_stride == 0:
+        _build.check(lib.lsp_biquad_scan_table(
+            _build.ptr(cr), _build.ptr(scratch), rows, t_n, k_n, stream),
+            "biquad_scan table kernel")
+        setattr(biquad_cascade, counter, getattr(biquad_cascade, counter) + 1)
     _build.check(lib.lsp_biquad_scan(
         _build.ptr(xr), _build.ptr(cr), _build.ptr(st), _build.ptr(y),
-        _build.ptr(st_out), _build.ptr(roots), rows, t_n, coeffs.shape[-2],
-        row_stride, _build.stream_of(xr)), "biquad_scan kernel")
+        _build.ptr(st_out), _build.ptr(scratch), rows, t_n, k_n, row_stride,
+        stream), "biquad_scan kernel")
+    setattr(biquad_cascade, counter, getattr(biquad_cascade, counter) + 1)
     return y, st_out
 
 
@@ -248,9 +266,7 @@ def _cascade(coeffs, state, x):
     the plain scan for CPU tensors, the kernel for CUDA tensors."""
     if _build.is_cpu(coeffs, state, x):
         return biquad_cascade_plain(coeffs, state, x)
-    out = _scan_launch(coeffs, state, x)
-    biquad_cascade.launches += 1
-    return out
+    return _scan_launch(coeffs, state, x, "launches")
 
 
 def biquad_cascade(coeffs: torch.Tensor, state: torch.Tensor,
@@ -271,11 +287,9 @@ def biquad_cascade(coeffs: torch.Tensor, state: torch.Tensor,
 
 
 def _scan_bwd_launch(coeffs, state, x):
-    """One scan of the backward on the card, counted in
+    """One scan of the backward on the card, its launches counted in
     ``biquad_cascade.bwd_launches``."""
-    out = _scan_launch(coeffs, state, x)
-    biquad_cascade.bwd_launches += 1
-    return out
+    return _scan_launch(coeffs, state, x, "bwd_launches")
 
 
 def _cascade_adjoint(scan, coeffs, state, x, y, g_y, g_state, want_coeffs):
@@ -348,8 +362,9 @@ def biquad_cascade_bwd(coeffs, state, x, y, g_y, g_state, want_coeffs=True):
     -> those of (coeffs, state, x), ``y`` the forward's output
     (``want_coeffs`` False skips the coefficients').  The plain version
     for CPU tensors; for CUDA tensors the adjoint of
-    :func:`_cascade_adjoint` on the scan kernel: 2K - 1 launches (K
-    without the coefficients), each bit for bit its plain scan."""
+    :func:`_cascade_adjoint` on the scan kernel: 2K - 1 scans (K
+    without the coefficients), two launches each where the coefficients
+    are shared by the rows, each bit for bit its plain scan."""
     if _build.is_cpu(coeffs, state, x, y, g_y, g_state):
         return biquad_cascade_bwd_plain(coeffs, state, x, y, g_y, g_state,
                                         want_coeffs)
@@ -596,15 +611,19 @@ def _fold(p: torch.Tensor, batch, shape) -> torch.Tensor:
     broadcast over some of the batch axes, not all) summed over those
     axes one after the other, each in order, in float64."""
     tail = tuple(shape[len(shape) - (p.ndim - 1):])
-    g = p.reshape(tuple(batch) + tail).double()
+    g = p.reshape(tuple(batch) + tail)
     lead = tuple(shape[:len(shape) - len(tail)])
     pad = len(batch) - len(lead)
-    for d in range(len(batch)):
-        if (1 if d < pad else lead[d - pad]) == 1 and g.shape[d] != 1:
-            acc = g.narrow(d, 0, 1)
-            for i in range(1, g.shape[d]):
-                acc = acc + g.narrow(d, i, 1)
-            g = acc
+    folds = [d for d in range(len(batch))
+             if (1 if d < pad else lead[d - pad]) == 1 and g.shape[d] != 1]
+    if not folds:   # one row a coefficient set: the terms as they are
+        return g.reshape(shape)
+    g = g.double()
+    for d in folds:
+        acc = g.narrow(d, 0, 1)
+        for i in range(1, g.shape[d]):
+            acc = acc + g.narrow(d, i, 1)
+        g = acc
     return g.reshape(shape)
 
 

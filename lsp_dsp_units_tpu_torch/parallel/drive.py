@@ -4,7 +4,8 @@ here cuts global numpy inputs into this rank's shard, runs a function of
 global result, so that a run over N ranks can be held against a
 single-process computation of the same inputs.
 
-    results = launch.spawn(run_cases, n, args=(chan, time, cases))
+    results = launch.spawn(run_cases, n, args=(chan, time, cases),
+                           device="cpu")
 
 ``cases`` maps a name to ``(kind, kwargs)``, a kind being the name of
 one of the functions below; ``run_cases`` builds the

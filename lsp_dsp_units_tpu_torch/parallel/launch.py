@@ -47,9 +47,10 @@ def _rank_main(fn, rank: int, n: int, store: str, device: str,
             dist.destroy_process_group()
 
 
-def spawn(fn: Callable, n: int, args: Sequence = (), device: str = "cpu",
+def spawn(fn: Callable, n: int, args: Sequence = (), device: str = "cuda",
           timeout: float = 120.0) -> List[Any]:
-    """``fn(*args)`` on ranks 0..n-1; returns their results in rank
+    """``fn(*args)`` on ranks 0..n-1, on the card (one a rank, NCCL)
+    unless ``device`` is "cpu" (gloo); returns their results in rank
     order.  Raises RuntimeError with the first failing rank's traceback,
     or when the ranks have not all answered within ``timeout`` seconds."""
     ctx = multiprocessing.get_context("spawn")

@@ -50,8 +50,12 @@ compressor):
   SurgeProtector and PeakMeter: output and state, and each build's
   cycles a step at 1.98 GHz;
 * biquad_scan (the time-parallel cascade) at [64, 16384] on the chain's
-  8-band EQ (K = 9) and at [64, 65536] on the Oversampler's 4x filter
-  (K = 15), from random states: y and state.
+  8-band EQ (K = 9), at [64, 65536] on the Oversampler's 4x filter
+  (K = 15), that filter's first 1, 9 and 15 stages at both lengths
+  (biquad_scan_k<K>_<T>), per-row coefficients (biquad_scan_rows, K = 9)
+  and the scan's backward route (biquad_scan_bwd, K = 9 at [64, 16384]),
+  from random states, each build through its own ops/biquad.py (the C
+  interfaces differ): y and state, every cotangent.
 * the synth phase's machines (chip_smoke.py) at [64, 16384]: the
   dynamic delay (a ring of 4801 from a random state, each channel's
   delay swept by the LFO's quick sine, seeded feedback delays, a gain of
@@ -190,7 +194,10 @@ LIB_OF = {**{f"fft_{m}": "fft_packed" for m in FFT_MODES},
           "rider_autogain": "riders", "rider_dynproc": "riders",
           "rider_simple": "riders", "rider_surge": "riders",
           "rider_peak": "riders", "biquad_scan": "biquad_scan",
-          "biquad_scan_k15": "biquad_scan", "delay": "delay",
+          "biquad_scan_k15": "biquad_scan", "biquad_scan_rows": "biquad_scan",
+          "biquad_scan_bwd": "biquad_scan", "delay": "delay",
+          **{f"biquad_scan_k{k}_{t}": "biquad_scan" for k in (1, 9, 15)
+             for t in (T_ENV, 4 * T_ENV)},
           "biquad_seq_bwd": "biquad_bwd", "biquad_seq_bwd_x": "biquad_bwd",
           "biquad_seq_bwd_dyn": "biquad_bwd", "delay_bwd": "delay",
           "rider_autogain_default": "riders",
@@ -393,6 +400,67 @@ def adjoint_bytes(mode: str):
     def of(name):
         return rows * floats * F32 if "packed" in name else None
     return of
+
+
+def scan_cases(args, this, other, other_bq, c9, s9, xr, res) -> bool:
+    """biquad_scan (the chain's EQ, K = 9 at [C, T_ENV]; the Oversampler's
+    4x filter, K = 15 at [C, 4 T_ENV]; its first 1 and 9 stages and all
+    15 at both lengths; per-row coefficients, K = 9) and the scan's
+    backward route (biquad_cascade_bwd, K = 9 at [C, T_ENV]), each build
+    through its own ops/biquad.py (the C interfaces differ): every output
+    bit for bit the other build's, the times in turns."""
+    ok = True
+    gen = torch.Generator().manual_seed(32)
+    c15 = Oversampler(SR, 4, "x3", True).filter_coeffs
+    x15 = (torch.randn(C, 4 * T_ENV, generator=gen) * 0.25).cuda()
+    s15 = (torch.randn(C, c15.shape[0], 2, generator=gen) * 0.1).cuda()
+    y9, _ = bq.biquad_cascade(c9, s9, xr)
+    g_y = torch.randn(C, T_ENV, generator=gen).cuda()
+    g_s = torch.randn(C, c9.shape[0], 2, generator=gen).cuda()
+    # per-row gains on the numerators (the poles, and so the stability,
+    # unchanged)
+    gain = torch.ones(C, 1, 5, device="cuda")
+    gain[..., :3] += 0.01 * torch.arange(C, device="cuda")[:, None, None] / C
+    rows9 = (c9 * gain).contiguous()
+    calls = {
+        "biquad_scan": (lambda m: m.biquad_cascade(c9, s9, xr), 20),
+        "biquad_scan_k15": (lambda m: m.biquad_cascade(c15, s15, x15), 10),
+        "biquad_scan_rows": (lambda m: m.biquad_cascade(rows9, s9, xr), 20),
+        "biquad_scan_bwd": (lambda m: m.biquad_cascade_bwd(
+            c9, s9, xr, y9, g_y, g_s), 10)}
+    for k in (1, 9, 15):
+        for t, x, s in ((T_ENV, xr, s15[..., :k, :]), (4 * T_ENV, x15,
+                                                       s15[..., :k, :])):
+            calls[f"biquad_scan_k{k}_{t}"] = (
+                (lambda c, s, x: lambda m: m.biquad_cascade(c, s, x))(
+                    c15[:k], s.contiguous(), x), 10)
+    for name, (fn, reps) in calls.items():
+        if args.cases is not None and name not in args.cases:
+            continue
+        if other_bq is None or "biquad_scan" not in other:
+            print(f"{name}: skipped (the other checkout has no biquad_scan)",
+                  flush=True)
+            continue
+        fns = {"other": (other, (lambda f: lambda: f(other_bq))(fn)),
+               "this": (this, (lambda f: lambda: f(bq))(fn))}
+        outs = {}
+        for who, (libs, f) in fns.items():
+            with using(libs):
+                outs[who] = [v for v in f() if v is not None]
+        torch.cuda.synchronize()
+        same = len(outs["this"]) == len(outs["other"]) and all(
+            torch.equal(a, b) for a, b in zip(outs["this"], outs["other"]))
+        ok = ok and same
+        times = []
+        for who in ("other", "this", "this", "other"):
+            with using(fns[who][0]):
+                times.append(time_ms(fns[who][1], reps))
+        res[name] = dict(identical=same, other_ms=(times[0] + times[3]) / 2,
+                         this_ms=(times[1] + times[2]) / 2, runs_ms=times)
+        print(f"{name}: identical = {same}; other {res[name]['other_ms']:.4f}"
+              f" ms, this {res[name]['this_ms']:.4f} ms (runs: "
+              + ", ".join(f"{t:.4f}" for t in times) + ")", flush=True)
+    return ok
 
 
 def fft_adjoint_cases(args, this, other, other_fp, res) -> bool:
@@ -619,12 +687,15 @@ def main(argv=None) -> int:
     other_ff = other_module(args.other, "fdl_fused")
     other_env = other_module(args.other, "env")
     other_fp = other_module(args.other, "fft_packed")
+    other_bq = other_module(args.other, "biquad")
     own_sigs = {"fdl_fused": other_ff, "env": other_env,
                 "fft_packed": other_fp}
+    scan_sigs = getattr(other_bq, "_SCAN_SIGS", None)
     if other_env is not None:
         share_structs(other_env, env_ops)
-    other = {n: build_other(args.other, n, own_sigs[n]._SIGS
-                            if own_sigs.get(n) else None)
+    other = {n: build_other(args.other, n, scan_sigs if n == "biquad_scan"
+                            else own_sigs[n]._SIGS if own_sigs.get(n)
+                            else None)
              for n in SIGS if n in need
              and os.path.exists(os.path.join(csrc, f"{n}.cu"))}
 
@@ -824,10 +895,6 @@ def main(argv=None) -> int:
         "biquad_seq_dyn": (lambda: list(bq.dyn_biquad_cascade_seq(
             cdyn, s4, xr)), lambda: bq.dyn_biquad_cascade_seq(cdyn, s4, xr),
             20),
-        "biquad_scan": (lambda: list(bq.biquad_cascade(c9, s9, xr)),
-                        lambda: bq.biquad_cascade(c9, s9, xr), 20),
-        "biquad_scan_k15": (lambda: list(bq.biquad_cascade(c15, s15, x15)),
-                            lambda: bq.biquad_cascade(c15, s15, x15), 10),
         "delay": (lambda: list(delay_ops.dynamic_delay(
             dring, xr, dly, g05, fdly, DELAY_MAX)), lambda: (
             delay_ops.dynamic_delay(dring, xr, dly, g05, fdly, DELAY_MAX)),
@@ -944,6 +1011,7 @@ def main(argv=None) -> int:
                 + ("" if r["bound_ms"] is None else
                    f" (bound {r['bound_ms']:.4f})") for r in prof[who]),
                 flush=True)
+    ok = scan_cases(args, this, other, other_bq, c9, s9, xr, res) and ok
     ok = fft_adjoint_cases(args, this, other, other_fp, res) and ok
     ok = env_bwd_cases(args, this, other, other_env, chain, cp, blocks, lev,
                        st24, res) and ok

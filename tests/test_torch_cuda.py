@@ -910,14 +910,16 @@ def _os_filter():
         quality=0.1), 4 * 48000).biquads, np.float32)
 
 
-@pytest.mark.parametrize("t", [1, 100, 128, 777, 4097, 128 * 129 + 3])
-@pytest.mark.parametrize("k", [1, 2, 9, 15])
+@pytest.mark.parametrize("t", [1, 100, 127, 128, 129, 777, 4097,
+                               128 * 129 + 3])
+@pytest.mark.parametrize("k", [1, 2, 9, 15, 33])
 @pytest.mark.parametrize("kind", ["shared", "per_row"])
 def test_biquad_scan_kernel_matches_plain(cuda_device, kind, k, t):
     """csrc/biquad_scan.cu against biquad_cascade_plain bit for bit, y and
-    the carried state, over two calls: below one tile of 128, one whole
-    tile, odd T with a ragged last tile, two depths of tiles above the
-    samples (T = 128 x 129 + 3), shared and per-row coefficients.  The
+    the carried state, over two calls: below one tile of 128, a tile and
+    a tile +- 1, odd T with a ragged last tile, two depths of tiles above
+    the samples (T = 128 x 129 + 3), shared coefficients (the table and
+    the row pass: two launches a call) and per-row ones (one).  The
     plain version runs on CPU copies (the same separately rounded IEEE
     products and sums as torch's element-wise ops on the card)."""
     rng = np.random.default_rng(k * 7919 + t)
@@ -935,7 +937,34 @@ def test_biquad_scan_kernel_matches_plain(cuda_device, kind, k, t):
         torch.cuda.synchronize()
         assert torch.equal(yd.cpu(), yc), call
         assert torch.equal(sd.cpu(), sc), call
-    assert tbq.biquad_cascade.launches == before + 2
+    assert tbq.biquad_cascade.launches == before + 2 * (
+        2 if kind == "shared" else 1)
+
+
+@pytest.mark.parametrize("k, t", [(9, 16384), (15, 65536), (33, 1000)])
+@pytest.mark.parametrize("rows", [1, 6, 64, 200])
+@pytest.mark.parametrize("kind", ["shared", "per_row"])
+def test_biquad_scan_kernel_matches_plain_rows(cuda_device, kind, rows, k,
+                                               t):
+    """The scan kernel at 1, 6, 64 and 200 rows (a row split over a
+    cluster of 8, 8, 2 and 1 blocks with shared coefficients) at the
+    main paths' [., 16384], K = 9 and [., 65536], K = 15, and at K = 33:
+    y and the state bit for bit the plain scan's on the card, the launch
+    counter advanced by the call's launches."""
+    rng = np.random.default_rng(rows * 31 + k)
+    c, st, x = _biquad_inputs(rng, kind, k, t, rows)
+    if k == 15:
+        c = _os_filter() if kind == "shared" else np.stack(
+            [_os_filter()] * rows)
+    c, st, x = (torch.from_numpy(v).to(cuda_device) for v in (c, st, x))
+    before = tbq.biquad_cascade.launches
+    yd, sd = tbq.biquad_cascade(c, st, x)
+    # one row's coefficients are shared by its one row: the table route
+    assert tbq.biquad_cascade.launches == before + (
+        2 if kind == "shared" or rows == 1 else 1)
+    yp, sp = tbq.biquad_cascade_plain(c, st, x)
+    torch.cuda.synchronize()
+    assert torch.equal(yd, yp) and torch.equal(sd, sp)
 
 
 def test_biquad_scan_kernel_matches_plain_on_the_card(cuda_device):
@@ -1111,7 +1140,7 @@ def test_oversampler_and_sync_chirp_on_card_match_cpu(cuda_device):
     sc, yc = ov["cpu"].process(ov["cpu"].init_state((8,), device="cpu"), x,
                                torch.tanh)
     torch.cuda.synchronize()
-    assert tbq.biquad_cascade.launches == before + 1
+    assert tbq.biquad_cascade.launches == before + 2
     db = dict(y=_snr(yc, yd), flt=_snr(sc.flt, sd.flt))
     print("card vs CPU, dB:", {k: round(v, 2) for k, v in db.items()})
     assert db["y"] >= 105.0 and db["flt"] >= 105.0
@@ -1868,7 +1897,8 @@ def test_convolver_bwd_routes_identical_before_and_after_the_frame_kernel(
 
 
 def test_biquad_cascade_bwd_on_card_matches_plain(cuda_device):
-    """The scan's adjoint on the kernel (2K - 1 launches) against the
+    """The scan's adjoint on the kernel (2K - 1 scans of two launches)
+    against the
     same adjoint on the plain scan on the card: bit for bit, as the scan
     kernel is its plain version's."""
     gen = torch.Generator().manual_seed(9)
@@ -1881,7 +1911,7 @@ def test_biquad_cascade_bwd_on_card_matches_plain(cuda_device):
             _randn(gen, 4, 9, 2, device=cuda_device))
     before = tbq.biquad_cascade.bwd_launches
     k_out = tbq.biquad_cascade_bwd(*args)
-    assert tbq.biquad_cascade.bwd_launches == before + 17
+    assert tbq.biquad_cascade.bwd_launches == before + 2 * 17
     p_out = tbq.biquad_cascade_bwd_plain(*args)
     for a, b in zip(k_out, p_out):
         assert torch.equal(a, b)
@@ -2139,7 +2169,10 @@ def test_step_ring_gradient_on_card_matches_cpu(cuda_device):
 # ---------------------------------------------------------------------------
 
 
-_BWD_SIZES = [(1, 1), (1, 777), (9, 1023), (9, 4097), (33, 333), (40, 1023)]
+_BWD_SIZES = [(1, 1), (1, 777), (9, 1023), (9, 4097), (33, 333), (40, 1023),
+              # the backward's chunks of 128 steps: a chunk, a chunk +- 1,
+              # two and three chunks, in one group and in two
+              (9, 127), (9, 128), (9, 129), (33, 256), (40, 385)]
 
 
 def _seq_bwd_inputs(kind, k, t, rows=3):

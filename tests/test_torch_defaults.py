@@ -37,6 +37,7 @@ from lsp_dsp_units_tpu_torch.models.util import (
     Delay, Depopper, DynamicDelay, Oscillator, Trigger)
 from lsp_dsp_units_tpu_torch.models.noise import NoiseGenerator, lcg_device
 from lsp_dsp_units_tpu_torch.entry import dryrun_multichip
+from lsp_dsp_units_tpu_torch.parallel.launch import spawn
 from lsp_dsp_units_tpu_torch.models.ctl import Bypass, Crossfade
 from lsp_dsp_units_tpu_torch.models.stat import QuantizedCounter
 from lsp_dsp_units_tpu_torch.models.threed import RayTrace3D
@@ -96,7 +97,7 @@ ALLOCATING = [
     Bypass.init_state, Crossfade.init_state, QuantizedCounter.init_state,
     cplx.sc_zeros, convert.bypass_state_from_jax,
     convert.crossfade_state_from_jax,
-    convert.quantized_counter_state_from_jax, dryrun_multichip,
+    convert.quantized_counter_state_from_jax, dryrun_multichip, spawn,
     RayTrace3D.__init__, serve.run, room_demo.room_tracer,
 ]
 

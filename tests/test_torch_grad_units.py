@@ -766,7 +766,7 @@ def _bwd_consts():
     with open(src) as f:
         text = f.read()
     return {k: int(re.search(rf"constexpr int {k} = (\d+);", text).group(1))
-            for k in ("kLanes", "kTile", "kRing", "kAhead")}
+            for k in ("kLanes", "kChunk", "kWarps")}
 
 
 def _view(addr, n, ctype):
@@ -776,19 +776,27 @@ def _view(addr, n, ctype):
 
 def _model_bwd(save_p, g_in_p, c_p, gs_in_p, g_out_p, gs_out_p, part_p, gc_p,
                rows, t_n, k_n, k0, kg, row_stride, t_stride, dyn, coef,
-               stream):
-    """``lsp_biquad_seq_bwd`` step by step: the lanes of one warp (lane
-    k on stage k0 + kg - 1 - k at reverse index j - k), the shuffle, the
-    guards (every tile's in the static form, the edge tiles' in the
-    per-sample form), the shared-memory ring of the signals and g_in filled a tile
-    ahead (a tile's copies land only at its end: every read must find
-    its sample already there), the register ring of per-sample
-    coefficients kAhead steps ahead; every product and sum as the kernel
-    rounds it (its FMAs as ops/env_units._mul_add)."""
+               stream, chunk=None):
+    """``lsp_biquad_seq_bwd`` slot by slot (chunk: kChunk unless given):
+    chain lane k runs chunk s - 2k of its stage's recurrence at slot s
+    from its g and, per sample, its (c3, c4) in shared memory, writing
+    its record (the chunk's incoming l2, l1, then each gy); the map warps
+    turn the chunk each lane ran in slot s - 1 into g_u (the next lane's
+    g, or g_out for the group's first stage) and per-sample terms, and
+    stage slot s + 1's inputs (g_in, each lane's two signals of the chunk
+    it runs at slot s, per sample its (c3, c4) of its next chunk); the
+    sum threads add their (stage, coefficient) terms in reverse time
+    from the staged signals.  Each buffer holds two
+    chunks by parity: every read must find the chunk it wants, and no
+    slot may read a buffer that it writes (the writes land at the slot's
+    barrier).  Every product and sum as the kernel rounds it (its FMAs
+    as ops/env_units._mul_add)."""
     import ctypes
     kc = _bwd_consts()
-    lanes, tile, ring_n, ahead = (kc[k] for k in ("kLanes", "kTile", "kRing",
-                                                  "kAhead"))
+    chunk = chunk or kc["kChunk"]
+    assert 1 <= kg <= kc["kLanes"]
+    if coef and not dyn:
+        assert 1 + -(-kg * 5 // 32) < kc["kWarps"], "no map warp left"
     f32 = ctypes.c_float
     g_in = _view(g_in_p.value, rows * t_n, f32).reshape(rows, t_n)
     g_out = _view(g_out_p.value, rows * t_n, f32).reshape(rows, t_n)
@@ -802,101 +810,122 @@ def _model_bwd(save_p, g_in_p, c_p, gs_in_p, g_out_p, gs_out_p, part_p, gc_p,
             .reshape(rows, k_n, 5) if coef and not dyn else None)
     gc = (_view(gc_p.value, rows * t_n * k_n * 5, f32)
           .reshape(rows, t_n, k_n, 5) if coef and dyn else None)
-    lane = np.arange(lanes)
-    live = lane < kg
-    stage = np.where(live, k0 + kg - 1 - lane, 0)
-    qs = kg - 1 - lane
+    nch = -(-t_n // chunk)
 
     def fma(a, b, c):
-        return eu._mul_add(torch.from_numpy(a), torch.from_numpy(b),
-                           torch.from_numpy(c)).numpy()
+        return eu._mul_add(torch.from_numpy(np.asarray(a, np.float32)),
+                           torch.from_numpy(np.asarray(b, np.float32)),
+                           torch.from_numpy(np.asarray(c, np.float32))
+                           ).numpy()
+
+    def steps(n):
+        return np.arange(min(chunk, t_n - n * chunk))
 
     for r in range(rows):
-        val = np.zeros((kg + 2, ring_n), np.float32)
-        tag = np.full((kg + 2, ring_n), -1)
-        c_lane = r * row_stride + stage * 5
+        def coefs(k, t):
+            """stage k0 + kg - 1 - k's coefficients at the times t: [5, len]"""
+            at = r * row_stride + (k0 + kg - 1 - k) * 5 + (
+                np.asarray(t) * t_stride if dyn else np.zeros_like(t))
+            return np.stack([c_a[at + q] for q in range(5)])
 
-        def fetch(n):
-            pend = []
-            for ln in lane:
-                ri = n * tile + ln
-                t = t_n - 1 - ri
-                if t < 0:
-                    continue
-                pend.append((kg + 1, ri, g_in[r, t]))
-                if coef:
-                    pend += [(q, ri, sig[k0 + q, r, t]) for q in range(kg + 1)]
-            return pend
-
-        def land(pend):
-            for q, ri, v in pend:
-                val[q, ri % ring_n], tag[q, ri % ring_n] = v, ri
-
-        def coefs_at(ri):
-            ok = live & (ri >= 0) & (ri < t_n)
-            out = np.zeros((5, lanes), np.float32)
-            for ln in lane[ok]:
-                at = c_lane[ln] + (t_n - 1 - ri[ln]) * t_stride
-                out[:, ln] = c_a[at:at + 5]
-            return out, np.where(ok, ri, -1)
-
-        l1 = np.where(live, gs_in[r, stage, 0], 0).astype(np.float32)
-        l2 = np.where(live, gs_in[r, stage, 1], 0).astype(np.float32)
-        cst = np.zeros((5, lanes), np.float32)
-        if not dyn:
-            for ln in lane[live]:
-                cst[:, ln] = c_a[c_lane[ln]:c_lane[ln] + 5]
-        cring = [coefs_at(k - lane) for k in range(ahead)]
-        acc = np.zeros((5, lanes))
-        g = np.zeros(lanes, np.float32)
+        bufs = {}       # (kind, lane, parity) -> (chunk, values)
+        l1 = [np.float32(gs_in[r, k0 + kg - 1 - k, 0]) for k in range(kg)]
+        l2 = [np.float32(gs_in[r, k0 + kg - 1 - k, 1]) for k in range(kg)]
+        acc = np.zeros((kg, 5))
         written = np.zeros(t_n, int)
-        land(fetch(0))
-        tiles = -(-(t_n + kg - 1) // tile)
-        for m in range(tiles):
-            pend = fetch(m + 1)
-            guard = not dyn or m == 0 or m * tile + tile > t_n
-            for i in range(tile):
-                j = m * tile + i
-                ri = j - lane
-                inside = (ri >= 0) & (ri < t_n)
-                assert guard or inside[live].all()
+
+        def read(key, n, reads):
+            reads.add(key)
+            got, v = bufs[key]
+            assert got == n, (key, got, n)
+            return v
+
+        def map_slot(s, reads, writes):
+            for k in range(kg):
+                n = s - 1 - 2 * k
+                if not 0 <= n < nch:
+                    continue
+                rc = read(("rec", k, n & 1), n, reads)
+                i = steps(n)
+                t = t_n - 1 - (n * chunk + i)
+                l2v, l1v, gy = rc[i], rc[i + 1], rc[i + 2]
+                c = coefs(k, t)
+                gu = fma(c[0], gy, fma(c[1], l1v, c[2] * l2v))
+                if k + 1 < kg:
+                    writes[("g", k + 1, n & 1)] = (n, gu)
+                else:
+                    g_out[r, t] = gu
+                    written[t] += 1
+                if dyn and coef:
+                    q = kg - 1 - k
+                    u = read(("u", k, n & 1), n, reads)[i]
+                    yo = read(("yo", k, n & 1), n, reads)[i]
+                    gc[r, t, k0 + q] = np.stack(
+                        [gy * u, l1v * u, l2v * u, l1v * yo, l2v * yo], -1)
+            n0 = s + 1
+            if n0 < nch:
+                writes[("g", 0, n0 & 1)] = (
+                    n0, g_in[r, t_n - 1 - (n0 * chunk + steps(n0))].copy())
+            for k in range(kg) if coef else ():
+                n = s - 2 * k
+                if 0 <= n < nch:
+                    t = t_n - 1 - (n * chunk + steps(n))
+                    q = kg - 1 - k
+                    writes[("u", k, n & 1)] = (n, sig[k0 + q, r, t].copy())
+                    writes[("yo", k, n & 1)] = (n, sig[k0 + q + 1, r, t]
+                                                .copy())
+            if dyn:
+                for k in range(kg):
+                    n = s + 1 - 2 * k
+                    if 0 <= n < nch:
+                        c = coefs(k, t_n - 1 - (n * chunk + steps(n)))
+                        writes[("c", k, n & 1)] = (n, c[3:5])
+
+        def land(reads, writes):
+            assert not reads & set(writes), reads & set(writes)
+            bufs.update(writes)
+
+        reads, writes = set(), {}
+        map_slot(-1, reads, writes)
+        land(reads, writes)
+        for s in range(nch + 2 * (kg - 1) + 1):
+            reads, writes = set(), {}
+            for k in range(kg):     # the chain lanes
+                n = s - 2 * k
+                if not 0 <= n < nch:
+                    continue
+                g = read(("g", k, n & 1), n, reads)
                 if dyn:
-                    cst, ctag = cring[i % ahead]
-                    assert (ctag[live & inside] == ri[live & inside]).all()
-                    cring[i % ahead] = coefs_at(ri + ahead)
-                gin = np.roll(g, 1)
-                if 0 <= j < t_n:
-                    assert tag[kg + 1, j % ring_n] == j
-                gin[0] = val[kg + 1, j % ring_n]
-                gin = gin.astype(np.float32)
-                on = live & inside if guard else live
-                gy = fma(cst[3], l1, fma(cst[4], l2, gin))
-                g = fma(cst[0], gy, fma(cst[1], l1, cst[2] * l2))
-                if coef:
-                    slot = ri % ring_n
-                    assert (tag[qs[on], slot[on]] == ri[on]).all()
-                    assert (tag[qs[on] + 1, slot[on]] == ri[on]).all()
-                    u = np.where(on, val[np.maximum(qs, 0), slot], 0)
-                    yo = np.where(on, val[np.maximum(qs, 0) + 1, slot], 0)
-                    terms = np.stack([gy * u, l1 * u, l2 * u, l1 * yo,
-                                      l2 * yo]).astype(np.float32)
-                    for ln in lane[on]:
-                        if dyn:
-                            gc[r, t_n - 1 - ri[ln], stage[ln]] = terms[:, ln]
-                        else:
-                            acc[:, ln] += terms[:, ln].astype(np.float64)
-                l2 = np.where(on, l1, l2).astype(np.float32)
-                l1 = np.where(on, gy, l1).astype(np.float32)
-                last = kg - 1
-                if on[last]:
-                    g_out[r, t_n - 1 - ri[last]] = g[last]
-                    written[t_n - 1 - ri[last]] += 1
-            land(pend)
+                    cc = read(("c", k, n & 1), n, reads)
+                else:
+                    cc = np.repeat(coefs(k, np.zeros(1, int))[3:5], chunk, axis=1)
+                rec = [l2[k], l1[k]]
+                for i in steps(n):
+                    gy = fma(cc[0][i], l1[k], fma(cc[1][i], l2[k], g[i]))
+                    rec.append(np.float32(gy))
+                    l2[k], l1[k] = l1[k], np.float32(gy)
+                writes[("rec", k, n & 1)] = (n, np.asarray(rec, np.float32))
+            if coef and not dyn:    # the sum threads
+                for k in range(kg):
+                    n = s - 1 - 2 * k
+                    if not 0 <= n < nch:
+                        continue
+                    rc = read(("rec", k, n & 1), n, reads)
+                    us = read(("u", k, n & 1), n, reads)
+                    yos = read(("yo", k, n & 1), n, reads)
+                    for i in steps(n):
+                        u, yo = us[i], yos[i]
+                        terms = [rc[i + 2] * u, rc[i + 1] * u, rc[i] * u,
+                                 rc[i + 1] * yo, rc[i] * yo]
+                        for j in range(5):
+                            acc[k, j] += np.float64(np.float32(terms[j]))
+            map_slot(s, reads, writes)
+            land(reads, writes)
         assert (written == 1).all()
-        gs_out[r, stage[live], 0] = l1[live]
-        gs_out[r, stage[live], 1] = l2[live]
-        if part is not None:
-            part[r, stage[live]] = acc[:, live].T
+        for k in range(kg):
+            gs_out[r, k0 + kg - 1 - k] = (l1[k], l2[k])
+            if part is not None:
+                part[r, k0 + kg - 1 - k] = acc[k]
     return 0
 
 
@@ -912,23 +941,38 @@ def _model_sums(p_p, out_p, rows, n, f64, stream):
     return 0
 
 
-class _BwdModelLib:
-    lsp_biquad_seq_bwd = staticmethod(_model_bwd)
-    lsp_biquad_seq_bwd_sums = staticmethod(_model_sums)
+def _bwd_model_lib(chunk=None):
+    class Lib:
+        @staticmethod
+        def lsp_biquad_seq_bwd(*args):
+            return _model_bwd(*args, chunk=chunk)
+        lsp_biquad_seq_bwd_sums = staticmethod(_model_sums)
+    return Lib
 
 
 @pytest.mark.parametrize("case", [
     ("shared", 9, 100, True), ("shared", 1, 1, True),
     ("per_row", 33, 45, True), ("per_sample", 4, 70, True),
     ("per_sample", 34, 33, True), ("sample_shared", 3, 40, True),
-    ("shared", 5, 95, False), ("per_sample", 2, 63, False)])
+    ("shared", 5, 95, False), ("per_sample", 2, 63, False),
+    # chunk boundaries at the kernel's own chunk: T a chunk +- 1, ragged
+    ("shared", 9, 129, True), ("per_sample", 4, 255, True),
+    ("per_row", 3, 256, True), ("shared", 2, 127, False),
+    # a deep pipeline at a small chunk: many chunks, two groups
+    ("shared", 33, 61, "chunk8"), ("per_sample", 34, 45, "chunk8"),
+    ("shared", 9, 50, "chunk8_x")])
 def test_bwd_kernel_schedule_model_is_the_plain_adjoint(case, monkeypatch):
     """The wrapper's CUDA route of the adjoint (groups of 32 stages, the
     last first, the row sums, strides) with the kernel replaced by its
-    numpy model, on CPU tensors: identical to the plain adjoint."""
+    numpy model (at the kernel's chunk, or at a chunk of 8 steps for a
+    deep pipeline), on CPU tensors: identical to the plain adjoint, and
+    one launch counted per group."""
     from lsp_dsp_units_tpu_torch.ops import _build
     import ctypes
     kind, k, t, want = case
+    chunk = 8 if isinstance(want, str) else None
+    if isinstance(want, str):
+        want = not want.endswith("_x")
     rng = np.random.default_rng(k * 100 + t)
     c, st, x = _route_inputs(kind, rng, k=k, t=t, rows=2)
     dyn = kind in ("per_sample", "sample_shared")
@@ -939,7 +983,8 @@ def test_bwd_kernel_schedule_model_is_the_plain_adjoint(case, monkeypatch):
     plain = (tbq.dyn_biquad_cascade_seq_bwd_plain if dyn
              else tbq.biquad_cascade_seq_bwd_plain)
     ref = plain(c, st, x, sig if want else None, gy, gs, want)
-    monkeypatch.setattr(_build, "load", lambda name, sigs: _BwdModelLib)
+    monkeypatch.setattr(_build, "load",
+                        lambda name, sigs: _bwd_model_lib(chunk))
     monkeypatch.setattr(_build, "stream_of", lambda v: ctypes.c_void_p(0))
     monkeypatch.setattr(_build, "is_cpu", lambda *ts: False)
     bwd = tbq.dyn_biquad_cascade_seq_bwd if dyn else \

@@ -1208,8 +1208,9 @@ def _scan_depths(e, tile):
 
 
 def _scan_stage(x, c, s_in, tile):
-    """scan_kernel for one stage over rows x T: x [R, T], c [R, 5], s_in
-    [R, 2], all float32.  Returns (y, s_out)."""
+    """per_row_kernel for one stage over rows x T: x [R, T], c [R, 5], s_in
+    [R, 2], all float32, each row's matrices carried down its own tree.
+    Returns (y, s_out, the prefix maps)."""
     b0, b1, b2, a1, a2 = (c[:, q:q + 1] for q in range(5))
     u0, u1 = b1 + a1 * b0, b2 + a2 * b0
     ones = np.ones_like(x)
@@ -1219,9 +1220,121 @@ def _scan_stage(x, c, s_in, tile):
     s1 = (s[0] * s1_in + s[1] * s2_in) + s[4]
     s2 = (s[2] * s1_in + s[3] * s2_in) + s[5]
     y = b0 * x + np.concatenate([s1_in, s1[:, :-1]], -1)
-    return y, np.stack([s1[:, -1], s2[:, -1]], -1)
+    return y, np.stack([s1[:, -1], s2[:, -1]], -1), s
 
 
+def _scan_levels(a1, a2, n):
+    """M_0 .. M_{n-1}: the leaves' matrix combined with itself, as the
+    tree rounds every node of a level (float32 scalars)."""
+    one, zero = np.float32(1), np.float32(0)
+    m = [(np.float32(a1), one, np.float32(a2), zero)]
+    while len(m) < n:
+        m.append(_scan_combine(m[-1] + (zero, zero), m[-1] + (zero, zero))[:4])
+    return m
+
+
+def _scan_table(m, t):
+    """table_kernel for one stage: P[n] = M_top, then M_L after P for
+    each lower level L whose bit of n + 1 is set (top = its highest
+    bit).  Returns the four matrix entries, each [T]."""
+    n1 = np.arange(1, t + 1)
+    top = np.array([int(v).bit_length() - 1 for v in n1])
+    p = tuple(np.array([m[k][f] for k in top], np.float32) for f in range(4))
+    zero = np.zeros(t, np.float32)
+    for lv in range(int(top.max()) - 1, -1, -1):
+        on = (lv < top) & (((n1 >> lv) & 1) == 1)
+        q = m[lv] + (np.float32(0), np.float32(0))
+        r = _scan_combine(p + (zero, zero), q)
+        p = tuple(np.where(on, r[f], p[f]) for f in range(4))
+    return p
+
+
+def _combine_v(mq, p, q):
+    """The vector of q after p, q's matrix mq (combine_v)."""
+    return ((mq[0] * p[0] + mq[1] * p[1]) + q[0],
+            (mq[2] * p[0] + mq[3] * p[1]) + q[1])
+
+
+def _v_up(e, lvl, m):
+    """tile_up on vectors from global level lvl: a level's nodes paired
+    under that level's M."""
+    levels = [e]
+    while levels[-1][0].shape[-1] >= 2:
+        c = levels[-1][0].shape[-1] // 2
+        levels.append(_combine_v(m[lvl + len(levels) - 1],
+                                 _cols(levels[-1], slice(0, 2 * c, 2)),
+                                 _cols(levels[-1], slice(1, 2 * c, 2))))
+    return levels
+
+
+def _v_segment(e, lvl, m, pre=None, top=None):
+    """tile_up then tile_down_v over one tile whose nodes sit at global
+    level lvl: its prefix vectors (every later map a node of the tree,
+    its matrix its level's M)."""
+    levels = _v_up(e, lvl, m)
+    s = levels[-1]
+    if top is not None:
+        s = top
+    elif pre is not None:
+        s = _combine_v(m[lvl + len(levels) - 1], pre, s)
+    for i in range(len(levels) - 2, -1, -1):
+        lv, mq = levels[i], m[lvl + i]
+        cnt = lv[0].shape[-1]
+        ne = (cnt - 1) // 2
+        ev = _combine_v(mq, _cols(s, slice(0, ne)),
+                        _cols(lv, slice(2, None, 2)))
+        z = _cols(lv, slice(0, 1))
+        if pre is not None:
+            z = _combine_v(mq, pre, z)
+        out = tuple(np.empty_like(f) for f in lv)
+        for f in range(2):
+            out[f][:, 1::2] = s[f][:, :cnt // 2]
+            out[f][:, 2::2] = ev[f]
+            out[f][:, :1] = z[f]
+        s = out
+    return s
+
+
+def _v_depths(e, lvl, m, tile):
+    """shared_kernel's hierarchy on vectors: the whole tiles' root
+    vectors scanned one depth up, then every tile's prefix vectors."""
+    n = e[0].shape[-1]
+    if n <= tile:
+        return _v_segment(e, lvl, m)
+    up = int(tile).bit_length() - 1
+    roots = tuple(np.concatenate(f, -1) for f in zip(*[
+        _v_up(_cols(e, slice(j * tile, (j + 1) * tile)), lvl, m)[-1]
+        for j in range(n // tile)]))
+    above = _v_depths(roots, lvl + up, m, tile)
+    parts = []
+    for j in range(-(-n // tile)):
+        seg = _cols(e, slice(j * tile, (j + 1) * tile))
+        whole = seg[0].shape[-1] == tile
+        parts.append(_v_segment(
+            seg, lvl, m, _cols(above, slice(j - 1, j)) if j > 0 else None,
+            _cols(above, slice(j, j + 1)) if whole else None))
+    return tuple(np.concatenate([p[f] for p in parts], -1) for f in range(2))
+
+
+def _scan_stage_shared(x, c, s_in, tile):
+    """table_kernel and shared_kernel for one stage with coefficients c
+    [5] shared by the rows x [R, T] (s_in [R, 2]): the prefix matrices
+    once for all rows, each row's vectors up and down.  Returns (y,
+    s_out, the prefix matrices)."""
+    b0, b1, b2, a1, a2 = (np.float32(v) for v in c)
+    u0, u1 = b1 + a1 * b0, b2 + a2 * b0
+    t = x.shape[-1]
+    m = _scan_levels(a1, a2, 2 * int(t).bit_length() + 8)
+    p = _scan_table(m, t)
+    v = _v_depths((u0 * x, u1 * x), 0, m, tile)
+    s1_in, s2_in = s_in[:, 0:1], s_in[:, 1:2]
+    s1 = (p[0] * s1_in + p[1] * s2_in) + v[0]
+    s2_end = (p[2][-1] * s_in[:, 0] + p[3][-1] * s_in[:, 1]) + v[1][:, -1]
+    y = b0 * x + np.concatenate([s1_in, s1[:, :-1]], -1)
+    return y, np.stack([s1[:, -1], s2_end], -1), p
+
+
+@pytest.mark.parametrize("k", [1, 2, 3])
 @pytest.mark.parametrize("per_row", [False, True])
 @pytest.mark.parametrize("t, tile", [
     (SCAN_TILE ** 2 * 2, SCAN_TILE),        # a power of two, two depths up
@@ -1230,15 +1343,19 @@ def _scan_stage(x, c, s_in, tile):
     (SCAN_TILE, SCAN_TILE),                 # one whole tile
     (SCAN_TILE - 27, SCAN_TILE), (1, SCAN_TILE),   # below one tile
     (1000, 16), (1023, 8), (4096, 4)])      # deep hierarchies
-def test_scan_tiles_match_the_recursion(t, tile, per_row):
+def test_scan_tiles_match_the_recursion(t, tile, per_row, k):
     """The kernel's hierarchy of tiles (at its own tile size, and at
     small tiles that make the hierarchy deep and ragged) equals
     ``biquad_cascade_plain``'s recursion bit for bit, output and state,
-    over 3 stages from a non-zero state."""
+    over k stages from a non-zero state: per row, each row's matrices
+    carried down its tree (per_row_kernel); shared, the prefix matrices
+    of table_kernel once for all rows, which are every row's matrices of
+    the per-row tree bit for bit, and the rows' vectors alone
+    (shared_kernel)."""
     from lsp_dsp_units_tpu_torch.ops import biquad as tb
     from lsp_dsp_units_tpu_torch.models.filters.design import (
         FilterParams, FilterType, design_filter)
-    rows, k = 2, 3
+    rows = 2
     d = design_filter(FilterParams(ftype=FilterType.BT_BWC_LOPASS,
                                    freq=150.0, slope=6, quality=0.1), 48000)
     c = np.asarray(d.biquads, np.float32)[:k]
@@ -1254,8 +1371,17 @@ def test_scan_tiles_match_the_recursion(t, tile, per_row):
     y = x
     s_got = np.empty_like(s)
     for i in range(k):
-        ci = c[:, i] if per_row else np.broadcast_to(c[i], (rows, 5))
-        y, s_got[:, i] = _scan_stage(y, np.ascontiguousarray(ci), s[:, i],
-                                     tile)
+        if per_row:
+            y, s_got[:, i], _ = _scan_stage(y, np.ascontiguousarray(c[:, i]),
+                                            s[:, i], tile)
+            continue
+        y_rows, _, per_row_maps = _scan_stage(
+            y, np.ascontiguousarray(np.broadcast_to(c[i], (rows, 5))),
+            s[:, i], tile)
+        y, s_got[:, i], p = _scan_stage_shared(y, c[i], s[:, i], tile)
+        assert np.array_equal(y, y_rows)
+        for f in range(4):
+            assert all(np.array_equal(p[f], per_row_maps[f][r])
+                       for r in range(rows))
     assert np.array_equal(y, y_want.numpy())
     assert np.array_equal(s_got, s_want.numpy())
