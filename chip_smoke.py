@@ -665,7 +665,8 @@ EXTRA_KEYS = {
     "gate": ("chain_ms", "cycles_per_step", "hold0_ms",
              "hold0_cycles_per_step", "peak_form_ms", "hold0_peak_form_ms"),
     "dyn": ("chain_ms", "cycles_per_sample"),
-    "bq": ("chain_ms", "cycles_per_step", "sm_clock_hz", "dyn_ms",
+    "bq": ("chain_ms", "cycles_per_step", "sm_clock_hz", "dyn_launches",
+           "dyn_ms",
            "dyn_plain_ms", "dyn_bound_ms", "dyn_chain_ms",
            "dyn_cycles_per_step", "assoc_launches_per_call",
            "assoc_ms"),
@@ -2044,8 +2045,9 @@ def filters_phase(dev, res):
                 "butterworth": bw.init_state((C,), device=dev),
                 "crossover": xo.init_state((C,), device=dev)}
 
-    counted = (bq.biquad_cascade_seq, bq.biquad_cascade, fp.rfft_packed,
-               fp.rfft_packed_zeropad, fp.irfft_packed)
+    counted = (bq.biquad_cascade_seq, bq.dyn_biquad_cascade_seq,
+               bq.biquad_cascade, fp.rfft_packed, fp.rfft_packed_zeropad,
+               fp.irfft_packed)
     states = init_states()
     outs = {k: [] for k in units}
     torch.cuda.synchronize()
@@ -2206,7 +2208,9 @@ def filters_phase(dev, res):
     steps = FILT_T + k9 - 1
     flops = 9.0 * C * FILT_T          # 5 products + 4 sums a stage-sample
     res["bq"] = dict(
-        launches=launched["biquad_cascade_seq"], max_abs_err=worst, ms=ms,
+        launches=launched["biquad_cascade_seq"],
+        dyn_launches=launched["dyn_biquad_cascade_seq"], max_abs_err=worst,
+        ms=ms,
         plain_ms=plain_ms["static"], library_ms=None,
         # x read and y written once, the coefficients and the state in/out
         **bound(F32 * (2 * C * FILT_T + 5 * k9 + 4 * C * k9), flops * k9),
@@ -2226,7 +2230,9 @@ def filters_phase(dev, res):
           f"(T x 4 dependent ops x 4 cycles); per-sample K = {k4}: "
           f"{ms_dyn:.4f} ms ({r['dyn_cycles_per_step']:.2f} cycles a step), "
           f"plain {plain_ms['dyn']:.1f} ms, bytes bound "
-          f"{r['dyn_bound_ms']:.4f} ms ({card_line()})")
+          f"{r['dyn_bound_ms']:.4f} ms; launches on the drive "
+          f"{r['launches']}, {r['dyn_launches']} of them per-sample "
+          f"({card_line()})")
     print(f"plain associative scan (biquad_cascade_plain) at [{C}, "
           f"{FILT_T}] K = {k9}: {ops.n} launches per call, {assoc_ms:.1f} ms "
           f"on the card (one call, host-paced)")

@@ -45,10 +45,13 @@ Two forms, as in the JAX package:
   card's counterpart of the JAX package's ``lax.scan``.  For CPU tensors
   they run their plain versions (:func:`biquad_cascade_seq_plain`,
   :func:`dyn_biquad_cascade_seq_plain`, a Python loop over samples); for
-  CUDA tensors they launch ``csrc/biquad.cu`` (one warp per row, lane k
-  running stage k; up to 32 stages a launch), counting launches in
-  ``biquad_cascade_seq.launches``.  The kernel rounds every product and
-  sum once in the plain loop's order, so the two agree bit for bit.
+  CUDA tensors they launch ``csrc/biquad.cu`` (a block per row, its
+  chain warp's lane k running stage k on chunks of 128 samples, the
+  stages pipelined a chunk apart through shared memory; up to 32 stages
+  a launch), counting launches in ``biquad_cascade_seq.launches`` (the
+  per-sample form's also in ``dyn_biquad_cascade_seq.launches``).  The
+  kernel rounds every product and sum once in the plain loop's order,
+  so the two agree bit for bit.
   Under autograd they run as ``_SeqCascade``, whose forward (the saving
   form of the same loop or kernel) also keeps each stage's signal where
   the coefficients want a gradient, and whose backward
@@ -524,6 +527,8 @@ def _seq_cuda(coeffs: torch.Tensor, state: torch.Tensor, x: torch.Tensor,
             err = lib.lsp_biquad_seq(*common, *tail)
         _build.check(err, "biquad_seq kernel")
         biquad_cascade_seq.launches += 1
+        if dyn:
+            dyn_biquad_cascade_seq.launches += 1
         src = y
     return (src, st_out, sig) if save else (src, st_out)
 
@@ -582,14 +587,17 @@ def dyn_biquad_cascade_seq(coeffs: torch.Tensor, state: torch.Tensor,
     """Sequential cascade with per-sample coefficients ``[..., T, K,
     5]``: the precision class of the reference's own float32 recurrence,
     for near-unit-pole (low-frequency) dynamic filters.  Runs the same
-    kernel as :func:`biquad_cascade_seq` and counts its launches
-    there.  Differentiable in all three
-    (:func:`dyn_biquad_cascade_seq_bwd`)."""
+    kernel library as :func:`biquad_cascade_seq` (its per-sample form)
+    and counts its launches there too, and in its own ``launches``.
+    Differentiable in all three (:func:`dyn_biquad_cascade_seq_bwd`)."""
     if _empty(coeffs, x):
         return x, state
     if _build.needs_grad(coeffs, state, x):
         return _SeqCascade.apply(coeffs, state, x, True)
     return _seq(coeffs, state, x, dyn=True)
+
+
+dyn_biquad_cascade_seq.launches = 0
 
 
 # ---------------------------------------------------------------------------

@@ -22,9 +22,11 @@ whose forward also saves each step's s and whose backward,
 :func:`dynamic_delay_bwd`, is the adjoint of the step in reverse time
 over a ring of adjoints (``csrc/delay.cu`` states it): the plain loop
 :func:`dynamic_delay_bwd_plain` for CPU tensors, ``delay_bwd_kernel`` for
-CUDA tensors (counted in ``dynamic_delay_bwd.launches``), bit for bit the
-same.  x, fgain and the buffer take gradients; the delays are int32 and
-take none.
+CUDA tensors (a block a row: producer warps compute each step's slots
+and, for each slot it reads, the step before it in its batch of 32 that
+wrote it last; the chain warp runs a batch a lane a step, counted in
+``dynamic_delay_bwd.launches``), bit for bit the same.  x, fgain and the
+buffer take gradients; the delays are int32 and take none.
 """
 
 from __future__ import annotations
@@ -41,7 +43,8 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGS = {"lsp_dynamic_delay": [_P] * 8 + [_I] * 3 + [_P],
          "lsp_dynamic_delay_save": [_P] * 9 + [_I] * 3 + [_P],
          "lsp_dynamic_delay_bwd": [_P] * 10 + [_I] * 3 + [_P],
-         "lsp_delay_smem_bytes": [_I], "lsp_delay_chain_ops": [],
+         "lsp_delay_smem_bytes": [_I], "lsp_delay_bwd_smem_bytes": [_I],
+         "lsp_delay_chain_ops": [],
          "lsp_delay_bwd_chain_ops": []}
 
 
@@ -198,18 +201,10 @@ def dynamic_delay_bwd_plain(buffer, x, delay, fgain, fdelay, s, g_y, g_buf,
     return lam, gx, gg
 
 
-def dynamic_delay_bwd(buffer, x, delay, fgain, fdelay, s, g_y, g_buf,
-                      max_delay: int):
-    """Backward of :func:`dynamic_delay`: the cotangents of (buffer', y)
-    -> those of the buffer, x and fgain, each as [rows, M] / [rows, T]
-    (fgain's per sample, before any sum over its broadcast axes).  ``s``
-    is the forward's s a step [rows, T].  The plain loop for CPU tensors;
-    for CUDA tensors ``delay_bwd_kernel`` (one warp a row, the adjoint
-    ring in shared memory or a global scratch row above 227 KB, counted in
-    ``dynamic_delay_bwd.launches``), bit for bit the plain version."""
-    if _build.is_cpu(x, delay, fgain, fdelay, s, g_y, g_buf):
-        return dynamic_delay_bwd_plain(buffer, x, delay, fgain, fdelay, s,
-                                       g_y, g_buf, max_delay)
+def _delay_bwd_cuda(x, delay, fgain, fdelay, s, g_y, g_buf, max_delay):
+    """``delay_bwd_kernel``: a block a row, the adjoint ring in shared
+    memory beside the kernel's records, or in a global scratch row where
+    it does not fit (``lsp_delay_bwd_smem_bytes`` 0)."""
     m, rows, t, gys, ds, gs, fs, g_out = _bwd_rows(x, delay, fgain, fdelay, s,
                                                    g_y, g_buf, max_delay)
     _build.check_cuda(torch.float32, x.device, g_y=gys, fgain=gs, s=s,
@@ -218,7 +213,7 @@ def dynamic_delay_bwd(buffer, x, delay, fgain, fdelay, s, g_y, g_buf,
     g_in, gx, gg = (torch.empty_like(g_out), torch.empty_like(gys),
                     torch.empty_like(gys))
     lib = _lib()
-    scratch = None if lib.lsp_delay_smem_bytes(int(max_delay)) > 0 \
+    scratch = None if lib.lsp_delay_bwd_smem_bytes(int(max_delay)) > 0 \
         else torch.empty_like(g_out)
     _build.check(lib.lsp_dynamic_delay_bwd(
         *(_build.ptr(v) for v in (gys, ds, gs, fs, s, g_out, g_in, gx, gg)),
@@ -226,6 +221,21 @@ def dynamic_delay_bwd(buffer, x, delay, fgain, fdelay, s, g_y, g_buf,
         int(max_delay), _build.stream_of(x)), "dynamic delay bwd kernel")
     dynamic_delay_bwd.launches += 1
     return g_in, gx, gg
+
+
+def dynamic_delay_bwd(buffer, x, delay, fgain, fdelay, s, g_y, g_buf,
+                      max_delay: int):
+    """Backward of :func:`dynamic_delay`: the cotangents of (buffer', y)
+    -> those of the buffer, x and fgain, each as [rows, M] / [rows, T]
+    (fgain's per sample, before any sum over its broadcast axes).  ``s``
+    is the forward's s a step [rows, T].  The plain loop for CPU tensors;
+    for CUDA tensors ``delay_bwd_kernel`` (:func:`_delay_bwd_cuda`,
+    counted in ``dynamic_delay_bwd.launches``), bit for bit the plain
+    version."""
+    if _build.is_cpu(x, delay, fgain, fdelay, s, g_y, g_buf):
+        return dynamic_delay_bwd_plain(buffer, x, delay, fgain, fdelay, s,
+                                       g_y, g_buf, max_delay)
+    return _delay_bwd_cuda(x, delay, fgain, fdelay, s, g_y, g_buf, max_delay)
 
 
 dynamic_delay_bwd.launches = 0

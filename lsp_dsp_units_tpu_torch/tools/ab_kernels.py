@@ -238,6 +238,10 @@ def build_other(root: str, name: str, sigs=None) -> ctypes.CDLL:
         if hasattr(lib, fn):
             getattr(lib, fn).argtypes = argtypes
             getattr(lib, fn).restype = ctypes.c_int
+    if name == "delay" and not hasattr(lib, "lsp_delay_bwd_smem_bytes"):
+        # an older delay.cu, whose adjoint kept lam in shared memory
+        # wherever the forward kept its ring
+        lib.lsp_delay_bwd_smem_bytes = lib.lsp_delay_smem_bytes
     return lib
 
 

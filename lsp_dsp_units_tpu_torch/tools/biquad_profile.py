@@ -29,6 +29,7 @@ import os
 import re
 import subprocess
 import sys
+from collections import Counter
 
 import torch
 
@@ -68,8 +69,9 @@ def kernels(fn, calls: int = 10) -> list:
 
 def sass_loops(lib: str, kernel: str) -> dict:
     """Each function of ``lib`` whose name holds ``kernel``: its largest
-    basic block's instructions and static stall cycles (bits 41-44 of an
-    instruction's second word), by mangled name."""
+    basic block's instructions, static stall cycles (bits 41-44 of an
+    instruction's second word) and the count of each opcode, by mangled
+    name."""
     cuobjdump = os.path.join(os.path.dirname(_build.find_nvcc()), "cuobjdump")
     text = subprocess.run([cuobjdump, "-sass", _build.build(lib)],
                           capture_output=True, text=True, timeout=120).stdout
@@ -98,10 +100,12 @@ def sass_loops(lib: str, kernel: str) -> dict:
                 cur = []
         blocks.append(cur)
         big = max(blocks, key=len)
+        ops = Counter(re.sub(r"^@!?U?P\w+\s+", "", o).split()[0].split(".")[0]
+                      for o, _ in big)
         out[name] = dict(instructions=len(big),
                          stall_cycles=sum(s for _, s in big),
-                         ffma=sum(1 for o, _ in big if "FFMA" in o),
-                         dadd=sum(1 for o, _ in big if "DADD" in o))
+                         ffma=ops["FFMA"], dadd=ops["DADD"],
+                         opcodes=dict(ops.most_common()))
     return out
 
 

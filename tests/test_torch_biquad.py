@@ -25,16 +25,17 @@ Bars:
   the JAX test's > 95 dB, and the JAX test's own bars between forms
   (assoc vs seq > 100 dB, streaming > 110 dB, dynamic > 90 dB).
 
-The CUDA kernels (csrc/biquad.cu) cannot run here.  Their warp
-schedule (lane k runs stage k on sample j - k at step j; static_kernel's
-x in a shared-memory ring stored a tile ahead; dyn_kernel's x from the
-tile's registers and its per-sample coefficients through a ring of
-registers refilled kAhead steps ahead; guarded first and last tiles;
-groups of 32 stages chained) is modelled in numpy float32 below, reading
-the constants from the source, and run through the real wrapper in place
-of the library: it must agree with the plain version bit for bit, and
-every ring read must find the sample it wants.  (The kernel itself against its plain version:
-tests/test_torch_cuda.py, on the card.)
+The CUDA kernels (csrc/biquad.cu) cannot run here.  Their schedule
+(chain lane k runs stage k on chunk s - k at slot s, from and into
+shared-memory chunk buffers by parity; the copy warps stage x and the
+per-sample coefficients a slot ahead and write y and the saved stage
+signals a slot behind; partial last chunks; groups of 32 stages chained)
+is modelled in numpy float32 below, reading the constants from the
+source, and run through the real wrapper in place of the library, both
+forms: it must agree with the plain version bit for bit, and every
+shared-memory read must find the sample and the coefficient it wants.
+(The kernel itself against its plain version: tests/test_torch_cuda.py,
+on the card.)
 """
 
 import ctypes
@@ -373,152 +374,220 @@ def test_init_state():
 
 SRC = os.path.join(os.path.dirname(__file__), "..", "lsp_dsp_units_tpu_torch",
                    "csrc", "biquad.cu")
+MAX_SMEM = 232448          # the H100's shared memory a block (227 KB)
 
 
 def _consts():
     with open(SRC) as f:
         src = f.read()
     return {k: int(re.search(rf"constexpr int {k} = (\d+);", src).group(1))
-            for k in ("kLanes", "kTile", "kRing", "kAhead")}
+            for k in ("kLanes", "kChunk", "kBatch", "kDynBatch")}
 
 
 def _floats(addr, n):
     return np.ctypeslib.as_array((ctypes.c_float * n).from_address(addr))
 
 
-def _model_launch(x_p, c_p, s_in_p, y_p, s_out_p, rows, t_n, k_n, k0, kg,
-                  row_stride, t_stride, dyn, stream):
-    """``lsp_biquad_seq`` step by step in numpy float32: the lanes of one
-    warp, the shuffle, the guards; static_kernel's x ring stored a tile
-    ahead, dyn_kernel's x from the tile's registers and its ring of
-    per-sample coefficients refilled kAhead steps ahead.  Every ring read
-    must find the sample it wants."""
+def _model_run(x_p, c_p, s_in_p, y_p, s_out_p, save_p, rows, t_n, k_n, k0,
+               kg, row_stride, t_stride, dyn):
+    """``lsp_biquad_seq`` / ``lsp_biquad_seq_save`` slot by slot in numpy
+    float32: at slot s chain lane k runs chunk s - k of its stage from its
+    input buffer (by the chunk's parity) into the next stage's; the copy
+    warps stage slot s + 1's inputs (x's chunk, per sample each stage's
+    coefficients of chunk s + 1 - k) and write out slot s - 1's outputs
+    (the last stage's chunk into y; saving, every stage's chunk).  Within a
+    slot the copies of the next inputs land before the chain reads and the
+    outputs are read after the chain wrote, lane after lane, so that a
+    buffer shared within a slot shows: every shared-memory read must find
+    the sample (and the coefficient) it wants."""
     kc = _consts()
-    lanes, tile, ring_n, ahead = (kc[k] for k in ("kLanes", "kTile", "kRing",
-                                                  "kAhead"))
-    assert 1 <= kg <= lanes and k0 + kg <= k_n and tile % ahead == 0
+    chunk, batch = kc["kChunk"], kc["kDynBatch" if dyn else "kBatch"]
+    assert 1 <= kg <= kc["kLanes"] and k0 + kg <= k_n
+    assert chunk % batch == 0 and batch % 4 == 0
+    sig_stride, coef_stride = 2 * chunk + 4, 2 * 5 * chunk + 4
+    smem = 4 * ((kg + 1) * sig_stride + (kg * coef_stride if dyn else 0))
+    assert smem <= MAX_SMEM
     x_a = _floats(x_p.value, rows * t_n).reshape(rows, t_n)
     y_a = _floats(y_p.value, rows * t_n).reshape(rows, t_n)
     s_in = _floats(s_in_p.value, rows * k_n * 2).reshape(rows, k_n, 2)
     s_out = _floats(s_out_p.value, rows * k_n * 2).reshape(rows, k_n, 2)
     c_len = (rows - 1) * row_stride + (t_n - 1) * t_stride + k_n * 5
     c_a = _floats(c_p.value, c_len)
-    lane = np.arange(lanes)
-    on = lane < kg
+    save = None if save_p is None else _floats(
+        save_p.value, (k_n + 1) * rows * t_n).reshape(k_n + 1, rows, t_n)
     f32 = np.float32
+    nch = -(-t_n // chunk)
+
+    def clen(n):
+        return min(chunk, t_n - n * chunk)
+
     for r in range(rows):
         c_grp = r * row_stride + k0 * 5
-        xs = np.zeros(ring_n, f32)
-        x_tag = np.full(ring_n, -1)
-        ring = np.zeros((ahead, 5, lanes), f32)
-        tag = np.full((ahead, lanes), -1)
-
-        def x_store(tile_no):
-            for ln in lane:
-                t = tile_no * tile + ln
-                xs[t % ring_n] = x_a[r, t] if t < t_n else 0.0
-                x_tag[t % ring_n] = t
-
-        def fetch(slot, t):
-            for ln in lane[on & (t >= 0) & (t < t_n)]:
-                at = c_grp + t[ln] * t_stride + ln * 5
-                ring[slot, :, ln] = c_a[at:at + 5]
-                tag[slot, ln] = t[ln]
-
-        s1 = np.zeros(lanes, f32)
-        s2 = np.zeros(lanes, f32)
-        s1[:kg] = s_in[r, k0:k0 + kg, 0]
-        s2[:kg] = s_in[r, k0:k0 + kg, 1]
-        coef = np.zeros((5, lanes), f32)
-        if dyn:
-            for s0 in range(ahead):
-                fetch(s0, s0 - lane)
-        else:
-            coef[:, :kg] = c_a[c_grp:c_grp + kg * 5].reshape(kg, 5).T
-            x_store(0)
-        y = np.zeros(lanes, f32)
+        sig = np.zeros((kg + 1, 2, chunk), f32)
+        sig_tag = np.full((kg + 1, 2, chunk), -1)
+        coef = np.zeros((kg, 2, 5, chunk), f32)
+        coef_tag = np.full((kg, 2, chunk), -1)
+        s1 = s_in[r, k0:k0 + kg, 0].astype(f32)
+        s2 = s_in[r, k0:k0 + kg, 1].astype(f32)
+        cst = c_a[c_grp:c_grp + kg * 5].reshape(kg, 5).astype(f32)
         written = np.zeros(t_n, int)
-        tiles = -(-(t_n + kg - 1) // tile)
-        for m in range(tiles):
-            xt = np.array([x_a[r, m * tile + ln] if m * tile + ln < t_n
-                           else 0.0 for ln in lane], f32)
+        saved = np.zeros((kg, t_n), int)
+
+        def copy_in(s):
+            n1 = s + 1
+            if n1 < nch:
+                ln, t0 = clen(n1), n1 * chunk
+                sig[0, n1 & 1, :ln] = x_a[r, t0:t0 + ln]
+                sig_tag[0, n1 & 1, :ln] = np.arange(t0, t0 + ln)
             if not dyn:
-                x_store(m + 1)
-            guard = m == 0 or m * tile + tile > t_n
-            for i in range(tile):
-                j = m * tile + i
-                t = j - lane
-                inside = (t >= 0) & (t < t_n)
-                assert guard or inside[on].all()
-                if dyn:
-                    slot = i % ahead
-                    assert (tag[slot][on & inside] == t[on & inside]).all()
-                    coef = ring[slot].copy()
-                    fetch(slot, t + ahead)
-                    x_in = xt[i]
-                else:
-                    if j < t_n:
-                        assert x_tag[j % ring_n] == j
-                    x_in = xs[j % ring_n]
-                yin = np.roll(y, 1)
-                yin[0] = x_in
-                yi = f32(coef[0] * yin) + s1
-                n1 = f32(coef[1] * yin) + f32(coef[3] * yi) + s2
-                n2 = f32(coef[2] * yin) + f32(coef[4] * yi)
-                keep = inside if guard else np.ones(lanes, bool)
-                s1 = np.where(keep, n1, s1).astype(f32)
-                s2 = np.where(keep, n2, s2).astype(f32)
-                y = yi.astype(f32)
-                last = kg - 1
-                if keep[last]:
-                    y_a[r, t[last]] = y[last]
-                    written[t[last]] += 1
+                return
+            for k in range(kg):
+                n = n1 - k
+                if 0 <= n < nch:
+                    ln, t0 = clen(n), n * chunk
+                    at = (c_grp + (t0 + np.arange(ln))[:, None] * t_stride
+                          + k * 5 + np.arange(5)[None, :])
+                    coef[k, n & 1, :, :ln] = c_a[at].T
+                    coef_tag[k, n & 1, :ln] = np.arange(t0, t0 + ln)
+
+        def copy_out(s):
+            ny = s - kg
+            if 0 <= ny < nch:
+                ln, t0 = clen(ny), ny * chunk
+                assert (sig_tag[kg, ny & 1, :ln] == np.arange(t0, t0 + ln)
+                        ).all()
+                y_a[r, t0:t0 + ln] = sig[kg, ny & 1, :ln]
+                written[t0:t0 + ln] += 1
+            if save is None:
+                return
+            for k in range(kg):
+                n = s - 1 - k
+                if 0 <= n < nch:
+                    ln, t0 = clen(n), n * chunk
+                    assert (sig_tag[k + 1, n & 1, :ln]
+                            == np.arange(t0, t0 + ln)).all()
+                    save[k0 + k + 1, r, t0:t0 + ln] = sig[k + 1, n & 1, :ln]
+                    saved[k, t0:t0 + ln] += 1
+
+        def chain(k, n):
+            ln, t0 = clen(n), n * chunk
+            assert (sig_tag[k, n & 1, :ln] == np.arange(t0, t0 + ln)).all()
+            if dyn:
+                assert (coef_tag[k, n & 1, :ln]
+                        == np.arange(t0, t0 + ln)).all()
+            a1, a2 = s1[k], s2[k]
+            for i in range(ln):
+                c0, c1, c2, c3, c4 = (coef[k, n & 1, :, i] if dyn
+                                      else cst[k])
+                yin = sig[k, n & 1, i]
+                yi = f32(c0 * yin) + a1
+                n1 = f32(c1 * yin) + f32(c3 * yi) + a2
+                a2 = f32(c2 * yin) + f32(c4 * yi)
+                a1 = n1
+                sig[k + 1, n & 1, i] = yi
+                sig_tag[k + 1, n & 1, i] = t0 + i
+            s1[k], s2[k] = a1, a2
+
+        copy_in(-1)
+        for s in range(nch + kg):
+            copy_in(s)
+            for k in range(kg):
+                if 0 <= s - k < nch:
+                    chain(k, s - k)
+            copy_out(s)
         assert (written == 1).all()
-        s_out[r, k0:k0 + kg, 0] = s1[:kg]
-        s_out[r, k0:k0 + kg, 1] = s2[:kg]
+        assert save is None or (saved == 1).all()
+        s_out[r, k0:k0 + kg, 0] = s1
+        s_out[r, k0:k0 + kg, 1] = s2
     return 0
+
+
+def _model_launch(x_p, c_p, s_in_p, y_p, s_out_p, rows, t_n, k_n, k0, kg,
+                  row_stride, t_stride, dyn, stream):
+    return _model_run(x_p, c_p, s_in_p, y_p, s_out_p, None, rows, t_n, k_n,
+                      k0, kg, row_stride, t_stride, dyn)
+
+
+def _model_launch_save(x_p, c_p, s_in_p, y_p, s_out_p, save_p, rows, t_n,
+                       k_n, k0, kg, row_stride, t_stride, dyn, stream):
+    assert save_p.value is not None
+    return _model_run(x_p, c_p, s_in_p, y_p, s_out_p, save_p, rows, t_n,
+                      k_n, k0, kg, row_stride, t_stride, dyn)
 
 
 class _ModelLib:
     lsp_biquad_seq = staticmethod(_model_launch)
+    lsp_biquad_seq_save = staticmethod(_model_launch_save)
 
 
+def _model_inputs(kind, k, t, rows=2):
+    """(coeffs, state, x) of a schedule case: ``kind`` shared, per_row,
+    per_sample or broadcast (x and the state expanded from one row)."""
+    rng = np.random.default_rng(k * 1000 + t)
+    x = torch.from_numpy(_f32(rng, rows, t))
+    st = torch.from_numpy(_f32(rng, rows, k, 2, scale=0.2))
+    if kind in ("shared", "broadcast"):
+        c = torch.from_numpy(_stable_biquads(rng, k))
+    elif kind == "per_row":
+        c = torch.from_numpy(np.stack([_stable_biquads(rng, k)
+                                       for _ in range(rows)]))
+    else:
+        base = _stable_biquads(rng, k)
+        mod = 1.0 + 0.02 * rng.standard_normal((rows, t, k, 5))
+        c = torch.from_numpy((base * mod).astype(np.float32))
+    if kind == "broadcast":
+        x = x[:1].expand(3, t)
+        st = st[:1].expand(3, k, 2)
+    return c, st, x
+
+
+# the chunk is 128 samples: T below, at and about it; K of one group, a
+# full group, and two or more (33, 34, 40)
 @pytest.mark.parametrize("case", [
     ("shared", 9, 100), ("shared", 1, 1), ("per_row", 33, 45),
     ("per_sample", 9, 70), ("per_sample", 4, 1), ("per_sample", 34, 33),
-    ("per_sample", 2, 63), ("shared", 5, 95), ("broadcast", 3, 64)])
+    ("per_sample", 2, 63), ("shared", 5, 95), ("broadcast", 3, 64),
+    ("shared", 9, 127), ("shared", 9, 128), ("shared", 9, 129),
+    ("per_sample", 4, 129), ("per_sample", 4, 255), ("shared", 2, 385),
+    ("per_row", 32, 200), ("shared", 33, 130), ("shared", 40, 257),
+    ("per_sample", 1, 300), ("per_sample", 32, 260)])
 def test_kernel_schedule_model_is_the_plain_loop(case, monkeypatch):
     """The wrapper's CUDA route (broadcasting, strides, groups of 32
     stages) with the kernel replaced by its numpy model, on CPU tensors:
     identical to the plain version, state included."""
     kind, k, t = case
-    rng = np.random.default_rng(k * 1000 + t)
     monkeypatch.setattr(_build, "load", lambda name, sigs: _ModelLib)
     monkeypatch.setattr(_build, "stream_of", lambda t: ctypes.c_void_p(0))
-    rows = (2,)
-    x = torch.from_numpy(_f32(rng, *rows, t))
-    st = torch.from_numpy(_f32(rng, *rows, k, 2, scale=0.2))
+    c, st, x = _model_inputs(kind, k, t)
     dyn = kind == "per_sample"
-    if kind in ("shared", "broadcast"):
-        c = torch.from_numpy(_stable_biquads(rng, k))
-    elif kind == "per_row":
-        c = torch.from_numpy(np.stack([_stable_biquads(rng, k)
-                                       for _ in range(rows[0])]))
-    else:
-        base = _stable_biquads(rng, k)
-        mod = 1.0 + 0.02 * rng.standard_normal((rows[0], t, k, 5))
-        c = torch.from_numpy((base * mod).astype(np.float32))
-    if kind == "broadcast":
-        x = x[:1].expand(3, t)
-        st = st[:1].expand(3, k, 2)
     plain = (tb.dyn_biquad_cascade_seq_plain if dyn
              else tb.biquad_cascade_seq_plain)
-    before = tb.biquad_cascade_seq.launches
+    before = (tb.biquad_cascade_seq.launches,
+              tb.dyn_biquad_cascade_seq.launches)
     y, s = tb._seq_cuda(c, st, x, dyn)
-    assert tb.biquad_cascade_seq.launches - before == -(-k // 32)
+    assert tb.biquad_cascade_seq.launches - before[0] == -(-k // 32)
+    assert (tb.dyn_biquad_cascade_seq.launches - before[1]
+            == (-(-k // 32) if dyn else 0))
     py, ps = plain(c, st, x)
     np.testing.assert_array_equal(y.numpy(), py.numpy())
     np.testing.assert_array_equal(s.numpy(), ps.numpy())
+
+
+@pytest.mark.parametrize("case", [
+    ("shared", 9, 129), ("per_row", 3, 128), ("per_sample", 4, 200),
+    ("per_sample", 33, 40), ("shared", 1, 5)])
+def test_kernel_schedule_model_saves_the_stage_signals(case, monkeypatch):
+    """The saving form's model through the wrapper: the stage signals
+    [K + 1, rows, T], y and the state identical to the plain loop's."""
+    kind, k, t = case
+    monkeypatch.setattr(_build, "load", lambda name, sigs: _ModelLib)
+    monkeypatch.setattr(_build, "stream_of", lambda t: ctypes.c_void_p(0))
+    c, st, x = _model_inputs(kind, k, t)
+    dyn = kind == "per_sample"
+    y, s, sig = tb._seq_cuda(c, st, x, dyn, save=True)
+    py, ps, psig = tb._seq_plain_run(c, st, x, dyn, save=True)
+    for a, b in ((y, py), (s, ps), (sig, psig)):
+        np.testing.assert_array_equal(a.numpy(), b.numpy())
 
 
 def test_seq_wrapper_takes_the_plain_loop_on_cpu():

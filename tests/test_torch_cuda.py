@@ -582,13 +582,15 @@ def _biquad_inputs(rng, kind, k, t, rows=3):
     return c, st, x
 
 
-@pytest.mark.parametrize("t", [1, 1000, 1023, 4097])
-@pytest.mark.parametrize("k", [1, 9, 16, 40])
+# the kernel's chunks are 128 samples: T below, at and about one; K of a
+# full group of 32 stages, and of two groups (33, 40)
+@pytest.mark.parametrize("t", [1, 127, 128, 129, 1000, 1023, 4097])
+@pytest.mark.parametrize("k", [1, 9, 16, 32, 33, 40])
 @pytest.mark.parametrize("kind", ["shared", "per_row", "per_sample"])
 def test_biquad_seq_kernel_matches_plain(cuda_device, kind, k, t):
     """csrc/biquad.cu against its plain version bit for bit, y and the
-    carried state, over two calls; K = 40 runs as two launches of 32 and
-    8 stages.  The plain version runs on CPU copies: the same separately
+    carried state, over two calls; K = 33 and 40 run as two launches of
+    32 and 1 or 8 stages.  The plain version runs on CPU copies: the same separately
     rounded IEEE products and sums as torch's element-wise ops on the
     card, and far fewer launches."""
     rng = np.random.default_rng(k * 10007 + t)
@@ -2197,7 +2199,9 @@ def _seq_bwd_inputs(kind, k, t, rows=3):
                  for v in (c, st, x, gy, gs))
 
 
-@pytest.mark.parametrize("k,t", _BWD_SIZES)
+# and the forward's own: a full group of 32 stages, T about its chunk
+@pytest.mark.parametrize("k,t", _BWD_SIZES + [(32, 129), (32, 1023),
+                                              (33, 127), (4, 129)])
 @pytest.mark.parametrize("kind", ["shared", "per_row", "per_sample"])
 def test_biquad_seq_save_form_matches_plain(cuda_device, kind, k, t):
     """The forward's saving form (lsp_biquad_seq_save): y, the state and
@@ -2275,22 +2279,50 @@ def test_seq_cascade_grad_on_the_card(cuda_device, kind):
         assert torch.equal(b, a) and torch.equal(b32, a)
 
 
+def _delay_drive(drive, rng, rows, t, max_delay):
+    """(delay, fdelay) int32 numpy [rows, T]: ``random`` over and beyond
+    their ranges (clipped by the unit); drives whose slots alias within
+    the adjoint's batches: ``short`` (delays 0-8), ``f_eq_d`` (the feed
+    on the head), ``f0`` (the feed on the tail), ``ramp`` (delays
+    growing by one a sample up to max_delay: the tail stays put, the
+    feed meets heads just zeroed)."""
+    if drive == "random":
+        d = rng.integers(-3, max_delay + 5, (rows, t))
+        f = rng.integers(-3, max_delay + 2, (rows, t))
+    elif drive == "short":
+        d = rng.integers(0, 9, (rows, t))
+        f = rng.integers(0, 9, (rows, t))
+    elif drive == "f_eq_d":
+        d = rng.integers(0, max_delay + 1, (rows, t))
+        f = d
+    elif drive == "f0":
+        d = rng.integers(0, max_delay + 1, (rows, t))
+        f = np.zeros((rows, t))
+    else:
+        d = np.broadcast_to(max_delay - 13 + np.arange(t) % 16, (rows, t))
+        f = rng.integers(1, 6, (rows, t))
+    return d.astype(np.int32), f.astype(np.int32)
+
+
+@pytest.mark.parametrize("drive", ["random", "short", "f_eq_d", "f0",
+                                   "ramp"])
 @pytest.mark.parametrize("t", [1, 777, 4097])
 @pytest.mark.parametrize("rows", [1, 5])
-@pytest.mark.parametrize("max_delay", [0, 64, 4800, 60000])
-def test_delay_bwd_kernel_matches_plain(cuda_device, max_delay, rows, t):
+@pytest.mark.parametrize("max_delay", [0, 64, 4800, 20000, 60000])
+def test_delay_bwd_kernel_matches_plain(cuda_device, max_delay, rows, t,
+                                        drive):
     """delay_bwd_kernel against its plain loop (on the CPU, the same saved
     s): the cotangents of the incoming ring, x and fgain bit for bit; the
-    saving forward's y, ring and s the plain loop's; 60000 samples is
-    above what shared memory holds (lam in a global scratch row)."""
-    rng = np.random.default_rng(max_delay * 3 + rows + t)
+    saving forward's y, ring and s the plain loop's; 20000 samples take
+    more than the default 48 KB of shared memory, 60000 more than it
+    holds (lam in a global scratch row); the drives beside the random one
+    alias within the adjoint's batches."""
+    rng = np.random.default_rng(max_delay * 3 + rows + t + len(drive))
     buf = torch.from_numpy(rng.standard_normal((rows, max_delay + 1)
                                                ).astype(np.float32))
     x = torch.from_numpy(rng.standard_normal((rows, t)).astype(np.float32))
-    d = torch.from_numpy(rng.integers(-3, max_delay + 5, (rows, t)
-                                      ).astype(np.int32))
-    f = torch.from_numpy(rng.integers(-3, max_delay + 2, (rows, t)
-                                      ).astype(np.int32))
+    d, f = (torch.from_numpy(v) for v in _delay_drive(drive, rng, rows, t,
+                                                       max_delay))
     g = torch.from_numpy((rng.standard_normal((rows, t)) * 0.5
                           ).astype(np.float32))
     gy = torch.from_numpy(rng.standard_normal((rows, t)).astype(np.float32))
