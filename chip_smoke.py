@@ -144,7 +144,8 @@ Phases (any failure exits non-zero; nothing is caught):
             plain version's (the first call), its bytes bound, its chain
             bound (T x the step's dependent operations x 4 cycles at the
             measured SM clock) and, for the limiter, its pass bound
-            (passes x T x 8 B at 128 B a cycle of shared memory); for
+            (passes x the dependent operations on a pass's path x 4
+            cycles) and the shared-memory bytes a pass moves; for
             each rider, cycles a step beside the chain bound's and the
             chain loop in the SASS (LDL / STL: none; BRA, BSSY, CALL;
             compares; static stall cycles a step).
@@ -525,7 +526,6 @@ TP_DB = 120.0     # Lanczos upsampling (tests/test_reference_oracle_wave3.py)
 CORR_DB = 100.0   # Correlometer, Panometer (test_reference_oracle_meters.py)
 CEILING = 0.8 * 1.002         # config 4's limiter ceiling
 #                               (tests/test_baseline_configs.py)
-SMEM_BYTES_PER_CLK = 128      # one SM's shared-memory rate (32 banks x 4 B)
 # each rider case's step functor in csrc/riders.cu, whose dependent
 # operations a step (riders.chain_ops) set its chain bound
 RIDER_KIND = {"autogain": "autogain", "autogain_quick": "autogain",
@@ -670,8 +670,9 @@ EXTRA_KEYS = {
            "dyn_plain_ms", "dyn_bound_ms", "dyn_chain_ms",
            "dyn_cycles_per_step", "assoc_launches_per_call",
            "assoc_ms"),
-    "lim": ("pass_bound_ms", "passes_max", "sm_clock_hz",
-            "alr_ms", "alr_plain_ms", "alr_chain_ms", "alr_pass_bound_ms",
+    "lim": ("pass_chain_ms", "pass_bytes", "passes_max", "sm_clock_hz",
+            "alr_ms", "alr_plain_ms", "alr_chain_ms", "alr_pass_chain_ms",
+            "alr_pass_bytes",
             "alr_passes_max"),
     "rider": ("chain_ms", "cycles_per_step", "sm_clock_hz", "steps"),
     "scan": ("launches_per_call", "seq_ms", "bytes_bound_ms", "k15_ms",
@@ -2600,7 +2601,13 @@ def dynamics_phase(dev, res):
             + 4 * C
 
     def pass_ms(name):
-        return lim_passes[name] * t_n * 8 / (SMEM_BYTES_PER_CLK * clock) * 1e3
+        # the passes of the row that runs most, each its dependent
+        # operations at 4 cycles
+        return (lim_passes[name] * lim_ops.pass_chain_ops() * 4 / clock
+                * 1e3)
+
+    def pass_bytes(name):
+        return lim_ops.pass_bytes(t_n, lps[name].patch.shape[0])
 
     a, b = "thin_2ms", "exp_wide_alr_5ms"
     res["lim"] = dict(
@@ -2609,23 +2616,25 @@ def dynamics_phase(dev, res):
         # what the function needs: a multiply and a compare a sample for
         # the first scan, the same for the P samples each pass patches,
         # over the passes each row ran, and the clamp's four a sample
-        # (this kernel's rescan of all T a pass is in pass_bound_ms)
         **bound(lim_bytes(a), 2.0 * (3 * C * t_n + lps[a].patch.shape[0]
                                      * int(passes[a][0].sum()))),
-        pass_bound_ms=pass_ms(a), passes_max=lim_passes[a],
-        sm_clock_hz=clock, alr_ms=lim_ms[b], alr_plain_ms=plain_ms[b],
+        pass_chain_ms=pass_ms(a), pass_bytes=pass_bytes(a),
+        passes_max=lim_passes[a], sm_clock_hz=clock, alr_ms=lim_ms[b],
+        alr_plain_ms=plain_ms[b],
         alr_chain_ms=t_n * ALR_CHAIN_OPS * 4 / clock * 1e3,
-        alr_pass_bound_ms=pass_ms(b), alr_passes_max=lim_passes[b])
+        alr_pass_chain_ms=pass_ms(b), alr_pass_bytes=pass_bytes(b),
+        alr_passes_max=lim_passes[b])
     r = res["lim"]
     print(f"limiter_kernel: [{C}, {t_n}] HERM_THIN 2 ms: {r['ms']:.4f} ms "
           f"({lim_passes[a]} passes at most), plain {r['plain_ms']:.1f} ms; "
           f"bounds: {r['bound_ms']:.4f} ms ({r['bound_by']}), passes "
-          f"{r['pass_bound_ms']:.4f} ms (passes x T x 8 B at "
-          f"{SMEM_BYTES_PER_CLK} B a cycle); EXP_WIDE 5 ms with ALR: "
-          f"{r['alr_ms']:.4f} ms ({lim_passes[b]} passes), plain "
+          f"{r['pass_chain_ms']:.4f} ms (passes x "
+          f"{lim_ops.pass_chain_ops()} dependent ops x 4 cycles; a pass "
+          f"moves {r['pass_bytes']} B of shared memory); EXP_WIDE 5 ms "
+          f"with ALR: {r['alr_ms']:.4f} ms ({lim_passes[b]} passes), plain "
           f"{r['alr_plain_ms']:.1f} ms, ALR chain bound "
-          f"{r['alr_chain_ms']:.4f} ms, passes {r['alr_pass_bound_ms']:.4f} "
-          f"ms ({card_line()})")
+          f"{r['alr_chain_ms']:.4f} ms, passes {r['alr_pass_chain_ms']:.4f} "
+          f"ms ({r['alr_pass_bytes']} B a pass) ({card_line()})")
     steps = {}
     batches = rider_batches()
     for name, (fn, _, _, _) in rider_cases.items():
@@ -3633,10 +3642,14 @@ def synth_phase(dev, res):
                  cycles_per_step=ms * 1e-3 * clock / t_n, sm_clock_hz=clock,
                  launches_per_call=1)
         res[key] = r
+        # delay_kernel runs its batches' steps at once: the serial order's
+        # chain no longer bounds it
+        chain = "the serial order's chain" if key == "delay" else \
+            "chain bound"
         print(f"{key} kernel: [{C}, {t_n}] {ms:.4f} ms "
               f"({r['cycles_per_step']:.1f} cycles a step), plain "
               f"{plain_ms:.1f} ms (one call, host-paced), bytes bound "
-              f"{r['bound_ms']:.4f} ms, chain bound {r['chain_ms']:.4f} ms "
+              f"{r['bound_ms']:.4f} ms, {chain} {r['chain_ms']:.4f} ms "
               f"({ops} dependent ops), 1 launch a call ({card_line()})")
     # every trigger type and depopper mode, on the first call's inputs
     batches = rider_batches()

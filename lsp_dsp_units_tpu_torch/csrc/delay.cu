@@ -11,31 +11,57 @@
 // DynamicDelay.process (:104-122).  It is no Pallas kernel: XLA compiles
 // the scan into a loop over samples, each step a whole-buffer shift.
 //
-// What bounds it: the chain through memory.  A step's reads of the ring
-// may alias the previous step's feedback write, so each step loads after
-// the last one stored: a shared-memory load, a multiply, an add and a
-// store a sample (kChainOps = 4; the load's latency is well above the 4
-// cycles the chain bound gives each operation).  The bytes (x, the
-// delay, gain and feedback delay in, y out, the ring in and out) are far
-// below it.  Rows are the only parallelism.  The design is the simple
-// one: one warp per row, one row per block; the warp moves the ring
-// between the state's layout and shared memory, one lane runs the chain
-// over register tiles of kTile samples.  The ring is circular in shared
-// memory with a head index, so a step touches three slots where the JAX
-// step shifts the whole buffer; the state keeps the JAX layout (the
-// newest sample at index M - 1), converted at the call's ends only.
-// Rings above what shared memory holds (227 KB) live in a global scratch
-// row instead (delay_kernel<false>, the same code).  A design that loaded
-// a step ahead and forwarded the two values those loads miss from
-// registers (no shared-memory round trip on the chain) took 1.0385 ms
-// at [64, 16384] against this one's 1.1021, in turns in one call
-// (NVIDIA H100 80GB HBM3, 700 W; tools/ab_kernels.py against a variant
-// tree): the step's index arithmetic, issued by one lane, costs more
-// than the round trip.
+// What bounds it: in the serial order, the chain through memory.  A
+// step's reads of the ring may alias an earlier step's feedback write,
+// so each step loads after the last one stored: a shared-memory load, a
+// multiply, an add and a store a sample (kChainOps = 4).  The bytes (x,
+// the delay, gain and feedback delay in, y out, the ring in and out) are
+// far below it.  But few reads alias: on the drive of chip_smoke.py (the
+// delays swept by an LFO, the feedback delays uniform) 1.7 % of the
+// steps' tail and feed reads take the r of a step at most 31 before them
+// (tools/serial_profile.py, forward_rounds), so the design below runs a
+// batch of 32 steps at once and settles only the dependent steps.
+//
+// delay_kernel: a block a row, slots of kFwdChunk steps, one block
+// barrier a slot, a batch a warp of 32 steps.  At slot s:
+//
+// - the producer warps (a thread a step, a warp a batch) turn chunk s + 1's
+//   delays into its slots (head, tail, feed), beside its x and fgain, and
+//   into a code: for each of the step's two reads (tail, feed) the last
+//   write before it in the batch: the step's own head (its x, where d = 0
+//   or f = d), else the latest step before it in the batch that wrote
+//   the slot, a head write (its x) or a feed write (its r; the feed where
+//   a step wrote both), or none (the value is in the ring at the batch's
+//   start); the step's depth (0 where no read takes an r, else one more
+//   than its sources' most); and whether its head and feed writes are the
+//   batch's last of those slots (no later step writes them: the next
+//   head on a slot comes M steps on, or M - (d - f) on the feed, which a
+//   later head overwrites where d - f >= M - 31).  Their inputs are loaded
+//   a slot ahead and prefetched into L2 two slots ahead;
+// - the chain warp runs chunk s on the ring a batch at a time, a lane a
+//   step: each lane loads what its step reads from the ring, takes x
+//   values from the lanes the code names (shuffles), and computes r = the
+//   feed's value + s * fgain; a first round from the loads and the x
+//   values, then as many as the batch's deepest step, each read that
+//   takes an r from the r of the round before, so the dependent steps
+//   alone are serial, as chains of shuffles; then each slot the batch
+//   wrote is stored once, by the lane that wrote it last (x or r);
+// - the consumer warps (the producers, after their records) write chunk
+//   s - 1's y (and s, in the saving form) coalesced, from the chain's
+//   records.
+//
+// The records take kFwdRecWords of shared memory, so the ring lives
+// there up to 227 KB less them (max_delay <= 52991) and in a global
+// scratch row above (delay_kernel<false, *>).  The first design ran
+// every step on one lane of one warp a row, index work included: 153.4
+// cycles a step at [64, 16384] with a ring of 4801 (1.2600 ms on the
+// H100 at 700 W); a step-ahead form of it with register forwarding took
+// 1.0385 ms against its 1.1021 in one call (tools/ab_kernels.py).
 //
 // Every product and sum rounds as the plain version and the JAX step
-// round them (s * g rounded, then added; __fmul_rn, __fadd_rn), so the
-// three agree bit for bit.
+// round them (s * g rounded, then added; __fmul_rn, __fadd_rn), in any
+// order of the steps that gives each read the serial order's value, so
+// the three agree bit for bit.
 //
 // Under autograd delay_kernel's kSave form also writes each step's s, and
 // delay_bwd_kernel runs the adjoint of the step in reverse time over a
@@ -95,10 +121,13 @@
 
 namespace {
 
-constexpr int kTile = 16;
 constexpr int kChainOps = 4;          // load, multiply, add, store
 constexpr int kBwdChainOps = 6;       // load, add, load, multiply, add, store
 constexpr size_t kMaxSmem = 232448;   // 227 KB a block
+constexpr unsigned kFull = 0xffffffffu;
+constexpr int kFwdWarps = 8;          // the forward's producer warps
+constexpr int kFwdChunk = 32 * kFwdWarps;      // its steps a slot
+constexpr int kFwdThreads = 32 + kFwdChunk;    // the chain warp first
 constexpr int kBwdWarps = 8;          // the adjoint's producer warps
 constexpr int kBwdChunk = 32 * kBwdWarps;      // its steps a slot
 constexpr int kBwdThreads = 32 + kBwdChunk;    // the chain warp first
@@ -116,89 +145,255 @@ struct Args {
   int t_n, max_delay;
 };
 
-// The slots a step reads and writes at head h: tail = h - d, feed = tail
-// + f (mod m).
-__device__ __forceinline__ void slots(int m, int h, int maxd, int dv, int fv,
-                                      int& tail, int& feed, int& f) {
-  const int d = min(max(dv, 0), maxd);
-  f = min(max(fv, 0), d);
-  tail = h - d;
-  if (tail < 0) tail += m;
-  feed = tail + f;
-  if (feed >= m) feed -= m;
+// The forward's records in shared memory, two chunks each (by the
+// chunk's parity), indexed by the step's place in its chunk: from the
+// producers (tail, feed, head, code) and (x, fgain, the x its tail read
+// takes, the x its feed read takes); from the chain (y, s).  The ring
+// follows them.
+struct FwdSmem {
+  int4* rec;
+  float4* xg;
+  float2* ys;
+  float* ring;
+};
+
+constexpr int kFwdRecWords = 2 * 10 * kFwdChunk;
+
+__device__ __forceinline__ FwdSmem fwd_smem(float* base) {
+  FwdSmem m;
+  m.rec = reinterpret_cast<int4*>(base);
+  m.xg = reinterpret_cast<float4*>(base + 8 * kFwdChunk);
+  m.ys = reinterpret_cast<float2*>(base + 16 * kFwdChunk);
+  m.ring = base + kFwdRecWords;
+  return m;
 }
 
-// One step on ring[0, m) at head h (already advanced); returns y, and s.
-__device__ __forceinline__ float step(float* ring, int m, int h, int maxd,
-                                      float xv, int dv, float gv, int fv,
-                                      float& s) {
-  ring[h] = xv;
-  int tail, feed, f;
-  slots(m, h, maxd, dv, fv, tail, feed, f);
-  s = ring[tail];
-  const float r = __fadd_rn(ring[feed], __fmul_rn(s, gv));
-  ring[feed] = r;
-  return f == 0 ? r : s;
+// A forward step's code: where its two reads (tail, feed) take their
+// values, each in seven bits (a kind, then a lane of the batch), then
+// its flags and its batch's depth: the most of its steps' (a step's: 0
+// where no read takes an r, else one more than its sources' most).
+constexpr int kFromRing = 0, kFromX = 1, kFromR = 2;   // kinds
+constexpr int kFSrcT = 0, kFSrcF = 7;
+constexpr int kFF0 = 1 << 14;       // f == 0: y is r
+constexpr int kStoreX = 1 << 15;    // the batch's last write of its head
+constexpr int kStoreR = 1 << 16;    // the batch's last write of its feed
+constexpr int kFDepth = 17;         // 5 bits: the rounds after the first
+
+// A producer's inputs of one step, as loaded
+struct FwdIn {
+  float x, g;
+  int d, f;
+};
+
+__device__ __forceinline__ FwdIn fwd_load(const Args& a, size_t tb, int j) {
+  FwdIn v{0.f, 0.f, 0, 0};
+  if (j < a.t_n) {
+    v.x = __ldg(a.x + tb + j);
+    v.g = __ldg(a.fgain + tb + j);
+    v.d = __ldg(a.delay + tb + j);
+    v.f = __ldg(a.fdelay + tb + j);
+  }
+  return v;
+}
+
+// The L2 prefetch of chunk n's inputs: each warp the lines of its 32
+// steps in the four rows it reads, at both ends of its samples.
+__device__ __forceinline__ void fwd_prefetch(const Args& a, size_t tb, int n,
+                                             int i) {
+  const int j0 = n * kFwdChunk + (i & ~31), q = i & 31;
+  if (q >= 8 || j0 >= a.t_n) return;
+  const size_t t = tb + (q < 4 ? min(j0 + 31, a.t_n - 1) : j0);
+  const int r = q & 3;
+  const void* p = r == 0 ? (const void*)(a.x + t)
+                  : r == 1 ? (const void*)(a.fgain + t)
+                  : r == 2 ? (const void*)(a.delay + t)
+                           : (const void*)(a.fdelay + t);
+  asm volatile("prefetch.global.L2 [%0];" ::"l"(p));
+}
+
+// The producers' records of chunk n: thread i the step j = n kFwdChunk +
+// i at head j mod M, a warp a batch (lane p = i % 32; the steps before it
+// in the batch are the lanes below).  A read of the step's own head
+// takes its x; any other slot the last write before it in the batch:
+// among the feed writes, from the batch's feeds (shuffles); among the
+// head writes, by arithmetic (the heads before run head - 1, head - 2,
+// ... mod M, so the one on the slot back steps behind is lane p - back);
+// a feed write where both are on one step (it comes after the head).
+__device__ __forceinline__ void fwd_produce(const Args& a, const FwdSmem& m,
+                                            int n, const FwdIn& v, int i) {
+  const int mm = a.max_delay + 1, p = i & 31;
+  const int j = n * kFwdChunk + i;
+  const bool on = j < a.t_n;
+  const int d = min(max(v.d, 0), a.max_delay);
+  const int f = min(max(v.f, 0), d);
+  const int head = on ? j % mm : 0;
+  int tail = head - d;
+  if (tail < 0) tail += mm;
+  int feed = tail + f;
+  if (feed >= mm) feed -= mm;
+  const unsigned onm = __ballot_sync(kFull, on);
+  const int last = 31 - __clz(onm);   // the batch's last step (onm != 0)
+  const unsigned below = (1u << p) - 1u;   // the steps before it
+  const int fo = on ? feed : -1 - p;       // the steps beyond T write none
+  const unsigned same_f = __match_any_sync(kFull, fo);
+  // the batch's steps whose feed is this step's tail, its head
+  unsigned eq_t = 0u, eq_h = 0u;
+#pragma unroll
+  for (int k = 0; k < 32; ++k) {
+    const int fk = __shfl_sync(kFull, fo, k);
+    eq_t |= fk == tail ? 1u << k : 0u;
+    eq_h |= fk == head ? 1u << k : 0u;
+  }
+  // a read of a slot back > 0 steps behind the head: the latest feed
+  // write before it in the batch (eq) or head write (lane p - back)
+  auto source = [&](unsigned eq, int back, bool own) {
+    if (own) return kFromX | p << 2;
+    const unsigned w = eq & below;
+    const int kw = w ? 31 - __clz(w) : -1, kx = p - back;
+    if (kw >= 0 && kw >= kx) return kFromR | kw << 2;
+    return kx >= 0 ? kFromX | kx << 2 : kFromRing;
+  };
+  const int st = source(eq_t, d, d == 0);
+  const int sf = source(same_f, d - f, f == d);
+  // later writes of its slots: the next head on its head M steps on, on
+  // its feed M - (d - f) on (M where the feed is its head); a later feed
+  const int back_r = d > f ? mm - (d - f) : mm;
+  const bool store_x = on && feed != head && p + mm > last &&
+                       (eq_h >> p) <= 1u;
+  const bool store_r = on && p + back_r > last && (same_f >> p) <= 1u;
+  const int code = st << kFSrcT | sf << kFSrcF | (f == 0 ? kFF0 : 0) |
+                   (store_x ? kStoreX : 0) | (store_r ? kStoreR : 0);
+  // the depth, settled in rounds from the lanes below (sources lie below)
+  const int lt = (st & 3) == kFromR ? st >> 2 : -1;
+  const int lf = (sf & 3) == kFromR ? sf >> 2 : -1;
+  int depth = 0;
+  bool moved = __any_sync(kFull, lt >= 0 || lf >= 0);
+  while (moved) {
+    const int ut = __shfl_sync(kFull, depth, lt & 31);
+    const int uf = __shfl_sync(kFull, depth, lf & 31);
+    const int nd = max(lt >= 0 ? ut + 1 : 0, lf >= 0 ? uf + 1 : 0);
+    moved = __any_sync(kFull, nd != depth);
+    depth = nd;
+  }
+  depth = __reduce_max_sync(kFull, depth);
+  // the x values its reads take (where they take one)
+  const float xt = __shfl_sync(kFull, v.x, st >> 2);
+  const float xf = __shfl_sync(kFull, v.x, sf >> 2);
+  const int at = (n & 1) * kFwdChunk + i;
+  m.rec[at] = make_int4(tail, feed, head, code | depth << kFDepth);
+  m.xg[at] = make_float4(v.x, v.g, xt, xf);
+}
+
+// The chain warp's chunk of len steps from the records of parity par, a
+// batch of 32 at a time, lane q on step b + q (each batch's records
+// loaded a batch ahead).  Each lane loads the slots its step reads that
+// no step before it in the batch wrote; a slot that one did (or its own
+// head), it takes from that step: its x (in the records) or its r (a
+// shuffle).  The first round computes every r from the loads and the x
+// values; each round
+// after recomputes them from their sources' r of the round before, in
+// the serial order's rounding, so a step is right after as many rounds
+// as its depth: the batch runs its steps' most.  Each slot the batch
+// writes is stored once, by the step that writes it last (x or r).
+template <bool kSmem>
+__device__ __forceinline__ void fwd_chain_chunk(const FwdSmem& m, float* ring,
+                                                int par, int len) {
+  const int lane = threadIdx.x & 31;
+  int4 rn = m.rec[par * kFwdChunk + lane];
+  float4 vn = m.xg[par * kFwdChunk + lane];
+  for (int b = 0; b < len; b += 32) {
+    const int at = par * kFwdChunk + b + lane;
+    const int4 r = rn;
+    const float4 v = vn;
+    if (b + 32 < len) {
+      rn = m.rec[at + 32];
+      vn = m.xg[at + 32];
+    }
+    const int code = r.w;
+    const int st = code >> kFSrcT & 127, sf = code >> kFSrcF & 127;
+    const int kt = st & 3, kf = sf & 3, lt = st >> 2, lf = sf >> 2;
+    const unsigned depth = (unsigned)code >> kFDepth;
+    // (the slots are always in the ring: the loads need no guard)
+    const float bt = kt == kFromX ? v.z : ring[r.x];
+    const float bf = kf == kFromX ? v.w : ring[r.y];
+    float s = bt;
+    float w = __fadd_rn(bf, __fmul_rn(s, v.y));
+    for (unsigned q = 0; q < depth; ++q) {
+      const float wt = __shfl_sync(kFull, w, lt);
+      const float wf = __shfl_sync(kFull, w, lf);
+      s = kt == kFromR ? wt : bt;
+      w = __fadd_rn(kf == kFromR ? wf : bf, __fmul_rn(s, v.y));
+    }
+    // a warp's shared-memory accesses run in order: the batch's loads
+    // before its stores (the scratch row's take a barrier)
+    if (!kSmem) __syncwarp();
+    if (code & kStoreX) ring[r.z] = v.x;
+    if (code & kStoreR) ring[r.y] = w;
+    m.ys[at] = make_float2(code & kFF0 ? w : s, s);
+    __syncwarp();
+  }
+}
+
+// A worker's share of slot s: the loads of chunk s + 2's inputs (into
+// nxt), the L2 prefetch of chunk s + 3's, the records of chunk s + 1
+// (from cur), chunk s - 1's y (and s).
+template <bool kSave>
+__device__ __forceinline__ void fwd_work(const Args& a, const FwdSmem& m,
+                                         size_t tb, int s, int nch, int i,
+                                         const FwdIn& cur, FwdIn& nxt) {
+  nxt = fwd_load(a, tb, (s + 2) * kFwdChunk + i);
+  fwd_prefetch(a, tb, s + 3, i);
+  if (s + 1 < nch) fwd_produce(a, m, s + 1, cur, i);
+  const int jo = (s - 1) * kFwdChunk + i;
+  if (s > 0 && jo < a.t_n) {
+    const float2 o = m.ys[((s - 1) & 1) * kFwdChunk + i];
+    a.y[tb + jo] = o.x;
+    if (kSave) a.s_save[tb + jo] = o.y;
+  }
 }
 
 template <bool kSmem, bool kSave>
-__global__ void __launch_bounds__(32) delay_kernel(Args a) {
-  extern __shared__ float smem[];
+__global__ void __launch_bounds__(kFwdThreads) delay_kernel(Args a) {
+  extern __shared__ __align__(16) float fwd_base[];
+  const FwdSmem m = fwd_smem(fwd_base);
   const int row = blockIdx.x;
-  const int m = a.max_delay + 1;
-  const size_t rb = (size_t)row * m, tb = (size_t)row * a.t_n;
-  float* ring = kSmem ? smem : a.scratch + rb;
-  for (int j = threadIdx.x; j < m; j += blockDim.x) {
-    ring[j] = a.buf_in[rb + j];
+  const int mm = a.max_delay + 1;
+  const size_t rb = (size_t)row * mm, tb = (size_t)row * a.t_n;
+  float* ring = kSmem ? m.ring : a.scratch + rb;
+  // the state's layout is the circular one at the head M - 1
+  for (int j = threadIdx.x; j < mm; j += blockDim.x) ring[j] = a.buf_in[rb + j];
+  const int nch = (a.t_n + kFwdChunk - 1) / kFwdChunk;
+  const int warp = threadIdx.x >> 5, i = threadIdx.x - 32;
+  // a worker's inputs of two chunks, in two register sets that the slots
+  // take in turns
+  FwdIn in0{}, in1{};
+  if (warp > 0) {
+    in0 = fwd_load(a, tb, i);
+    in1 = fwd_load(a, tb, kFwdChunk + i);
+    fwd_prefetch(a, tb, 2, i);
+    fwd_produce(a, m, 0, in0, i);
   }
-  __syncwarp();
-  int h = m - 1;
-  if (threadIdx.x == 0) {
-    const float* x = a.x + tb;
-    const int* dl = a.delay + tb;
-    const float* g = a.fgain + tb;
-    const int* fd = a.fdelay + tb;
-    float* y = a.y + tb;
-    float* sv_row = kSave ? a.s_save + tb : nullptr;
-    int t0 = 0;
-    for (; t0 + kTile <= a.t_n; t0 += kTile) {
-      float xv[kTile], gv[kTile], yv[kTile], sv[kTile];
-      int dv[kTile], fv[kTile];
-#pragma unroll
-      for (int j = 0; j < kTile; ++j) {
-        xv[j] = __ldg(x + t0 + j);
-        dv[j] = __ldg(dl + t0 + j);
-        gv[j] = __ldg(g + t0 + j);
-        fv[j] = __ldg(fd + t0 + j);
-      }
-#pragma unroll
-      for (int j = 0; j < kTile; ++j) {
-        h = h + 1 == m ? 0 : h + 1;
-        yv[j] = step(ring, m, h, a.max_delay, xv[j], dv[j], gv[j], fv[j],
-                     sv[j]);
-      }
-#pragma unroll
-      for (int j = 0; j < kTile; ++j) y[t0 + j] = yv[j];
-      if (kSave) {
-#pragma unroll
-        for (int j = 0; j < kTile; ++j) sv_row[t0 + j] = sv[j];
-      }
+  __syncthreads();
+  // slot s: the chain runs chunk s, the producers chunk s + 1, the
+  // consumers write chunk s - 1 out
+  for (int s = 0; s <= nch; ++s) {
+    if (warp == 0) {
+      if (s < nch)
+        fwd_chain_chunk<kSmem>(m, ring, s & 1,
+                               min(kFwdChunk, a.t_n - s * kFwdChunk));
+    } else if (s & 1) {
+      fwd_work<kSave>(a, m, tb, s, nch, i, in0, in1);
+    } else {
+      fwd_work<kSave>(a, m, tb, s, nch, i, in1, in0);
     }
-    for (; t0 < a.t_n; ++t0) {
-      h = h + 1 == m ? 0 : h + 1;
-      float s;
-      y[t0] = step(ring, m, h, a.max_delay, __ldg(x + t0), __ldg(dl + t0),
-                   __ldg(g + t0), __ldg(fd + t0), s);
-      if (kSave) sv_row[t0] = s;
-    }
+    __syncthreads();
   }
-  __syncwarp();
   // back to the state's layout: the newest sample (at the final head
   // (M - 1 + T) mod M) at index M - 1
-  const int h_end = (int)(((long long)m - 1 + a.t_n) % m);
-  for (int j = threadIdx.x; j < m; j += blockDim.x) {
+  const int h_end = (int)(((long long)mm - 1 + a.t_n) % mm);
+  for (int j = threadIdx.x; j < mm; j += blockDim.x) {
     int k = h_end + 1 + j;
-    if (k >= m) k -= m;
+    if (k >= mm) k -= mm;
     a.buf_out[rb + j] = ring[k];
   }
 }
@@ -514,14 +709,10 @@ __global__ void __launch_bounds__(kBwdThreads) delay_bwd_kernel(BwdArgs a) {
   for (int j = threadIdx.x; j < mm; j += blockDim.x) a.g_in[rb + j] = m.lam[j];
 }
 
-size_t smem_bytes(int max_delay) {
-  const size_t b = sizeof(float) * ((size_t)max_delay + 1);
-  return b <= kMaxSmem ? b : 0;
-}
-
-// the adjoint's: its records, and lam where it fits beside them
-size_t bwd_smem_bytes(int max_delay) {
-  const size_t b = sizeof(float) * (kBwdRecWords + (size_t)max_delay + 1);
+// The ring (or lam) in shared memory beside rec_words of records, or 0
+// where it does not fit
+size_t ring_smem_bytes(int rec_words, int max_delay) {
+  const size_t b = sizeof(float) * ((size_t)rec_words + max_delay + 1);
   return b <= kMaxSmem ? b : 0;
 }
 
@@ -529,15 +720,14 @@ template <bool kSave>
 int launch_fwd(const Args& a, int rows, int max_delay, bool in_smem,
                cudaStream_t s) {
   if (in_smem) {
-    const size_t b = smem_bytes(max_delay);
+    const size_t b = ring_smem_bytes(kFwdRecWords, max_delay);
     if (b == 0) return (int)cudaErrorInvalidValue;
-    const cudaError_t err = cudaFuncSetAttribute(
-        delay_kernel<true, kSave>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)b);
+    const cudaError_t err = allow_smem<delay_kernel<true, kSave>>(b);
     if (err != cudaSuccess) return (int)err;
-    delay_kernel<true, kSave><<<rows, 32, b, s>>>(a);
+    delay_kernel<true, kSave><<<rows, kFwdThreads, b, s>>>(a);
   } else {
-    delay_kernel<false, kSave><<<rows, 32, 0, s>>>(a);
+    delay_kernel<false, kSave><<<rows, kFwdThreads,
+                                 sizeof(float) * kFwdRecWords, s>>>(a);
   }
   return (int)cudaGetLastError();
 }
@@ -546,14 +736,17 @@ int launch_fwd(const Args& a, int rows, int max_delay, bool in_smem,
 
 extern "C" {
 
-// Dynamic shared memory of the ring for max_delay, or 0 where it does not
-// fit (the wrapper then passes a scratch row).
-int lsp_delay_smem_bytes(int max_delay) { return (int)smem_bytes(max_delay); }
+// The forward's dynamic shared memory with the ring in it, or 0 where the
+// ring does not fit beside its records (the wrapper then passes a scratch
+// row).
+int lsp_delay_smem_bytes(int max_delay) {
+  return (int)ring_smem_bytes(kFwdRecWords, max_delay);
+}
 
 // The adjoint's dynamic shared memory with lam in it, or 0 where lam does
 // not fit beside its records (the wrapper then passes a scratch row).
 int lsp_delay_bwd_smem_bytes(int max_delay) {
-  return (int)bwd_smem_bytes(max_delay);
+  return (int)ring_smem_bytes(kBwdRecWords, max_delay);
 }
 
 int lsp_delay_chain_ops() { return kChainOps; }
@@ -586,7 +779,7 @@ int lsp_dynamic_delay_bwd(const float* g_y, const int* delay,
                   scratch, t_n, max_delay};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (scratch == nullptr) {
-    const size_t b = bwd_smem_bytes(max_delay);
+    const size_t b = ring_smem_bytes(kBwdRecWords, max_delay);
     if (b == 0) return (int)cudaErrorInvalidValue;
     const cudaError_t err = allow_smem<delay_bwd_kernel<true>>(b);
     if (err != cudaSuccess) return (int)err;
@@ -598,8 +791,9 @@ int lsp_dynamic_delay_bwd(const float* g_y, const int* delay,
   return (int)cudaGetLastError();
 }
 
-// One warp a row.  scratch == nullptr keeps the ring in shared memory;
-// s_save != nullptr also writes each step's s.  Returns a cudaError_t.
+// A block a row.  scratch == nullptr keeps the ring in shared memory
+// beside the records (lsp_delay_smem_bytes > 0); s_save != nullptr also
+// writes each step's s.  Returns a cudaError_t.
 int lsp_dynamic_delay(const float* x, const int* delay, const float* fgain,
                       const int* fdelay, const float* buf_in, float* buf_out,
                       float* y, float* scratch, int rows, int t_n,

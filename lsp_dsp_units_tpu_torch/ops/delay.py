@@ -11,11 +11,15 @@ fgain[n]`` is added into ``ring[head - d + f]``, and the output re-reads
 
 :func:`dynamic_delay` runs :func:`dynamic_delay_plain` (a Python loop
 over T, each step vectorised over the rows, on a circular ring) for CPU
-tensors and launches ``csrc/delay.cu`` (one warp per row, the ring in
-shared memory, or in a global scratch row above 227 KB) for CUDA
-tensors, counting launches in ``dynamic_delay.launches``.  Both round
-``s * g`` and then the add, as the JAX step does, so the three agree bit
-for bit.
+tensors and launches ``csrc/delay.cu``'s ``delay_kernel`` for CUDA
+tensors (a block a row: producer warps compute each step's slots and,
+for each of its two reads, the last write before it in its batch of 32,
+an x or an r, or none; the chain warp runs a batch a lane a step and
+settles the steps that read an r in shuffle rounds; the ring in shared
+memory beside the records, or in a global scratch row where it does not
+fit, ``lsp_delay_smem_bytes`` 0), counting launches in
+``dynamic_delay.launches``.  Both round ``s * g`` and then the add, as
+the JAX step does, so the three agree bit for bit.
 
 Under autograd :func:`dynamic_delay` runs as a ``torch.autograd.Function``
 whose forward also saves each step's s and whose backward,

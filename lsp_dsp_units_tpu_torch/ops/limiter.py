@@ -17,7 +17,10 @@ the sidechain magnitude ``|sc|`` [T]:
 The gain is ``gbuf[:T]`` and the carry ``gbuf[T:]``.
 
 :func:`limiter` runs :func:`limiter_plain` for CPU tensors and launches
-``csrc/limiter.cu`` (one block per row) for CUDA tensors, counting
+``csrc/limiter.cu`` for CUDA tensors (one block per row: the ALR's
+follower on one thread, then the passes on one warp over the first-index
+maxima of tiles of 32 levels and groups of 32 tiles kept in shared
+memory, each pass rescanning only the tiles its patch touched), counting
 launches in ``limiter.launches``.  Both round alike, so they agree bit
 for bit, and both round as the JAX package does on the CPU, where XLA
 contracts four expressions into one FMA each (found by holding each
@@ -55,6 +58,8 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGS = {
     "lsp_limiter": [_P] * 9 + [_I] * 5 + [_F] * 9 + [_I, _P],
     "lsp_limiter_smem_bytes": [_I, _I, _I, _I],
+    "lsp_limiter_pass_chain_ops": [],
+    "lsp_limiter_pass_bytes": [_I, _I],
 }
 
 
@@ -140,6 +145,18 @@ def smem_bytes(t: int, lookahead: int, p: int, alr: bool) -> int:
     (0 where T is too long for it: the path through global memory)."""
     return int(_lib().lsp_limiter_smem_bytes(int(t), int(lookahead),
                                              int(p), int(alr)))
+
+
+def pass_chain_ops() -> int:
+    """The dependent operations on a pass's path in the kernel
+    (``kPassChainOps`` in csrc/limiter.cu; builds the kernel)."""
+    return int(_lib().lsp_limiter_pass_chain_ops())
+
+
+def pass_bytes(t: int, p: int) -> int:
+    """The shared-memory bytes one of the kernel's passes moves at a row
+    of ``t`` levels and a patch of ``p`` (builds the kernel)."""
+    return int(_lib().lsp_limiter_pass_bytes(int(t), int(p)))
 
 
 def limiter(params, gcarry: torch.Tensor, alr_env: torch.Tensor,

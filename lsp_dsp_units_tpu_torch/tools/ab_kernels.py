@@ -59,7 +59,8 @@ compressor):
 * the synth phase's machines (chip_smoke.py) at [64, 16384]: the
   dynamic delay (a ring of 4801 from a random state, each channel's
   delay swept by the LFO's quick sine, seeded feedback delays, a gain of
-  0.5): y and ring; the trigger (rider_trigger: the advanced rising
+  0.5): y and ring (delay_save: its saving form, y, ring and each
+  step's s); the trigger (rider_trigger: the advanced rising
   edge; rider_trigger_<type>: every other type; hold 24) and the
   depopper's forward machine (rider_depopper: CUBIC;
   rider_depopper_<mode>: every other mode; on gated levels) of
@@ -196,6 +197,7 @@ LIB_OF = {**{f"fft_{m}": "fft_packed" for m in FFT_MODES},
           "rider_peak": "riders", "biquad_scan": "biquad_scan",
           "biquad_scan_k15": "biquad_scan", "biquad_scan_rows": "biquad_scan",
           "biquad_scan_bwd": "biquad_scan", "delay": "delay",
+          "delay_save": "delay",
           **{f"biquad_scan_k{k}_{t}": "biquad_scan" for k in (1, 9, 15)
              for t in (T_ENV, 4 * T_ENV)},
           "biquad_seq_bwd": "biquad_bwd", "biquad_seq_bwd_x": "biquad_bwd",
@@ -903,6 +905,10 @@ def main(argv=None) -> int:
             dring, xr, dly, g05, fdly, DELAY_MAX)), lambda: (
             delay_ops.dynamic_delay(dring, xr, dly, g05, fdly, DELAY_MAX)),
             10),
+        "delay_save": (lambda: list(delay_ops._delay_cuda(
+            dring, xr, dly, g05, fdly, DELAY_MAX, save=True)), lambda: (
+            delay_ops._delay_cuda(dring, xr, dly, g05, fdly, DELAY_MAX,
+                                  save=True)), 10),
         **{k: (lambda f: (lambda: list(f()), f, 10))(f)
            for k, f in seq_bwd.items()},
         **{TRIGGER_CASE[tt]: (lambda u: (

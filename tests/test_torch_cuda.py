@@ -786,6 +786,52 @@ def test_limiter_kernel_matches_plain_on_the_card(cuda_device):
     assert _same(want, got)
 
 
+def _limiter_drive(kind, rows, t, rng):
+    """Sidechains that take the kernel's routes: equal peaks in one tile
+    and across tiles and groups, peaks at both ends of the levels (their
+    patches reach into the carried gains), quiet rows with one peak."""
+    base = rng.standard_normal((rows, t)).astype(np.float32)
+    x = base * np.float32(0.1)
+    if kind == "ties":
+        for i in (100, 103, 110, 1200, t - 7):
+            x[:, i] = np.float32(2.0)
+        x[:, 50] = np.float32(-2.0)
+    elif kind == "edges":
+        x[:, :3] = np.float32(4.0)
+        x[:, -3:] = np.float32(-5.0)
+    else:
+        x[:, t // 3] = np.float32(1.5)
+    return torch.from_numpy(x)
+
+
+@pytest.mark.parametrize("kind,t", [("ties", 4097), ("edges", 16384),
+                                    ("quiet", 30000), ("quiet", 131073)])
+@pytest.mark.parametrize("alr,att,rel", [(False, 0.1, 0.1),
+                                         (True, 0.1, 3.0),
+                                         (True, 3.0, 0.1)])
+def test_limiter_kernel_tile_drives(cuda_device, kind, t, alr, att, rel):
+    """The tile maxima's routes against the plain loop, bit for bit:
+    ties, patches past both ends of the levels, the scratch form (30000
+    samples) and a row long enough for tiles of 256 levels (131073),
+    with ALR off and on (the attack tau above and below the release
+    tau)."""
+    from lsp_dsp_units_tpu_torch.models.dynamics.limiter import (
+        Limiter, LimiterMode)
+    from lsp_dsp_units_tpu_torch.ops import limiter as lo
+    lim = Limiter(48000, LimiterMode.EXP_WIDE if alr else
+                  LimiterMode.HERM_THIN, threshold=0.2, lookahead_ms=2.0,
+                  attack_ms=att, release_ms=rel, alr=alr)
+    pc, pd = lim.build(device="cpu"), lim.build(device=cuda_device)
+    x = _limiter_drive(kind, 2, t, np.random.default_rng(t + alr))
+    st = lim.init_state((2,), device="cpu")
+    want = lo.limiter_plain(pc, *st, x, lim.lookahead, alr)
+    got = lo.limiter(pd, *(v.to(cuda_device) for v in st),
+                     x.to(cuda_device), lim.lookahead, alr)
+    torch.cuda.synchronize()
+    assert _same(want, got)
+    assert int(want[3].max()) > 0
+
+
 def _rider_case(kind, rows, t, dev):
     """(call on device tensors, the same unit's plain call) for each of
     the five step functors (AutoGain in four flag settings)."""
@@ -1202,6 +1248,38 @@ def test_delay_kernel_matches_plain(cuda_device, max_delay, rows, t):
         assert torch.equal(yd.cpu(), yc), k
         assert torch.equal(bd.cpu(), buf), k
     assert tdelay.dynamic_delay.launches == before + 2
+
+
+@pytest.mark.parametrize("save", [False, True])
+@pytest.mark.parametrize("drive", ["short", "f_eq_d", "f0", "ramp", "wrap",
+                                   "lfo"])
+@pytest.mark.parametrize("max_delay", [0, 20, 4800, 52991, 52992])
+def test_delay_kernel_aliasing_drives(cuda_device, max_delay, drive, save):
+    """delay_kernel on drives whose reads alias within its batches of 32
+    (a head written twice in a batch where max_delay < 32, a feed
+    overwritten by a later head where d - f >= M - 31, chains of r
+    sources where the delays are short), both forms, against the plain
+    loop: y, the ring and s bit for bit; 52991 is the largest ring in
+    shared memory beside the records, 52992 takes the scratch row."""
+    rows, t = 3, 1500
+    rng = np.random.default_rng(max_delay + len(drive) + save)
+    buf = torch.from_numpy(rng.standard_normal((rows, max_delay + 1)
+                                               ).astype(np.float32))
+    x = torch.from_numpy(rng.standard_normal((rows, t)).astype(np.float32))
+    d, f = (torch.from_numpy(v) for v in _delay_drive(drive, rng, rows, t,
+                                                       max_delay))
+    g = torch.from_numpy((rng.standard_normal((rows, t)) * 0.5
+                          ).astype(np.float32))
+    assert (tdelay._lib().lsp_delay_smem_bytes(max_delay) > 0) == (
+        max_delay <= 52991)
+    want = tdelay._delay_plain(buf, x, d, g, f, max_delay, save=True)
+    before = tdelay.dynamic_delay.launches
+    got = tdelay._delay_cuda(*(v.to(cuda_device) for v in (buf, x, d, g, f)),
+                             max_delay, save=save)
+    torch.cuda.synchronize()
+    assert tdelay.dynamic_delay.launches == before + 1
+    for a, b in zip(want[:3 if save else 2], got):
+        assert torch.equal(b.cpu(), a)
 
 
 def test_delay_kernel_plain_on_the_card(cuda_device):
@@ -2285,7 +2363,9 @@ def _delay_drive(drive, rng, rows, t, max_delay):
     the adjoint's batches: ``short`` (delays 0-8), ``f_eq_d`` (the feed
     on the head), ``f0`` (the feed on the tail), ``ramp`` (delays
     growing by one a sample up to max_delay: the tail stays put, the
-    feed meets heads just zeroed)."""
+    feed meets heads just zeroed), ``wrap`` (d - f >= M - 31: in the
+    forward a feed that a later head of its batch overwrites), ``lfo``
+    (delays swept over 0..max_delay by a sine of 400 samples)."""
     if drive == "random":
         d = rng.integers(-3, max_delay + 5, (rows, t))
         f = rng.integers(-3, max_delay + 2, (rows, t))
@@ -2298,6 +2378,13 @@ def _delay_drive(drive, rng, rows, t, max_delay):
     elif drive == "f0":
         d = rng.integers(0, max_delay + 1, (rows, t))
         f = np.zeros((rows, t))
+    elif drive == "wrap":
+        d = rng.integers(max(max_delay - 8, 0), max_delay + 1, (rows, t))
+        f = rng.integers(0, 12, (rows, t))
+    elif drive == "lfo":
+        ph = np.arange(t)[None, :] / 400 + np.arange(rows)[:, None] / rows
+        d = (np.sin(2 * np.pi * ph) + 1) * 0.5 * max_delay
+        f = rng.integers(0, max_delay + 1, (rows, t))
     else:
         d = np.broadcast_to(max_delay - 13 + np.arange(t) % 16, (rows, t))
         f = rng.integers(1, 6, (rows, t))
